@@ -1,0 +1,36 @@
+"""Config registry of the port: ``get_config("<arch-id>")`` returns the full
+ModelConfig.  The port runs the dense family, so the registry holds the
+dense architectures of ``repro.configs``, under the same arch ids.
+"""
+from __future__ import annotations
+
+import importlib
+
+from .base import ModelConfig, MoEConfig, SSMConfig, reduced  # noqa: F401
+
+# arch-id -> module name
+_REGISTRY = {
+    "mistral-nemo-12b": "mistral_nemo_12b",
+    "olmo-1b": "olmo_1b",
+    "smollm-360m": "smollm_360m",
+    "yi-34b": "yi_34b",
+    # the paper's own evaluation models (Table II)
+    "llama3.2-1b": "llama32_1b",
+    "llama3-8b": "llama3_8b",
+    "llama2-13b": "llama2_13b",
+}
+
+
+def list_archs():
+    return list(_REGISTRY)
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch not in _REGISTRY:
+        raise KeyError(f"unknown arch {arch!r}; known: {list(_REGISTRY)}")
+    mod = importlib.import_module(f"repro_torch.configs.{_REGISTRY[arch]}")
+    return mod.CONFIG
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    return reduced(get_config(arch))

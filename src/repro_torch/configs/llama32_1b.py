@@ -1,0 +1,17 @@
+"""Llama-3.2-1B — the paper's smallest evaluation model (Table II)."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="llama3.2-1b",
+    family="dense",
+    n_layers=16,
+    d_model=2048,
+    n_heads=32,
+    n_kv_heads=8,
+    head_dim=64,
+    d_ff=8192,
+    vocab_size=128256,
+    tie_embeddings=True,
+    rope_theta=500000.0,
+    max_seq=131072,
+)

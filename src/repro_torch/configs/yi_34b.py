@@ -1,0 +1,19 @@
+"""Yi-34B [arXiv:2403.04652] — llama-arch GQA.
+
+60L d_model=7168 56H (GQA kv=8) d_ff=20480 vocab=64000, head_dim=128.
+"""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="yi-34b",
+    family="dense",
+    n_layers=60,
+    d_model=7168,
+    n_heads=56,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=20480,
+    vocab_size=64000,
+    rope_theta=5_000_000.0,
+    max_seq=4096,
+)

@@ -1,0 +1,84 @@
+// Shared device helpers of the port's attention kernels: the SCU's
+// 8-segment PWL exp, float32/bfloat16 conversion and warp reductions.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace repro_torch {
+
+constexpr int kPwlSegments = 8;
+constexpr float kNegInf = -1e30f;
+
+// Launch argument with the coefficients of repro_torch/kernels/pwl.py
+// (PWL_COEFFS): 8 slopes, 8 intercepts, x_min, x_max.
+struct PwlCoeffs {
+  float slope[kPwlSegments];
+  float intercept[kPwlSegments];
+  float x_min, x_max;
+};
+
+// The Pallas select chain _pwl_exp_vec: clip to [x_min, x_max], the last
+// segment whose lower edge is <= x wins, 0 below x_min.  Multiply and add
+// are rounded separately (no FMA contraction), as the reference computes.
+__device__ __forceinline__ float pwl_exp(float x, const PwlCoeffs& c) {
+  const float xc = fminf(fmaxf(x, c.x_min), c.x_max);
+  const float seg_w = (c.x_max - c.x_min) / kPwlSegments;
+  float y = __fadd_rn(__fmul_rn(c.slope[0], xc), c.intercept[0]);
+#pragma unroll
+  for (int i = 1; i < kPwlSegments; ++i) {
+    if (xc >= c.x_min + i * seg_w) {
+      y = __fadd_rn(__fmul_rn(c.slope[i], xc), c.intercept[i]);
+    }
+  }
+  return x < c.x_min ? 0.f : y;
+}
+
+template <bool kPwl>
+__device__ __forceinline__ float softmax_exp(float x, const PwlCoeffs& c) {
+  if constexpr (kPwl) {
+    return pwl_exp(x, c);
+  } else {
+    return expf(x);
+  }
+}
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+inline PwlCoeffs read_pwl(const void* host) {
+  PwlCoeffs c;
+  const float* f = static_cast<const float*>(host);
+  for (int i = 0; i < kPwlSegments; ++i) {
+    c.slope[i] = f[i];
+    c.intercept[i] = f[kPwlSegments + i];
+  }
+  c.x_min = f[2 * kPwlSegments];
+  c.x_max = f[2 * kPwlSegments + 1];
+  return c;
+}
+
+}  // namespace repro_torch

@@ -1,0 +1,105 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` is compiled at first use by ``nvcc`` into a shared
+library with a plain C interface, in ``build/repro_torch_kernels/`` at the
+root of the checkout (git-ignored), and loaded with ``ctypes``.  A
+library's file name carries a hash of its sources and flags, so an edited
+source is rebuilt and an unchanged one is loaded as it is.  Nothing is
+compiled when this module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+
+_VOID_P, _INT = ctypes.c_void_p, ctypes.c_int
+# C entry point of each source: (name, argtypes); each returns cudaError_t
+SIGNATURES = {
+    "flash_attention": ("flash_attention_fwd",
+                        [_VOID_P] * 4 + [_INT] * 9 + [_VOID_P, _VOID_P]),
+    "paged_attention": ("paged_attention_fwd",
+                        [_VOID_P] * 6 + [_INT] * 8 + [_VOID_P, _VOID_P]),
+}
+
+# kernel launches per source, counted by the launching wrapper
+LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
+_LIBS: Dict[str, ctypes.CDLL] = {}
+BUILD_LOGS: Dict[str, str] = {}
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
+
+
+def build_all(names=None) -> Dict[str, Path]:
+    """Compile the named sources (default: every ``csrc/*.cu``) that are
+    not built yet, one ``nvcc`` per source, all started together."""
+    names = sorted(names or (p.stem for p in CSRC.glob("*.cu")))
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    targets = {n: _target(n) for n in names}
+    procs = {}
+    for n, so in targets.items():
+        if so.exists():
+            continue
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        procs[n] = (tmp, subprocess.Popen(
+            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for n, (tmp, proc) in procs.items():
+        BUILD_LOGS[n] = proc.communicate()[0]
+        if proc.returncode:
+            failed.append(n)
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, targets[n])
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                           + "\n".join(BUILD_LOGS[n] for n in failed))
+    return targets
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        so = build_all([name])[name]
+        lib = ctypes.CDLL(str(so))
+        fn_name, argtypes = SIGNATURES[name]
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = _INT
+        _LIBS[name] = lib
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry point returned a CUDA error (its launch check);
+    else count the launch."""
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1

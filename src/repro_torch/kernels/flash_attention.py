@@ -1,0 +1,100 @@
+"""Prefill attention: the Hopper kernel ``csrc/flash_attention.cu`` and its
+plain PyTorch version.
+
+Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
+(``flash_attention`` / ``_flash_kernel``) together with its GQA/padding
+wrapper ``repro/kernels/ops.py:flash_attention``.  Same function:
+attention forward over ``(B, S, H, D)`` with scale ``D**-0.5`` and an
+online softmax over KV steps of 128 keys, in float32 inside, output in
+q's dtype; ``use_pwl`` swaps exp for the SCU's PWL exp.  Two departures
+from the wrapper, both fixes of its layout and not of the function: the
+KV head is indexed as ``h // (Hq // Hkv)`` instead of repeating K/V in
+memory, and keys are masked at their true length instead of zero-padded
+and left to the causal mask.
+
+In PWL mode the result depends on how the keys are cut into online-softmax
+steps (PWL exp is not multiplicative), so both versions step over keys
+``[0, 128), [128, 256), ...`` as the Pallas kernel does, and a row skips a
+step in which it sees no key, as the kernel's causal loop stops at the
+diagonal.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .pwl import PWL_COEFFS, pwl_exp
+
+NEG_INF = -1e30
+KV_STEP = 128
+HEAD_DIMS = (32, 64, 128)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True,
+                          use_pwl: bool = False) -> torch.Tensor:
+    """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D), Hq % Hkv == 0.
+    Returns (B, Sq, Hq, D) in q.dtype, computed in float32."""
+    B, Sq, Hq, D = q.shape
+    _, Skv, Hkv, _ = k.shape
+    G = Hq // Hkv
+    exp_fn = pwl_exp if use_pwl else torch.exp
+    # (B, Hkv, G, Sq, D) queries, pre-scaled as the kernel does
+    qf = q.float().reshape(B, Sq, Hkv, G, D).permute(0, 2, 3, 1, 4) * D ** -0.5
+    kf = k.float().permute(0, 2, 1, 3)                     # (B, Hkv, Skv, D)
+    vf = v.float().permute(0, 2, 1, 3)
+    m = torch.full((B, Hkv, G, Sq), NEG_INF, device=q.device)
+    l = torch.zeros((B, Hkv, G, Sq), device=q.device)
+    acc = torch.zeros((B, Hkv, G, Sq, D), device=q.device)
+    qpos = torch.arange(Sq, device=q.device)
+    for k0 in range(0, Skv, KV_STEP):
+        kb = kf[:, :, k0:k0 + KV_STEP]
+        vb = vf[:, :, k0:k0 + KV_STEP]
+        kpos = torch.arange(k0, k0 + kb.shape[2], device=q.device)
+        if causal:
+            valid = qpos[:, None] >= kpos[None, :]          # (Sq, bk)
+        else:
+            valid = torch.ones((Sq, kb.shape[2]), dtype=torch.bool,
+                               device=q.device)
+        seen = valid.any(dim=-1)                           # rows this step
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kb)
+        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+        m_new = torch.where(seen, torch.maximum(m, s.amax(dim=-1)), m)
+        p = exp_fn(s - m_new[..., None])
+        p = torch.where(valid, p, torch.zeros_like(p))
+        alpha = torch.where(seen, exp_fn(m - m_new), torch.ones_like(m))
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhgqk,bhkd->bhgqd", p, vb)
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]               # (B,Hkv,G,Sq,D)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool = True,
+                         use_pwl: bool = False) -> torch.Tensor:
+    """Launch ``csrc/flash_attention.cu`` on PyTorch's current stream."""
+    B, Sq, Hq, D = q.shape
+    _, Skv, Hkv, Dk = k.shape
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError("flash_attention_cuda takes CUDA tensors on one device")
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention_cuda takes float32 or bfloat16 "
+                        f"q/k/v of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if D not in HEAD_DIMS or Dk != D or v.shape != k.shape or k.shape[0] != B:
+        raise ValueError(f"unsupported shapes q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} v{tuple(v.shape)}")
+    if Hq % Hkv:
+        raise ValueError("GQA requires Hq % Hkv == 0")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if q.numel() == 0 or Skv == 0:          # nothing to attend: no launch
+        return torch.zeros_like(q)
+    out = torch.empty_like(q)
+    lib = _build.library("flash_attention")
+    _build.check(lib.flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B, Sq, Skv, Hq, Hkv, D, _DTYPE_CODES[q.dtype], int(causal),
+        int(use_pwl), ctypes.addressof(PWL_COEFFS),
+        torch.cuda.current_stream(q.device).cuda_stream), "flash_attention")
+    return out

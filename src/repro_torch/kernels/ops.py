@@ -1,0 +1,42 @@
+"""Dispatch of the port's kernels.
+
+A CPU tensor goes to the kernel's plain PyTorch version; a CUDA tensor
+goes to the hand-written Hopper kernel, or the call raises.  There is no
+fallback from one to the other.  ``LAUNCHES`` counts the kernel launches
+of each wrapper, so a run can show that its path went through the
+kernels; each kernel module adds one where it launches, and the plain
+versions are not counted.
+"""
+from __future__ import annotations
+
+from . import flash_attention as _fa
+from . import paged_attention as _pa
+from ._build import LAUNCHES
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _route(t) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {t.device}")
+    return t.device.type
+
+
+def flash_attention(q, k, v, *, causal: bool = True, use_pwl: bool = False):
+    """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D).  Returns (B, Sq, Hq, D)."""
+    if _route(q) == "cpu":
+        return _fa.flash_attention_plain(q, k, v, causal=causal, use_pwl=use_pwl)
+    return _fa.flash_attention_cuda(q, k, v, causal=causal, use_pwl=use_pwl)
+
+
+def paged_attention(q, k_cache, v_cache, block_tables, context_lens, *,
+                    use_pwl: bool = False):
+    """q: (B, H, D); k/v_cache: (N, block_tokens, H_kv, D).  Returns (B, H, D)."""
+    if _route(q) == "cpu":
+        return _pa.paged_attention_plain(q, k_cache, v_cache, block_tables,
+                                         context_lens, use_pwl=use_pwl)
+    return _pa.paged_attention_cuda(q, k_cache, v_cache, block_tables,
+                                    context_lens, use_pwl=use_pwl)

@@ -1,0 +1,123 @@
+"""Decode attention through a KV block table: the Hopper kernel
+``csrc/paged_attention.cu`` and its plain PyTorch version.
+
+Replaces the Pallas TPU kernel ``repro/kernels/paged_attention.py``
+(``paged_attention`` / ``_paged_kernel``).  Same function: one query token
+per sequence; K/V gathered from the pool ``(N_blocks, block_tokens, H_kv,
+D)`` through ``block_tables (B, max_blocks)``; KV head ``h // (H //
+H_kv)``; the last block masked at ``context_lens``; a context of 0 gives
+0; an online softmax that steps one pool block at a time, in float32,
+output in q's dtype.  With ``use_pwl`` the rescale composes PWL segments
+across blocks, so the block size is part of the result, as in the Pallas
+kernel.
+
+A contiguous cache ``(B, max_len, H_kv, D)`` is the pool
+``(B * max_len / bt, bt, H_kv, D)`` under the identity table
+(``identity_block_table``): a view, no copy.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .pwl import PWL_COEFFS, pwl_exp
+
+NEG_INF = -1e30
+HEAD_DIMS = (32, 64, 128)
+MAX_BLOCK_TOKENS = 128
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def contiguous_block_tokens(max_len: int) -> int:
+    """Largest of 64, 32, ..., 1 that divides ``max_len``."""
+    return next(bt for bt in (64, 32, 16, 8, 4, 2, 1) if max_len % bt == 0)
+
+
+def identity_block_table(batch: int, max_len: int, block_tokens: int,
+                         device=None) -> torch.Tensor:
+    """``table[b, i] = b * (max_len // bt) + i`` (int32)."""
+    nb = max_len // block_tokens
+    return torch.arange(batch * nb, dtype=torch.int32,
+                        device=device).reshape(batch, nb)
+
+
+def paged_attention_plain(q, k_cache, v_cache, block_tables, context_lens, *,
+                          use_pwl: bool = False) -> torch.Tensor:
+    """q: (B, H, D); k/v_cache: (N_blocks, bt, H_kv, D); block_tables:
+    (B, max_blocks) int; context_lens: (B,) int.  Returns (B, H, D)."""
+    B, H, D = q.shape
+    _, bt, Hkv, _ = k_cache.shape
+    G = H // Hkv
+    exp_fn = pwl_exp if use_pwl else torch.exp
+    qf = q.float().reshape(B, Hkv, G, D) * D ** -0.5
+    ctx = context_lens.to(device=q.device, dtype=torch.long)
+    tables = block_tables.to(device=q.device, dtype=torch.long)
+    n_steps = -(-int(ctx.max()) // bt) if B else 0
+    m = torch.full((B, Hkv, G), NEG_INF, device=q.device)
+    l = torch.zeros((B, Hkv, G), device=q.device)
+    acc = torch.zeros((B, Hkv, G, D), device=q.device)
+    for i in range(n_steps):
+        live = ctx > i * bt                                  # (B,) rows this step
+        phys = torch.where(live, tables[:, i], torch.zeros_like(tables[:, i]))
+        pos = i * bt + torch.arange(bt, device=q.device)
+        valid = pos[None, :] < ctx[:, None]                  # (B, bt)
+        kb = k_cache[phys].float()                           # (B, bt, Hkv, D)
+        vb = v_cache[phys].float()
+        # rows past the context are never read: zero them, as the kernel does
+        kb = torch.where(valid[:, :, None, None], kb, torch.zeros_like(kb))
+        vb = torch.where(valid[:, :, None, None], vb, torch.zeros_like(vb))
+        s = torch.einsum("bhgd,bkhd->bhgk", qf, kb)
+        vmask = valid[:, None, None, :]
+        s = torch.where(vmask, s, torch.full_like(s, NEG_INF))
+        seen = live[:, None, None]
+        m_new = torch.where(seen, torch.maximum(m, s.amax(dim=-1)), m)
+        p = torch.where(vmask, exp_fn(s - m_new[..., None]), torch.zeros_like(s))
+        alpha = torch.where(seen, exp_fn(m - m_new), torch.ones_like(m))
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhgk,bkhd->bhgd", p, vb)
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.reshape(B, H, D).to(q.dtype)
+
+
+def paged_attention_cuda(q, k_cache, v_cache, block_tables, context_lens, *,
+                         use_pwl: bool = False) -> torch.Tensor:
+    """Launch ``csrc/paged_attention.cu`` on PyTorch's current stream."""
+    B, H, D = q.shape
+    n_blocks, bt, Hkv, Dk = k_cache.shape
+    dev = q.device
+    for t in (k_cache, v_cache, block_tables, context_lens):
+        if t.device != dev:
+            raise ValueError("paged_attention_cuda takes tensors on one device")
+    if not q.is_cuda:
+        raise ValueError("paged_attention_cuda takes CUDA tensors")
+    if q.dtype not in _DTYPE_CODES or k_cache.dtype != q.dtype \
+            or v_cache.dtype != q.dtype:
+        raise TypeError(f"paged_attention_cuda takes float32 or bfloat16 "
+                        f"q and pool of one dtype, got {q.dtype}/"
+                        f"{k_cache.dtype}/{v_cache.dtype}")
+    if D not in HEAD_DIMS or Dk != D or v_cache.shape != k_cache.shape:
+        raise ValueError(f"unsupported shapes q{tuple(q.shape)} "
+                         f"pool{tuple(k_cache.shape)}")
+    if H % Hkv or not 1 <= bt <= MAX_BLOCK_TOKENS:
+        raise ValueError(f"need H % H_kv == 0 and 1 <= block_tokens <= "
+                         f"{MAX_BLOCK_TOKENS}, got H={H} H_kv={Hkv} bt={bt}")
+    if block_tables.dtype != torch.int32 or context_lens.dtype != torch.int32:
+        raise TypeError("block_tables and context_lens must be int32")
+    if block_tables.shape[0] != B or context_lens.shape != (B,):
+        raise ValueError("block_tables (B, max_blocks) and context_lens (B,)")
+    q, k_cache, v_cache = q.contiguous(), k_cache.contiguous(), v_cache.contiguous()
+    block_tables = block_tables.contiguous()
+    if q.numel() == 0:                      # no sequence: no launch
+        return torch.empty_like(q)
+    out = torch.empty_like(q)
+    lib = _build.library("paged_attention")
+    _build.check(lib.paged_attention_fwd(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
+        B, H, Hkv, D, bt, block_tables.shape[1], _DTYPE_CODES[q.dtype],
+        int(use_pwl), ctypes.addressof(PWL_COEFFS),
+        torch.cuda.current_stream(dev).cuda_stream), "paged_attention")
+    return out

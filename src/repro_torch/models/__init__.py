@@ -1,0 +1,5 @@
+from .model import (decode_step, forward, group_layout, init_cache,
+                    init_params)
+
+__all__ = ["decode_step", "forward", "group_layout", "init_cache",
+           "init_params"]

@@ -1,0 +1,125 @@
+"""Attention: GQA/MQA/MHA projections, prefill attention and cached decode.
+
+Port of the single-device path of ``repro.models.attention``.  Prefill
+attention goes to ``kernels.ops.flash_attention`` and decode attention to
+``kernels.ops.paged_attention`` over the identity block table of the
+contiguous cache: the Hopper kernels on a CUDA tensor, their plain
+versions on a CPU tensor.  ``full_attention`` is the exact quadratic
+reference, for tests and non-causal use.  The sequence-parallel and PICNIC
+distributed-scratchpad paths, and prefill with a bidirectional prefix or a
+query offset, belong to later slices of the port; a sliding window raises
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops
+from .common import apply_rope, dense_init, dtype_of
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
+
+def init_attention(cfg, gen: torch.Generator, *, n_stack: int = 0):
+    dt = dtype_of(cfg)
+    d = cfg.d_model
+    return {
+        "wq": dense_init(gen, (d, cfg.q_dim), dt, n_stack=n_stack),
+        "wk": dense_init(gen, (d, cfg.kv_dim), dt, n_stack=n_stack),
+        "wv": dense_init(gen, (d, cfg.kv_dim), dt, n_stack=n_stack),
+        "wo": dense_init(gen, (cfg.q_dim, d), dt, n_stack=n_stack),
+    }
+
+
+def qkv_project(cfg, p, x):
+    """x: (B, S, d) -> q: (B, S, Hq, D), k/v: (B, S, Hkv, D)."""
+    B, S, _ = x.shape
+    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    k = (x @ p["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    v = (x @ p["wv"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    return q, k, v
+
+
+def full_attention(q, k, v, *, causal=True, window=None, q_offset=0,
+                   kv_len=None, prefix_len=0):
+    """Reference quadratic attention (small shapes / oracle)."""
+    B, Sq, Hq, D = q.shape
+    _, Skv, Hkv, _ = k.shape
+    G = Hq // Hkv
+    qb = q.reshape(B, Sq, Hkv, G, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qb.float(), k.float()) * D ** -0.5
+    qpos = q_offset + torch.arange(Sq, device=q.device)
+    kpos = torch.arange(Skv, device=q.device)
+    valid = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        cm = qpos[:, None] >= kpos[None, :]
+        if prefix_len:
+            cm |= (kpos < prefix_len)[None, :]
+        valid &= cm
+    if window is not None:
+        valid &= (qpos[:, None] - kpos[None, :]) < window
+    if kv_len is not None:
+        valid &= (kpos < kv_len)[None, :]
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v.dtype).float(), v.float())
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def _unsupported(window):
+    if window is not None:
+        raise NotImplementedError("the port's attention takes no sliding "
+                                  "window yet")
+
+
+# ---------------------------------------------------------------------------
+# Full attention sublayer (projections + rope + attention + output)
+# ---------------------------------------------------------------------------
+
+def attn_sublayer(cfg, p, x, *, positions, causal=True, window=None):
+    """Returns (out (B, S, d), (k, v)).  The JAX package picks between two
+    exact paths by sequence length (``impl``); both are the flash kernel
+    here."""
+    _unsupported(window)
+    q, k, v = qkv_project(cfg, p, x)
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    out = ops.flash_attention(q, k, v, causal=causal)
+    B, S = x.shape[:2]
+    out = out.reshape(B, S, cfg.q_dim)
+    return out @ p["wo"], (k, v)
+
+
+def attn_decode_sublayer(cfg, p, x, cache_k, cache_v, cache_len: int, *,
+                         block_table, context_lens, window=None):
+    """One-token decode: x (B, 1, d); cache_k/v (B, max_len, Hkv, D) of one
+    layer.  Appends the new K/V to the cache IN PLACE at ``cache_len - 1``
+    (the JAX package returns an updated copy), then attends over the first
+    ``cache_len`` rows through ``block_table``, the identity table of the
+    cache viewed as a pool of ``max_len / bt`` blocks per sequence
+    (``identity_block_table``), with ``context_lens`` = cache_len per
+    sequence.  Returns (out (B, 1, d), cache_k, cache_v)."""
+    _unsupported(window)
+    q, k, v = qkv_project(cfg, p, x)
+    B, max_len = cache_k.shape[:2]
+    if not 1 <= cache_len <= max_len:
+        raise ValueError(f"cache_len {cache_len} outside [1, {max_len}]")
+    pos = torch.full((1, 1), cache_len - 1, dtype=torch.float32,
+                     device=x.device)
+    if cfg.use_rope:
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    idx = cache_len - 1
+    cache_k[:, idx] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, idx] = v[:, 0].to(cache_v.dtype)
+    bt = max_len // block_table.shape[1]
+    pool_k = cache_k.view(B * max_len // bt, bt, *cache_k.shape[2:])
+    pool_v = cache_v.view(B * max_len // bt, bt, *cache_v.shape[2:])
+    out = ops.paged_attention(q[:, 0], pool_k, pool_v, block_table,
+                              context_lens)
+    return out.reshape(B, 1, cfg.q_dim) @ p["wo"], cache_k, cache_v

@@ -1,0 +1,142 @@
+"""Shared model primitives: norms, RoPE, activations, init helpers.
+
+Port of ``repro.models.common``.  Params are nested dicts of tensors;
+layer stacks keep the stacked leading axis of the JAX package.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+Params = Dict[str, Any]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def dtype_of(cfg) -> torch.dtype:
+    return _DTYPES[cfg.dtype]
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card unless the caller names
+    another.  With no card and no explicit device this raises instead of
+    carrying on on the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
+                           "port's plain PyTorch path on the CPU")
+    return torch.device("cuda")
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, scale: Optional[torch.Tensor],
+            eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    if scale is not None and scale.ndim:
+        x = x * (1.0 + scale.float())
+    return x.to(dt)
+
+
+def layernorm(x: torch.Tensor, scale: Optional[torch.Tensor],
+              bias: Optional[torch.Tensor], eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    if scale is not None:
+        x = x * scale.float()
+    if bias is not None:
+        x = x + bias.float()
+    return x.to(dt)
+
+
+def apply_norm(cfg, p: Optional[Params], x: torch.Tensor) -> torch.Tensor:
+    if cfg.norm == "rmsnorm":
+        return rmsnorm(x, p["scale"] if p else None)
+    if cfg.norm == "layernorm":
+        return layernorm(x, p["scale"] if p else None, p["bias"] if p else None)
+    if cfg.norm == "nonparam_ln":  # OLMo: LN without learned affine
+        return layernorm(x, None, None)
+    raise ValueError(cfg.norm)
+
+
+def init_norm(cfg, shape_prefix=(), *, device=None) -> Params:
+    shape = tuple(shape_prefix) + (cfg.d_model,)
+    dt = dtype_of(cfg)
+    if cfg.norm == "rmsnorm":
+        return {"scale": torch.zeros(shape, dtype=dt, device=device)}
+    if cfg.norm == "layernorm":
+        return {"scale": torch.ones(shape, dtype=dt, device=device),
+                "bias": torch.zeros(shape, dtype=dt, device=device)}
+    return {}  # nonparam_ln
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq).  Rotates
+    halves (``x1, x2 = split(x, 2)``), not interleaved pairs."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, device=x.device)          # (hd/2,)
+    ang = positions[..., :, None].float() * freqs           # (..., seq, hd/2)
+    cos = torch.cos(ang)[..., :, None, :]                   # (..., seq, 1, hd/2)
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Activations
+# ---------------------------------------------------------------------------
+
+def gelu(x):
+    return F.gelu(x, approximate="tanh")
+
+
+def silu(x):
+    return x * torch.sigmoid(x)
+
+
+ACTS = {"swiglu": silu, "geglu": gelu, "gelu": gelu}
+
+
+# ---------------------------------------------------------------------------
+# Init helpers
+# ---------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, shape, dtype, scale: Optional[float] = None,
+               *, n_stack: int = 0) -> torch.Tensor:
+    """Normal init scaled by fan-in, drawn in float32 from ``gen`` on its
+    device and cast to ``dtype``.  ``n_stack > 0`` prepends a stacked layer
+    axis; each layer is drawn on its own, so the float32 draw never holds
+    more than one layer's tensor."""
+    fan_in = shape[0]
+    s = scale if scale is not None else fan_in ** -0.5
+    if not n_stack:
+        return (torch.randn(shape, generator=gen, device=gen.device)
+                * s).to(dtype)
+    out = torch.empty((n_stack,) + tuple(shape), dtype=dtype, device=gen.device)
+    for i in range(n_stack):
+        out[i] = torch.randn(shape, generator=gen, device=gen.device) * s
+    return out

@@ -1,0 +1,118 @@
+"""The port's CUDA kernels and model on the card (marker ``gpu``).
+
+Each CUDA kernel is held to its plain PyTorch version on the same card
+tensors, and the smoke model on the card to the same model on the CPU.
+Without a CUDA device every test here skips.  The file imports no JAX, so
+it runs where JAX is not installed:
+
+  PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import models
+from repro_torch.configs import get_smoke_config
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.paged_attention import paged_attention_plain
+
+pytestmark = pytest.mark.gpu
+
+# kernel vs plain version on unit-normal inputs: float32 sums in another
+# order; bfloat16 outputs may differ by one bfloat16 ulp (2**-6 below 4)
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2 ** -6}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the Hopper kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(shape, dtype, seed, device):
+    g = np.random.default_rng(seed)
+    return torch.from_numpy(g.standard_normal(shape).astype(np.float32)).to(device, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("use_pwl", [False, True])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_kernel_matches_plain(cuda, D, use_pwl, dtype):
+    q, k, v = (_randn((2, 200, h, D), dtype, D + h, cuda) for h in (8, 2, 2))
+    for causal in (True, False):
+        before = ops.LAUNCHES["flash_attention"]
+        got = ops.flash_attention(q, k, v, causal=causal, use_pwl=use_pwl)
+        assert ops.LAUNCHES["flash_attention"] == before + 1
+        want = flash_attention_plain(q, k, v, causal=causal, use_pwl=use_pwl)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype
+        assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("use_pwl", [False, True])
+@pytest.mark.parametrize("bt,H,Hkv,D", [(8, 4, 2, 32), (16, 32, 8, 128),
+                                        (64, 8, 8, 64)])
+def test_paged_kernel_matches_plain_on_scattered_tables(cuda, bt, H, Hkv, D,
+                                                       use_pwl, dtype):
+    ctx = [0, 1, bt - 1, 3 * bt + 5, 200]
+    nb = [-(-c // bt) for c in ctx]
+    n_pool = sum(nb) + 2
+    perm = np.random.default_rng(bt).permutation(n_pool).astype(np.int32)
+    table = np.full((len(ctx), max(nb)), n_pool - 1, np.int32)
+    off = 0
+    for r, n in enumerate(nb):
+        table[r, :n] = perm[off:off + n]
+        off += n
+    q = _randn((len(ctx), H, D), dtype, 1, cuda)
+    pool_k = _randn((n_pool, bt, Hkv, D), dtype, 2, cuda)
+    pool_v = _randn((n_pool, bt, Hkv, D), dtype, 3, cuda)
+    args = (q, pool_k, pool_v, torch.from_numpy(table).to(cuda),
+            torch.tensor(ctx, dtype=torch.int32, device=cuda))
+    got = ops.paged_attention(*args, use_pwl=use_pwl)
+    want = paged_attention_plain(*args, use_pwl=use_pwl)
+    torch.cuda.synchronize()
+    assert not got[0].any()                                  # context 0 -> 0
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+
+
+def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
+    q = torch.zeros((1, 8, 2, 48), device=cuda)               # D = 48
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, q, q)
+    h = q.half()                                             # float16
+    with pytest.raises(TypeError):
+        ops.flash_attention(h[..., :32], h[..., :32], h[..., :32])
+
+
+def test_smoke_model_on_card_matches_cpu(cuda):
+    """Prefill and 4 decode steps of the float32 smoke llama3-8b: the card
+    (kernels) against the CPU (plain versions), same weights."""
+    cfg = dataclasses.replace(get_smoke_config("llama3-8b"), dtype="float32")
+    params = models.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 41)))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = _to(params, dev)
+        logits, _, cache = models.forward(cfg, p, toks[:, :37].to(dev),
+                                          collect_cache=True, kv_max=48)
+        steps = [logits.cpu()]
+        for i in range(37, 41):
+            lg, cache = models.decode_step(cfg, p, toks[:, i:i + 1].to(dev),
+                                           cache, i + 1)
+            steps.append(lg.cpu())
+        out[dev] = torch.cat(steps, 1)
+    torch.testing.assert_close(out["cuda"], out["cpu"], atol=1e-4, rtol=0)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
