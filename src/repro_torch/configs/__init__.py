@@ -1,6 +1,6 @@
 """Config registry of the port: ``get_config("<arch-id>")`` returns the full
-ModelConfig.  The port runs the dense family, so the registry holds the
-dense architectures of ``repro.configs``, under the same arch ids.
+ModelConfig.  The registry holds the architectures of ``repro.configs``
+whose families the port runs (dense, ssm, hybrid), under the same arch ids.
 """
 from __future__ import annotations
 
@@ -14,6 +14,9 @@ _REGISTRY = {
     "olmo-1b": "olmo_1b",
     "smollm-360m": "smollm_360m",
     "yi-34b": "yi_34b",
+    # attention-free SSM and the Mamba2 + shared-attention hybrid
+    "mamba2-2.7b": "mamba2_2p7b",
+    "zamba2-2.7b": "zamba2_2p7b",
     # the paper's own evaluation models (Table II)
     "llama3.2-1b": "llama32_1b",
     "llama3-8b": "llama3_8b",

@@ -16,7 +16,8 @@
 // memory; K and then V tiles of 128 keys are staged one after the other in
 // one shared buffer, so every K/V row is read from device memory once per
 // q tile.  Each thread owns a 4 x 8 block of the 64 x 128 score tile and a
-// 4 x D/16 block of the output accumulator, in registers.  Rows of shared
+// 4 x D/16 block of the output accumulator, in registers (D = 32, 64, 80
+// or 128: a multiple of 16; 80 is zamba2's shared attention).  Rows of shared
 // memory are padded by one float so the column walks are free of bank
 // conflicts.  The KV head is h / (Hq / Hkv) (no repeat in memory); keys
 // are masked at their true length Skv (no padding); the causal loop stops
@@ -229,6 +230,7 @@ cudaError_t dispatch_dim(int D, const void* q, const void* k, const void* v, voi
   switch (D) {
     case 32: return launch<T, 32, kPwl>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, pwl, stream);
     case 64: return launch<T, 64, kPwl>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, pwl, stream);
+    case 80: return launch<T, 80, kPwl>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, pwl, stream);
     case 128: return launch<T, 128, kPwl>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, pwl, stream);
     default: return cudaErrorInvalidValue;
   }

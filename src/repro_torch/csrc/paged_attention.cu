@@ -156,6 +156,7 @@ cudaError_t dispatch_dim(int D, const void* q, const void* kp, const void* vp, c
   switch (D) {
     case 32: return launch<T, 32, kPwl>(q, kp, vp, tb, cl, out, B, H, Hkv, bt, mb, pwl, s);
     case 64: return launch<T, 64, kPwl>(q, kp, vp, tb, cl, out, B, H, Hkv, bt, mb, pwl, s);
+    case 80: return launch<T, 80, kPwl>(q, kp, vp, tb, cl, out, B, H, Hkv, bt, mb, pwl, s);
     case 128: return launch<T, 128, kPwl>(q, kp, vp, tb, cl, out, B, H, Hkv, bt, mb, pwl, s);
     default: return cudaErrorInvalidValue;
   }

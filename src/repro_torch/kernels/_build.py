@@ -29,6 +29,7 @@ SIGNATURES = {
                         [_VOID_P] * 4 + [_INT] * 9 + [_VOID_P, _VOID_P]),
     "paged_attention": ("paged_attention_fwd",
                         [_VOID_P] * 6 + [_INT] * 8 + [_VOID_P, _VOID_P]),
+    "ssd_scan": ("ssd_scan_fwd", [_VOID_P] * 7 + [_INT] * 6 + [_VOID_P]),
 }
 
 # kernel launches per source, counted by the launching wrapper

@@ -29,7 +29,7 @@ from .pwl import PWL_COEFFS, pwl_exp
 
 NEG_INF = -1e30
 KV_STEP = 128
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 

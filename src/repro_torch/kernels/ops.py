@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from . import flash_attention as _fa
 from . import paged_attention as _pa
+from . import ssd_scan as _ssd
 from ._build import LAUNCHES
 
 
@@ -40,3 +41,12 @@ def paged_attention(q, k_cache, v_cache, block_tables, context_lens, *,
                                          context_lens, use_pwl=use_pwl)
     return _pa.paged_attention_cuda(q, k_cache, v_cache, block_tables,
                                     context_lens, use_pwl=use_pwl)
+
+
+def ssd_scan(x, dt, a_neg, B, C, *, chunk: int):
+    """x: (b, S, H, P); dt: (b, S, H); a_neg: (H,); B, C: (b, S, N).
+    Returns y (b, S, H, P) and the final state (b, H, P, N), float32.
+    ``chunk`` is the plain version's step; the kernel takes its own."""
+    if _route(x) == "cpu":
+        return _ssd.ssd_scan_plain(x, dt, a_neg, B, C, chunk)
+    return _ssd.ssd_scan_cuda(x, dt, a_neg, B, C)

@@ -25,7 +25,7 @@ from . import _build
 from .pwl import PWL_COEFFS, pwl_exp
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128)
 MAX_BLOCK_TOKENS = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

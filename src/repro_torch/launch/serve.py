@@ -1,16 +1,19 @@
 """Serving driver: continuous-batched decode (PyTorch execution).
 
 Port of ``repro.launch.serve``.  Requests arrive with prompts, are fed into
-the KV cache through the decode step, and each decode round advances ALL
-slots one token (continuous batching with slot recycling), greedy
-sampling.  The semantics are the JAX ``Server``'s, quirks included: one
-shared ``cur_len`` for all slots; admission sets ``cur_len = max(cur_len +
-1, len(prompt))``, so a prompt's first token attends over zero cache rows;
-every admission step is a full-batch decode that writes K/V into every
-slot; and only slot ``i``'s next token is taken during admission.
+the cache (K/V, or conv and SSM state) through the decode step, and each
+decode round advances ALL slots one token (continuous batching with slot
+recycling), greedy sampling.  The semantics are the JAX ``Server``'s,
+quirks included: one shared ``cur_len`` for all slots; admission sets
+``cur_len = max(cur_len + 1, len(prompt))``, so a prompt's first token
+attends over zero cache rows; every admission step is a full-batch decode
+that writes K/V into every slot, and advances every slot's recurrent state
+for an SSM; and only slot ``i``'s next token is taken during admission.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
       --n-requests 4 --max-new 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
+      --smoke --device cpu
 """
 from __future__ import annotations
 

@@ -1,11 +1,22 @@
-"""Model assembly, dense family: init, prefill forward and cached decode.
+"""Model assembly, dense / ssm / hybrid families: init, prefill forward and
+cached decode.
 
-Port of the dense family of ``repro.models.model``.  Params and cache keep
+Port of those families of ``repro.models.model``.  Params and cache keep
 the JAX package's nesting: every layer-group tensor has a stacked leading
-axis (``params["layers"]["b0_dense"]["attn"]["wq"]`` is ``(n_layers, d,
-q_dim)``), and the cache is ``(n_layers, B, max_len, H_kv, D)`` per K and
-V.  The JAX ``lax.scan`` over layer groups is a Python loop here.  The
-other families (MoE, SSM, hybrid, VLM, audio) belong to later slices.
+axis (``params["layers"]["b0_dense"]["attn"]["wq"]`` is ``(n_groups, d,
+q_dim)``).  Groups:
+
+  dense  : [attn+mlp]                                x n_layers
+  ssm    : [mamba]                                   x n_layers
+  hybrid : [mamba x attn_every, shared attn+mlp]     x n_layers / attn_every
+
+The hybrid's shared block (zamba2) is ONE unstacked param set,
+``params["shared_attn"]``, applied after every group; its cache
+``b{i}_shared`` has one K/V slice per application.  Attention caches are
+``(n_groups, B, max_len, H_kv, D)`` per K and V; a mamba block's cache is
+``conv`` ``(n_groups, B, W-1, conv_dim)`` and ``ssm`` ``(n_groups, B, H, P,
+N)`` float32.  The JAX ``lax.scan`` over layer groups is a Python loop
+here.  The other families (MoE, VLM, audio) belong to later slices.
 """
 from __future__ import annotations
 
@@ -18,6 +29,7 @@ from repro_torch.kernels.paged_attention import (contiguous_block_tokens,
                                                  identity_block_table)
 from . import attention as A
 from . import mlp as M
+from . import ssm as S
 from .common import apply_norm, dense_init, dtype_of, init_norm
 
 
@@ -25,8 +37,29 @@ def group_layout(cfg) -> Tuple[Tuple[str, ...], int]:
     """Returns (block kinds within a group, number of groups)."""
     if cfg.family == "dense":
         return ("dense",), cfg.n_layers
+    if cfg.family == "ssm":
+        return ("mamba",), cfg.n_layers
+    if cfg.family == "hybrid":
+        return ("mamba",) * cfg.attn_every + ("shared_attn",), \
+            cfg.n_layers // cfg.attn_every
     raise NotImplementedError(
-        f"the port runs the dense family; {cfg.family!r} is not ported yet")
+        f"the port runs the dense, ssm and hybrid families; {cfg.family!r} "
+        "is not ported yet")
+
+
+def _cache_key(i: int, kind: str) -> str:
+    return f"b{i}_shared" if kind == "shared_attn" else f"b{i}_{kind}"
+
+
+def _init_block(cfg, kind: str, gen: torch.Generator, n_stack: int):
+    lead = (n_stack,) if n_stack else ()
+    if kind == "mamba":
+        return {"ln1": init_norm(cfg, lead, device=gen.device),
+                "mamba": S.init_mamba(cfg, gen, n_stack=n_stack)}
+    return {"ln1": init_norm(cfg, lead, device=gen.device),
+            "attn": A.init_attention(cfg, gen, n_stack=n_stack),
+            "ln2": init_norm(cfg, lead, device=gen.device),
+            "mlp": M.init_mlp(cfg, gen, n_stack=n_stack)}
 
 
 def init_params(cfg, gen: torch.Generator) -> Dict[str, Any]:
@@ -42,13 +75,10 @@ def init_params(cfg, gen: torch.Generator) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size), dt)
-    params["layers"] = {
-        f"b{i}_{kind}": {
-            "ln1": init_norm(cfg, (n_groups,), device=gen.device),
-            "attn": A.init_attention(cfg, gen, n_stack=n_groups),
-            "ln2": init_norm(cfg, (n_groups,), device=gen.device),
-            "mlp": M.init_mlp(cfg, gen, n_stack=n_groups),
-        } for i, kind in enumerate(kinds)}
+    params["layers"] = {f"b{i}_{kind}": _init_block(cfg, kind, gen, n_groups)
+                        for i, kind in enumerate(kinds) if kind != "shared_attn"}
+    if cfg.family == "hybrid":
+        params["shared_attn"] = _init_block(cfg, "dense", gen, 0)
     return params
 
 
@@ -63,36 +93,45 @@ def _head(cfg, params):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
+def _block_params(params, gp, i: int, kind: str):
+    return params["shared_attn"] if kind == "shared_attn" else gp[f"b{i}_{kind}"]
+
+
 def forward(cfg, params, tokens, *, collect_cache: bool = False,
             kv_max: int = 0):
     """tokens: (B, S) int -> (logits (B, S, V), aux, cache | None).
 
-    With ``collect_cache`` the cache holds the prompt's K/V in rows [0, S)
-    of a ``max(kv_max, S)``-row buffer, zeros after."""
+    With ``collect_cache`` an attention block's cache holds the prompt's
+    K/V in rows [0, S) of a ``max(kv_max, S)``-row buffer, zeros after, and
+    a mamba block's cache its conv window and final SSM state."""
     kinds, n_groups = group_layout(cfg)
-    B, S = tokens.shape
+    B, Sq = tokens.shape
     x = F.embedding(tokens, params["embed"])
-    positions = torch.arange(S, device=x.device)
-    cache = None
-    if collect_cache:
-        shape = (n_groups, B, max(kv_max, S), cfg.n_kv_heads, cfg.head_dim)
-        cache = {f"b{i}_{kind}": {
-            "k": torch.zeros(shape, dtype=x.dtype, device=x.device),
-            "v": torch.zeros(shape, dtype=x.dtype, device=x.device)}
-            for i, kind in enumerate(kinds)}
+    positions = torch.arange(Sq, device=x.device)
+    cache = (init_cache(cfg, B, max(kv_max, Sq), device=x.device)
+             if collect_cache else None)
     for g in range(n_groups):
         gp = _layer(params["layers"], g)
         for i, kind in enumerate(kinds):
-            p = gp[f"b{i}_{kind}"]
+            p = _block_params(params, gp, i, kind)
+            c = cache[_cache_key(i, kind)] if collect_cache else None
             h = apply_norm(cfg, p.get("ln1"), x)
+            if kind == "mamba":
+                if collect_cache:
+                    y, (conv_s, ssm_s) = S.mamba_sublayer(
+                        cfg, p["mamba"], h, return_state=True)
+                    c["conv"][g], c["ssm"][g] = conv_s, ssm_s
+                else:
+                    y = S.mamba_sublayer(cfg, p["mamba"], h)
+                x = x + y
+                continue
             attn_out, (k, v) = A.attn_sublayer(
                 cfg, p["attn"], h, positions=positions, causal=True,
                 window=cfg.sliding_window)
             x = x + attn_out
             if collect_cache:
-                c = cache[f"b{i}_{kind}"]
-                c["k"][g, :, :S] = k
-                c["v"][g, :, :S] = v
+                c["k"][g, :, :Sq] = k
+                c["v"][g, :, :Sq] = v
             h = apply_norm(cfg, p["ln2"], x)
             x = x + M.mlp_sublayer(cfg, p["mlp"], h)
     x = apply_norm(cfg, params["final_norm"], x)
@@ -102,35 +141,56 @@ def forward(cfg, params, tokens, *, collect_cache: bool = False,
 
 
 def init_cache(cfg, batch: int, max_len: int, *, device=None):
-    """Zero cache: per block, K and V of (n_layers, batch, max_len, H_kv, D)."""
+    """Zero cache: per attention block K and V of (n_groups, batch, max_len,
+    H_kv, D); per mamba block ``conv`` (n_groups, batch, W-1, conv_dim) and
+    ``ssm`` (n_groups, batch, H, P, N) float32."""
     kinds, n_groups = group_layout(cfg)
-    shape = (n_groups, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {f"b{i}_{kind}": {
-        "k": torch.zeros(shape, dtype=dtype_of(cfg), device=device),
-        "v": torch.zeros(shape, dtype=dtype_of(cfg), device=device)}
-        for i, kind in enumerate(kinds)}
+    dt = dtype_of(cfg)
+    cache = {}
+    for i, kind in enumerate(kinds):
+        if kind == "mamba":
+            ssm = cfg.ssm
+            cache[_cache_key(i, kind)] = {
+                "conv": torch.zeros((n_groups, batch, ssm.conv_width - 1,
+                                     S.conv_dim_of(cfg)), dtype=dt, device=device),
+                "ssm": torch.zeros((n_groups, batch, S.n_ssm_heads(cfg),
+                                    ssm.head_dim, ssm.d_state),
+                                   dtype=torch.float32, device=device)}
+        else:
+            shape = (n_groups, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+            cache[_cache_key(i, kind)] = {
+                "k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device)}
+    return cache
 
 
 def decode_step(cfg, params, token, cache, cache_len):
     """token: (B, 1) int; cache_len: tokens valid AFTER this step.
-    Writes this step's K/V into ``cache`` in place and returns
-    (logits (B, 1, V), cache)."""
+    Writes this step's K/V and recurrent state into ``cache`` in place and
+    returns (logits (B, 1, V), cache)."""
     kinds, n_groups = group_layout(cfg)
     cache_len = int(cache_len)
     x = F.embedding(token, params["embed"])
     B = token.shape[0]
-    max_len = cache[f"b0_{kinds[0]}"]["k"].shape[2]
-    # one identity table and one context-length vector for every layer
-    table = identity_block_table(B, max_len, contiguous_block_tokens(max_len),
-                                 device=x.device)
-    context_lens = torch.full((B,), cache_len, dtype=torch.int32,
-                              device=x.device)
+    attn = [_cache_key(i, k) for i, k in enumerate(kinds) if k != "mamba"]
+    if attn:
+        # one identity table and one context-length vector for every layer
+        max_len = cache[attn[0]]["k"].shape[2]
+        table = identity_block_table(B, max_len, contiguous_block_tokens(max_len),
+                                     device=x.device)
+        context_lens = torch.full((B,), cache_len, dtype=torch.int32,
+                                  device=x.device)
     for g in range(n_groups):
         gp = _layer(params["layers"], g)
         for i, kind in enumerate(kinds):
-            key = f"b{i}_{kind}"
-            p, c = gp[key], cache[key]
+            p = _block_params(params, gp, i, kind)
+            c = cache[_cache_key(i, kind)]
             h = apply_norm(cfg, p.get("ln1"), x)
+            if kind == "mamba":
+                y, _, _ = S.mamba_decode_sublayer(cfg, p["mamba"], h,
+                                                  c["conv"][g], c["ssm"][g])
+                x = x + y
+                continue
             attn_out, _, _ = A.attn_decode_sublayer(
                 cfg, p["attn"], h, c["k"][g], c["v"][g], cache_len,
                 window=cfg.sliding_window, block_table=table,

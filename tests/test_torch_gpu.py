@@ -18,12 +18,22 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.paged_attention import paged_attention_plain
+from repro_torch.kernels.ssd_scan import ssd_scan_plain
 
 pytestmark = pytest.mark.gpu
 
 # kernel vs plain version on unit-normal inputs: float32 sums in another
 # order; bfloat16 outputs may differ by one bfloat16 ulp (2**-6 below 4)
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2 ** -6}
+# SSD scan: y and state are float32 in both versions from the same inputs;
+# the plain version steps over 256-row chunks, the kernel over 64-row
+# sub-chunks, so the decay exponents are rounded differently (see
+# chip_smoke.py TOL_SSD)
+TOL_SSD = 1e-3
+# long-memory SSD (dt ~ 0.01): y and state each to 1e-4 of their own max
+# |value|, which a dropped or mis-scaled carry between sub-chunks exceeds
+# (see chip_smoke.py TOL_SSD_REL)
+TOL_SSD_REL = 1e-4
 
 
 @pytest.fixture
@@ -42,7 +52,7 @@ def _randn(shape, dtype, seed, device):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("use_pwl", [False, True])
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 80, 128])
 def test_flash_kernel_matches_plain(cuda, D, use_pwl, dtype):
     q, k, v = (_randn((2, 200, h, D), dtype, D + h, cuda) for h in (8, 2, 2))
     for causal in (True, False):
@@ -58,7 +68,7 @@ def test_flash_kernel_matches_plain(cuda, D, use_pwl, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("use_pwl", [False, True])
 @pytest.mark.parametrize("bt,H,Hkv,D", [(8, 4, 2, 32), (16, 32, 8, 128),
-                                        (64, 8, 8, 64)])
+                                        (64, 8, 8, 64), (32, 32, 32, 80)])
 def test_paged_kernel_matches_plain_on_scattered_tables(cuda, bt, H, Hkv, D,
                                                        use_pwl, dtype):
     ctx = [0, 1, bt - 1, 3 * bt + 5, 200]
@@ -82,6 +92,48 @@ def test_paged_kernel_matches_plain_on_scattered_tables(cuda, bt, H, Hkv, D,
     assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,S,H,P,N", [(4, 512, 80, 64, 128),   # mamba2 prefill
+                                       (4, 512, 80, 64, 64),    # zamba2 prefill
+                                       (2, 300, 16, 64, 128),   # ragged S
+                                       (1, 100, 8, 32, 16),     # S < chunk, b 1
+                                       (2, 77, 8, 32, 32)])
+def test_ssd_kernel_matches_plain(cuda, b, S, H, P, N, dtype):
+    x = _randn((b, S, H, P), dtype, 1, cuda)
+    dt = torch.nn.functional.softplus(_randn((b, S, H), torch.float32, 2, cuda))
+    a_neg = -torch.exp(0.2 * _randn((H,), torch.float32, 3, cuda))
+    B = (0.3 * _randn((b, S, N), torch.float32, 4, cuda)).to(dtype)
+    C = (0.3 * _randn((b, S, N), torch.float32, 5, cuda)).to(dtype)
+    before = ops.LAUNCHES["ssd_scan"]
+    y, state = ops.ssd_scan(x, dt, a_neg, B, C, chunk=256)
+    assert ops.LAUNCHES["ssd_scan"] == before + 1
+    want_y, want_state = ssd_scan_plain(x, dt, a_neg, B, C, 256)
+    torch.cuda.synchronize()
+    assert y.dtype == state.dtype == torch.float32
+    assert (y - want_y).abs().max().item() <= TOL_SSD
+    assert (state - want_state).abs().max().item() <= TOL_SSD
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,S,H,P,N", [(4, 512, 80, 64, 128),   # mamba2 prefill
+                                       (4, 512, 80, 64, 64),    # zamba2 prefill
+                                       (2, 300, 16, 64, 128),   # ragged S
+                                       (1, 100, 8, 32, 16)])    # S < chunk, b 1
+def test_ssd_kernel_carries_long_memory(cuda, b, S, H, P, N, dtype):
+    """dt ~ softplus(N(0,1) - 5) ~ 0.01, the regime of trained weights:
+    the state carries across every 64-row sub-chunk of the kernel."""
+    x = _randn((b, S, H, P), dtype, 6, cuda)
+    dt = torch.nn.functional.softplus(_randn((b, S, H), torch.float32, 7, cuda) - 5)
+    a_neg = -torch.exp(0.2 * _randn((H,), torch.float32, 8, cuda))
+    B = (0.3 * _randn((b, S, N), torch.float32, 9, cuda)).to(dtype)
+    C = (0.3 * _randn((b, S, N), torch.float32, 10, cuda)).to(dtype)
+    y, state = ops.ssd_scan(x, dt, a_neg, B, C, chunk=256)
+    want_y, want_state = ssd_scan_plain(x, dt, a_neg, B, C, 256)
+    torch.cuda.synchronize()
+    for got, want in ((y, want_y), (state, want_state)):
+        assert (got - want).abs().max().item() <= TOL_SSD_REL * want.abs().max().item()
+
+
 def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
     q = torch.zeros((1, 8, 2, 48), device=cuda)               # D = 48
     with pytest.raises(ValueError):
@@ -89,12 +141,20 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
     h = q.half()                                             # float16
     with pytest.raises(TypeError):
         ops.flash_attention(h[..., :32], h[..., :32], h[..., :32])
+    x = torch.zeros((1, 8, 2, 48), device=cuda)               # P = 48
+    dt, a = torch.ones((1, 8, 2), device=cuda), -torch.ones(2, device=cuda)
+    B = torch.zeros((1, 8, 16), device=cuda)
+    with pytest.raises(ValueError):
+        ops.ssd_scan(x, dt, a, B, B, chunk=8)
+    with pytest.raises(TypeError):
+        ops.ssd_scan(x[..., :32], dt.double(), a, B, B, chunk=8)
 
 
-def test_smoke_model_on_card_matches_cpu(cuda):
-    """Prefill and 4 decode steps of the float32 smoke llama3-8b: the card
+@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-2.7b", "zamba2-2.7b"])
+def test_smoke_model_on_card_matches_cpu(cuda, arch):
+    """Prefill and 4 decode steps of a float32 smoke model: the card
     (kernels) against the CPU (plain versions), same weights."""
-    cfg = dataclasses.replace(get_smoke_config("llama3-8b"), dtype="float32")
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
     params = models.init_params(cfg, torch.Generator().manual_seed(0))
     toks = torch.from_numpy(
         np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 41)))
