@@ -12,9 +12,12 @@ Phases, each of which fails the run if it fails:
                 the card, at the main paths' shapes and at ragged ones
                 (attention: exact and PWL, D 32/64/80/128; SSD scan: y and
                 final state, float32 and bfloat16, N 128 and 64, short and
-                long memory); time
-                kernel, plain version and one PyTorch library call where
-                there is one, with CUDA events.
+                long memory; SCU softmax: float32 and bfloat16, rows in
+                registers, in shared memory and in three passes; CIM
+                matmul: bfloat16 and float32 x, calibration tiles from
+                16 x 26 to unblocked, adc_bits 6 to 16); time kernel, plain
+                version and one PyTorch library call where there is one,
+                with CUDA events.
   serve         llama3-8b at full width and depth in bf16, random weights
                 from a seed: prefill of 4 x 512 tokens, then 32 greedy
                 decode steps through the user-facing step functions; the
@@ -24,6 +27,14 @@ Phases, each of which fails the run if it fails:
                 launches in the prefill, no attention.
   hybrid_serve  the same for zamba2-2.7b (54 mamba layers, 9 applications
                 of the shared attention block).
+  cim_scu       one llama3-8b layer at full width in bf16 with its seven
+                projections on the RRAM crossbar (``ops.cim_matmul_quantized``,
+                weights quantised once) and its softmax on the SCU
+                (``ops.pwl_softmax``): a 4 x 512 prefill, the vocab softmax
+                of its last logits and a batch-4 decode step, 14 + 3 counted
+                launches; each output held to the plain version; then the
+                ablations of the JAX package's benches (ADC bits against the
+                exact product, PWL against the exact softmax).
   parity        llama3-8b widths, 2 layers, float32: the card (kernels)
                 against the CPU (plain versions) on the same weights,
                 logits and greedy ids.
@@ -34,8 +45,9 @@ Phases, each of which fails the run if it fails:
                 llama3-8b and mamba2-2.7b.
   profile       (only when named) device time by kernel under torch.profiler
                 for one full-width prefill and 8 decode steps of each of
-                the three served models, and the device's busy share of the
-                host-clock window.
+                the three served models, and for the cim_scu layer's
+                prefill and decode step, and the device's busy share of
+                the host-clock window.
 
 The line before the last two is a JSON object ``{"kernels": [...]}``, then
 the card's name and power limit as nvidia-smi reports them, and the last
@@ -48,24 +60,27 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "serve", "ssm_serve", "hybrid_serve", "parity",
-          "ssm_parity", "server")
+PHASES = ("build", "kernels", "serve", "ssm_serve", "hybrid_serve", "cim_scu",
+          "parity", "ssm_parity", "server")
 EXTRA_PHASES = ("profile",)          # run only when named in --phases
 SERVE_ARCH = {"serve": "llama3-8b", "ssm_serve": "mamba2-2.7b",
               "hybrid_serve": "zamba2-2.7b"}
 # the serve phase whose launch counts each kernel's JSON entry reports
 MAIN_PATH_OF = {"flash_attention": "serve", "paged_attention": "serve",
-                "ssd_scan": "ssm_serve"}
+                "ssd_scan": "ssm_serve", "pwl_softmax": "cim_scu",
+                "cim_matmul": "cim_scu"}
 
-# H100 SXM data-sheet peaks (dense): memory, bf16 tensor cores, float32 SIMT
+# H100 SXM data-sheet peaks (dense): memory, bf16 and int8 tensor cores,
+# float32 SIMT
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "int8": 1979e12, "float32": 67e12}
 
 # Tolerances of kernel vs plain version, max |difference| on outputs of
 # order 1 (unit-normal q/k/v).  float32: both sum in float32, in another
@@ -89,6 +104,16 @@ TOL_SSD = 1e-3
 # are each held to 1e-4 of their own max |value|: float32 sums in another
 # order differ by ~1e-6 of it, a dropped or mis-scaled carry by percents.
 TOL_SSD_REL = 1e-4
+# SCU softmax: the same float32 steps in both versions (PWL exp, IEEE
+# reciprocal, separate multiply), the row sum in another order; held by
+# repro_torch.kernels.pwl_softmax.agreement: float32 outputs (<= 1) within
+# 1e-6; bfloat16 outputs within one bfloat16 step of each expected value,
+# and fewer than 1% of the nonzero ones differ at all.
+# CIM matmul: integer dots (exact in both) and the same float32 steps in the
+# same order, so kernel and plain version agree to float32 ordering at most;
+# max |difference| <= 1e-6 of max |out|.  One flipped 12-bit ADC code moves
+# an output by ~1/2047 of its tile's swing, far above the bar.
+TOL_CIM_REL = 1e-6
 
 # main-path shapes of llama3-8b: 32 query heads, 8 KV heads, head_dim 128
 B_MAIN, PROMPT, NEW, HQ, HKV, D = 4, 512, 32, 32, 8, 128
@@ -142,6 +167,23 @@ def bound(bytes_moved: float, flops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def softmax_work(x):
+    """Bytes (x read once, the output written once) and float32 operations
+    of the SCU softmax: per element the max, the subtraction, the segment's
+    multiply and add, the sum and the scale (the segment select not
+    counted)."""
+    return 2 * x.numel() * x.element_size(), 6 * x.numel()
+
+
+def cim_work(x, wq, wscale):
+    """Bytes (x, wq and wscale read once, the float32 output written once)
+    and the integer dot's 2 M K N int8 operations; the M N K / 256 float32
+    ADC steps are not counted."""
+    (M, K), N = x.shape, wq.shape[1]
+    return (x.numel() * x.element_size() + wq.numel() + wscale.numel() * 4
+            + M * N * 4), 2 * M * K * N
+
+
 def ssd_work(b, s, h, p, n, esize):
     """Bytes (x, dt, A, B, C read once; y and state written once) and
     FLOPs of the recurrent form, the least the function needs whatever its
@@ -173,6 +215,19 @@ def _check(torch, name, got, want, dtype, case, tol=None):
     if not finite or not err <= tol:
         raise AssertionError(f"{name} {case}: kernel disagrees with its plain "
                              f"version (max_abs_err {err}, tol {tol})")
+    return err
+
+
+def _check_softmax(torch, got, want, case, tag="kernels"):
+    from repro_torch.kernels.pwl_softmax import agreement
+    err, share, ok = agreement(got, want)
+    rule = ("1.0e-06" if got.dtype == torch.float32
+            else "one bf16 step each, < 1% of nonzero elements differ")
+    log(f"[{tag}] pwl_softmax {case}: max_abs_err={err:.3e}, "
+        f"differing {share:.2e} of nonzero, tol {rule}")
+    if not ok:
+        raise AssertionError(f"pwl_softmax {case}: kernel disagrees with its plain "
+                             f"version (max_abs_err {err}, differing {share}, tol {rule})")
     return err
 
 
@@ -398,7 +453,10 @@ def phase_kernels(torch, timer, results):
             extra.append(ssd_entry(args, max(errs), dt))
     torch.cuda.synchronize()
 
-    results["kernels"] = [flash, paged, ssd]
+    softmax = phase_kernels_softmax(torch, timer, randn, extra)
+    cim = phase_kernels_cim(torch, timer, randn, extra)
+
+    results["kernels"] = [flash, paged, ssd, softmax, cim]
     results["kernels_other_shapes"] = extra
     for kern in results["kernels"] + extra:
         lib = kern["library_ms"]
@@ -406,6 +464,119 @@ def phase_kernels(torch, timer, results):
             f"plain {kern['plain_ms']:.4f} ms, library "
             + ("none" if lib is None else f"{lib:.4f} ms")
             + f", bound {kern['bound_ms']:.5f} ms ({kern['bound_by']})")
+
+
+def phase_kernels_softmax(torch, timer, randn, extra):
+    """SCU softmax: kernel against plain version and timings; returns the
+    main-shape entry (llama3-8b's prefill score rows)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.pwl_softmax import pwl_softmax_plain
+
+    def scores(shape, dt, scale, causal):
+        x = randn(shape, "float32", scale)
+        if causal:
+            q = torch.arange(shape[-1], device="cuda")
+            x = x.masked_fill(q[None, :] > q[:, None], -1e30)
+        return x.to(torch.bfloat16 if dt == "bfloat16" else torch.float32)
+
+    def entry(x, err, dt, what):
+        bms, by = bound(*softmax_work(x), "float32")
+        return {
+            "name": "pwl_softmax", "route": "cuda",
+            "source": "src/repro_torch/csrc/pwl_softmax.cu",
+            "replaces": "src/repro/kernels/pwl_softmax.py:47",
+            "shape": f"{what} {tuple(x.shape)} {dt}", "max_abs_err": err,
+            "ms": timer.ms(lambda: ops.pwl_softmax(x), 20),
+            "plain_ms": timer.ms(lambda: pwl_softmax_plain(x), 5),
+            # exact exp, float32 inside, output in x's dtype
+            "library_ms": timer.ms(lambda: torch.softmax(x, dim=-1), 20),
+            "bound_ms": bms, "bound_by": by,
+        }
+
+    vocab = 128256
+    cases = [  # shape, dtype, scale, causal, what
+        ((B_MAIN, HQ, PROMPT, PROMPT), "bfloat16", 4, True, "llama3-8b prefill scores"),
+        ((B_MAIN, HQ, PROMPT, PROMPT), "float32", 4, True, "prefill scores"),
+        ((B_MAIN * HQ, PROMPT + 1), "bfloat16", 4, False, "llama3-8b decode scores"),
+        ((B_MAIN, vocab), "float32", 4, False, "llama3-8b vocab, three passes"),
+        ((B_MAIN * HQ, PROMPT + 1), "float32", 4, False, "decode scores"),
+        ((256, 512), "float32", 3, False, "kernels bench"),
+        ((300, 1000), "float32", 3, False, "ragged"),
+        ((4096, 128), "float32", 4, False, "ablations bench"),
+        ((37, 5000), "float32", 4, False, "rows in shared memory"),
+        ((16, 32768), "bfloat16", 4, False, "rows in shared memory"),
+        ((5, 1025), "float32", 4, False, "rows in shared memory"),
+        ((7, 1), "float32", 4, False, "n 1"),
+    ]
+    main = None
+    for i, (shape, dt, scale, causal, what) in enumerate(cases):
+        x = scores(shape, dt, scale, causal)
+        got = ops.pwl_softmax(x)
+        want = pwl_softmax_plain(x)
+        torch.cuda.synchronize()
+        err = _check_softmax(torch, got, want, f"{what} {shape} {dt}")
+        if i == 0:
+            main = entry(x, err, dt, what)
+        elif i in (2, 3):
+            extra.append(entry(x, err, dt, what))
+    torch.cuda.synchronize()
+    return main
+
+
+def phase_kernels_cim(torch, timer, randn, extra):
+    """CIM matmul: kernel against plain version and timings; returns the
+    main-shape entry (llama3-8b's MLP up projection over a 4 x 512
+    prefill)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cim_matmul import cim_matmul_plain, quantize_weights
+
+    def entry(args, kw, err, what):
+        x, wq, ws = args
+        (M, K), N = x.shape, wq.shape[1]
+        bms, by = bound(*cim_work(x, wq, ws), "int8")
+        return {
+            "name": "cim_matmul", "route": "cuda",
+            "source": "src/repro_torch/csrc/cim_matmul.cu",
+            "replaces": "src/repro/kernels/cim_matmul.py:74",
+            "shape": (f"{what} M{M} K{K} N{N} x {str(x.dtype)[6:]} blocks "
+                      f"{kw['block_m']}x{kw['block_n']} adc{kw['adc_bits']}"),
+            "max_abs_err": err,
+            "ms": timer.ms(lambda: ops.cim_matmul_quantized(*args, **kw), 10),
+            "plain_ms": timer.ms(lambda: cim_matmul_plain(*args, **kw), 3),
+            "library_ms": None,       # no single PyTorch call computes the ADC
+            "bound_ms": bms, "bound_by": by,
+        }
+
+    D_MODEL, D_FF = 4096, 14336
+    cases = [  # M, K, N, x dtype, (block_m, block_n), adc_bits, what
+        (B_MAIN * PROMPT, D_MODEL, D_FF, "bfloat16", (128, 256), 12, "llama3-8b up proj"),
+        (B_MAIN * PROMPT, D_MODEL, D_FF, "float32", (128, 256), 12, "up proj"),
+        (B_MAIN, D_MODEL, D_FF, "bfloat16", (128, 256), 12, "llama3-8b decode up proj"),
+        (B_MAIN * PROMPT, D_FF, D_MODEL, "bfloat16", (128, 256), 12, "llama3-8b down proj"),
+        (B_MAIN * PROMPT, D_MODEL, HKV * D, "bfloat16", (128, 256), 6, "k proj"),
+        (B_MAIN * PROMPT, D_MODEL, HKV * D, "bfloat16", (128, 256), 16, "k proj"),
+        (64, 512, 128, "float32", (64, 128), 12, "bench"),
+        (128, 1024, 512, "float32", (128, 512), 12, "unblocked"),
+        (128, 512, 256, "float32", (32, 64), 8, "small tiles"),
+        (96, 256, 192, "bfloat16", (128, 256), 16, "ragged CTA tiles"),
+        (64, 768, 130, "float32", (16, 26), 8, "N % 4 != 0"),
+    ]
+    main = None
+    for i, (M, K, N, dt, (bm, bn), adc, what) in enumerate(cases):
+        args = (randn((M, K), dt), *quantize_weights(randn((K, N), "float32", 0.02)))
+        kw = dict(block_m=bm, block_n=bn, adc_bits=adc)
+        got = ops.cim_matmul_quantized(*args, **kw)
+        want = cim_matmul_plain(*args, **kw)
+        torch.cuda.synchronize()
+        tol = TOL_CIM_REL * want.abs().max().item()
+        err = _check(torch, "cim_matmul", got, want, dt,
+                     f"{what} M{M} K{K} N{N} {dt} blocks {bm}x{bn} adc{adc}", tol)
+        if i == 0:
+            main = entry(args, kw, err, what)
+        elif i in (2, 3):
+            extra.append(entry(args, kw, err, what))
+    torch.cuda.synchronize()
+    return main
 
 
 def expected_launches(cfg, new: int):
@@ -418,7 +589,7 @@ def expected_launches(cfg, new: int):
     n_mamba = kinds.count("mamba") * n_groups
     n_attn = len(kinds) * n_groups - n_mamba
     return {"flash_attention": n_attn, "paged_attention": n_attn * new,
-            "ssd_scan": n_mamba}
+            "ssd_scan": n_mamba, "pwl_softmax": 0, "cim_matmul": 0}
 
 
 def phase_serve(torch, results, phase):
@@ -494,6 +665,191 @@ def phase_serve(torch, results, phase):
         f"decode {decode_ms:.3f} ms/step ({res['decode_tokens_per_s']:.1f} tok/s), "
         f"peak {peak:.2f} GiB")
     log(f"{tag} first ids per sequence: {ids[:, :8].tolist()}")
+    return launches
+
+
+def cim_scu_layer(torch, cfg, weights, x, pos0, cache=None, *, exact=False, calls=None):
+    """One llama3-8b decoder layer whose seven projections run on the RRAM
+    crossbar (``ops.cim_matmul_quantized`` on weights quantised once) and
+    whose attention softmax runs on the SCU (``ops.pwl_softmax``), in bf16
+    between them.  ``exact``: the same layer with bf16 matmuls of the
+    unquantised weights and torch.softmax, the yardstick.  x: (B, S, d).
+    Each kernel call is appended to ``calls`` as (name, inputs, output).
+    Returns the layer output, the (k, v) cache and the softmax rows."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import apply_rope, rmsnorm, silu
+
+    B, S, d = x.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    bf = torch.bfloat16
+
+    def proj(name, h):
+        w, wq, ws = weights[name]
+        if exact:
+            return h @ w
+        out = ops.cim_matmul_quantized(h, wq, ws)
+        if calls is not None:
+            calls.append(("cim_matmul", (h, wq, ws), out))
+        return out.to(bf)
+
+    pos = torch.arange(pos0, pos0 + S, device=x.device)[None].expand(B, S)
+    h = rmsnorm(x, None).reshape(B * S, d)
+    q = apply_rope(proj("q", h).view(B, S, hq, hd), pos, cfg.rope_theta)
+    k = apply_rope(proj("k", h).view(B, S, hkv, hd), pos, cfg.rope_theta)
+    v = proj("v", h).view(B, S, hkv, hd)
+    if cache is not None:
+        k, v = torch.cat([cache[0], k], 1), torch.cat([cache[1], v], 1)
+    T = k.shape[1]
+    qg = q.float().view(B, S, hkv, hq // hkv, hd)
+    s = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * hd ** -0.5
+    qpos = torch.arange(pos0, pos0 + S, device=x.device)
+    masked = torch.arange(T, device=x.device)[None, :] > qpos[:, None]
+    s = s.masked_fill(masked, -1e30).reshape(B, hq, S, T).to(bf)
+    if exact:
+        p = torch.softmax(s, dim=-1)
+    else:
+        p = ops.pwl_softmax(s)
+        if calls is not None:
+            calls.append(("pwl_softmax", (s,), p))
+    a = torch.einsum("bkgst,btkd->bskgd", p.float().view(B, hkv, hq // hkv, S, T), v.float())
+    x = x + proj("o", a.reshape(B * S, hq * hd).to(bf)).view(B, S, d)
+    h = rmsnorm(x, None).reshape(B * S, d)
+    f = (silu(proj("gate", h).float()) * proj("up", h).float()).to(bf)
+    x = x + proj("down", f).view(B, S, d)
+    return x, (k, v), p
+
+
+def cim_scu_setup(torch):
+    """llama3-8b's config, one layer's seven weights in bf16 from a seed,
+    each with its quantisation (w, wq, wscale), the LM head, and the
+    prefill / decode inputs (B_MAIN x PROMPT and B_MAIN x 1 tokens' hidden
+    states)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.cim_matmul import quantize_weights
+
+    cfg = get_config("llama3-8b")
+    d, hq, hkv, hd, ff = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device="cuda")).to(torch.bfloat16)
+
+    shapes = {"q": (d, hq * hd), "k": (d, hkv * hd), "v": (d, hkv * hd),
+              "o": (hq * hd, d), "gate": (d, ff), "up": (d, ff), "down": (ff, d)}
+    weights = {}
+    for name, (k_in, n_out) in shapes.items():
+        w = randn(k_in, n_out, scale=k_in ** -0.5)
+        weights[name] = (w, *quantize_weights(w))
+    head = randn(d, cfg.vocab_size, scale=d ** -0.5)
+    return cfg, weights, head, randn(B_MAIN, PROMPT, d), randn(B_MAIN, 1, d)
+
+
+def phase_cim_scu(torch, results):
+    """llama3-8b's full widths, one layer, bf16 weights from a seed: a
+    4 x 512 prefill, the SCU softmax of its last-position vocab logits and
+    a batch-4 decode step through the CIM and SCU kernels; then every
+    output against the plain versions, the layer against its exact
+    counterpart, and the JAX package's ablations."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cim_matmul import cim_matmul_plain
+    from repro_torch.kernels.pwl_softmax import pwl_softmax_plain
+    from repro_torch.models.common import rmsnorm
+
+    cfg, weights, head, x, x_new = cim_scu_setup(torch)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+
+    def path(calls):
+        t0 = time.time()
+        y, cache, _ = cim_scu_layer(torch, cfg, weights, x, 0, calls=calls)
+        logits = (rmsnorm(y[:, -1], None) @ head).float()
+        probs = ops.pwl_softmax(logits)
+        if calls is not None:
+            calls.append(("pwl_softmax", (logits,), probs))
+        torch.cuda.synchronize()
+        t1 = time.time()
+        y_new, _, p_dec = cim_scu_layer(torch, cfg, weights, x_new, PROMPT, cache, calls=calls)
+        torch.cuda.synchronize()
+        return y, probs, y_new, p_dec, t1 - t0, time.time() - t1
+
+    path(None)                  # warm-up outside the counted window (cuBLAS, allocator)
+    calls = []                  # every kernel call of the counted window
+    ops.reset_launch_counts()
+    y, probs, y_new, p_dec, t_prefill, t_decode = path(calls)
+    launches = dict(ops.LAUNCHES)
+
+    want = {**dict.fromkeys(launches, 0), "cim_matmul": 14, "pwl_softmax": 3}
+    log(f"[cim_scu] launches on the path: {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"cim_scu launches {launches}, expected {want}")
+    if tuple(p_dec.shape) != (B_MAIN, HQ, 1, PROMPT + 1) or tuple(probs.shape) != (B_MAIN, cfg.vocab_size):
+        raise AssertionError(f"unexpected shapes {tuple(p_dec.shape)} {tuple(probs.shape)}")
+    for what, t in (("prefill output", y), ("decode output", y_new), ("vocab probs", probs)):
+        if not bool(torch.isfinite(t.float()).all()):
+            raise AssertionError(f"cim_scu {what} is not finite")
+    rows = probs.sum(-1)
+    if not bool(((rows - 1).abs() < 1e-5).all()):
+        raise AssertionError(f"vocab softmax rows sum to {rows.tolist()}")
+
+    # every launch of the window against its plain version
+    errs = {"cim_matmul": 0.0, "pwl_softmax": 0.0}
+    for name, args, out in calls:
+        if name == "cim_matmul":
+            ref = cim_matmul_plain(*args)
+            err = (out - ref).abs().max().item() / ref.abs().max().item()
+            tol = TOL_CIM_REL
+            if not err <= tol:
+                raise AssertionError(f"cim_scu cim_matmul {tuple(args[0].shape)}: kernel "
+                                     f"disagrees with its plain version ({err} > {tol})")
+        else:
+            err = _check_softmax(torch, out, pwl_softmax_plain(*args),
+                                 f"{tuple(args[0].shape)} {str(out.dtype)[6:]}", "cim_scu")
+        errs[name] = max(errs[name], err)
+    log(f"[cim_scu] {len(calls)} launches against their plain versions: cim_matmul max "
+        f"rel err {errs['cim_matmul']:.3e} (tol {TOL_CIM_REL:.0e}), pwl_softmax max abs "
+        f"err {errs['pwl_softmax']:.3e}")
+
+    # the layer against its exact counterpart (bf16 matmuls, exact softmax)
+    with torch.no_grad():
+        y_ex, cache_ex, _ = cim_scu_layer(torch, cfg, weights, x, 0, exact=True)
+        y_new_ex, _, _ = cim_scu_layer(torch, cfg, weights, x_new, PROMPT, cache_ex,
+                                       exact=True)
+    dev = {}
+    for what, got, ex, x_in in (("prefill", y, y_ex, x), ("decode", y_new, y_new_ex, x_new)):
+        upd, upd_ex = got.float() - x_in.float(), ex.float() - x_in.float()
+        dev[what] = (upd - upd_ex).norm().item() / upd_ex.norm().item()
+    log(f"[cim_scu] layer update vs the exact layer (rel norm): prefill "
+        f"{dev['prefill']:.4f}, decode {dev['decode']:.4f}")
+
+    # ablations of the JAX package's benches: ADC bits on the up projection
+    h_up = rmsnorm(x, None).reshape(B_MAIN * PROMPT, cfg.d_model)
+    w_up, wq_up, ws_up = weights["up"]
+    exact_up = h_up.float() @ w_up.float()
+    adc_err = {}
+    for adc in (6, 8, 10, 12, 14):
+        o = ops.cim_matmul_quantized(h_up, wq_up, ws_up, adc_bits=adc)
+        adc_err[adc] = ((o - exact_up).norm() / exact_up.norm()).item()
+    errs_list = list(adc_err.values())
+    log("[cim_scu] up proj rel err vs the exact product by adc_bits: "
+        + ", ".join(f"{a}: {e:.5f}" for a, e in adc_err.items()))
+    if not (all(map(math.isfinite, errs_list))
+            and all(a >= b for a, b in zip(errs_list, errs_list[1:]))):
+        raise AssertionError(f"ADC sweep not finite and non-increasing: {adc_err}")
+    # PWL softmax against the exact softmax at attention scale
+    s = 4 * torch.randn((4096, 128), generator=gen, device="cuda")
+    pw, ex = ops.pwl_softmax(s), torch.softmax(s, dim=-1)
+    agree = (pw.argmax(-1) == ex.argmax(-1)).float().mean().item()
+    maxdev = (pw - ex).abs().max().item()
+    log(f"[cim_scu] pwl softmax vs exact at (4096, 128) x 4: top-1 agreement "
+        f"{agree:.4f}, max deviation {maxdev:.5f}")
+    if not (math.isfinite(maxdev) and 0 <= agree <= 1):
+        raise AssertionError("PWL ablation is not finite")
+    log(f"[cim_scu] layer prefill {B_MAIN} x {PROMPT} + vocab softmax {t_prefill * 1e3:.2f} ms, "
+        f"decode step {t_decode * 1e3:.2f} ms (host clock)")
+    results["cim_scu"] = {
+        "launches": launches, "prefill_ms": t_prefill * 1e3, "decode_ms": t_decode * 1e3,
+        "kernel_vs_plain": errs, "layer_update_rel_dev_vs_exact": dev,
+        "adc_rel_err_vs_exact": adc_err, "pwl_top1_agreement": agree,
+        "pwl_max_dev": maxdev}
     return launches
 
 
@@ -624,9 +980,8 @@ def phase_server(torch, results):
         torch.cuda.synchronize()
         dt = time.time() - t0
         steps = sum(len(p) for p in prompts) + rounds
-        want = {"flash_attention": 0,
-                "paged_attention": expected_launches(cfg, steps)["paged_attention"],
-                "ssd_scan": 0}
+        want = {**dict.fromkeys(ops.LAUNCHES, 0),
+                "paged_attention": expected_launches(cfg, steps)["paged_attention"]}
         if dict(ops.LAUNCHES) != want:
             raise AssertionError(f"Server launches {ops.LAUNCHES}, expected {want}")
         for s in srv.slots[:len(prompts)]:
@@ -651,18 +1006,41 @@ def _kernel_class(name: str) -> str:
         return "paged_attention"
     if "ssd_fwd_kernel" in name:
         return "ssd_scan"
+    if "softmax_warp_kernel" in name or "softmax_row_kernel" in name:
+        return "pwl_softmax"
+    if "cim_transpose_kernel" in name or "cim_dac_kernel" in name or "cim_dot_kernel" in name:
+        return "cim_matmul"
     if any(t in name for t in ("gemm", "gemv", "sm90_xmma", "cutlass", "nvjet")):
         return "matmul"
     return "other"
 
 
-def phase_profile(torch, results, arch):
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def profile_windows(torch, arch):
+    """The (name, function) windows the profile phase traces for ``arch``,
+    warmed up: a full-width prefill and 8 decode steps of a served model,
+    or the cim_scu phase's layer prefill (with the vocab softmax) and decode
+    step."""
     from repro_torch import models
     from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.common import rmsnorm
     import numpy as np
+
+    if arch == "cim_scu":
+        cfg, weights, head, x, x_new = cim_scu_setup(torch)
+        state = {}
+
+        def layer_prefill():
+            y, state["cache"], _ = cim_scu_layer(torch, cfg, weights, x, 0)
+            ops.pwl_softmax((rmsnorm(y[:, -1], None) @ head).float())
+
+        def layer_decode():
+            cim_scu_layer(torch, cfg, weights, x_new, PROMPT, state["cache"])
+
+        layer_prefill()
+        layer_decode()
+        return [("prefill", layer_prefill), ("decode_x1", layer_decode)]
 
     cfg = get_config(arch)
     params = models.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
@@ -682,8 +1060,15 @@ def phase_profile(torch, results, arch):
             state["tok"], state["cache"] = serve(params, state["cache"],
                                                  state["tok"], PROMPT + i + 1)
 
+    return [("prefill", do_prefill), ("decode_x8", do_decode)]
+
+
+def phase_profile(torch, results, arch):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     out = {}
-    for what, fn in (("prefill", do_prefill), ("decode_x8", do_decode)):
+    for what, fn in profile_windows(torch, arch):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.time()
@@ -704,7 +1089,9 @@ def phase_profile(torch, results, arch):
         log(f"[profile] {arch} {what}: wall {wall_us / 1e3:.2f} ms, device busy "
             f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%), by class "
             + ", ".join(f"{k} {v / 1e3:.2f} ms" for k, v in sorted(by_class.items())))
-        for us, n, key in sorted(top, reverse=True)[:8]:
+        # the 8 largest, and every kernel of the port's sources below them
+        top = sorted(top, reverse=True)
+        for us, n, key in top[:8] + [t for t in top[8:] if "repro_torch" in t[2]]:
             log(f"[profile]   {us / 1e3:9.3f} ms  x{n:<5d} {key}")
     results.setdefault("profile", {})[arch] = out
 
@@ -753,6 +1140,8 @@ def main(argv=None) -> int:
             phase_kernels(torch, timer, results)
         elif phase in SERVE_ARCH:
             launches_of[phase] = phase_serve(torch, results, phase)
+        elif phase == "cim_scu":
+            launches_of[phase] = phase_cim_scu(torch, results)
         elif phase == "parity":
             phase_parity(torch, results)
         elif phase == "ssm_parity":
@@ -760,7 +1149,7 @@ def main(argv=None) -> int:
         elif phase == "server":
             phase_server(torch, results)
         elif phase == "profile":
-            for arch in SERVE_ARCH.values():
+            for arch in (*SERVE_ARCH.values(), "cim_scu"):
                 phase_profile(torch, results, arch)
                 torch.cuda.empty_cache()
         torch.cuda.synchronize()

@@ -9,8 +9,10 @@ versions are not counted.
 """
 from __future__ import annotations
 
+from . import cim_matmul as _cim
 from . import flash_attention as _fa
 from . import paged_attention as _pa
+from . import pwl_softmax as _ps
 from . import ssd_scan as _ssd
 from ._build import LAUNCHES
 
@@ -50,3 +52,32 @@ def ssd_scan(x, dt, a_neg, B, C, *, chunk: int):
     if _route(x) == "cpu":
         return _ssd.ssd_scan_plain(x, dt, a_neg, B, C, chunk)
     return _ssd.ssd_scan_cuda(x, dt, a_neg, B, C)
+
+
+def pwl_softmax(x):
+    """SCU row softmax over the last dim of ``x (..., n)``, output in x's
+    dtype."""
+    if _route(x) == "cpu":
+        return _ps.pwl_softmax_plain(x)
+    return _ps.pwl_softmax_cuda(x)
+
+
+def cim_matmul_quantized(x, wq, wscale, *, block_m: int = 128,
+                         block_n: int = 256, adc_bits: int = 12,
+                         act_bits: int = 8):
+    """x: (M, K) float; wq: (K, N) int8; wscale: (K // 256, N) float32, as
+    ``quantize_weights`` gives them.  Returns (M, N) float32."""
+    kw = dict(block_m=block_m, block_n=block_n, adc_bits=adc_bits,
+              act_bits=act_bits)
+    if _route(x) == "cpu":
+        return _cim.cim_matmul_plain(x, wq, wscale, **kw)
+    return _cim.cim_matmul_cuda(x, wq, wscale, **kw)
+
+
+def cim_matmul(x, w, *, weight_bits: int = 8, adc_bits: int = 12,
+               act_bits: int = 8, block_m: int = 128, block_n: int = 256):
+    """Quantise the weights ``w (K, N)``, then the CIM product."""
+    wq, wscale = _cim.quantize_weights(w, bits=weight_bits)
+    return cim_matmul_quantized(x, wq, wscale, block_m=block_m,
+                                block_n=block_n, adc_bits=adc_bits,
+                                act_bits=act_bits)

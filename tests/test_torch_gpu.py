@@ -17,7 +17,10 @@ from repro_torch import models
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.cim_matmul import (cim_matmul_cuda, cim_matmul_plain,
+                                           quantize_weights)
 from repro_torch.kernels.paged_attention import paged_attention_plain
+from repro_torch.kernels.pwl_softmax import agreement, pwl_softmax_plain
 from repro_torch.kernels.ssd_scan import ssd_scan_plain
 
 pytestmark = pytest.mark.gpu
@@ -34,6 +37,13 @@ TOL_SSD = 1e-3
 # |value|, which a dropped or mis-scaled carry between sub-chunks exceeds
 # (see chip_smoke.py TOL_SSD_REL)
 TOL_SSD_REL = 1e-4
+# SCU softmax: the same float32 steps in both versions, sums in another
+# order; held by repro_torch.kernels.pwl_softmax.agreement (float32 within
+# 1e-6; bfloat16 within one step of each value, < 1% of nonzero ones differ)
+# CIM matmul: integer dots (exact) and the same float32 steps in the same
+# order; one flipped ADC code would move an output by ~1/2047 of its tile's
+# swing, far above this bar
+TOL_CIM_REL = 1e-6
 
 
 @pytest.fixture
@@ -134,6 +144,57 @@ def test_ssd_kernel_carries_long_memory(cuda, b, S, H, P, N, dtype):
         assert (got - want).abs().max().item() <= TOL_SSD_REL * want.abs().max().item()
 
 
+@pytest.mark.parametrize("shape,dtype,causal", [
+    ((4, 32, 512, 512), torch.bfloat16, True),    # llama3-8b prefill scores
+    ((256, 512), torch.float32, False),
+    ((300, 1000), torch.float32, False),          # ragged
+    ((4, 128256), torch.float32, False),          # vocab row: three passes
+    ((4096, 128), torch.float32, False),
+    ((128, 513), torch.bfloat16, False),          # decode scores
+    ((128, 513), torch.float32, False),
+    ((37, 5000), torch.float32, False),           # row cached in shared memory
+    ((5, 1025), torch.bfloat16, False),
+    ((7, 1), torch.float32, False),
+    ((3, 7, 8), torch.float32, False)])
+def test_pwl_softmax_kernel_matches_plain(cuda, shape, dtype, causal):
+    x = 4 * _randn(shape, torch.float32, shape[-1], cuda)
+    if causal:
+        q = torch.arange(shape[-2], device=cuda)
+        x = x.masked_fill(q[None, :] > q[:, None], -1e30)
+    x = x.to(dtype)
+    before = ops.LAUNCHES["pwl_softmax"]
+    got = ops.pwl_softmax(x)
+    assert ops.LAUNCHES["pwl_softmax"] == before + 1
+    want = pwl_softmax_plain(x)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == x.shape
+    err, share, ok = agreement(got, want)
+    assert ok, (err, share)
+
+
+@pytest.mark.parametrize("M,K,N,blocks,adc,dtype", [
+    (2048, 4096, 14336, (128, 256), 12, torch.bfloat16),   # llama3-8b up proj
+    (4, 4096, 14336, (128, 256), 12, torch.bfloat16),      # decode, bm 4
+    (2048, 14336, 4096, (128, 256), 12, torch.bfloat16),   # down proj, 56 tiles
+    (64, 512, 128, (64, 128), 12, torch.float32),          # the bench's
+    (128, 1024, 512, (128, 512), 12, torch.float32),       # unblocked
+    (128, 512, 256, (32, 64), 6, torch.float32),           # small tiles
+    (96, 256, 192, (128, 256), 16, torch.bfloat16),        # ragged CTA tiles
+    (64, 768, 130, (16, 26), 8, torch.float32)])           # N % 4 != 0
+def test_cim_kernel_matches_plain(cuda, M, K, N, blocks, adc, dtype):
+    x = _randn((M, K), dtype, M + K, cuda)
+    wq, ws = quantize_weights(0.05 * _randn((K, N), torch.float32, N, cuda))
+    kw = dict(block_m=blocks[0], block_n=blocks[1], adc_bits=adc)
+    before = ops.LAUNCHES["cim_matmul"]
+    got = ops.cim_matmul_quantized(x, wq, ws, **kw)
+    assert ops.LAUNCHES["cim_matmul"] == before + 1
+    want = cim_matmul_plain(x, wq, ws, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    assert bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= TOL_CIM_REL * want.abs().max().item()
+
+
 def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
     q = torch.zeros((1, 8, 2, 48), device=cuda)               # D = 48
     with pytest.raises(ValueError):
@@ -148,6 +209,18 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
         ops.ssd_scan(x, dt, a, B, B, chunk=8)
     with pytest.raises(TypeError):
         ops.ssd_scan(x[..., :32], dt.double(), a, B, B, chunk=8)
+    with pytest.raises(TypeError):
+        ops.pwl_softmax(torch.zeros((4, 8), device=cuda, dtype=torch.float16))
+    xm = torch.zeros((4, 256), device=cuda)
+    wq, ws = quantize_weights(torch.ones((256, 8), device=cuda))
+    with pytest.raises(ValueError):
+        cim_matmul_cuda(xm, wq, ws, act_bits=9)
+    with pytest.raises(ValueError, match="too small"):
+        cim_matmul_cuda(torch.zeros((64, 256), device=cuda),
+                        *quantize_weights(torch.ones((256, 128), device=cuda)),
+                        block_m=1, block_n=1)
+    with pytest.raises(TypeError):
+        ops.cim_matmul_quantized(xm.half(), wq, ws)
 
 
 @pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-2.7b", "zamba2-2.7b"])

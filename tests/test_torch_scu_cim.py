@@ -1,0 +1,287 @@
+"""The port's SCU softmax and CIM matmul (repro_torch.kernels) against the
+JAX package's.
+
+On the CPU each wrapper runs its kernel's plain PyTorch version; it is held
+to the Pallas kernel in interpret mode (``repro.kernels.ops``), to the
+oracles of ``repro.kernels.ref`` and to ``repro.core.scu``, on the same
+numpy inputs.  The CUDA kernels themselves are held to the plain versions
+on the card by tests/test_torch_gpu.py and chip_smoke.py.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import scu
+from repro.kernels import ops as jops
+from repro.kernels import ref
+from repro.kernels.cim_matmul import cim_matmul as jcim_quantized
+from repro.kernels.cim_matmul import quantize_weights as jquantize
+from repro_torch.kernels import ops
+from repro_torch.kernels.cim_matmul import (cim_matmul_cuda, cim_matmul_plain,
+                                            quantize_weights)
+from repro_torch.kernels.pwl_softmax import (F32_ATOL, agreement, pwl_softmax_cuda,
+                                             pwl_softmax_plain)
+
+# softmax: float32 on both sides, the row sum taken in another order, within
+# F32_ATOL; bfloat16 outputs by pwl_softmax.agreement: one bfloat16 step of
+# each value at most, and fewer than 1% of the nonzero ones differ at all
+# CIM: the integer dots are exact and the float32 steps the same; the
+# remainder is float32 ordering in the accumulator (~1e-7 of max |out|).
+# One flipped 12-bit ADC code moves an output by ~1/2047 of its tile's
+# swing, far above this bar.
+CIM_REL = 1e-6
+
+
+def _np(x):
+    return np.array(x, np.float32)
+
+
+def _rows(seed, shape, scale=3.0):
+    rng = np.random.default_rng(seed)
+    return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# SCU softmax
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [1, 8, 512, 1000])
+@pytest.mark.parametrize("rows", [1, 7, 256, 300])
+def test_pwl_softmax_plain_matches_jax(rows, n):
+    x = _rows(rows * 1000 + n, (rows, n))
+    got = pwl_softmax_plain(torch.from_numpy(x)).numpy()
+    for want in (jops.pwl_softmax(jnp.asarray(x)),
+                 ref.ref_pwl_softmax(jnp.asarray(x)),
+                 scu.pwl_softmax(x)):
+        np.testing.assert_allclose(got, _np(want), atol=F32_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("shape", [(7, 512), (300, 1000), (2, 3, 40)])
+def test_pwl_softmax_plain_bf16_within_one_ulp_of_pallas(shape):
+    x = _rows(len(shape), shape)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    got = pwl_softmax_plain(xt)
+    assert got.dtype == torch.bfloat16 and got.shape == xt.shape
+    want = jops.pwl_softmax(jnp.asarray(xt.float().numpy()).astype(jnp.bfloat16))
+    assert want.dtype == jnp.bfloat16
+    # bfloat16 values carried across exactly, through float32
+    err, share, ok = agreement(got, torch.from_numpy(_np(want.astype(jnp.float32)))
+                               .to(torch.bfloat16))
+    assert ok, (err, share)
+
+
+def test_softmax_agreement_catches_truncation_and_two_step_errors():
+    f = pwl_softmax_plain(torch.from_numpy(_rows(9, (64, 1000), scale=4.0)))
+    want = f.to(torch.bfloat16)                            # nearest even
+    truncated = (f.view(torch.int32) & ~0xFFFF).view(torch.float32).to(torch.bfloat16)
+    assert agreement(want, want) == (0.0, 0.0, True)
+    assert not agreement(truncated, want)[2]               # one step, in ~half
+    one, two = want.clone(), want.clone()
+    i = int(torch.argmax(want.float()))
+    one.view(-1).view(torch.int16)[i] += 1
+    two.view(-1).view(torch.int16)[i] += 2
+    assert agreement(one, want)[2] and not agreement(two, want)[2]
+    assert agreement(f + 0.5 * F32_ATOL, f)[2] and not agreement(f + 2 * F32_ATOL, f)[2]
+    assert not agreement(torch.full_like(f, float("nan")), f)[2]
+
+
+def test_pwl_softmax_plain_3d_and_causal_mask_match_jax():
+    x = _rows(5, (2, 3, 64, 64))
+    q = np.arange(64)
+    x = np.where(q[None, :] > q[:, None], np.float32(-1e30), x).astype(np.float32)
+    got = pwl_softmax_plain(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, _np(jops.pwl_softmax(jnp.asarray(x))),
+                               atol=F32_ATOL, rtol=0)
+    assert not got[..., 0, 1:].any()              # masked keys get exactly 0
+    np.testing.assert_allclose(got.sum(-1), 1.0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# CIM matmul
+# ---------------------------------------------------------------------------
+
+def _cim_inputs(seed, M, K, N, w_scale=0.05):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    w = (w_scale * rng.standard_normal((K, N))).astype(np.float32)
+    return x, w
+
+
+def _assert_cim_close(got, want):
+    want = _np(want)
+    assert got.shape == want.shape and got.dtype == np.float32
+    assert np.abs(got - want).max() <= CIM_REL * np.abs(want).max()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_weights_bit_equal_to_jax(dtype):
+    _, w = _cim_inputs(1, 1, 768, 96, w_scale=0.2)
+    wt = torch.from_numpy(w)
+    wj = jnp.asarray(w)
+    if dtype == "bfloat16":
+        wt, wj = wt.to(torch.bfloat16), wj.astype(jnp.bfloat16)
+    wq, scale = quantize_weights(wt)
+    jwq, jscale = jquantize(wj)
+    assert wq.dtype == torch.int8 and scale.dtype == torch.float32
+    assert np.array_equal(wq.numpy(), np.asarray(jwq))
+    assert scale.numpy().tobytes() == np.asarray(jscale, np.float32).tobytes()
+
+
+@pytest.mark.parametrize("M,K,N,block_m,block_n", [
+    (64, 256, 128, 64, 128),      # one tile per K step
+    (128, 512, 256, 128, 256),    # the defaults
+    (64, 1024, 128, 32, 64),      # 2 x 2 calibration tiles, 4 K steps
+    (128, 512, 256, 64, 128),
+    (96, 512, 192, 128, 256),     # blocks clipped to (M, N)
+])
+def test_cim_plain_matches_pallas_interpret(M, K, N, block_m, block_n):
+    x, w = _cim_inputs(M + K + N, M, K, N)
+    kw = dict(block_m=block_m, block_n=block_n)
+    got = ops.cim_matmul(torch.from_numpy(x), torch.from_numpy(w), **kw).numpy()
+    _assert_cim_close(got, jops.cim_matmul(jnp.asarray(x), jnp.asarray(w), **kw))
+
+
+@pytest.mark.parametrize("adc_bits", [6, 8, 10, 12, 14, 16])
+def test_cim_plain_matches_pallas_across_adc_bits(adc_bits):
+    x, w = _cim_inputs(adc_bits, 64, 512, 128)
+    kw = dict(block_m=32, block_n=64, adc_bits=adc_bits)
+    got = ops.cim_matmul(torch.from_numpy(x), torch.from_numpy(w), **kw).numpy()
+    _assert_cim_close(got, jops.cim_matmul(jnp.asarray(x), jnp.asarray(w), **kw))
+
+
+def test_cim_plain_unblocked_matches_oracle():
+    x, w = _cim_inputs(7, 64, 768, 96)
+    wq, ws = jquantize(jnp.asarray(w))
+    got = cim_matmul_plain(torch.from_numpy(x), torch.from_numpy(np.array(wq)),
+                           torch.from_numpy(_np(ws)), block_m=64, block_n=96).numpy()
+    _assert_cim_close(got, ref.ref_cim_matmul(jnp.asarray(x), wq, ws))
+
+
+@pytest.mark.parametrize("act_bits,adc_bits", [(8, 12), (6, 10), (4, 8)])
+def test_cim_quantized_takes_jax_quantized_weights(act_bits, adc_bits):
+    x, w = _cim_inputs(act_bits, 64, 512, 128)
+    wq, ws = jquantize(jnp.asarray(w))
+    kw = dict(block_m=64, block_n=64, adc_bits=adc_bits, act_bits=act_bits)
+    got = ops.cim_matmul_quantized(torch.from_numpy(x), torch.from_numpy(np.array(wq)),
+                                   torch.from_numpy(_np(ws)), **kw).numpy()
+    _assert_cim_close(got, jcim_quantized(jnp.asarray(x), wq, ws, interpret=True, **kw))
+
+
+def _numpy_cim(x, wq, ws, bm, bn, adc_bits=12, act_bits=8):
+    """``_cim_kernel`` transcribed in numpy float32, tile by tile, with
+    IEEE division (XLA on the CPU divides by multiplying by a reciprocal,
+    ROADMAP hazard 8)."""
+    f = np.float32
+    M, K = x.shape
+    N = wq.shape[1]
+    qa, am = f(2.0 ** (act_bits - 1) - 1), f(2.0 ** (adc_bits - 1) - 1)
+    out = np.zeros((M, N), f)
+    for k in range(0, K, 256):
+        xk = x[:, k:k + 256].astype(f)
+        xs = (np.abs(xk).max(1, keepdims=True) + f(1e-9)) / qa
+        psum = np.clip(np.round(xk / xs), -qa, qa) @ wq[k:k + 256].astype(f)
+        for i in range(0, M, bm):
+            for j in range(0, N, bn):
+                p = psum[i:i + bm, j:j + bn]
+                cal = max(np.abs(p).max(), f(1))
+                code = np.clip(np.round(p / cal * am), -am, am)
+                out[i:i + bm, j:j + bn] += code * (cal / am) * xs[i:i + bm] * ws[k // 256, j:j + bn]
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cim_plain_matches_ieee_numpy_transcription(dtype):
+    """bfloat16 activations put x / xs on exact rounding ties (x = max / 2
+    gives 63.5 - 1e-9 relative), where the last bit of the division decides
+    the DAC code; the port divides as IEEE float32, as the transcription."""
+    x, w = _cim_inputs(3, 64, 512, 128)
+    xt = torch.from_numpy(x).to(dtype)
+    wq, ws = quantize_weights(torch.from_numpy(w))
+    for adc in (8, 12):
+        got = cim_matmul_plain(xt, wq, ws, block_m=32, block_n=64, adc_bits=adc).numpy()
+        _assert_cim_close(got, _numpy_cim(xt.float().numpy(), wq.numpy(), ws.numpy(),
+                                          32, 64, adc_bits=adc))
+
+
+@pytest.mark.parametrize("M,K,N,block_m", [(64, 300, 128, 64),    # K % 256
+                                           (96, 256, 128, 64)])   # M % bm
+def test_cim_asserts_as_jax(M, K, N, block_m):
+    x = np.zeros((M, K), np.float32)
+    wq = np.zeros((K, N), np.int8)
+    ws = np.ones((max(K // 256, 1), N), np.float32)
+    with pytest.raises(AssertionError):
+        jcim_quantized(jnp.asarray(x), jnp.asarray(wq), jnp.asarray(ws),
+                       block_m=block_m, interpret=True)
+    with pytest.raises(AssertionError):
+        cim_matmul_plain(torch.from_numpy(x), torch.from_numpy(wq),
+                         torch.from_numpy(ws), block_m=block_m)
+
+
+# ---------------------------------------------------------------------------
+# the slice: what benchmarks/run.py's ablations compute, through both
+# packages' kernel surfaces
+# ---------------------------------------------------------------------------
+
+def test_adc_sweep_and_pwl_agreement_match_jax():
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((64, 1024)).astype(np.float32)
+    w = (0.03 * rng.standard_normal((1024, 256))).astype(np.float32)
+    exact = x @ w
+    rels = []
+    for adc in (6, 8, 10, 12, 14):
+        kw = dict(adc_bits=adc, block_m=64, block_n=256)
+        got = ops.cim_matmul(torch.from_numpy(x), torch.from_numpy(w), **kw).numpy()
+        want = _np(jops.cim_matmul(jnp.asarray(x), jnp.asarray(w), **kw))
+        rel = np.linalg.norm(got - exact) / np.linalg.norm(exact)
+        assert rel == pytest.approx(np.linalg.norm(want - exact) / np.linalg.norm(exact),
+                                    rel=1e-5)
+        rels.append(rel)
+    assert all(np.isfinite(rels)) and rels == sorted(rels, reverse=True)
+    s = (4 * rng.standard_normal((1024, 128))).astype(np.float32)
+    got = pwl_softmax_plain(torch.from_numpy(s)).numpy()
+    want = _np(jops.pwl_softmax(jnp.asarray(s)))
+    exact_sm = torch.softmax(torch.from_numpy(s), -1).numpy()
+    assert np.array_equal(got.argmax(-1), want.argmax(-1))
+    agree = (got.argmax(-1) == exact_sm.argmax(-1)).mean()
+    assert agree == (want.argmax(-1) == exact_sm.argmax(-1)).mean() and agree > 0.9
+    assert np.abs(got - exact_sm).max() == pytest.approx(np.abs(want - exact_sm).max(),
+                                                          abs=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# dispatch
+# ---------------------------------------------------------------------------
+
+def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
+    ops.reset_launch_counts()
+    s = torch.from_numpy(_rows(1, (9, 70)))
+    assert torch.equal(ops.pwl_softmax(s), pwl_softmax_plain(s))
+    x, w = (torch.from_numpy(a) for a in _cim_inputs(2, 32, 256, 64))
+    wq, ws = quantize_weights(w)
+    assert torch.equal(ops.cim_matmul(x, w), cim_matmul_plain(x, wq, ws))
+    assert torch.equal(ops.cim_matmul_quantized(x, wq, ws, adc_bits=8),
+                       cim_matmul_plain(x, wq, ws, adc_bits=8))
+    assert ops.LAUNCHES == {"flash_attention": 0, "paged_attention": 0,
+                            "ssd_scan": 0, "pwl_softmax": 0, "cim_matmul": 0}
+
+
+def test_other_devices_and_unsupported_kernel_args_raise():
+    meta = torch.zeros((4, 256), device="meta")
+    with pytest.raises(ValueError):
+        ops.pwl_softmax(meta)
+    with pytest.raises(ValueError):
+        ops.cim_matmul_quantized(meta, torch.zeros((256, 8), dtype=torch.int8, device="meta"),
+                                 torch.ones((1, 8), device="meta"))
+    with pytest.raises(ValueError):
+        pwl_softmax_cuda(torch.zeros((4, 8)))
+    x = torch.zeros((4, 256))
+    wq, ws = quantize_weights(torch.ones((256, 8)))
+    with pytest.raises(ValueError, match="CUDA"):
+        cim_matmul_cuda(x, wq, ws)
+    with pytest.raises(ValueError, match="act_bits"):
+        cim_matmul_cuda(x, wq, ws, act_bits=9)
+    with pytest.raises(TypeError):
+        cim_matmul_cuda(x.double(), wq, ws)
+    # the plain version follows JAX for act_bits > 8
+    assert torch.isfinite(ops.cim_matmul_quantized(x + 1, wq, ws, act_bits=12)).all()
