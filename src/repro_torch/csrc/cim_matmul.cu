@@ -144,30 +144,6 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Four 8 x 8 matrices of b16 from shared memory, one row address a lane.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-// 16 bytes global -> shared, asynchronously; zeros where !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most one committed group is still in flight
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
 // Output tile (blockIdx.x * 64, blockIdx.y * 128).  kFinal false: max|psum|
 // per (calibration tile, K tile) into cal (zeroed by the caller).  kFinal
 // true: the ADC with those maxima and the accumulation, written to out.
@@ -239,7 +215,7 @@ cim_dot_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ wqt,
     // the other stage was released by the last iteration's closing barrier
     if (ki + 1 < kt) load_tile(ki + 1, smem + ((ki + 1) & 1) * kStageBytes);
     cp_async_commit();
-    cp_async_wait_one();
+    cp_async_wait<1>();
     if (kFinal) {
       for (int r = tid; r < kBM; r += kThreads) {
         xs_s[r] = m0 + r < M ? xs[int64_t(m0 + r) * kt + ki] : 0.f;

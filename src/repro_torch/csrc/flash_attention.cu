@@ -1,31 +1,70 @@
-// Prefill (flash) attention forward for Hopper (sm_90a), float32 inside.
+// Prefill (flash) attention forward for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py
 // (flash_attention -> _flash_kernel) and the GQA repeat/padding of its
-// wrapper repro/kernels/ops.py:flash_attention.
+// wrapper repro/kernels/ops.py:flash_attention.  Both paths below compute
+// one function: scale D^-0.5; an online softmax over KV steps of exactly
+// 128 keys, [0,128), [128,256), ..., as the Pallas kernel steps (PWL exp is
+// not multiplicative, so the step is part of the PWL result); a row skips a
+// step in which it sees no key; keys masked at their true length Skv (no
+// padding); the causal loop stops at the diagonal step; the KV head is
+// h / (Hq / Hkv) (no repeat in memory); D = 32, 64, 80 or 128 (80 is
+// zamba2's shared attention).
 //
 // What bounds it on an H100: at prefill shapes (S = 512, D = 128) the
-// causal work is ~2 * S * D FLOPs per byte of q/k/v/o, far above the
-// card's ~295 FLOP/byte balance point, so it is bound by operations.  This
-// first version computes both products with float32 FMAs on the SIMT cores
-// (67 TFLOP/s peak), not on the tensor cores; wgmma, TMA and warp
-// specialisation are later work.
+// causal work is ~2 * S * D FLOPs per byte of q/k/v/o, far above the card's
+// ~295 FLOP/byte balance point for bf16, so it is bound by operations: on
+// the tensor cores (989 TFLOP/s), not on the SIMT cores (67 TFLOP/s).
 //
-// Design: one CTA of 256 threads per (batch * q-head, 64-row q tile).  The
+// bfloat16 (flash_fwd_mma_kernel), in the FlashAttention-2 shape:
+// - Tiles of (batch * q-head, 128-row q tile), the longest causal tiles
+//   first, each to one CTA of 8 warps; each warp owns 16 q rows, so a row's
+//   max and sum are reduced over the 4 lanes of a quad, without shared
+//   memory.  Persistent: one CTA per SM walks every gridDim-th tile and
+//   loads the next tile's Q and first K/V during its current tile's last
+//   step, so a tile's start does not wait on memory.
+// - Q is loaded once per tile into registers as mma A-fragments
+//   (ldmatrix), not pre-scaled in bf16: the scale (times log2 e for the
+//   exact path's ex2.approx) is applied to the float32 scores.
+// - K and V tiles of 128 keys are staged as bf16 in shared memory with
+//   16-byte cp.async copies, rows padded by 16 bytes so ldmatrix is free of
+//   bank conflicts.  Both are double-buffered: step j+1's K and V are in
+//   flight while step j computes, and one barrier a step both publishes a
+//   step's tiles and frees the stage the step before read.  Shared memory
+//   is 5 tiles (K and V twice, the next tile's Q): 174,080 bytes at D 128,
+//   so one CTA fits per SM, not two; the ~200-255 registers of a thread
+//   hold one CTA of 8 warps per SM anyway.
+// - S = Q K^T by mma.sync m16n8k16 bf16 -> f32; the mask, the row max, p
+//   (ex2.approx, or common.cuh's pwl_exp) and the alpha rescale stay in
+//   registers.  Only a step that holds the causal diagonal or keys past Skv
+//   masks; there a warp also skips the key tiles past its last row.  The
+//   other steps run without a branch.
+// - P V: the m16n8k16 accumulator layout is the A-fragment layout of the
+//   next product, so P goes to bf16 in registers, with no trip through
+//   shared memory; V is the B operand by ldmatrix.trans.  P is split into
+//   two bf16 terms, p = hi + lo with hi = bf16(p), and both are multiplied
+//   (three products per key step instead of two): a single bf16 P rounds
+//   each term by up to 2^-9, which on an output near 0 by cancellation is
+//   an absolute error of ~2^-9 * sum_j |p_j v_j| / l, several times the
+//   2^-12 floor of kernels/flash_attention.agreement.  With the split, P is
+//   kept to ~2^-17 and the output rounds once, to bf16, as the plain
+//   version rounds it.
+// - The denominator l is the sum of the float32 p, a per-lane partial sum
+//   reduced over the quad at the end.
+// - Epilogue: O * (1 / max(l, 1e-30)) -> bf16, staged per warp in shared
+//   memory and written with 16-byte stores.
+//
+// float32 (flash_fwd_kernel): the SIMT body of the port's first version,
+// float32 FMAs throughout, kept so the float32 card-vs-CPU parity checks see
+// no TF32.  One CTA of 256 threads per (batch * q-head, 64-row q tile); the
 // q tile (pre-scaled by D^-0.5, as the Pallas kernel does) stays in shared
 // memory; K and then V tiles of 128 keys are staged one after the other in
-// one shared buffer, so every K/V row is read from device memory once per
-// q tile.  Each thread owns a 4 x 8 block of the 64 x 128 score tile and a
-// 4 x D/16 block of the output accumulator, in registers (D = 32, 64, 80
-// or 128: a multiple of 16; 80 is zamba2's shared attention).  Rows of shared
-// memory are padded by one float so the column walks are free of bank
-// conflicts.  The KV head is h / (Hq / Hkv) (no repeat in memory); keys
-// are masked at their true length Skv (no padding); the causal loop stops
-// at the diagonal tile.  The online softmax steps over keys [0,128),
-// [128,256), ... exactly as the Pallas kernel does, which the PWL variant
-// needs: PWL exp is not multiplicative, so the step is part of its result.
+// one shared buffer.  Each thread owns a 4 x 8 block of the 64 x 128 score
+// tile and a 4 x D/16 block of the output accumulator, in registers.  Rows
+// of shared memory are padded by one float against bank conflicts.
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -207,20 +246,327 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
+// ---- bfloat16: tensor cores -------------------------------------------
+constexpr int kMmaBQ = 128;                // q rows per CTA, 16 per warp
+constexpr int kMmaWarps = kMmaBQ / 16;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+constexpr int kMmaStride = D + 8;  // bf16 per shared row: a 16-byte pad
+
+template <int D>
+constexpr size_t mma_smem_bytes() {
+  return 5 * size_t(kBK) * kMmaStride<D> * sizeof(__nv_bfloat16);
+}
+
+// rows [row0, row0 + 128) of a bf16 matrix with row_stride elements between
+// rows into a padded shared tile, 16 bytes a copy; zeros past n_valid
+template <int D>
+__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                                int row0, int64_t row_stride, int n_valid) {
+  constexpr int kChunks = D / 8;
+  for (int c = threadIdx.x; c < kBK * kChunks; c += kMmaThreads) {
+    const int r = c / kChunks, col = (c % kChunks) * 8;
+    const bool ok = row0 + r < n_valid;
+    cp_async16(dst + r * kMmaStride<D> + col,
+               ok ? src + int64_t(row0 + r) * row_stride + col : src, ok);
+  }
+}
+
+// 2^x by the SFU's approximation (relative error ~2^-22), subnormals to 0
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (x0, x1) as bf16x2 (x0 in the low half), and in lo the residuals
+// x - bf16(x), rounded to bf16 (the subtraction is exact)
+__device__ __forceinline__ uint32_t split_bf16x2(float x0, float x1, uint32_t& lo) {
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(hi);
+  const __nv_bfloat162 rest = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  lo = *reinterpret_cast<const uint32_t*>(&rest);
+  return *reinterpret_cast<const uint32_t*>(&hi);
+}
+
+template <int D, bool kPwl>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+                     int B, int Sq, int Skv, int Hq, int Hkv, int causal, float scale,
+                     PwlCoeffs pwl) {
+  constexpr int kS = kMmaStride<D>;
+  constexpr int kTile = kBK * kS;  // elements of one staged tile
+  constexpr int kKC = D / 16;      // k16 chunks of Q K^T = pairs of n8 d-tiles of P V
+  constexpr int kNT = kBK / 8;     // n8 key tiles of a step
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // Q of the next tile
+  __nv_bfloat16* Ks = Qs + kTile;                                   // 2 stages of K
+  __nv_bfloat16* Vs = Ks + 2 * kTile;                               // 2 stages of V
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;   // mma fragment row group, column pair
+  const int mi = lane / 8, mr = lane % 8;  // ldmatrix: the matrix and row this lane addresses
+  const int n_qt = (Sq + kMmaBQ - 1) / kMmaBQ, n_bh = B * Hq, n_tiles = n_qt * n_bh;
+  const int64_t q_stride = int64_t(Hq) * D, kv_stride = int64_t(Hkv) * D;
+  // Tile t: rows [q0, q0 + 128) of (batch, q-head) t % n_bh, the longest
+  // causal tiles first; the CTA takes tiles blockIdx.x, + gridDim.x, ...
+  auto q0_of = [&](int t) { return (n_qt - 1 - t / n_bh) * kMmaBQ; };
+  auto q_off = [&](int t) {  // of q and out: (b, 0, h, 0)
+    const int bh = t % n_bh;
+    return (int64_t(bh / Hq) * Sq * Hq + bh % Hq) * D;
+  };
+  auto kv_off = [&](int t) {  // of k and v: (b, 0, h / (Hq / Hkv), 0)
+    const int bh = t % n_bh;
+    return (int64_t(bh / Hq) * Skv * Hkv + (bh % Hq) / (Hq / Hkv)) * D;
+  };
+
+  uint32_t qf[kKC][4];
+  float o[2 * kKC][4];
+  float m_run[2], l_run[2];  // rows g and g + 8: unscaled max, this lane's share of l
+  int row_w = 0;             // the warp's first q row in the tile
+  const float scale_log2 = scale * kLog2e;
+
+  // One online-softmax step over keys [k0, k0 + 128) from stage st.
+  // kMasked: the step holds keys past Skv or past a row of this warp (the
+  // causal diagonal); there the warp skips the key tiles it cannot see and
+  // masks the rest; every other step runs without a branch.
+  auto run_step = [&](auto masked, int k0, int st) {
+    constexpr bool kMasked = decltype(masked)::value;
+    const int n_keys = kMasked && causal ? max(0, min(kBK, row_w + 16 - k0)) : kBK;
+    float s[kNT][4];
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    const __nv_bfloat16* krow = Ks + st * kTile + ((mi >> 1) * 8 + mr) * kS + (mi & 1) * 8;
+#pragma unroll
+    for (int kc = 0; kc < kKC; ++kc) {
+#pragma unroll
+      for (int np = 0; np < kNT / 2; ++np) {
+        if (!kMasked || 16 * np < n_keys) {
+          uint32_t r[4];
+          ldsm_x4(r, krow + np * 16 * kS + kc * 16);
+          mma_bf16(s[2 * np], qf[kc], r[0], r[1]);
+          mma_bf16(s[2 * np + 1], qf[kc], r[2], r[3]);
+        }
+      }
+    }
+    if constexpr (kMasked) {
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = row_w + g + (e >> 1) * 8;
+          const int key = k0 + nt * 8 + 2 * t4 + (e & 1);
+          if (!(key < Skv && (!causal || row >= key))) s[nt][e] = -INFINITY;
+        }
+    }
+
+    // online softmax of rows g and g + 8, in registers
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
+    }
+    float alpha[2], m_sub[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const bool seen = mx[r] > -INFINITY;
+      const float m_new = seen ? fmaxf(m_run[r], mx[r]) : m_run[r];
+      if constexpr (kPwl) {
+        alpha[r] = seen ? pwl_exp(__fsub_rn(__fmul_rn(m_run[r], scale),
+                                            __fmul_rn(m_new, scale)), pwl)
+                        : 1.f;
+      } else {
+        alpha[r] = seen ? ex2_approx((m_run[r] - m_new) * scale_log2) : 1.f;
+      }
+      m_run[r] = m_new;
+      // a row that has seen no key yet subtracts 0: its p are exp(-inf) = 0
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      m_sub[r] = kPwl ? __fmul_rn(m_use, scale) : m_use * scale_log2;
+    }
+    float rowsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p;
+        if constexpr (kPwl) {
+          p = pwl_exp(__fsub_rn(__fmul_rn(s[nt][e], scale), m_sub[e >> 1]), pwl);
+        } else {
+          p = ex2_approx(fmaf(s[nt][e], scale_log2, -m_sub[e >> 1]));
+        }
+        s[nt][e] = p;
+        rowsum[e >> 1] += p;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rowsum[r];
+#pragma unroll
+    for (int dt = 0; dt < 2 * kKC; ++dt) {
+      o[dt][0] *= alpha[0];
+      o[dt][1] *= alpha[0];
+      o[dt][2] *= alpha[1];
+      o[dt][3] *= alpha[1];
+    }
+
+    // O += P V, P as hi + lo bf16 A-fragments straight from the score registers
+    const __nv_bfloat16* vrow = Vs + st * kTile + ((mi & 1) * 8 + mr) * kS + (mi >> 1) * 8;
+#pragma unroll
+    for (int kc = 0; kc < kBK / 16; ++kc) {
+      if (!kMasked || 16 * kc < n_keys) {
+        uint32_t a_hi[4], a_lo[4];
+        a_hi[0] = split_bf16x2(s[2 * kc][0], s[2 * kc][1], a_lo[0]);
+        a_hi[1] = split_bf16x2(s[2 * kc][2], s[2 * kc][3], a_lo[1]);
+        a_hi[2] = split_bf16x2(s[2 * kc + 1][0], s[2 * kc + 1][1], a_lo[2]);
+        a_hi[3] = split_bf16x2(s[2 * kc + 1][2], s[2 * kc + 1][3], a_lo[3]);
+#pragma unroll
+        for (int dp = 0; dp < kKC; ++dp) {
+          uint32_t r[4];
+          ldsm_x4_trans(r, vrow + kc * 16 * kS + dp * 16);
+          mma_bf16(o[2 * dp], a_hi, r[0], r[1]);
+          mma_bf16(o[2 * dp + 1], a_hi, r[2], r[3]);
+          mma_bf16(o[2 * dp], a_lo, r[0], r[1]);
+          mma_bf16(o[2 * dp + 1], a_lo, r[2], r[3]);
+        }
+      }
+    }
+  };
+
+  int t = blockIdx.x;
+  if (t >= n_tiles) return;
+  load_tile_async<D>(Qs, q + q_off(t), q0_of(t), q_stride, Sq);
+  load_tile_async<D>(Ks, k + kv_off(t), 0, kv_stride, Skv);
+  load_tile_async<D>(Vs, v + kv_off(t), 0, kv_stride, Skv);
+  cp_async_commit();
+  int gs = 0;  // steps taken by the CTA: their stage alternates
+  for (; t < n_tiles; t += gridDim.x) {
+    const int q0 = q0_of(t), t_next = t + gridDim.x;
+    const int64_t kvo = kv_off(t);
+    int n_steps = (Skv + kBK - 1) / kBK;
+    if (causal) n_steps = min(n_steps, (min(q0 + kMmaBQ, Sq) - 1) / kBK + 1);
+    row_w = q0 + warp * 16;
+    cp_async_wait<0>();  // Q and step 0's K and V of this tile
+    __syncthreads();
+    {
+      const __nv_bfloat16* qrow = Qs + (warp * 16 + (mi & 1) * 8 + mr) * kS + (mi >> 1) * 8;
+#pragma unroll
+      for (int kc = 0; kc < kKC; ++kc) ldsm_x4(qf[kc], qrow + kc * 16);
+    }
+#pragma unroll
+    for (int dt = 0; dt < 2 * kKC; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+    m_run[0] = m_run[1] = -INFINITY;
+    l_run[0] = l_run[1] = 0.f;
+
+    // One barrier a step: it publishes the step's K and V to every warp
+    // and frees the other stage (read by the step before) for the copies
+    // of the next step, or of the next tile's Q and first step after the
+    // last, which run while this step computes.
+    for (int step = 0; step < n_steps; ++step) {
+      const int k0 = step * kBK, st = gs & 1;
+      if (step > 0) cp_async_wait<0>();
+      __syncthreads();  // step 0: every warp holds its Q fragments, Qs is free
+      if (step + 1 < n_steps) {
+        load_tile_async<D>(Ks + (st ^ 1) * kTile, k + kvo, k0 + kBK, kv_stride, Skv);
+        load_tile_async<D>(Vs + (st ^ 1) * kTile, v + kvo, k0 + kBK, kv_stride, Skv);
+      } else if (t_next < n_tiles) {
+        load_tile_async<D>(Qs, q + q_off(t_next), q0_of(t_next), q_stride, Sq);
+        load_tile_async<D>(Ks + (st ^ 1) * kTile, k + kv_off(t_next), 0, kv_stride, Skv);
+        load_tile_async<D>(Vs + (st ^ 1) * kTile, v + kv_off(t_next), 0, kv_stride, Skv);
+      }
+      cp_async_commit();
+      if (k0 + kBK > Skv || (causal && k0 + kBK - 1 > row_w)) {
+        run_step(std::true_type{}, k0, st);
+      } else {
+        run_step(std::false_type{}, k0, st);
+      }
+      ++gs;
+    }
+
+    // O * (1 / max(l, 1e-30)) -> bf16, staged in the warp's 16 rows of the
+    // K tile the last step read (no copy is headed there) for 16-byte stores
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+      l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+      inv[r] = __frcp_rn(fmaxf(l_run[r], 1e-30f));
+    }
+    __syncthreads();  // every warp is done with that K tile
+    __nv_bfloat16* os = Ks + ((gs - 1) & 1) * kTile + warp * 16 * kS;
+#pragma unroll
+    for (int dt = 0; dt < 2 * kKC; ++dt) {
+      const int col = dt * 8 + 2 * t4;
+      *reinterpret_cast<__nv_bfloat162*>(os + g * kS + col) =
+          __floats2bfloat162_rn(o[dt][0] * inv[0], o[dt][1] * inv[0]);
+      *reinterpret_cast<__nv_bfloat162*>(os + (g + 8) * kS + col) =
+          __floats2bfloat162_rn(o[dt][2] * inv[1], o[dt][3] * inv[1]);
+    }
+    __syncwarp();
+    __nv_bfloat16* ob = out + q_off(t);
+    constexpr int kChunks = D / 8;
+    for (int c = lane; c < 16 * kChunks; c += 32) {
+      const int r = c / kChunks, col = (c % kChunks) * 8;
+      if (row_w + r < Sq) {
+        *reinterpret_cast<int4*>(ob + int64_t(row_w + r) * q_stride + col) =
+            *reinterpret_cast<const int4*>(os + r * kS + col);
+      }
+    }
+  }
+}
+
+template <int D, bool kPwl>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, int B, int Sq,
+                       int Skv, int Hq, int Hkv, int causal, const PwlCoeffs& pwl,
+                       cudaStream_t stream) {
+  constexpr size_t smem = mma_smem_bytes<D>();
+  auto kernel = flash_fwd_mma_kernel<D, kPwl>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  int dev = 0, n_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  // persistent: one CTA per SM (its registers allow no more), each walking tiles
+  const int n_tiles = B * Hq * ((Sq + kMmaBQ - 1) / kMmaBQ);
+  using bf16 = __nv_bfloat16;
+  kernel<<<n_tiles < n_sm ? n_tiles : n_sm, kMmaThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), B, Sq, Skv, Hq, Hkv, causal, float(pow(double(D), -0.5)), pwl);
+  return cudaGetLastError();
+}
+
 template <typename T, int D, bool kPwl>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int Sq,
                    int Skv, int Hq, int Hkv, int causal, const PwlCoeffs& pwl,
                    cudaStream_t stream) {
-  constexpr size_t smem = flash_smem_bytes<D>();
-  auto kernel = flash_fwd_kernel<T, D, kPwl>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(B * Hq, (Sq + kBQ - 1) / kBQ);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), Sq, Skv, Hq, Hkv, causal, float(pow(double(D), -0.5)), pwl);
-  return cudaGetLastError();
+  if constexpr (!std::is_same_v<T, float>) {
+    return launch_mma<D, kPwl>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, pwl, stream);
+  } else {
+    constexpr size_t smem = flash_smem_bytes<D>();
+    auto kernel = flash_fwd_kernel<T, D, kPwl>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err != cudaSuccess) return err;
+    const dim3 grid(B * Hq, (Sq + kBQ - 1) / kBQ);
+    kernel<<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(out), Sq, Skv, Hq, Hkv, causal, float(pow(double(D), -0.5)), pwl);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T, bool kPwl>

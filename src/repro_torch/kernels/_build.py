@@ -28,7 +28,7 @@ SIGNATURES = {
     "flash_attention": ("flash_attention_fwd",
                         [_VOID_P] * 4 + [_INT] * 9 + [_VOID_P, _VOID_P]),
     "paged_attention": ("paged_attention_fwd",
-                        [_VOID_P] * 6 + [_INT] * 8 + [_VOID_P, _VOID_P]),
+                        [_VOID_P] * 7 + [_INT] * 10 + [_VOID_P, _VOID_P]),
     "ssd_scan": ("ssd_scan_fwd", [_VOID_P] * 7 + [_INT] * 6 + [_VOID_P]),
     "pwl_softmax": ("pwl_softmax_fwd", [_VOID_P] * 2 + [_INT] * 3 + [_VOID_P, _VOID_P]),
     "cim_matmul": ("cim_matmul_fwd", [_VOID_P] * 8 + [_INT] * 8 + [_VOID_P]),
@@ -98,6 +98,13 @@ def library(name: str) -> ctypes.CDLL:
         fn.restype = _INT
         _LIBS[name] = lib
     return lib
+
+
+def aligned(t):
+    """``t`` contiguous, starting on a 16-byte boundary, for kernels that
+    copy rows 16 bytes at a time (a fresh allocation is aligned)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def check(err: int, name: str) -> None:

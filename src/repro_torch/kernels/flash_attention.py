@@ -5,12 +5,20 @@ Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 (``flash_attention`` / ``_flash_kernel``) together with its GQA/padding
 wrapper ``repro/kernels/ops.py:flash_attention``.  Same function:
 attention forward over ``(B, S, H, D)`` with scale ``D**-0.5`` and an
-online softmax over KV steps of 128 keys, in float32 inside, output in
-q's dtype; ``use_pwl`` swaps exp for the SCU's PWL exp.  Two departures
-from the wrapper, both fixes of its layout and not of the function: the
-KV head is indexed as ``h // (Hq // Hkv)`` instead of repeating K/V in
-memory, and keys are masked at their true length instead of zero-padded
-and left to the causal mask.
+online softmax over KV steps of 128 keys, output in q's dtype; ``use_pwl``
+swaps exp for the SCU's PWL exp.  Two departures from the wrapper, both
+fixes of its layout and not of the function: the KV head is indexed as
+``h // (Hq // Hkv)`` instead of repeating K/V in memory, and keys are
+masked at their true length instead of zero-padded and left to the causal
+mask.
+
+The plain version computes in float32 throughout.  The kernel does so for
+float32 inputs (SIMT FMAs, no TF32); for bfloat16 inputs it multiplies on
+the tensor cores: Q K^T of the bf16 inputs accumulated in float32, the
+scale applied to the float32 scores, and P V with P split into two bf16
+terms (``hi + lo``, ~2^-17 of p) against bf16 V, so the two agree to the
+float32 summation order before the output is rounded to bf16.
+``agreement`` states how far they may lie apart.
 
 In PWL mode the result depends on how the keys are cut into online-softmax
 steps (PWL exp is not multiplicative), so both versions step over keys
@@ -31,6 +39,28 @@ NEG_INF = -1e30
 KV_STEP = 128
 HEAD_DIMS = (32, 64, 80, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# How far the kernel's output may lie from the plain version's on the same
+# inputs.  float32: within F32_ATOL, sums of <= 128 terms of order 1 in
+# another order.  bfloat16: each element within BF16_REL * |want| +
+# BF16_FLOOR: two bf16 steps of the value (both round a float32 result to
+# bf16 once, and the float32 results differ by the summation order and
+# the lo term of P, far below a step), and a floor for outputs near 0.  A
+# single bf16 P would not meet it: it rounds each term of sum_j p_j v_j by
+# up to 2^-9, an absolute error of ~2^-9 * sum_j |p_j v_j| / l on an output
+# that cancels to near 0 (tests/test_torch_kernels.py shows it fail).
+# bfloat16 with PWL exp: the SCU's PWL exp jumps at its segment edges (by
+# 0.0245 at x = -1), so a score within rounding of an edge takes the
+# neighbouring segment in one version and not in the other, whatever the
+# two compute in; that moves a whole output row.  There the per-element
+# bound may fail in at most PWL_ROWS_OFF of the rows (the vectors over the
+# last dim), and by at most BF16_PWL_ATOL each; a fault of the kernel moves
+# far more rows.
+F32_ATOL = 2e-5
+BF16_REL = 2.0 ** -7
+BF16_FLOOR = 2.0 ** -12
+PWL_ROWS_OFF = 1e-3
+BF16_PWL_ATOL = 2.0 ** -6
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
@@ -72,6 +102,33 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D).to(q.dtype)
 
 
+def agreement(got: torch.Tensor, want: torch.Tensor, *, pwl: bool = False):
+    """``(max |got - want|, max of |got - want| / its bound, share of the
+    rows holding an element past its bound, ok)`` for two attention outputs
+    of one shape and dtype, under the rule above (``pwl``: computed with the
+    PWL exp)."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise ValueError(f"compare like with like: {got.dtype}{tuple(got.shape)} "
+                         f"against {want.dtype}{tuple(want.shape)}")
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    if diff.numel() == 0:
+        return 0.0, 0.0, 0.0, True
+    if got.dtype == torch.bfloat16:
+        bound = BF16_REL * w.abs() + BF16_FLOOR
+    else:
+        bound = torch.full_like(w, F32_ATOL)
+    off = diff > bound
+    rows_off = off.reshape(-1, off.shape[-1]).any(dim=-1).float().mean().item()
+    ratio = (diff / bound).max().item()
+    ok = bool(torch.isfinite(g).all())
+    if pwl and got.dtype == torch.bfloat16:
+        ok = ok and rows_off <= PWL_ROWS_OFF and bool((diff[off] <= BF16_PWL_ATOL).all())
+    else:
+        ok = ok and ratio <= 1.0
+    return diff.max().item(), ratio, rows_off, ok
+
+
 def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          use_pwl: bool = False) -> torch.Tensor:
     """Launch ``csrc/flash_attention.cu`` on PyTorch's current stream."""
@@ -87,7 +144,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
     if Hq % Hkv:
         raise ValueError("GQA requires Hq % Hkv == 0")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (_build.aligned(t) for t in (q, k, v))
     if q.numel() == 0 or Skv == 0:          # nothing to attend: no launch
         return torch.zeros_like(q)
     out = torch.empty_like(q)

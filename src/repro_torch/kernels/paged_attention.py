@@ -11,6 +11,12 @@ output in q's dtype.  With ``use_pwl`` the rescale composes PWL segments
 across blocks, so the block size is part of the result, as in the Pallas
 kernel.
 
+The kernel splits a sequence's pool blocks into ``n_splits`` contiguous
+ranges, one CTA each, and merges their float32 partials (max, denominator,
+unnormalised output) in a second kernel: the same function in another
+summation order.  ``split_plan`` alone chooses the split; with ``use_pwl``
+it takes one, so the PWL result composes block by block in order.
+
 A contiguous cache ``(B, max_len, H_kv, D)`` is the pool
 ``(B * max_len / bt, bt, H_kv, D)`` under the identity table
 (``identity_block_table``): a view, no copy.
@@ -18,6 +24,7 @@ A contiguous cache ``(B, max_len, H_kv, D)`` is the pool
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -28,6 +35,24 @@ NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 80, 128)
 MAX_BLOCK_TOKENS = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# split-KV: about WAVES CTAs per SM, and at least MIN_SPLIT_TOKENS context
+# tokens a split, so a split's loads outweigh its share of the combine
+WAVES = 2
+MIN_SPLIT_TOKENS = 64
+
+
+def split_plan(n_seq_heads: int, max_blocks: int, block_tokens: int,
+               sm_count: int, *, use_pwl: bool = False):
+    """``(n_splits, blocks_per_split)`` of the kernel's grid ``(B * H_kv,
+    n_splits)``: split ``s`` of a sequence takes its pool blocks ``[s * bps,
+    (s + 1) * bps)``.  ``n_seq_heads`` is ``B * H_kv``, one CTA each before
+    the split.  Aims at ``WAVES`` CTAs per SM; one split under PWL, whose
+    exp does not compose across a split."""
+    if use_pwl or max_blocks <= 1:
+        return 1, max(max_blocks, 1)
+    want = -(-WAVES * sm_count // max(n_seq_heads, 1))
+    bps = max(-(-max_blocks // want), -(-MIN_SPLIT_TOKENS // block_tokens))
+    return -(-max_blocks // bps), bps
 
 
 def contiguous_block_tokens(max_len: int) -> int:
@@ -82,6 +107,11 @@ def paged_attention_plain(q, k_cache, v_cache, block_tables, context_lens, *,
     return out.reshape(B, H, D).to(q.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def paged_attention_cuda(q, k_cache, v_cache, block_tables, context_lens, *,
                          use_pwl: bool = False) -> torch.Tensor:
     """Launch ``csrc/paged_attention.cu`` on PyTorch's current stream."""
@@ -108,16 +138,22 @@ def paged_attention_cuda(q, k_cache, v_cache, block_tables, context_lens, *,
         raise TypeError("block_tables and context_lens must be int32")
     if block_tables.shape[0] != B or context_lens.shape != (B,):
         raise ValueError("block_tables (B, max_blocks) and context_lens (B,)")
-    q, k_cache, v_cache = q.contiguous(), k_cache.contiguous(), v_cache.contiguous()
+    q, k_cache, v_cache = (_build.aligned(t) for t in (q, k_cache, v_cache))
     block_tables = block_tables.contiguous()
     if q.numel() == 0:                      # no sequence: no launch
         return torch.empty_like(q)
     out = torch.empty_like(q)
+    max_blocks = block_tables.shape[1]
+    n_splits, bps = split_plan(B * Hkv, max_blocks, bt, _sm_count(dev),
+                               use_pwl=use_pwl)
+    scratch = (torch.empty(B * H * n_splits * (D + 2), dtype=torch.float32,
+                           device=dev) if n_splits > 1 else None)
     lib = _build.library("paged_attention")
     _build.check(lib.paged_attention_fwd(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
-        B, H, Hkv, D, bt, block_tables.shape[1], _DTYPE_CODES[q.dtype],
+        None if scratch is None else scratch.data_ptr(),
+        B, H, Hkv, D, bt, max_blocks, n_splits, bps, _DTYPE_CODES[q.dtype],
         int(use_pwl), ctypes.addressof(PWL_COEFFS),
         torch.cuda.current_stream(dev).cuda_stream), "paged_attention")
     return out

@@ -16,17 +16,22 @@ import torch
 from repro_torch import models
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import agreement as flash_agreement
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.cim_matmul import (cim_matmul_cuda, cim_matmul_plain,
                                            quantize_weights)
-from repro_torch.kernels.paged_attention import paged_attention_plain
+from repro_torch.kernels.paged_attention import paged_attention_plain, split_plan
 from repro_torch.kernels.pwl_softmax import agreement, pwl_softmax_plain
 from repro_torch.kernels.ssd_scan import ssd_scan_plain
 
 pytestmark = pytest.mark.gpu
 
 # kernel vs plain version on unit-normal inputs: float32 sums in another
-# order; bfloat16 outputs may differ by one bfloat16 ulp (2**-6 below 4)
+# order; bfloat16 outputs may differ by one bfloat16 ulp (2**-6 below 4).
+# bf16 flash is held besides to repro_torch.kernels.flash_attention.agreement
+# (each element within 2**-7 of its value + 2**-12; with PWL exp, a few rows
+# may take another segment at an edge): the tensor-core kernel multiplies P
+# as two bf16 terms, the plain version keeps P in float32
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2 ** -6}
 # SSD scan: y and state are float32 in both versions from the same inputs;
 # the plain version steps over 256-row chunks, the kernel over 64-row
@@ -73,6 +78,8 @@ def test_flash_kernel_matches_plain(cuda, D, use_pwl, dtype):
         torch.cuda.synchronize()
         assert got.dtype == dtype
         assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+        err, ratio, rows_off, ok = flash_agreement(got, want, pwl=use_pwl)
+        assert ok, (causal, err, ratio, rows_off)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -99,6 +106,33 @@ def test_paged_kernel_matches_plain_on_scattered_tables(cuda, bt, H, Hkv, D,
     want = paged_attention_plain(*args, use_pwl=use_pwl)
     torch.cuda.synchronize()
     assert not got[0].any()                                  # context 0 -> 0
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype,use_pwl", [(torch.bfloat16, False),
+                                           (torch.float32, False),
+                                           (torch.bfloat16, True)])
+def test_paged_kernel_long_context_splits(cuda, dtype, use_pwl):
+    """One sequence of 4000 tokens in 16-token blocks: the exact path runs
+    several pool blocks in each of n_splits > 1 CTAs and combines them; PWL
+    runs one split over all 250 blocks in order."""
+    ctx, bt, H, Hkv, D = 4000, 16, 32, 8, 128
+    n_blocks = ctx // bt
+    n_splits, bps = split_plan(Hkv, n_blocks, bt,
+                               torch.cuda.get_device_properties(cuda).multi_processor_count,
+                               use_pwl=use_pwl)
+    assert (n_splits == 1) if use_pwl else (n_splits > 1 and bps > 1)
+    perm = np.random.default_rng(4).permutation(n_blocks + 1).astype(np.int32)
+    table = torch.from_numpy(perm[None, :n_blocks]).to(cuda)
+    q = _randn((1, H, D), dtype, 5, cuda)
+    pool_k = _randn((n_blocks + 1, bt, Hkv, D), dtype, 6, cuda)
+    pool_v = _randn((n_blocks + 1, bt, Hkv, D), dtype, 7, cuda)
+    lens = torch.tensor([ctx], dtype=torch.int32, device=cuda)
+    before = ops.LAUNCHES["paged_attention"]
+    got = ops.paged_attention(q, pool_k, pool_v, table, lens, use_pwl=use_pwl)
+    assert ops.LAUNCHES["paged_attention"] == before + 1      # split + combine count once
+    want = paged_attention_plain(q, pool_k, pool_v, table, lens, use_pwl=use_pwl)
+    torch.cuda.synchronize()
     assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
 
 

@@ -18,7 +18,8 @@ from repro.kernels import ops as jops
 from repro.kernels import ref
 from repro.kernels.pwl_softmax import _pwl_exp_vec
 from repro_torch.kernels import ops, pwl
-from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+from repro_torch.kernels.flash_attention import (KV_STEP, NEG_INF, agreement,
+                                                 flash_attention_cuda,
                                                  flash_attention_plain)
 from repro_torch.kernels.paged_attention import (contiguous_block_tokens,
                                                  identity_block_table,
@@ -121,6 +122,99 @@ def test_flash_plain_bf16_computes_in_float32():
     want = flash_attention_plain(q.float(), k.float(), v.float())
     assert got.dtype == torch.bfloat16
     torch.testing.assert_close(got, want.to(torch.bfloat16), atol=0, rtol=0)
+
+
+def _flash_emulation(q, k, v, *, causal=True, p_terms=2, mask_shift=0,
+                     drop_alpha=False):
+    """The bf16 kernel's arithmetic in PyTorch: Q K^T of the bf16 inputs in
+    float32, the scale applied to the scores, p in float32 for the
+    denominator, and P V with P as ``p_terms`` bf16 terms (2: hi + lo, the
+    kernel's; 1: a single bf16 P).  ``mask_shift`` and ``drop_alpha`` plant
+    faults: a causal mask that lets a row see ``mask_shift`` keys too many,
+    and an accumulator that is never rescaled."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qf = q.float().reshape(B, Sq, Hkv, G, D).permute(0, 2, 3, 1, 4)
+    kf, vf = k.float().permute(0, 2, 1, 3), v.float().permute(0, 2, 1, 3)
+    m = torch.full((B, Hkv, G, Sq), NEG_INF)
+    l = torch.zeros((B, Hkv, G, Sq))
+    acc = torch.zeros((B, Hkv, G, Sq, D))
+    qpos = torch.arange(Sq)
+    for k0 in range(0, Skv, KV_STEP):
+        kb, vb = kf[:, :, k0:k0 + KV_STEP], vf[:, :, k0:k0 + KV_STEP]
+        kpos = torch.arange(k0, k0 + kb.shape[2])
+        valid = (qpos[:, None] + mask_shift >= kpos[None, :] if causal
+                 else torch.ones((Sq, kb.shape[2]), dtype=torch.bool))
+        seen = valid.any(dim=-1)
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kb) * D ** -0.5
+        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+        m_new = torch.where(seen, torch.maximum(m, s.amax(dim=-1)), m)
+        p = torch.where(valid, torch.exp(s - m_new[..., None]), torch.zeros_like(s))
+        alpha = torch.where(seen, torch.exp(m - m_new), torch.ones_like(m))
+        if drop_alpha:
+            alpha = torch.ones_like(alpha)
+        p_mul, rest = torch.zeros_like(p), p
+        for _ in range(p_terms):
+            term = rest.to(torch.bfloat16).float()
+            p_mul, rest = p_mul + term, rest - term
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhgqk,bhkd->bhgqd", p_mul, vb)
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_agreement_rule_passes_the_kernels_arithmetic_and_fails_faults(causal):
+    """The bf16 rule of ``flash_attention.agreement`` holds the tensor-core
+    kernel's arithmetic (emulated) to the plain version, and fails a causal
+    mask one key off, a dropped alpha rescale, and a single bf16 P."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(21, 2, 200, 8, 2, 64))
+    want = flash_attention_plain(q, k, v, causal=causal)
+    err, ratio, rows_off, ok = agreement(_flash_emulation(q, k, v, causal=causal), want)
+    assert ok and ratio <= 1.0 and rows_off == 0 and err <= 2 ** -6, (err, ratio)
+    faults = {"single bf16 P": dict(p_terms=1), "no alpha": dict(drop_alpha=True)}
+    if causal:
+        faults["mask off by one"] = dict(mask_shift=1)
+    for what, kw in faults.items():
+        err, ratio, rows_off, ok = agreement(
+            _flash_emulation(q, k, v, causal=causal, **kw), want)
+        assert not ok and ratio > 1.5, (what, err, ratio)
+
+
+def test_flash_agreement_pwl_allows_a_few_rows_off_a_segment_edge():
+    """With PWL exp a score within rounding of a segment edge moves its
+    output row (the PWL exp jumps there): a few such rows pass, each within
+    2**-6; a fault in many rows, or a row further off, does not."""
+    edge = pwl.pwl_exp(torch.tensor([-1.0 - 1e-6, -1.0]))
+    assert 0.024 < (edge[0] - edge[1]).item() < 0.025     # the jump at x = -1
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(21, 2, 200, 8, 2, 64))
+    want = flash_attention_plain(q, k, v, use_pwl=True)
+    flipped = want.clone()
+    flipped[1, 37, 5] += 4e-3                   # one of 3200 rows moved
+    assert not agreement(flipped, want)[3]
+    err, ratio, rows_off, ok = agreement(flipped, want, pwl=True)
+    assert ok and ratio > 1 and rows_off == pytest.approx(1 / 3200)
+    far = want.clone()
+    far[1, 37, 5] += 2 ** -5
+    assert not agreement(far, want, pwl=True)[3]
+    many = want.clone()
+    many[:, :8] += 4e-3                         # 128 of 3200 rows moved
+    assert not agreement(many, want, pwl=True)[3]
+
+
+def test_flash_agreement_float32_and_shapes():
+    q, k, v = map(torch.from_numpy, _qkv(5, 1, 130, 4, 2, 32))
+    want = flash_attention_plain(q, k, v)
+    assert agreement(want + 1.9e-5, want)[3]
+    assert not agreement(want + 2.1e-5, want)[3]
+    assert not agreement(want + 2.1e-5, want, pwl=True)[3]    # float32: no allowance
+    assert not agreement(want.clone().fill_(float("nan")), want)[3]
+    with pytest.raises(ValueError):
+        agreement(want.to(torch.bfloat16), want)
 
 
 # ---------------------------------------------------------------------------
