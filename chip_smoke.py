@@ -15,7 +15,8 @@ Phases, each of which fails the run if it fails:
                 paged over scattered tables, bt 1-64, and one 4000-token
                 context split over many CTAs; SSD scan: y and
                 final state, float32 and bfloat16, N 128 and 64, short and
-                long memory; SCU softmax: float32 and bfloat16, rows in
+                long memory, S 2048 over 64 sub-chunks, and the CTAs
+                resident per SM; SCU softmax: float32 and bfloat16, rows in
                 registers, in shared memory and in three passes; CIM
                 matmul: bfloat16 and float32 x, calibration tiles from
                 16 x 26 to unblocked, adc_bits 6 to 16); time kernel, plain
@@ -98,7 +99,9 @@ PEAK_FLOPS = {"bfloat16": 989e12, "int8": 1979e12, "float32": 67e12}
 TOL = {"float32": 2e-5, "bfloat16": 2 ** -6}
 # SSD scan: y and state are float32 in both versions, from the same
 # (rounded) inputs, so the input dtype does not matter.  The plain version
-# steps over 256-row chunks, the kernel over 64-row sub-chunks: the decay
+# steps over 256-row chunks, the kernel over 64-row (float32) or 32-row
+# (bf16, which multiplies float32 operands as hi + lo bf16 terms,
+# tests/test_torch_ssd_mma.py) sub-chunks: the decay
 # exponents are differences of cumulative sums that reach ~-180 over a
 # chunk, where a float32 ulp is ~1.5e-5, on y and states of order 1-10;
 # the bar of tests/test_kernels.py for the chunked scan against the
@@ -261,7 +264,7 @@ def phase_kernels(torch, timer, results):
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.kernels.paged_attention import (
         contiguous_block_tokens, identity_block_table, paged_attention_plain, split_plan)
-    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+    from repro_torch.kernels.ssd_scan import resident_ctas, ssd_scan_plain
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
     dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -452,13 +455,16 @@ def phase_kernels(torch, timer, results):
             "name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:53",
-            "design": "PR 12: float32 SIMT, (P, N) state in shared memory, 64-row sub-chunks",
+            "design": "bf16 mma.sync m16n8k16, Att / x*w / state as hi + lo bf16 "
+                      "terms, state in registers, cp.async double-buffered 32-row "
+                      "sub-chunks, 3 CTAs per SM at N 128",
             "shape": f"b{b} S{s} H{h} P{p} N{n} {dt} chunk{SSM_CHUNK}",
             "max_abs_err": err,
             "ms": timer.ms(lambda: ops.ssd_scan(*args, chunk=SSM_CHUNK), 20),
             "plain_ms": timer.ms(lambda: ssd_scan_plain(*args, SSM_CHUNK), 5),
             "library_ms": None,       # no single PyTorch call computes it
             "bound_ms": bms, "bound_by": by,
+            "resident_ctas_per_sm": resident_ctas(p, n, x.dtype),
         }
 
     scases = [  # b, S, H, P, N, dtype, memory
@@ -479,7 +485,13 @@ def phase_kernels(torch, timer, results):
         (2, 300, SSM_H, SSM_P, 128, "float32", "long"),
         (2, 300, 16, SSM_P, 64, "bfloat16", "long"),
         (1, 100, 8, SSM_P, 128, "float32", "long"),
+        (1, 2048, 8, SSM_P, 128, "bfloat16", "short"),             # 64 sub-chunks
+        (1, 2048, 8, SSM_P, 128, "bfloat16", "long"),
     ]
+    for n in (128, 64):
+        for dt in ("bfloat16", "float32"):
+            log(f"[kernels] ssd_scan P{SSM_P} N{n} {dt}: "
+                f"{resident_ctas(SSM_P, n, getattr(torch, dt))} CTAs resident per SM")
     ssd = None
     for i, (b, s, h, p, n, dt, memory) in enumerate(scases):
         args = ssd_case(b, s, h, p, n, dt, memory)
@@ -1051,7 +1063,7 @@ def _kernel_class(name: str) -> str:
         return "flash_attention"
     if "paged_fwd_kernel" in name or "paged_combine_kernel" in name:
         return "paged_attention"
-    if "ssd_fwd_kernel" in name:
+    if "ssd_fwd_" in name:
         return "ssd_scan"
     if "softmax_warp_kernel" in name or "softmax_row_kernel" in name:
         return "pwl_softmax"

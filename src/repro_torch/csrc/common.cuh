@@ -1,5 +1,7 @@
 // Shared device helpers of the port's kernels: the SCU's 8-segment PWL exp,
-// float32/bfloat16 conversion, warp reductions, cp.async and ldmatrix.
+// the SFU's 2^x, float32/bfloat16 conversion, warp reductions, cp.async,
+// ldmatrix and the bf16 tensor-core product with its hi + lo split of
+// float32 operands.
 #pragma once
 
 #include <cstdint>
@@ -45,6 +47,15 @@ __device__ __forceinline__ float softmax_exp(float x, const PwlCoeffs& c) {
   }
 }
 
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x by the SFU's approximation (relative error ~2^-22), subnormals to 0
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -79,6 +90,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
                "r"(valid ? 16 : 0));
 }
 
+// 4 bytes global -> shared, asynchronously; zero where !valid
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -103,6 +121,28 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(s));
+}
+
+// c += a b on the tensor cores: mma.sync m16n8k16, bf16 operands, float32
+// accumulators (a: the A fragment of a 16 x 16 tile; b0, b1: the B fragment
+// of a 16 x 8 tile)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (x0, x1) as bf16x2 (x0 in the low half), and in lo the residuals
+// x - bf16(x), rounded to bf16 (the subtraction is exact)
+__device__ __forceinline__ uint32_t split_bf16x2(float x0, float x1, uint32_t& lo) {
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(hi);
+  const __nv_bfloat162 rest = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  lo = *reinterpret_cast<const uint32_t*>(&rest);
+  return *reinterpret_cast<const uint32_t*>(&hi);
 }
 
 inline PwlCoeffs read_pwl(const void* host) {

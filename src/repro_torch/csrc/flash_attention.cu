@@ -250,7 +250,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 constexpr int kMmaBQ = 128;                // q rows per CTA, 16 per warp
 constexpr int kMmaWarps = kMmaBQ / 16;
 constexpr int kMmaThreads = 32 * kMmaWarps;
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 constexpr int kMmaStride = D + 8;  // bf16 per shared row: a 16-byte pad
@@ -272,32 +271,6 @@ __device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, const __nv_b
     cp_async16(dst + r * kMmaStride<D> + col,
                ok ? src + int64_t(row0 + r) * row_stride + col : src, ok);
   }
-}
-
-// 2^x by the SFU's approximation (relative error ~2^-22), subnormals to 0
-__device__ __forceinline__ float ex2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// (x0, x1) as bf16x2 (x0 in the low half), and in lo the residuals
-// x - bf16(x), rounded to bf16 (the subtraction is exact)
-__device__ __forceinline__ uint32_t split_bf16x2(float x0, float x1, uint32_t& lo) {
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(hi);
-  const __nv_bfloat162 rest = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
-  lo = *reinterpret_cast<const uint32_t*>(&rest);
-  return *reinterpret_cast<const uint32_t*>(&hi);
 }
 
 template <int D, bool kPwl>

@@ -15,8 +15,22 @@ of the result (up to rounding): the plain version steps over ``chunk`` rows
 as ``ssd_chunked`` does, and the kernel over sub-chunks of its own length.
 A ragged ``S`` is zero-padded (plain) or masked (kernel); a padded row has
 dt = 0 and adds nothing to ``y`` or to the state.
+
+What bounds the scan on an H100, and what each path does about it: the
+work is ~100 FLOPs per byte moved, below the bf16 tensor cores' balance
+point, so the card's bound is the bytes; but the (batch, head) chains of
+sub-chunks give only ~2.4 CTAs per SM at the main shape, so latency and
+the rate of the products decide the time.  bf16 x/B/C (the served models)
+go to a tensor-core kernel whose float32 operands (Att, x·w, the state)
+are each multiplied as two bf16 terms, ``hi + lo``, so the result keeps
+float32 accuracy; it reads x, B and C where they lie (the mamba layer
+passes strided views of its conv output) and keeps the state in
+registers.  float32 x/B/C go to the first, SIMT kernel, float32 FMAs
+throughout, so float32 parity checks see no TF32.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -71,6 +85,39 @@ def ssd_scan_plain(x, dt, a_neg, B, C, chunk: int):
     return y[:, :S], state
 
 
+def kernel_layout(x, B, C):
+    """x, B and C as the kernel reads them, with the elements between their
+    rows: ``(x, B, C, x_stride, bc_stride)``.  The last dim of each must be
+    contiguous, or this raises.  bf16 tensors are read where they lie when
+    a row (one time step: x's ``H·P`` elements, B's and C's ``N``) is
+    contiguous and row s of batch i starts at ``(i·S + s)·stride`` on a
+    16-byte boundary, as in the mamba layer's views of its conv output;
+    anything else, and float32 (whose kernel takes contiguous rows only),
+    is copied to contiguous tensors first."""
+    b, S, H, P = x.shape
+    N = B.shape[-1]
+    if x.stride(3) != 1 or B.stride(2) != 1 or C.stride(2) != 1:
+        raise ValueError("ssd_scan_cuda takes x, B and C with a contiguous last dim, "
+                         f"got strides x{x.stride()} B{B.stride()} C{C.stride()}")
+
+    def row_stride(t, width):
+        if S == 1:
+            return t.stride(0) if b > 1 else width
+        return t.stride(1)
+
+    xs, bs, cs = row_stride(x, H * P), row_stride(B, N), row_stride(C, N)
+
+    def readable(t, stride):
+        return ((b == 1 or t.stride(0) == S * stride) and stride % 8 == 0
+                and t.data_ptr() % 16 == 0)
+
+    if x.dtype != torch.bfloat16 or (H > 1 and x.stride(2) != P) or not readable(x, xs):
+        x, xs = _build.aligned(x), H * P
+    if x.dtype != torch.bfloat16 or bs != cs or not (readable(B, bs) and readable(C, cs)):
+        B, C, bs = _build.aligned(B), _build.aligned(C), N
+    return x, B, C, xs, bs
+
+
 def ssd_scan_cuda(x, dt, a_neg, B, C):
     """Launch ``csrc/ssd_scan.cu`` on PyTorch's current stream.  It takes
     no chunk length: the kernel steps over sub-chunks of its own, and the
@@ -91,13 +138,27 @@ def ssd_scan_cuda(x, dt, a_neg, B, C):
         raise ValueError(f"unsupported shapes x{tuple(x.shape)} "
                          f"dt{tuple(dt.shape)} a{tuple(a_neg.shape)} "
                          f"B{tuple(B.shape)} C{tuple(C.shape)}")
-    x, dt, a_neg, B, C = (t.contiguous() for t in (x, dt, a_neg, B, C))
+    x, B, C, x_stride, bc_stride = kernel_layout(x, B, C)
+    dt, a_neg = dt.contiguous(), a_neg.contiguous()
     y = torch.empty((b, S, H, P), dtype=torch.float32, device=dev)
     state = torch.empty((b, H, P, N), dtype=torch.float32, device=dev)
     lib = _build.library("ssd_scan")
     _build.check(lib.ssd_scan_fwd(
         x.data_ptr(), dt.data_ptr(), a_neg.data_ptr(), B.data_ptr(),
         C.data_ptr(), y.data_ptr(), state.data_ptr(), b, S, H, P, N,
-        _DTYPE_CODES[x.dtype], torch.cuda.current_stream(dev).cuda_stream),
-        "ssd_scan")
+        x_stride, bc_stride, _DTYPE_CODES[x.dtype],
+        torch.cuda.current_stream(dev).cuda_stream), "ssd_scan")
     return y, state
+
+
+def resident_ctas(P: int, N: int, dtype) -> int:
+    """CTAs of the kernel for (P, N, dtype) that reside on one SM of the
+    current card at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    fn = _build.library("ssd_scan").ssd_scan_resident_ctas
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = ctypes.c_int(0)
+    err = fn(P, N, _DTYPE_CODES[dtype], ctypes.byref(out))
+    if err:
+        raise RuntimeError(f"ssd_scan occupancy query failed: CUDA error {err}")
+    return out.value

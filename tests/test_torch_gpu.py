@@ -34,8 +34,9 @@ pytestmark = pytest.mark.gpu
 # as two bf16 terms, the plain version keeps P in float32
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2 ** -6}
 # SSD scan: y and state are float32 in both versions from the same inputs;
-# the plain version steps over 256-row chunks, the kernel over 64-row
-# sub-chunks, so the decay exponents are rounded differently (see
+# the plain version steps over 256-row chunks, the kernel over sub-chunks
+# of 64 (float32) or 32 rows (bf16), so the decay exponents are rounded
+# differently, and bf16 multiplies float32 operands as hi + lo terms (see
 # chip_smoke.py TOL_SSD)
 TOL_SSD = 1e-3
 # long-memory SSD (dt ~ 0.01): y and state each to 1e-4 of their own max
@@ -141,7 +142,8 @@ def test_paged_kernel_long_context_splits(cuda, dtype, use_pwl):
                                        (4, 512, 80, 64, 64),    # zamba2 prefill
                                        (2, 300, 16, 64, 128),   # ragged S
                                        (1, 100, 8, 32, 16),     # S < chunk, b 1
-                                       (2, 77, 8, 32, 32)])
+                                       (2, 77, 8, 32, 32),
+                                       (1, 2048, 8, 64, 128)])  # a long carry chain
 def test_ssd_kernel_matches_plain(cuda, b, S, H, P, N, dtype):
     x = _randn((b, S, H, P), dtype, 1, cuda)
     dt = torch.nn.functional.softplus(_randn((b, S, H), torch.float32, 2, cuda))
@@ -162,10 +164,12 @@ def test_ssd_kernel_matches_plain(cuda, b, S, H, P, N, dtype):
 @pytest.mark.parametrize("b,S,H,P,N", [(4, 512, 80, 64, 128),   # mamba2 prefill
                                        (4, 512, 80, 64, 64),    # zamba2 prefill
                                        (2, 300, 16, 64, 128),   # ragged S
-                                       (1, 100, 8, 32, 16)])    # S < chunk, b 1
+                                       (1, 100, 8, 32, 16),     # S < chunk, b 1
+                                       (1, 2048, 8, 64, 128)])  # a long carry chain
 def test_ssd_kernel_carries_long_memory(cuda, b, S, H, P, N, dtype):
     """dt ~ softplus(N(0,1) - 5) ~ 0.01, the regime of trained weights:
-    the state carries across every 64-row sub-chunk of the kernel."""
+    the state carries across every sub-chunk of the kernel (64 rows in
+    float32, 32 in bf16)."""
     x = _randn((b, S, H, P), dtype, 6, cuda)
     dt = torch.nn.functional.softplus(_randn((b, S, H), torch.float32, 7, cuda) - 5)
     a_neg = -torch.exp(0.2 * _randn((H,), torch.float32, 8, cuda))
@@ -174,6 +178,28 @@ def test_ssd_kernel_carries_long_memory(cuda, b, S, H, P, N, dtype):
     y, state = ops.ssd_scan(x, dt, a_neg, B, C, chunk=256)
     want_y, want_state = ssd_scan_plain(x, dt, a_neg, B, C, 256)
     torch.cuda.synchronize()
+    for got, want in ((y, want_y), (state, want_state)):
+        assert (got - want).abs().max().item() <= TOL_SSD_REL * want.abs().max().item()
+
+
+@pytest.mark.parametrize("b,S,H,P,N", [(4, 512, 80, 64, 128), (2, 300, 16, 64, 64)])
+def test_ssd_kernel_reads_strided_views_in_place(cuda, b, S, H, P, N):
+    """x, B and C as the mamba layer passes them: bf16 views of its conv
+    output, rows H*P + 2N apart.  The kernel reads them where they lie and
+    gives what it gives on contiguous copies, bit for bit."""
+    conv = _randn((b, S, H * P + 2 * N), torch.float32, 11, cuda)
+    conv[..., H * P:] *= 0.3
+    conv = conv.to(torch.bfloat16)
+    x = conv[..., :H * P].reshape(b, S, H, P)
+    B, C = conv[..., H * P:H * P + N], conv[..., H * P + N:]
+    dt = torch.nn.functional.softplus(_randn((b, S, H), torch.float32, 12, cuda) - 5)
+    a_neg = -torch.exp(0.2 * _randn((H,), torch.float32, 13, cuda))
+    y, state = ops.ssd_scan(x, dt, a_neg, B, C, chunk=256)
+    yc, statec = ops.ssd_scan(x.contiguous(), dt, a_neg, B.contiguous(), C.contiguous(),
+                              chunk=256)
+    want_y, want_state = ssd_scan_plain(x, dt, a_neg, B, C, 256)
+    torch.cuda.synchronize()
+    assert torch.equal(y, yc) and torch.equal(state, statec)
     for got, want in ((y, want_y), (state, want_state)):
         assert (got - want).abs().max().item() <= TOL_SSD_REL * want.abs().max().item()
 

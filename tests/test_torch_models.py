@@ -141,10 +141,15 @@ def test_init_params_mirrors_the_jax_tree():
     assert "lm_head" in tp and not tcfg.tie_embeddings
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "llama3-8b"])
+DENSE_ARCHS = [a for a in tconfigs.list_archs()
+               if tconfigs.get_config(a).family == "dense"]
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
 def test_forward_and_decode_match_jax(arch):
-    """Tied (llama3.2-1b) and untied (llama3-8b) heads: prefill logits and
-    cache, then 4 decode steps' logits and cache rows."""
+    """Every dense arch at its smoke config, tied (llama3.2-1b, olmo-1b,
+    smollm-360m) and untied heads: prefill logits and cache, then 4 decode
+    steps' logits and cache rows."""
     jcfg, tcfg = _cfgs(arch)
     jp, tp = _params(jcfg)
     rng = np.random.default_rng(1)

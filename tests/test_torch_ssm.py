@@ -22,7 +22,7 @@ from repro.models import ssm as jssm
 import repro_torch.configs as tconfigs
 import repro_torch.models as tmodels
 from repro_torch.kernels import ops
-from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
+from repro_torch.kernels.ssd_scan import kernel_layout, ssd_scan_cuda, ssd_scan_plain
 from repro_torch.launch import serve as tserve
 from repro_torch.models import ssm as tssm
 from repro_torch.params import from_jax
@@ -146,6 +146,37 @@ def test_ssd_dispatch_and_cuda_wrapper_checks():
     meta = [t.to("meta") for t in args]
     with pytest.raises(ValueError):
         ops.ssd_scan(*meta, chunk=16)
+
+    # the mamba layer's views of its conv output, rows conv_dim apart: the
+    # plain version gives on them what it gives on contiguous copies ...
+    b, S, H, P, N = 2, 40, 2, 32, 16
+    _, dt, a, _, _ = map(torch.from_numpy, _ssd_inputs(3, b, S, H, P, N))
+    conv = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (b, S, H * P + 2 * N)).astype(np.float32))
+
+    def views(t):
+        return (t[..., :H * P].reshape(b, S, H, P), t[..., H * P:H * P + N],
+                t[..., H * P + N:])
+
+    xv, Bv, Cv = views(conv)
+    assert not xv.is_contiguous() and not Bv.is_contiguous()
+    got = ops.ssd_scan(xv, dt, a, Bv, Cv, chunk=16)
+    want = ops.ssd_scan(xv.contiguous(), dt, a, Bv.contiguous(), Cv.contiguous(), chunk=16)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=0, rtol=0)
+    # ... and the kernel reads such bf16 views where they lie, with their
+    # row stride, while float32 (contiguous rows only) is copied
+    xb, Bb, Cb = views(conv.to(torch.bfloat16))
+    kx, kB, kC, xs, bs = kernel_layout(xb, Bb, Cb)
+    assert (kx.data_ptr(), kB.data_ptr(), kC.data_ptr()) == \
+        (xb.data_ptr(), Bb.data_ptr(), Cb.data_ptr())
+    assert xs == bs == H * P + 2 * N
+    kx, kB, kC, xs, bs = kernel_layout(xv, Bv, Cv)
+    assert kx.is_contiguous() and kB.is_contiguous() and (xs, bs) == (H * P, N)
+    with pytest.raises(ValueError):                   # a row is not contiguous
+        kernel_layout(xb.transpose(2, 3), Bb, Cb)
+    with pytest.raises(ValueError):
+        kernel_layout(xb, Bb, conv.to(torch.bfloat16)[..., H * P:H * P + 2 * N:2])
 
 
 # ---------------------------------------------------------------------------
