@@ -19,7 +19,11 @@ Phases, each of which fails the run if it fails:
                 resident per SM; SCU softmax: float32 and bfloat16, rows in
                 registers, in shared memory and in three passes; CIM
                 matmul: bfloat16 and float32 x, calibration tiles from
-                16 x 26 to unblocked, adc_bits 6 to 16); time kernel, plain
+                16 x 26 to unblocked, adc_bits 6 to 16, each of its three routes
+                with the route and the CTAs resident per SM logged, every
+                route that takes a case's shape held and timed beside the
+                route taken, the weight pre-laid or transposed per call);
+                time kernel, plain
                 version and one PyTorch library call where there is one,
                 with CUDA events.
   serve         llama3-8b at full width and depth in bf16, random weights
@@ -34,7 +38,8 @@ Phases, each of which fails the run if it fails:
   cim_scu       one llama3-8b layer at full width in bf16 with its seven
                 projections on the RRAM crossbar (``ops.cim_matmul_quantized``,
                 weights quantised once) and its softmax on the SCU
-                (``ops.pwl_softmax``): a 4 x 512 prefill, the vocab softmax
+                (``ops.pwl_softmax``), each weight also laid out once in the
+                kernel's (N, K) layout: a 4 x 512 prefill, the vocab softmax
                 of its last logits and a batch-4 decode step, 14 + 3 counted
                 launches; each output held to the plain version; then the
                 ablations of the JAX package's benches (ADC bits against the
@@ -186,12 +191,28 @@ def softmax_work(x):
 
 
 def cim_work(x, wq, wscale):
-    """Bytes (x, wq and wscale read once, the float32 output written once)
-    and the integer dot's 2 M K N int8 operations; the M N K / 256 float32
-    ADC steps are not counted."""
+    """Bytes (x, wq and wscale read once, the float32 output written once),
+    the integer dot's 2 M K N int8 operations, and the M N K / 256 float32
+    ADC steps at 9 operations each: abs and max for the calibration; the
+    division, the multiply and the round; three multiplies and the add.
+    The reference's two clamps of the code are not counted: |psum| <= cal,
+    so |rint(psum / cal * adc_max)| <= adc_max and they never bind."""
     (M, K), N = x.shape, wq.shape[1]
-    return (x.numel() * x.element_size() + wq.numel() + wscale.numel() * 4
-            + M * N * 4), 2 * M * K * N
+    nbytes = (x.numel() * x.element_size() + wq.numel() + wscale.numel() * 4
+              + M * N * 4)
+    return nbytes, 2 * M * K * N, 9 * M * N * (K // 256)
+
+
+def cim_bound(x, wq, wscale):
+    """The least time of the CIM product: the largest of its bytes at
+    3.35 TB/s, its int8 operations at 1,979 TOP/s and its float32 ADC
+    operations at the non-FMA float32 rate, half of PEAK_FLOPS["float32"]
+    (67 TFLOP/s counts an FMA as two operations; none of these pairs into
+    one), 33.5 TFLOP/s.  Returns (ms, "bytes" or "operations")."""
+    nbytes, int8_ops, f32_ops = cim_work(x, wq, wscale)
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = max(int8_ops / PEAK_FLOPS["int8"], f32_ops / (PEAK_FLOPS["float32"] / 2)) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def ssd_work(b, s, h, p, n, esize):
@@ -582,58 +603,118 @@ def phase_kernels_softmax(torch, timer, randn, extra):
 
 
 def phase_kernels_cim(torch, timer, randn, extra):
-    """CIM matmul: kernel against plain version and timings; returns the
-    main-shape entry (llama3-8b's MLP up projection over a 4 x 512
-    prefill)."""
+    """CIM matmul: kernel against plain version and timings, each case
+    with the route the wrapper takes; returns the main-shape entry
+    (llama3-8b's MLP up projection over a 4 x 512 prefill, with the weight
+    in the kernel's layout as the cim_scu phase passes it)."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.cim_matmul import cim_matmul_plain, quantize_weights
+    from repro_torch.kernels.cim_matmul import (ROUTES, calibration_tile, cim_matmul_cuda,
+                                                cim_matmul_plain, quantize_weights,
+                                                resident_ctas, route, takes, weight_layout)
 
-    def entry(args, kw, err, what):
+    for way in ROUTES:
+        log(f"[kernels] cim_matmul route {way}: {resident_ctas(way)} CTAs resident per SM")
+
+    def entry(args, wqt, kw, err, what, way):
         x, wq, ws = args
         (M, K), N = x.shape, wq.shape[1]
-        bms, by = bound(*cim_work(x, wq, ws), "int8")
+        bms, by = cim_bound(*args)
         return {
             "name": "cim_matmul", "route": "cuda",
             "source": "src/repro_torch/csrc/cim_matmul.cu",
             "replaces": "src/repro/kernels/cim_matmul.py:74",
-            "design": "PR 13: int8 mma.sync m16n8k32, two dot passes (calibration, ADC)",
+            "design": {"cluster": "one pass, 2-CTA cluster, TMA ring, int8 wgmma "
+                                  "m64n128k32 with the ADC of step k beside the products of "
+                                  "k + 1, maxima by st.async, weight pre-laid (N, K)",
+                       "decode": "split-K, one CTA per (256 columns, K tile), int8 "
+                                 "mma.sync, terms summed in K order, weight pre-laid (N, K)",
+                       "two_pass": "int8 mma.sync m16n8k32, two dot passes"}[way],
+            "cim_route": way,
             "shape": (f"{what} M{M} K{K} N{N} x {str(x.dtype)[6:]} blocks "
                       f"{kw['block_m']}x{kw['block_n']} adc{kw['adc_bits']}"),
             "max_abs_err": err,
-            "ms": timer.ms(lambda: ops.cim_matmul_quantized(*args, **kw), 10),
+            "ms": timer.ms(lambda: ops.cim_matmul_quantized(*args, wqt=wqt, **kw), 10),
             "plain_ms": timer.ms(lambda: cim_matmul_plain(*args, **kw), 3),
             "library_ms": None,       # no single PyTorch call computes the ADC
             "bound_ms": bms, "bound_by": by,
         }
 
     D_MODEL, D_FF = 4096, 14336
-    cases = [  # M, K, N, x dtype, (block_m, block_n), adc_bits, what
-        (B_MAIN * PROMPT, D_MODEL, D_FF, "bfloat16", (128, 256), 12, "llama3-8b up proj"),
-        (B_MAIN * PROMPT, D_MODEL, D_FF, "float32", (128, 256), 12, "up proj"),
-        (B_MAIN, D_MODEL, D_FF, "bfloat16", (128, 256), 12, "llama3-8b decode up proj"),
-        (B_MAIN * PROMPT, D_FF, D_MODEL, "bfloat16", (128, 256), 12, "llama3-8b down proj"),
-        (B_MAIN * PROMPT, D_MODEL, HKV * D, "bfloat16", (128, 256), 6, "k proj"),
-        (B_MAIN * PROMPT, D_MODEL, HKV * D, "bfloat16", (128, 256), 16, "k proj"),
-        (64, 512, 128, "float32", (64, 128), 12, "bench"),
-        (128, 1024, 512, "float32", (128, 512), 12, "unblocked"),
-        (128, 512, 256, "float32", (32, 64), 8, "small tiles"),
-        (96, 256, 192, "bfloat16", (128, 256), 16, "ragged CTA tiles"),
-        (64, 768, 130, "float32", (16, 26), 8, "N % 4 != 0"),
+    cases = [  # M, K, N, x dtype, (block_m, block_n), adc_bits, weight pre-laid, what
+        (B_MAIN * PROMPT, D_MODEL, D_FF, "bfloat16", (128, 256), 12, True, "llama3-8b up proj"),
+        (B_MAIN * PROMPT, D_MODEL, D_FF, "float32", (128, 256), 12, False, "up proj"),
+        (B_MAIN, D_MODEL, D_FF, "bfloat16", (128, 256), 12, True, "llama3-8b decode up proj"),
+        (B_MAIN * PROMPT, D_FF, D_MODEL, "bfloat16", (128, 256), 12, True, "llama3-8b down proj"),
+        (B_MAIN * PROMPT, D_MODEL, HKV * D, "bfloat16", (128, 256), 6, True, "k proj"),
+        (B_MAIN * PROMPT, D_MODEL, HKV * D, "bfloat16", (128, 256), 16, False, "k proj"),
+        (64, 512, 128, "float32", (64, 128), 12, False, "bench"),
+        (128, 1024, 512, "float32", (128, 512), 12, False, "unblocked"),
+        (128, 512, 256, "float32", (32, 64), 8, False, "small tiles"),
+        (96, 256, 192, "bfloat16", (128, 256), 16, False, "ragged CTA tiles"),
+        (64, 768, 130, "float32", (16, 26), 8, False, "N % 4 != 0"),
+        (100, 512, 200, "float32", (128, 256), 12, True, "one tile over both CTAs, ragged"),
+        (320, 768, 200, "bfloat16", (64, 200), 12, False, "64 x 200 tiles, ragged M"),
+        (256, 512, 384, "float32", (256, 384), 12, True, "two-pass"),
+        (B_MAIN, D_MODEL, D_FF, "bfloat16", (128, 256), 12, False, "decode up proj"),
+        (B_MAIN, D_MODEL, HKV * D, "bfloat16", (128, 256), 12, True, "decode k proj"),
+        (B_MAIN, D_FF, D_MODEL, "bfloat16", (128, 256), 12, True, "decode down proj"),
+        (B_MAIN * PROMPT, D_MODEL, D_FF, "bfloat16", (128, 256), 6, True, "up proj"),
+        (B_MAIN * PROMPT, D_MODEL, D_FF, "bfloat16", (128, 256), 16, True, "up proj"),
+        (B_MAIN * PROMPT, D_MODEL, D_FF, "bfloat16", (64, 128), 12, True, "up proj, 4 tiles a block"),
     ]
     main = None
-    for i, (M, K, N, dt, (bm, bn), adc, what) in enumerate(cases):
+    for i, (M, K, N, dt, (bm, bn), adc, laid, what) in enumerate(cases):
         args = (randn((M, K), dt), *quantize_weights(randn((K, N), "float32", 0.02)))
+        wqt = weight_layout(args[1]) if laid else None
         kw = dict(block_m=bm, block_n=bn, adc_bits=adc)
-        got = ops.cim_matmul_quantized(*args, **kw)
+        tile = calibration_tile(M, N, K, bm, bn)
+        way = route(M, N, K, *tile)
+        before = ops.LAUNCHES["cim_matmul"]
+        got = ops.cim_matmul_quantized(*args, wqt=wqt, **kw)
+        if ops.LAUNCHES["cim_matmul"] != before + 1:
+            raise AssertionError("cim_matmul: one call must count one launch")
         want = cim_matmul_plain(*args, **kw)
         torch.cuda.synchronize()
         tol = TOL_CIM_REL * want.abs().max().item()
+        unequal = int((got != want).sum())
         err = _check(torch, "cim_matmul", got, want, dt,
-                     f"{what} M{M} K{K} N{N} {dt} blocks {bm}x{bn} adc{adc}", tol)
+                     f"{what} M{M} K{K} N{N} {dt} blocks {bm}x{bn} adc{adc} route {way}, "
+                     f"weight {'pre-laid' if laid else 'transposed per call'}, "
+                     f"{unequal} elements not bit-equal", tol)
+        # every other route that takes the shape: bit-equal too, and timed
+        # beside the route taken
+        times = {}
+        for other in ROUTES:
+            if other == way or not takes(other, M, N, K, *tile):
+                continue
+            if not torch.equal(cim_matmul_cuda(*args, wqt=wqt, way=other, **kw), want):
+                raise AssertionError(f"cim_matmul {what}: route {other} differs from plain")
+            times[other] = timer.ms(
+                lambda o=other: cim_matmul_cuda(*args, wqt=wqt, way=o, **kw), 10)
+        if times:
+            times[way] = timer.ms(lambda: ops.cim_matmul_quantized(*args, wqt=wqt, **kw), 10)
+            log(f"[kernels] cim_matmul {what} M{M} K{K} N{N} blocks {bm}x{bn}: "
+                + ", ".join(f"route {w} {t:.4f} ms" for w, t in times.items())
+                + f" (taken: {way}; the others bit-equal too)")
         if i == 0:
-            main = entry(args, kw, err, what)
+            main = entry(args, wqt, kw, err, what, way)
+            x, wq, ws = args
+            old_ms, old_by = bound(*cim_work(x, wq, ws)[:2], "int8")
+            log(f"[kernels] cim_matmul {what}: bound {main['bound_ms']:.5f} ms "
+                f"({main['bound_by']}) with the float32 ADC steps, {old_ms:.5f} ms "
+                f"({old_by}) without them")
+            log(f"[kernels] cim_matmul {what}: kernel with the weight transposed per call "
+                f"{timer.ms(lambda: ops.cim_matmul_quantized(*args, **kw), 10):.4f} ms")
+            xq = torch.randint(-127, 128, (M, K), dtype=torch.int8, device="cuda",
+                               generator=torch.Generator(device="cuda").manual_seed(5))
+            try:
+                int_mm = timer.ms(lambda: torch._int_mm(xq, wqt.t()), 10)
+                log(f"[kernels] yardstick, the integer dot alone (another function): "
+                    f"torch._int_mm int8 ({M}, {K}) x ({K}, {N}) {int_mm:.4f} ms")
+            except RuntimeError as e:
+                log(f"[kernels] yardstick torch._int_mm refused the layout: {e}")
         elif i in (2, 3):
-            extra.append(entry(args, kw, err, what))
+            extra.append(entry(args, wqt, kw, err, what, way))
     torch.cuda.synchronize()
     return main
 
@@ -743,10 +824,10 @@ def cim_scu_layer(torch, cfg, weights, x, pos0, cache=None, *, exact=False, call
     bf = torch.bfloat16
 
     def proj(name, h):
-        w, wq, ws = weights[name]
+        w, wq, ws, wqt = weights[name]
         if exact:
             return h @ w
-        out = ops.cim_matmul_quantized(h, wq, ws)
+        out = ops.cim_matmul_quantized(h, wq, ws, wqt=wqt)
         if calls is not None:
             calls.append(("cim_matmul", (h, wq, ws), out))
         return out.to(bf)
@@ -780,11 +861,12 @@ def cim_scu_layer(torch, cfg, weights, x, pos0, cache=None, *, exact=False, call
 
 def cim_scu_setup(torch):
     """llama3-8b's config, one layer's seven weights in bf16 from a seed,
-    each with its quantisation (w, wq, wscale), the LM head, and the
+    each with its quantisation and that weight in the kernel's layout (w,
+    wq, wscale, wqt), made once, the LM head, and the
     prefill / decode inputs (B_MAIN x PROMPT and B_MAIN x 1 tokens' hidden
     states)."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.cim_matmul import quantize_weights
+    from repro_torch.kernels.cim_matmul import quantize_weights, weight_layout
 
     cfg = get_config("llama3-8b")
     d, hq, hkv, hd, ff = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
@@ -798,7 +880,8 @@ def cim_scu_setup(torch):
     weights = {}
     for name, (k_in, n_out) in shapes.items():
         w = randn(k_in, n_out, scale=k_in ** -0.5)
-        weights[name] = (w, *quantize_weights(w))
+        wq, ws = quantize_weights(w)
+        weights[name] = (w, wq, ws, weight_layout(wq))
     head = randn(d, cfg.vocab_size, scale=d ** -0.5)
     return cfg, weights, head, randn(B_MAIN, PROMPT, d), randn(B_MAIN, 1, d)
 
@@ -881,11 +964,11 @@ def phase_cim_scu(torch, results):
 
     # ablations of the JAX package's benches: ADC bits on the up projection
     h_up = rmsnorm(x, None).reshape(B_MAIN * PROMPT, cfg.d_model)
-    w_up, wq_up, ws_up = weights["up"]
+    w_up, wq_up, ws_up, wqt_up = weights["up"]
     exact_up = h_up.float() @ w_up.float()
     adc_err = {}
     for adc in (6, 8, 10, 12, 14):
-        o = ops.cim_matmul_quantized(h_up, wq_up, ws_up, adc_bits=adc)
+        o = ops.cim_matmul_quantized(h_up, wq_up, ws_up, wqt=wqt_up, adc_bits=adc)
         adc_err[adc] = ((o - exact_up).norm() / exact_up.norm()).item()
     errs_list = list(adc_err.values())
     log("[cim_scu] up proj rel err vs the exact product by adc_bits: "
@@ -1067,7 +1150,9 @@ def _kernel_class(name: str) -> str:
         return "ssd_scan"
     if "softmax_warp_kernel" in name or "softmax_row_kernel" in name:
         return "pwl_softmax"
-    if "cim_transpose_kernel" in name or "cim_dac_kernel" in name or "cim_dot_kernel" in name:
+    if any(k in name for k in ("cim_transpose_kernel", "cim_dac_kernel", "cim_dot_kernel",
+                                "cim_cluster_kernel", "cim_decode_kernel",
+                                "cim_combine_kernel")):
         return "cim_matmul"
     if any(t in name for t in ("gemm", "gemv", "sm90_xmma", "cutlass", "nvjet")):
         return "matmul"

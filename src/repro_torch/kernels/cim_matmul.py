@@ -18,8 +18,15 @@ The calibration tile ``(bm, bn)`` is part of the result (ROADMAP hazard 3):
 ``bm = min(block_m, M)``, ``bn = min(block_n, N)``, and ``M``, ``N`` must be
 multiples of them, as the Pallas wrapper asserts.  Rounding is half to
 even (``torch.round``, as ``jnp.round``).  The output is float32.
+
+The kernel takes the weight as ``wqt (N, K)`` int8, k contiguous
+(``weight_layout``); a caller that makes it once per weight passes it on
+every call, else the kernel transposes ``wq`` on each call.  ``route``
+picks the kernel's route by shape (``csrc/cim_matmul.cu``).
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -59,6 +66,88 @@ def calibration_tile(M: int, N: int, K: int, block_m: int, block_n: int):
     return bm, bn
 
 
+# Output blocks of the kernel's routes (csrc/cim_matmul.cu), which the
+# route chooser below mirrors.
+PAIR_M, PAIR_N = 128, 256        # cluster: two CTAs of 128 x 128 along N
+DECODE_M, DECODE_N = 16, 256     # decode: one CTA per (256 columns, K tile)
+TWO_PASS_M, TWO_PASS_N = 64, 128  # two_pass: the two-pass kernels' CTA tile
+MAX_SLOTS = 512                  # calibration tiles a two-pass CTA tile may meet
+DECODE_MAX_SLOTS = 64            # the same for a decode CTA
+ROUTES = ("cluster", "decode", "two_pass")   # the codes of cim_matmul_fwd's route
+
+
+def _held(size: int, block: int, b: int) -> bool:
+    """Calibration tiles of ``b`` along a dimension of ``size`` lie in
+    blocks of ``block``: the dimension fits one block, or b divides it."""
+    return size <= block or block % b == 0
+
+
+def _one_tile(size: int, block: int, b: int) -> bool:
+    """A block of ``block`` along a dimension of ``size`` is one
+    calibration tile of ``b``: the dimension fits one block and b is all
+    of it, or b is the block."""
+    return b == size if size <= block else b == block
+
+
+def _two_pass_slots(M: int, N: int, bm: int, bn: int) -> int:
+    """Calibration tiles a 64 x 128 CTA tile can meet, at most."""
+    rows = min(M // bm, (TWO_PASS_M + bm - 2) // bm + 1)
+    cols = min(N // bn, (TWO_PASS_N + bn - 2) // bn + 1)
+    return rows * cols
+
+
+def takes(way: str, M: int, N: int, K: int, bm: int, bn: int) -> bool:
+    """Whether route ``way`` holds every calibration tile (bm, bn) of an
+    (M, K) x (K, N) product (``route_takes`` in ``csrc/cim_matmul.cu``):
+
+      * ``decode``: M <= 16 and each calibration tile inside a 256-column
+        block, at most 64 a block (split-K: at M <= 16 the cluster route
+        runs only N / 128 CTAs, each over every K tile);
+      * ``cluster``: each 128 x 256 output block is one calibration tile
+        (M <= 128 and bm = M, or bm = 128; N <= 256 and bn = N, or
+        bn = 256): one pass, wgmma, a pair of CTAs sharing the max;
+      * ``two_pass``: a 64 x 128 tile meets at most 512 of them."""
+    if way == "decode":
+        return (M <= DECODE_M and _held(N, DECODE_N, bn)
+                and (M // bm) * (min(N, DECODE_N) // bn) <= DECODE_MAX_SLOTS)
+    if way == "cluster":
+        return _one_tile(M, PAIR_M, bm) and _one_tile(N, PAIR_N, bn)
+    if way == "two_pass":
+        return _two_pass_slots(M, N, bm, bn) <= MAX_SLOTS
+    raise ValueError(f"no route {way!r}: the routes are {ROUTES}")
+
+
+def route(M: int, N: int, K: int, bm: int, bn: int) -> str:
+    """The kernel's route for an (M, K) x (K, N) product with calibration
+    tiles (bm, bn), by shape alone: the first of decode, cluster, two_pass
+    that ``takes`` it.  Raises ValueError for a tile that no route takes."""
+    for way in ("decode", "cluster", "two_pass"):
+        if takes(way, M, N, K, bm, bn):
+            return way
+    raise ValueError(f"calibration tile ({bm}, {bn}) too small for the kernel: "
+                     f"a block meets more of them than it can hold")
+
+
+def weight_layout(wq: torch.Tensor) -> torch.Tensor:
+    """wq (K, N) int8 as the kernel reads it: wqt (N, K), k contiguous.
+    Made once per weight, on wq's device, and passed to every call."""
+    if wq.dtype != torch.int8 or wq.dim() != 2:
+        raise TypeError(f"weight_layout takes a 2-d int8 wq, "
+                        f"got {wq.dtype} {tuple(wq.shape)}")
+    return wq.t().contiguous()
+
+
+def check_layout(wqt, wq) -> None:
+    """Raise unless ``wqt`` is None or wq's (N, K) int8 layout on wq's
+    device."""
+    if wqt is None:
+        return
+    K, N = wq.shape
+    if wqt.dtype != torch.int8 or tuple(wqt.shape) != (N, K) or wqt.device != wq.device:
+        raise ValueError(f"wqt must be int8 ({N}, {K}) on {wq.device} (weight_layout(wq)), "
+                         f"got {wqt.dtype} {tuple(wqt.shape)} on {wqt.device}")
+
+
 def cim_matmul_plain(x, wq, wscale, *, block_m: int = 128, block_n: int = 256,
                      adc_bits: int = 12, act_bits: int = 8) -> torch.Tensor:
     """x: (M, K) float; wq: (K, N) int8; wscale: (K // 256, N) float32.
@@ -84,12 +173,14 @@ def cim_matmul_plain(x, wq, wscale, *, block_m: int = 128, block_n: int = 256,
     return acc
 
 
-def cim_matmul_cuda(x, wq, wscale, *, block_m: int = 128, block_n: int = 256,
-                    adc_bits: int = 12, act_bits: int = 8) -> torch.Tensor:
-    """Launch ``csrc/cim_matmul.cu`` on PyTorch's current stream: wq
-    transposed to k-contiguous rows, the DAC, then the integer dot for each
-    (calibration tile, K tile)'s max, then the dot again with the ADC and
-    the recombination (one count)."""
+def cim_matmul_cuda(x, wq, wscale, *, wqt=None, block_m: int = 128, block_n: int = 256,
+                    adc_bits: int = 12, act_bits: int = 8, way=None) -> torch.Tensor:
+    """Launch ``csrc/cim_matmul.cu`` on PyTorch's current stream (one
+    count): the DAC, then the route's kernels.  ``wqt``: the weight as
+    ``weight_layout(wq)`` gives it, read in place of wq; only its dtype,
+    shape and device are checked, so it must be made from this wq.
+    Without it the kernel transposes wq first.  ``way``: a route that
+    ``takes`` the shape, to compare routes; default ``route``."""
     if not 2 <= act_bits <= 8:
         raise ValueError(f"the kernel's integer dot is exact only for "
                          f"act_bits <= 8 (int8 x int8 -> int32), got {act_bits}")
@@ -105,26 +196,68 @@ def cim_matmul_cuda(x, wq, wscale, *, block_m: int = 128, block_n: int = 256,
     if wq.shape[0] != K or tuple(wscale.shape) != (K // TILE_K, N):
         raise ValueError(f"unsupported shapes x{tuple(x.shape)} "
                          f"wq{tuple(wq.shape)} wscale{tuple(wscale.shape)}")
+    check_layout(wqt, wq)
     bm, bn = calibration_tile(M, N, K, block_m, block_n)
     if max(M * K, K * N, M * N) >= 2 ** 31:
         raise ValueError("cim_matmul_cuda takes operands below 2**31 elements")
+    if way is None:
+        way = route(M, N, K, bm, bn)
+    elif not takes(way, M, N, K, bm, bn):
+        raise ValueError(f"route {way} does not take calibration tiles ({bm}, {bn}) "
+                         f"of M{M} K{K} N{N}")
     dev = x.device
     if not x.is_cuda or wq.device != dev or wscale.device != dev:
         raise ValueError("cim_matmul_cuda takes CUDA tensors on one device")
     lib = _build.library("cim_matmul")
-    if not lib.cim_matmul_tile_fits(M, N, bm, bn):
-        raise ValueError(f"calibration tile ({bm}, {bn}) too small for the kernel: "
-                         f"a CTA tile meets more of them than it can hold")
     kt = K // TILE_K
-    x, wq, wscale = x.contiguous(), wq.contiguous(), wscale.contiguous()
+    x, wq, wscale = _build.aligned(x), _build.aligned(wq), _build.aligned(wscale)
+    ready = wqt is not None
+    wqt = _build.aligned(wqt) if ready else torch.empty((N, K), dtype=torch.int8, device=dev)
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
-    wqt = torch.empty((N, K), dtype=torch.int8, device=dev)
     xq = torch.empty((M, K), dtype=torch.int8, device=dev)
     xs = torch.empty((M, kt), dtype=torch.float32, device=dev)
-    cal = torch.empty(((M // bm) * (N // bn) * kt,), dtype=torch.int32, device=dev)
+    if way == "two_pass":
+        scratch = torch.empty(((M // bm) * (N // bn) * kt,), dtype=torch.int32, device=dev)
+    elif way == "decode":
+        scratch = torch.empty((kt, M, N), dtype=torch.float32, device=dev)
+    else:
+        scratch = out                      # not read
     _build.check(lib.cim_matmul_fwd(
         x.data_ptr(), wq.data_ptr(), wscale.data_ptr(), out.data_ptr(),
-        wqt.data_ptr(), xq.data_ptr(), xs.data_ptr(), cal.data_ptr(), M, K, N, bm, bn,
+        wqt.data_ptr(), xq.data_ptr(), xs.data_ptr(), scratch.data_ptr(), M, K, N, bm, bn,
         _DTYPE_CODES[x.dtype], 2 ** (act_bits - 1) - 1, 2 ** (adc_bits - 1) - 1,
+        ROUTES.index(way), int(ready),
         torch.cuda.current_stream(dev).cuda_stream), "cim_matmul")
     return out
+
+
+def resident_ctas(way: str) -> int:
+    """CTAs of the route's main kernel that reside on one SM of the current
+    card at once."""
+    fn = _build.library("cim_matmul").cim_matmul_resident_ctas
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = ctypes.c_int(0)
+    err = fn(ROUTES.index(way), ctypes.byref(out))
+    if err:
+        raise RuntimeError(f"cim_matmul occupancy query failed: CUDA error {err}")
+    return out.value
+
+
+def adc_div_mismatches(*, max_cal: int = 0, n: int = 0, seed: int = 0,
+                       device="cuda") -> int:
+    """Pairs (p, cal) on which the kernels' ADC division differs in any bit
+    from IEEE division (``__fdiv_rn``) on the card: every pair with
+    1 <= cal <= max_cal and |p| <= cal if max_cal, else n random pairs
+    with cal < 2^24 from seed."""
+    fn = _build.library("cim_matmul").cim_adc_div_mismatches
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_uint64,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    bad = torch.zeros((1,), dtype=torch.int64, device=device)
+    mode = 0 if max_cal else 1
+    err = fn(mode, max_cal, n, seed, bad.data_ptr(),
+             torch.cuda.current_stream(bad.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"cim_matmul division check failed: CUDA error {err}")
+    return int(bad.item())

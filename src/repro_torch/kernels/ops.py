@@ -62,16 +62,21 @@ def pwl_softmax(x):
     return _ps.pwl_softmax_cuda(x)
 
 
-def cim_matmul_quantized(x, wq, wscale, *, block_m: int = 128,
+def cim_matmul_quantized(x, wq, wscale, *, wqt=None, block_m: int = 128,
                          block_n: int = 256, adc_bits: int = 12,
                          act_bits: int = 8):
     """x: (M, K) float; wq: (K, N) int8; wscale: (K // 256, N) float32, as
-    ``quantize_weights`` gives them.  Returns (M, N) float32."""
+    ``quantize_weights`` gives them; wqt: optionally wq in the kernel's
+    (N, K) layout, ``cim_matmul.weight_layout(wq)`` of this very wq, made
+    once per weight (its contents are not compared with wq: the kernel
+    reads wqt, the CPU path wq).  Returns (M, N) float32.  The CPU path
+    checks wqt's shape and ignores it."""
     kw = dict(block_m=block_m, block_n=block_n, adc_bits=adc_bits,
               act_bits=act_bits)
     if _route(x) == "cpu":
+        _cim.check_layout(wqt, wq)
         return _cim.cim_matmul_plain(x, wq, wscale, **kw)
-    return _cim.cim_matmul_cuda(x, wq, wscale, **kw)
+    return _cim.cim_matmul_cuda(x, wq, wscale, wqt=wqt, **kw)
 
 
 def cim_matmul(x, w, *, weight_bits: int = 8, adc_bits: int = 12,

@@ -18,8 +18,9 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import agreement as flash_agreement
 from repro_torch.kernels.flash_attention import flash_attention_plain
-from repro_torch.kernels.cim_matmul import (cim_matmul_cuda, cim_matmul_plain,
-                                           quantize_weights)
+from repro_torch.kernels.cim_matmul import (ROUTES, adc_div_mismatches, calibration_tile,
+                                           cim_matmul_cuda, cim_matmul_plain,
+                                           quantize_weights, route, takes, weight_layout)
 from repro_torch.kernels.paged_attention import paged_attention_plain, split_plan
 from repro_torch.kernels.pwl_softmax import agreement, pwl_softmax_plain
 from repro_torch.kernels.ssd_scan import ssd_scan_plain
@@ -255,6 +256,58 @@ def test_cim_kernel_matches_plain(cuda, M, K, N, blocks, adc, dtype):
     assert (got - want).abs().max().item() <= TOL_CIM_REL * want.abs().max().item()
 
 
+@pytest.mark.parametrize("M,K,N,blocks,adc,dtype,laid,way", [
+    (100, 512, 200, (128, 256), 12, torch.float32, True, "cluster"),     # a tile over both CTAs
+    (320, 768, 200, (64, 200), 12, torch.bfloat16, False, "two_pass"),   # 2 a block, ragged M
+    (256, 512, 384, (256, 384), 12, torch.float32, True, "two_pass"),    # bm > 128
+    (4, 4096, 14336, (128, 256), 12, torch.bfloat16, True, "decode"),    # weight pre-laid
+    (4, 4096, 14336, (128, 256), 12, torch.bfloat16, False, "decode"),   # transposed per call
+    (2048, 4096, 14336, (128, 256), 6, torch.bfloat16, True, "cluster"),
+    (2048, 4096, 14336, (128, 256), 16, torch.bfloat16, True, "cluster")])
+def test_cim_kernel_routes_are_bit_equal_to_plain(cuda, M, K, N, blocks, adc, dtype, laid,
+                                                  way):
+    """Every route sums the K tiles in K order with the plain version's
+    float32 steps, so the outputs are equal bit for bit."""
+    x = _randn((M, K), dtype, M + K + 1, cuda)
+    wq, ws = quantize_weights(0.05 * _randn((K, N), torch.float32, N + 1, cuda))
+    wqt = weight_layout(wq) if laid else None
+    kw = dict(block_m=blocks[0], block_n=blocks[1], adc_bits=adc)
+    assert route(M, N, K, *calibration_tile(M, N, K, *blocks)) == way
+    before = ops.LAUNCHES["cim_matmul"]
+    got = ops.cim_matmul_quantized(x, wq, ws, wqt=wqt, **kw)
+    assert ops.LAUNCHES["cim_matmul"] == before + 1
+    want = cim_matmul_plain(x, wq, ws, **kw)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= TOL_CIM_REL * want.abs().max().item()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("M,K,N,blocks,n_routes", [
+    (100, 512, 200, (128, 256), 2), (4, 4096, 1024, (128, 256), 3),
+    (2048, 1024, 512, (128, 256), 2)])
+def test_cim_every_route_that_takes_a_shape_is_bit_equal(cuda, M, K, N, blocks, n_routes):
+    """Each route forced onto a shape it takes gives the plain version's
+    bits."""
+    x = _randn((M, K), torch.bfloat16, M + K + 2, cuda)
+    wq, ws = quantize_weights(0.05 * _randn((K, N), torch.float32, N + 2, cuda))
+    kw = dict(block_m=blocks[0], block_n=blocks[1])
+    want = cim_matmul_plain(x, wq, ws, **kw)
+    tile = calibration_tile(M, N, K, *blocks)
+    ways = [w for w in ROUTES if takes(w, M, N, K, *tile)]
+    assert len(ways) == n_routes
+    for way in ways:
+        assert torch.equal(cim_matmul_cuda(x, wq, ws, wqt=weight_layout(wq), way=way, **kw),
+                           want)
+
+
+def test_adc_division_equals_fdiv_rn(cuda):
+    """The kernels' ADC division (reciprocal, product, one FMA correction)
+    gives IEEE division's bits on every (p, cal) with cal <= 2^16 and
+    |p| <= cal, and on 10^8 random pairs with cal < 2^24."""
+    assert adc_div_mismatches(max_cal=1 << 16) == 0
+    assert adc_div_mismatches(n=10 ** 8, seed=7) == 0
+
+
 def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
     q = torch.zeros((1, 8, 2, 48), device=cuda)               # D = 48
     with pytest.raises(ValueError):
@@ -281,6 +334,8 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
                         block_m=1, block_n=1)
     with pytest.raises(TypeError):
         ops.cim_matmul_quantized(xm.half(), wq, ws)
+    with pytest.raises(ValueError, match="wqt"):
+        ops.cim_matmul_quantized(xm, wq, ws, wqt=wq)
 
 
 @pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-2.7b", "zamba2-2.7b"])

@@ -18,8 +18,10 @@ from repro.kernels import ref
 from repro.kernels.cim_matmul import cim_matmul as jcim_quantized
 from repro.kernels.cim_matmul import quantize_weights as jquantize
 from repro_torch.kernels import ops
-from repro_torch.kernels.cim_matmul import (cim_matmul_cuda, cim_matmul_plain,
-                                            quantize_weights)
+from repro_torch.kernels import _build
+from repro_torch.kernels.cim_matmul import (ROUTES, calibration_tile, cim_matmul_cuda,
+                                            cim_matmul_plain, quantize_weights, route, takes,
+                                            weight_layout)
 from repro_torch.kernels.pwl_softmax import (F32_ATOL, agreement, pwl_softmax_cuda,
                                              pwl_softmax_plain)
 
@@ -216,6 +218,110 @@ def test_cim_asserts_as_jax(M, K, N, block_m):
     with pytest.raises(AssertionError):
         cim_matmul_plain(torch.from_numpy(x), torch.from_numpy(wq),
                          torch.from_numpy(ws), block_m=block_m)
+
+
+def test_weight_layout_is_the_transpose_of_jax_quantized_weights():
+    _, w = _cim_inputs(11, 1, 768, 130, w_scale=0.2)
+    jwq, _ = jquantize(jnp.asarray(w))
+    wq = torch.from_numpy(np.array(jwq))
+    wqt = weight_layout(wq)
+    assert wqt.dtype == torch.int8 and tuple(wqt.shape) == (130, 768)
+    assert wqt.is_contiguous()
+    assert wqt.numpy().tobytes() == np.ascontiguousarray(np.array(jwq).T).tobytes()
+    with pytest.raises(TypeError):
+        weight_layout(wq.float())
+
+
+def test_quantized_cpu_path_takes_the_laid_out_weight_and_checks_its_shape():
+    x, w = (torch.from_numpy(a) for a in _cim_inputs(12, 64, 512, 130))
+    wq, ws = quantize_weights(w)
+    kw = dict(block_m=32, block_n=26, adc_bits=10)
+    want = ops.cim_matmul_quantized(x, wq, ws, **kw)
+    got = ops.cim_matmul_quantized(x, wq, ws, wqt=weight_layout(wq), **kw)
+    assert got.numpy().tobytes() == want.numpy().tobytes()
+    for bad in (wq, weight_layout(wq)[:, :256], weight_layout(wq).to(torch.int16)):
+        with pytest.raises(ValueError, match="wqt"):
+            ops.cim_matmul_quantized(x, wq, ws, wqt=bad, **kw)
+
+
+# every shape of chip_smoke.py's phase_kernels_cim, and the route that
+# csrc/cim_matmul.cu's header names for it
+@pytest.mark.parametrize("M,K,N,blocks,want", [
+    (2048, 4096, 14336, (128, 256), "cluster"),   # llama3-8b up proj
+    (4, 4096, 14336, (128, 256), "decode"),       # decode up proj, bm 4
+    (2048, 14336, 4096, (128, 256), "cluster"),   # down proj
+    (2048, 4096, 1024, (128, 256), "cluster"),    # k proj
+    (64, 512, 128, (64, 128), "cluster"),         # bench: the second CTA past N
+    (128, 1024, 512, (128, 512), "two_pass"),     # unblocked: bn > 256
+    (128, 512, 256, (32, 64), "two_pass"),        # 16 tiles a block
+    (96, 256, 192, (128, 256), "cluster"),        # clipped to (96, 192)
+    (64, 768, 130, (16, 26), "two_pass"),         # 20 tiles a block
+    (100, 512, 200, (128, 256), "cluster"),       # one tile over both CTAs
+    (320, 768, 200, (64, 200), "two_pass"),       # 2 tiles a block, ragged M
+    (256, 512, 384, (256, 384), "two_pass"),      # bm > 128
+    (2048, 4096, 14336, (64, 128), "two_pass"),   # 4 tiles a block
+    (16, 512, 4096, (16, 256), "decode"),         # M 16, the decode limit
+    (32, 512, 4096, (32, 256), "cluster"),        # M 32: past decode
+    (32, 512, 4096, (16, 256), "two_pass"),       # 2 tiles a block along M
+    (4, 512, 4096, (1, 4), "two_pass"),           # 256 tiles a decode CTA
+    (128, 512, 1024, (4, 8), "two_pass"),         # 1024 tiles a block
+])
+def test_route_chooser_takes_the_documented_route(M, K, N, blocks, want):
+    tile = calibration_tile(M, N, K, *blocks)
+    assert route(M, N, K, *tile) == want
+    assert takes(want, M, N, K, *tile)
+    if want == "two_pass":
+        assert not takes("decode", M, N, K, *tile) and not takes("cluster", M, N, K, *tile)
+    if want == "cluster":
+        assert not takes("decode", M, N, K, *tile)
+
+
+def test_forced_route_must_take_the_shape():
+    x = torch.zeros((2048, 256))
+    wq, ws = torch.zeros((256, 512), dtype=torch.int8), torch.ones((1, 512))
+    assert ROUTES == ("cluster", "decode", "two_pass")
+    with pytest.raises(ValueError, match="does not take"):
+        cim_matmul_cuda(x, wq, ws, block_m=64, way="cluster")
+    with pytest.raises(ValueError, match="does not take"):
+        cim_matmul_cuda(x, wq, ws, way="decode")
+    with pytest.raises(ValueError, match="no route"):
+        cim_matmul_cuda(x, wq, ws, way="one_pass")
+
+
+_FAKE_NVCC = """#!/bin/sh
+while [ $# -gt 0 ]; do if [ "$1" = "-o" ]; then out="$2"; fi; shift; done
+: > "$out"
+echo "ptxas info    : Used 168 registers"
+"""
+
+
+@pytest.mark.parametrize("serialized", [False, True])
+def test_build_refuses_a_library_whose_wgmma_ptxas_serialized(tmp_path, monkeypatch,
+                                                              serialized):
+    """ptxas's C7514 warning (wgmma.mma_async serialized) fails the build
+    like a compiler error: no library is kept."""
+    fake = tmp_path / "nvcc"
+    warn = 'echo "ptxas warning : (C7514) wgmma.mma_async instructions are serialized"\n'
+    fake.write_text(_FAKE_NVCC + (warn if serialized else ""))
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "BUILD_LOGS", {})
+    if serialized:
+        with pytest.raises(RuntimeError, match="C7514"):
+            _build.build_all(["cim_matmul"])
+        assert not list((tmp_path / "build").glob("*.so"))
+    else:
+        so = _build.build_all(["cim_matmul"])["cim_matmul"]
+        assert so.exists() and "C7514" not in _build.BUILD_LOGS["cim_matmul"]
+
+
+def test_route_chooser_raises_where_no_route_holds_the_tiles():
+    with pytest.raises(ValueError, match="too small"):
+        route(64, 128, 256, 1, 1)
+    with pytest.raises(ValueError, match="too small"):
+        cim_matmul_cuda(torch.zeros((64, 256)), torch.zeros((256, 128), dtype=torch.int8),
+                        torch.ones((1, 128)), block_m=1, block_n=1)
 
 
 # ---------------------------------------------------------------------------
