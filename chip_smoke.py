@@ -16,8 +16,14 @@ Phases, each of which fails the run if it fails:
                 context split over many CTAs; SSD scan: y and
                 final state, float32 and bfloat16, N 128 and 64, short and
                 long memory, S 2048 over 64 sub-chunks, and the CTAs
-                resident per SM; SCU softmax: float32 and bfloat16, rows in
-                registers, in shared memory and in three passes; CIM
+                resident per SM; SCU softmax: its indexed PWL exp against
+                the select chain on all 2**32 float32 inputs, float32 and
+                bfloat16 on each of its four routes (warp, row, cluster,
+                three_pass) with the route and CTAs per SM logged, the
+                other routes that take a main-path shape held and timed,
+                edge rows bit-equal and non-finite rows NaN where the plain
+                version is on every route, and whether the attention
+                kernels keep a NaN score (logged); CIM
                 matmul: bfloat16 and float32 x, calibration tiles from
                 16 x 26 to unblocked, adc_bits 6 to 16, each of its three routes
                 with the route and the CTAs resident per SM logged, every
@@ -233,9 +239,24 @@ def phase_build():
     log(f"[build] {len(targets)} libraries in {time.time() - t0:.1f}s: "
         + ", ".join(p.name for p in targets.values()))
     for name, text in sorted(_build.BUILD_LOGS.items()):
+        kernel = ""
         for line in text.splitlines():
-            if "registers" in line or ("spill" in line and " 0 bytes spill" not in line):
-                log(f"[build] {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                kernel = _demangle(line.split("'")[1]) + ": "
+            elif "registers" in line or ("spill" in line and " 0 bytes spill" not in line):
+                log(f"[build] {name}: {kernel}{line.strip()}")
+
+
+def _demangle(symbol: str) -> str:
+    """A kernel's mangled name as c++filt gives it, without its namespace
+    and parameters, or as it is where c++filt is missing."""
+    try:
+        out = subprocess.run(["c++filt", symbol], capture_output=True, text=True,
+                             timeout=10).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return symbol
+    out = out.replace("repro_torch::(anonymous namespace)::", "").removeprefix("void ")
+    return out.split("(")[0] or symbol
 
 
 def _check(torch, name, got, want, dtype, case, tol=None):
@@ -545,10 +566,24 @@ def phase_kernels(torch, timer, results):
 
 
 def phase_kernels_softmax(torch, timer, randn, extra):
-    """SCU softmax: kernel against plain version and timings; returns the
-    main-shape entry (llama3-8b's prefill score rows)."""
+    """SCU softmax: the indexed PWL exp against the select chain on every
+    float32 input; every case against the plain version, with its route
+    and the CTAs per SM of the route's kernel logged, and every other route
+    that takes a main-path case held and timed beside it; the edge rows
+    bit-equal and the non-finite rows NaN where the plain version is, on
+    every route; returns the main-shape entry (llama3-8b's prefill score
+    rows)."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.pwl_softmax import pwl_softmax_plain
+    from repro_torch.kernels.pwl_softmax import (
+        ROUTES, agreement_nan, edge_rows, exp_mismatches, occupancy, pwl_softmax_cuda,
+        pwl_softmax_plain, route, takes, vector_rows)
+
+    chain, attn = exp_mismatches()
+    log(f"[kernels] pwl_softmax indexed PWL exp over all 2**32 float32 inputs: {chain} "
+        f"differ from the select chain (NaN kept), {attn} non-NaN differ from the "
+        f"attention kernels' pwl_exp")
+    if chain or attn:
+        raise AssertionError(f"pwl_softmax: the indexed PWL exp differs ({chain}, {attn})")
 
     def scores(shape, dt, scale, causal):
         x = randn(shape, "float32", scale)
@@ -557,13 +592,25 @@ def phase_kernels_softmax(torch, timer, randn, extra):
             x = x.masked_fill(q[None, :] > q[:, None], -1e30)
         return x.to(torch.bfloat16 if dt == "bfloat16" else torch.float32)
 
-    def entry(x, err, dt, what):
+    def plan_text(way, cs, n, dtype):
+        ctas, clusters = occupancy(way, cs, n, dtype)
+        kind = ""
+        if way == "warp":
+            kind = " 16-byte lanes" if vector_rows(n, dtype) else " one element a lane"
+        return (f"route {way}{kind}" + (f" x{cs}" if cs > 1 else "")
+                + f", {ctas} CTAs per SM" + (f", {clusters} clusters resident" if clusters else ""))
+
+    def entry(x, err, dt, what, plan):
         bms, by = bound(*softmax_work(x), "float32")
         return {
             "name": "pwl_softmax", "route": "cuda",
             "source": "src/repro_torch/csrc/pwl_softmax.cu",
             "replaces": "src/repro/kernels/pwl_softmax.py:47",
-            "design": "PR 13: a warp, a CTA or three passes a row, float32 SIMT",
+            "design": ("PWL exp by segment index, NaN kept; warp: 16-byte rows in "
+                       "registers; row: one CTA, the row in shared memory; cluster: a row "
+                       "over 2-16 CTAs, max and sum through distributed shared memory; "
+                       "three_pass"),
+            "softmax_route": plan,
             "shape": f"{what} {tuple(x.shape)} {dt}", "max_abs_err": err,
             "ms": timer.ms(lambda: ops.pwl_softmax(x), 20),
             "plain_ms": timer.ms(lambda: pwl_softmax_plain(x), 5),
@@ -577,29 +624,136 @@ def phase_kernels_softmax(torch, timer, randn, extra):
         ((B_MAIN, HQ, PROMPT, PROMPT), "bfloat16", 4, True, "llama3-8b prefill scores"),
         ((B_MAIN, HQ, PROMPT, PROMPT), "float32", 4, True, "prefill scores"),
         ((B_MAIN * HQ, PROMPT + 1), "bfloat16", 4, False, "llama3-8b decode scores"),
-        ((B_MAIN, vocab), "float32", 4, False, "llama3-8b vocab, three passes"),
+        ((B_MAIN, vocab), "float32", 4, False, "llama3-8b vocab"),
         ((B_MAIN * HQ, PROMPT + 1), "float32", 4, False, "decode scores"),
         ((256, 512), "float32", 3, False, "kernels bench"),
         ((300, 1000), "float32", 3, False, "ragged"),
         ((4096, 128), "float32", 4, False, "ablations bench"),
-        ((37, 5000), "float32", 4, False, "rows in shared memory"),
-        ((16, 32768), "bfloat16", 4, False, "rows in shared memory"),
-        ((5, 1025), "float32", 4, False, "rows in shared memory"),
+        ((37, 5000), "float32", 4, False, "few rows"),
+        ((16, 32768), "bfloat16", 4, False, "few rows"),
+        ((5, 1025), "float32", 4, False, "row in shared memory, unaligned rows"),
         ((7, 1), "float32", 4, False, "n 1"),
+        ((1, vocab), "float32", 4, False, "one vocab row"),
+        ((B_MAIN, vocab), "bfloat16", 4, False, "vocab"),
+        ((512, 4096), "bfloat16", 4, False, "row in shared memory"),
+        ((300, 5000), "float32", 4, False, "row in shared memory"),
+        ((1000, 16), "bfloat16", 4, False, "two lanes a row"),
+        ((4096, 64), "float32", 4, False, "16 lanes a row"),
+        ((1, 917000), "float32", 4, False, "the largest slices of the largest cluster"),
+        ((2, 1 << 20), "float32", 4, False, "three passes"),
     ]
     main = None
     for i, (shape, dt, scale, causal, what) in enumerate(cases):
         x = scores(shape, dt, scale, causal)
+        n = shape[-1]
+        rows = x.numel() // n
+        way, cs = route(rows, n, x.dtype)
+        plan = plan_text(way, cs, n, x.dtype)
+        before = ops.LAUNCHES["pwl_softmax"]
         got = ops.pwl_softmax(x)
+        if ops.LAUNCHES["pwl_softmax"] != before + 1:
+            raise AssertionError("pwl_softmax: one call must count one launch")
         want = pwl_softmax_plain(x)
         torch.cuda.synchronize()
-        err = _check_softmax(torch, got, want, f"{what} {shape} {dt}")
+        err = _check_softmax(torch, got, want, f"{what} {shape} {dt}, {plan}")
+        if i in (0, 2, 3):
+            # every other route that takes the case: held too, and timed
+            # beside the route taken
+            times = {}
+            for other in (("warp", 1), ("row", 1), ("cluster", 2), ("cluster", 4),
+                          ("cluster", 8), ("three_pass", 1)):
+                if other == (way, cs) or not takes(*other, rows, n, x.dtype):
+                    continue
+                _check_softmax(torch, pwl_softmax_cuda(x, other), want,
+                               f"{what} {shape} {dt}, forced {other}")
+                times[other] = timer.ms(lambda o=other: pwl_softmax_cuda(x, o), 20)
+            times[(way, cs)] = timer.ms(lambda: ops.pwl_softmax(x), 20)
+            log(f"[kernels] pwl_softmax {what} {shape} {dt}: "
+                + ", ".join(f"{w} x{c} {t:.4f} ms" for (w, c), t in times.items())
+                + f" (taken: {way} x{cs})")
         if i == 0:
-            main = entry(x, err, dt, what)
+            main = entry(x, err, dt, what, plan)
         elif i in (2, 3):
-            extra.append(entry(x, err, dt, what))
+            extra.append(entry(x, err, dt, what, plan))
+        del x, got, want
     torch.cuda.synchronize()
+
+    # the edge rows bit-equal, and rows with NaN, +inf or only -inf NaN
+    # where the plain version has NaN, on every route
+    for way, cs, n in (("warp", 1, 2), ("warp", 1, 4), ("warp", 1, 512), ("row", 1, 2048),
+                       ("cluster", 4, 8192), ("cluster", 16, 8192), ("three_pass", 1, 2048)):
+        x = edge_rows(n).cuda()
+        got = pwl_softmax_cuda(x, (way, cs))
+        want = pwl_softmax_plain(x)
+        nan_g, nan_w = torch.isnan(got), torch.isnan(want)
+        unequal = int((got.view(torch.int32) != want.view(torch.int32))[~nan_w].sum())
+        log(f"[kernels] pwl_softmax edge rows ({x.shape[0]}, {n}) route {way} x{cs}: "
+            f"{unequal} elements not bit-equal, NaN rows {int(nan_g.any(-1).sum())} "
+            f"(plain {int(nan_w.any(-1).sum())})")
+        if unequal or not torch.equal(nan_g, nan_w):
+            raise AssertionError(f"pwl_softmax edge rows, route {way} x{cs}: not bit-equal")
+        for dt in ("float32", "bfloat16"):
+            x = nonfinite_rows(torch, randn, 64, n, dt)
+            got = pwl_softmax_cuda(x, (way, cs))
+            want = pwl_softmax_plain(x)
+            torch.cuda.synchronize()
+            err, share, ok = agreement_nan(got, want)
+            log(f"[kernels] pwl_softmax non-finite rows (64, {n}) {dt} route {way} x{cs}: "
+                f"NaN rows {int(torch.isnan(got).any(-1).sum())} (plain "
+                f"{int(torch.isnan(want).any(-1).sum())}), finite rows max_abs_err={err:.3e}")
+            if not ok:
+                raise AssertionError(f"pwl_softmax non-finite rows {dt}, route {way} x{cs}: "
+                                     f"NaN placement or values differ from plain")
+    attention_nan_scores(torch, randn)
     return main
+
+
+def nonfinite_rows(torch, randn, rows, n, dt):
+    """rows x n scores: row 0 holds a NaN, row 1 a +inf, row 2 only -inf,
+    row 3 a causal mask's row (one score, the rest -1e30), row 4 -inf
+    besides one score, and every 8th row after them a NaN at another
+    column; the others normal."""
+    x = randn((rows, n), "float32", 4)
+    x[0, n // 3] = float("nan")
+    x[1, n - 1] = float("inf")
+    x[2] = float("-inf")
+    x[3, 1:] = -1e30
+    x[4, 1:] = float("-inf")
+    for r in range(8, rows, 8):
+        x[r, (r * 37) % n] = float("nan")
+    return x.to(torch.bfloat16 if dt == "bfloat16" else torch.float32)
+
+
+def attention_nan_scores(torch, randn):
+    """Whether the attention kernels drop a NaN score, exact and PWL: one
+    NaN in a key of a small case; the rows with a NaN in the kernel's and
+    in the plain version's output are logged (not held: ROADMAP §C)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.paged_attention import (
+        contiguous_block_tokens, identity_block_table, paged_attention_plain)
+
+    for dt in ("bfloat16", "float32"):
+        q, k, v = (randn((1, 128, h, 64), dt) for h in (4, 2, 2))
+        k[0, 5, 0, 0] = float("nan")
+        bt = contiguous_block_tokens(128)
+        table = identity_block_table(1, 128, bt, device="cuda")
+        lens = torch.tensor([128], dtype=torch.int32, device="cuda")
+        pk, pv = k.view(128 // bt, bt, 2, 64), v.view(128 // bt, bt, 2, 64)
+        for pwl in (False, True):
+            got = ops.flash_attention(q, k, v, causal=True, use_pwl=pwl)
+            want = flash_attention_plain(q, k, v, causal=True, use_pwl=pwl)
+            pgot = ops.paged_attention(q[:, -1], pk, pv, table, lens, use_pwl=pwl)
+            pwant = paged_attention_plain(q[:, -1], pk, pv, table, lens, use_pwl=pwl)
+            torch.cuda.synchronize()
+
+            def nan_rows(t):
+                return int(torch.isnan(t.float()).any(-1).sum())
+
+            log(f"[kernels] attention with one NaN key score {dt} pwl={pwl}: flash NaN "
+                f"(query, head) rows {nan_rows(got)} (plain {nan_rows(want)}) of "
+                f"{got.shape[1] * got.shape[2]}; paged {nan_rows(pgot)} (plain "
+                f"{nan_rows(pwant)}) of {pgot.shape[1]}")
 
 
 def phase_kernels_cim(torch, timer, randn, extra):
@@ -1148,7 +1302,8 @@ def _kernel_class(name: str) -> str:
         return "paged_attention"
     if "ssd_fwd_" in name:
         return "ssd_scan"
-    if "softmax_warp_kernel" in name or "softmax_row_kernel" in name:
+    if any(k in name for k in ("softmax_vec_kernel", "softmax_warp_kernel",
+                                "softmax_slice_kernel")):
         return "pwl_softmax"
     if any(k in name for k in ("cim_transpose_kernel", "cim_dac_kernel", "cim_dot_kernel",
                                 "cim_cluster_kernel", "cim_decode_kernel",

@@ -540,18 +540,6 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
       : "memory");
 }
 
-__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
-  uint32_t out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
-  return out;
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
 // v into the shared::cluster address addr of another CTA of the cluster,
 // completing 4 bytes on its mbarrier at bar (same CTA)
 __device__ __forceinline__ void st_async_u32(uint32_t addr, unsigned v, uint32_t bar) {
@@ -559,13 +547,6 @@ __device__ __forceinline__ void st_async_u32(uint32_t addr, unsigned v, uint32_t
       "st.async.shared::cluster.mbarrier::complete_tx::bytes.u32 [%0], %1, [%2];\n" ::"r"(addr),
       "r"(v), "r"(bar)
       : "memory");
-}
-
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::
-          : "memory");
 }
 
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,

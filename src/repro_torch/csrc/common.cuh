@@ -1,7 +1,7 @@
 // Shared device helpers of the port's kernels: the SCU's 8-segment PWL exp,
 // the SFU's 2^x, float32/bfloat16 conversion, warp reductions, cp.async,
-// ldmatrix and the bf16 tensor-core product with its hi + lo split of
-// float32 operands.
+// ldmatrix, the bf16 tensor-core product with its hi + lo split of
+// float32 operands, and thread block cluster addressing and barriers.
 #pragma once
 
 #include <cstdint>
@@ -143,6 +143,28 @@ __device__ __forceinline__ uint32_t split_bf16x2(float x0, float x1, uint32_t& l
   const __nv_bfloat162 rest = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
   lo = *reinterpret_cast<const uint32_t*>(&rest);
   return *reinterpret_cast<const uint32_t*>(&hi);
+}
+
+// Thread block clusters: a shared::cta address of this CTA mapped to the
+// same variable in CTA `rank` of the cluster, this CTA's rank, and a
+// barrier over every thread of the cluster (release / acquire).
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
 }
 
 inline PwlCoeffs read_pwl(const void* host) {

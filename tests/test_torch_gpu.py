@@ -22,7 +22,9 @@ from repro_torch.kernels.cim_matmul import (ROUTES, adc_div_mismatches, calibrat
                                            cim_matmul_cuda, cim_matmul_plain,
                                            quantize_weights, route, takes, weight_layout)
 from repro_torch.kernels.paged_attention import paged_attention_plain, split_plan
-from repro_torch.kernels.pwl_softmax import agreement, pwl_softmax_plain
+from repro_torch.kernels import pwl_softmax as psm
+from repro_torch.kernels.pwl_softmax import (agreement, agreement_nan, edge_rows,
+                                             exp_mismatches, pwl_softmax_cuda, pwl_softmax_plain)
 from repro_torch.kernels.ssd_scan import ssd_scan_plain
 
 pytestmark = pytest.mark.gpu
@@ -206,17 +208,23 @@ def test_ssd_kernel_reads_strided_views_in_place(cuda, b, S, H, P, N):
 
 
 @pytest.mark.parametrize("shape,dtype,causal", [
-    ((4, 32, 512, 512), torch.bfloat16, True),    # llama3-8b prefill scores
+    ((4, 32, 512, 512), torch.bfloat16, True),    # llama3-8b prefill scores: warp
     ((256, 512), torch.float32, False),
     ((300, 1000), torch.float32, False),          # ragged
-    ((4, 128256), torch.float32, False),          # vocab row: three passes
+    ((4, 128256), torch.float32, False),          # vocab rows: a cluster of 16
     ((4096, 128), torch.float32, False),
-    ((128, 513), torch.bfloat16, False),          # decode scores
+    ((128, 513), torch.bfloat16, False),          # decode scores: one element a lane
     ((128, 513), torch.float32, False),
-    ((37, 5000), torch.float32, False),           # row cached in shared memory
-    ((5, 1025), torch.bfloat16, False),
+    ((37, 5000), torch.float32, False),           # a cluster of 2
+    ((5, 1025), torch.bfloat16, False),           # row, rows not on 16 bytes
     ((7, 1), torch.float32, False),
-    ((3, 7, 8), torch.float32, False)])
+    ((3, 7, 8), torch.float32, False),            # two lanes a row
+    ((1, 128256), torch.float32, False),          # one vocab row
+    ((4, 128256), torch.bfloat16, False),
+    ((512, 4096), torch.bfloat16, False),         # row
+    ((16, 32768), torch.bfloat16, False),         # a cluster of 8
+    ((1, 917000), torch.float32, False),          # the largest slices of 16
+    ((2, 1 << 20), torch.float32, False)])        # three passes
 def test_pwl_softmax_kernel_matches_plain(cuda, shape, dtype, causal):
     x = 4 * _randn(shape, torch.float32, shape[-1], cuda)
     if causal:
@@ -231,6 +239,76 @@ def test_pwl_softmax_kernel_matches_plain(cuda, shape, dtype, causal):
     assert got.dtype == dtype and got.shape == x.shape
     err, share, ok = agreement(got, want)
     assert ok, (err, share)
+
+
+# one plan of each route, at a row length it takes
+_SOFTMAX_PLANS = [("warp", 1, 2), ("warp", 1, 4), ("warp", 1, 512), ("row", 1, 2048),
+                  ("cluster", 4, 8192), ("cluster", 16, 8192), ("three_pass", 1, 2048)]
+
+
+def _bit_equal(got, want):
+    """NaN in the same places, and the same bits elsewhere."""
+    nan_g, nan_w = torch.isnan(got), torch.isnan(want)
+    return torch.equal(nan_g, nan_w) and torch.equal(
+        got[~nan_w].view(torch.int32), want[~nan_w].view(torch.int32))
+
+
+def test_pwl_exp_by_index_equals_the_select_chain_on_every_float(cuda):
+    """The softmax's indexed PWL exp against the select chain (a clip that
+    keeps NaN) on all 2**32 float32 inputs, and against the attention
+    kernels' pwl_exp on the inputs that are not NaN: no bit differs."""
+    assert exp_mismatches() == (0, 0)
+
+
+@pytest.mark.parametrize("way,cs,n", _SOFTMAX_PLANS)
+def test_pwl_softmax_edge_rows_bit_equal_to_plain(cuda, way, cs, n):
+    """Rows [0, -inf, ..., t] for every t within 64 ulps of a segment edge,
+    and -inf, NaN, 0: a sum of two terms and zeros has one result, so the
+    kernel gives the plain version's bits, on every route."""
+    x = edge_rows(n).to(cuda)
+    got = pwl_softmax_cuda(x, (way, cs))
+    assert _bit_equal(got, pwl_softmax_plain(x))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("way,cs,n", _SOFTMAX_PLANS)
+def test_pwl_softmax_nonfinite_rows_nan_where_plain(cuda, way, cs, n, dtype):
+    """Rows with a NaN, a +inf or only -inf come out all NaN, as in the
+    plain version (and the JAX package); the other rows agree."""
+    x = 4 * _randn((64, n), torch.float32, n, cuda)
+    x[0, n // 3] = float("nan")
+    x[1, n - 1] = float("inf")
+    x[2] = float("-inf")
+    x[3, 1:] = -1e30
+    x[4, 1:] = float("-inf")
+    x = x.to(dtype)
+    got = pwl_softmax_cuda(x, (way, cs))
+    want = pwl_softmax_plain(x)
+    err, share, ok = agreement_nan(got, want)
+    assert ok, (err, share)
+    assert torch.isnan(got[:3]).all() and not torch.isnan(got[3:]).any()
+
+
+@pytest.mark.parametrize("rows,n,dtype", [(65536, 512, torch.bfloat16), (128, 513, torch.bfloat16),
+                                          (4, 128256, torch.float32)])
+def test_pwl_softmax_every_route_that_takes_a_shape_agrees(cuda, rows, n, dtype):
+    x = (4 * _randn((rows, n), torch.float32, rows + n, cuda)).to(dtype)
+    want = pwl_softmax_plain(x)
+    plans = {psm.route(rows, n, dtype)} | {(w, c) for w, c in (
+        ("warp", 1), ("row", 1), ("cluster", 2), ("cluster", 16), ("three_pass", 1))
+        if psm.takes(w, c, rows, n, dtype)}
+    for plan in sorted(plans):
+        err, share, ok = agreement(pwl_softmax_cuda(x, plan), want)
+        assert ok, (plan, err, share)
+
+
+def test_pwl_softmax_largest_cluster_fits_the_card(cuda):
+    """A cluster of 16 CTAs with the largest slice that route() gives it
+    is resident on the card (the launch refuses one that is not)."""
+    n = 917000
+    assert psm.route(1, n, torch.float32) == ("cluster", 16)
+    ctas, clusters = psm.occupancy("cluster", 16, n, torch.float32)
+    assert ctas >= 1 and clusters >= 1
 
 
 @pytest.mark.parametrize("M,K,N,blocks,adc,dtype", [
@@ -324,6 +402,8 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
         ops.ssd_scan(x[..., :32], dt.double(), a, B, B, chunk=8)
     with pytest.raises(TypeError):
         ops.pwl_softmax(torch.zeros((4, 8), device=cuda, dtype=torch.float16))
+    with pytest.raises(ValueError, match="does not take"):
+        pwl_softmax_cuda(torch.zeros((4, 2048), device=cuda), ("warp", 1))
     xm = torch.zeros((4, 256), device=cuda)
     wq, ws = quantize_weights(torch.ones((256, 8), device=cuda))
     with pytest.raises(ValueError):

@@ -299,6 +299,29 @@ def test_paged_plain_ignores_rows_past_the_context():
 # dispatch
 # ---------------------------------------------------------------------------
 
+@pytest.mark.parametrize("use_pwl", [False, True])
+def test_attention_plain_versions_keep_a_nan_score_as_pallas(use_pwl):
+    """One NaN in a key: the (query, head) rows that see it are NaN in the
+    Pallas kernels (interpret mode) and in the plain versions alike (246
+    of 512 flash rows, 2 of 4 decode heads).  The card's kernels drop it
+    (ROADMAP §C), which chip_smoke.py logs."""
+    q, k, v = _qkv(19, 1, 128, 4, 2, 64)
+    k[0, 5, 0, 0] = np.nan
+    got = flash_attention_plain(*(torch.from_numpy(a) for a in (q, k, v)), use_pwl=use_pwl)
+    want = _np(jops.flash_attention(*(jnp.asarray(a) for a in (q, k, v)), use_pwl=use_pwl))
+    nan = np.isnan(want).any(-1)
+    assert np.array_equal(torch.isnan(got).any(-1).numpy(), nan) and nan.sum() == 246
+    kc, vc = (a.reshape(2, 64, 2, 64) for a in (k, v))
+    table, lens = np.arange(2, dtype=np.int32).reshape(1, 2), np.array([128], np.int32)
+    got = paged_attention_plain(torch.from_numpy(q[:, -1]), torch.from_numpy(kc),
+                                torch.from_numpy(vc), torch.from_numpy(table),
+                                torch.from_numpy(lens), use_pwl=use_pwl)
+    want = _np(jops.paged_attention(jnp.asarray(q[:, -1]), jnp.asarray(kc), jnp.asarray(vc),
+                                    jnp.asarray(table), jnp.asarray(lens), use_pwl=use_pwl))
+    nan = np.isnan(want).any(-1)
+    assert np.array_equal(torch.isnan(got).any(-1).numpy(), nan) and nan.sum() == 2
+
+
 def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     ops.reset_launch_counts()
     q, k, v = map(torch.from_numpy, _qkv(1, 1, 20, 4, 2, 32))

@@ -17,13 +17,18 @@ from repro.kernels import ops as jops
 from repro.kernels import ref
 from repro.kernels.cim_matmul import cim_matmul as jcim_quantized
 from repro.kernels.cim_matmul import quantize_weights as jquantize
+from repro.kernels.pwl_softmax import _pwl_exp_vec
 from repro_torch.kernels import ops
 from repro_torch.kernels import _build
 from repro_torch.kernels.cim_matmul import (ROUTES, calibration_tile, cim_matmul_cuda,
                                             cim_matmul_plain, quantize_weights, route, takes,
                                             weight_layout)
-from repro_torch.kernels.pwl_softmax import (F32_ATOL, agreement, pwl_softmax_cuda,
-                                             pwl_softmax_plain)
+from repro_torch.kernels.pwl import SEG_INTERCEPT, SEG_SLOPE, pwl_exp
+from repro_torch.kernels.pwl_softmax import (F32_ATOL, MAX_CLUSTER, MIN_SLICE_BYTES, SLICE_MAX_BYTES,
+                                             agreement, agreement_nan, edge_rows,
+                                             pwl_softmax_cuda, pwl_softmax_plain,
+                                             slice_bytes, vector_rows)
+from repro_torch.kernels import pwl_softmax as psm
 
 # softmax: float32 on both sides, the row sum taken in another order, within
 # F32_ATOL; bfloat16 outputs by pwl_softmax.agreement: one bfloat16 step of
@@ -97,6 +102,151 @@ def test_pwl_softmax_plain_3d_and_causal_mask_match_jax():
                                atol=F32_ATOL, rtol=0)
     assert not got[..., 0, 1:].any()              # masked keys get exactly 0
     np.testing.assert_allclose(got.sum(-1), 1.0, atol=1e-5)
+
+
+# rows on which the reference gives NaN (x - max is NaN somewhere: a NaN,
+# a +inf, or only -inf), a masked causal row and a plain one
+_NONFINITE = [[np.nan, 0, 1, 2], [-np.inf] * 4, [np.inf, 0, 1, 2],
+              [0.7, -1e30, -1e30, -1e30], [-1.5, 0.25, 3, -9]]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pwl_softmax_plain_nonfinite_rows_match_pallas_and_ref(dtype):
+    x = np.array(_NONFINITE, np.float32)
+    xt, xj = torch.from_numpy(x), jnp.asarray(x)
+    if dtype == "bfloat16":
+        xt, xj = xt.to(torch.bfloat16), xj.astype(jnp.bfloat16)
+    got = pwl_softmax_plain(xt)
+    assert torch.isnan(got[:3]).all() and not torch.isnan(got[3:]).any()
+    for want in (jops.pwl_softmax(xj), ref.ref_pwl_softmax(xj)):
+        want = torch.from_numpy(_np(want.astype(jnp.float32))).to(got.dtype)
+        if dtype == "float32":
+            assert torch.equal(torch.isnan(got), torch.isnan(want))
+            keep = ~torch.isnan(want)
+            np.testing.assert_allclose(got[keep].numpy(), want[keep].numpy(),
+                                       atol=F32_ATOL, rtol=0)
+        else:
+            err, share, ok = agreement_nan(got, want)
+            assert ok, (err, share)
+    assert abs(float(got[3, 0]) - 1) <= 2 ** -8 and not got[3, 1:].float().any()
+
+
+def test_pwl_softmax_plain_edge_rows_match_pallas():
+    """The rows the card holds bit-equal ([0, t] for t at the segment
+    edges, -inf, NaN, 0): the plain version against the Pallas kernel."""
+    x = edge_rows(2)
+    got = pwl_softmax_plain(x)
+    want = torch.from_numpy(_np(jops.pwl_softmax(jnp.asarray(x.numpy()))))
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert int(torch.isnan(got).any(-1).sum()) == 1
+    keep = ~torch.isnan(want)
+    np.testing.assert_allclose(got[keep].numpy(), want[keep].numpy(), atol=F32_ATOL, rtol=0)
+
+
+def test_softmax_agreement_nan_needs_the_same_nan_places():
+    f = pwl_softmax_plain(torch.from_numpy(_rows(3, (8, 64))))
+    g = f.clone()
+    g[2] = float("nan")
+    assert agreement_nan(g, g)[2] and not agreement_nan(g, f)[2]
+    assert not agreement_nan(f, g)[2]
+    h = g.clone()
+    h[0, 0] += 2 * F32_ATOL
+    assert not agreement_nan(h, g)[2]
+
+
+def _indexed_pwl_exp(x):
+    """csrc/pwl_softmax.cu's pwl_exp_indexed transcribed in numpy float32:
+    a 16-entry table (segments 0-7, then copies of 7), xc = x clipped above
+    at 0 keeping NaN, index floor(xc) + 8 (what the rounding-down add onto
+    the 1.5 * 2^23 grid gives on [-8, 0]) masked to 4 bits, one multiply
+    and one add rounded separately, 0 below -8."""
+    f = np.float32
+    slope = np.array([SEG_SLOPE[min(i, 7)] for i in range(16)], f)
+    icept = np.array([SEG_INTERCEPT[min(i, 7)] for i in range(16)], f)
+    xc = np.where(x > 0, f(0), x).astype(f)
+    with np.errstate(invalid="ignore", over="ignore"):
+        fl = np.floor(xc)
+        idx = np.where(np.isfinite(fl) & (fl >= -8), fl + 8, 15).astype(np.int64) & 15
+        y = (slope[idx] * xc).astype(f) + icept[idx]
+    return np.where(x < f(-8), f(0), y).astype(f)
+
+
+def test_indexed_pwl_exp_transcription_bit_equal_to_the_select_chain():
+    """Every float32 within 64 ulps of a segment edge, the special values,
+    10^6 random bit patterns and 10^6 values in [-10, 1]: the indexed exp
+    gives the port's select chain's bits (NaN where it is NaN), and the
+    Pallas select chain's values."""
+    f = np.float32
+    rng = np.random.default_rng(19)
+    special = [0.0, -0.0, np.inf, -np.inf, np.nan, 1e-45, -1e-45, 3.4e38, -3.4e38, -1e30]
+    x = np.concatenate([edge_rows(2)[:, 1].numpy(), np.array(special, f),
+                        rng.integers(0, 2 ** 32, 10 ** 6, dtype=np.uint64)
+                        .astype(np.uint32).view(f),
+                        rng.uniform(-10, 1, 10 ** 6).astype(f)])
+    got = _indexed_pwl_exp(x)
+    want = pwl_exp(torch.from_numpy(x)).numpy()
+    nan = np.isnan(want)
+    assert np.array_equal(np.isnan(got), nan)
+    assert np.array_equal(got[~nan].view(np.uint32), want[~nan].view(np.uint32))
+    pallas = _np(_pwl_exp_vec(jnp.asarray(x)))
+    assert np.array_equal(np.isnan(pallas), nan)
+    np.testing.assert_allclose(got[~nan], pallas[~nan], atol=1e-6, rtol=0)
+
+
+# every shape of chip_smoke.py's phase_kernels_softmax, and the route and
+# cluster size that csrc/pwl_softmax.cu's header names for it
+@pytest.mark.parametrize("rows,n,dtype,want", [
+    (65536, 512, torch.bfloat16, ("warp", 1)),       # llama3-8b prefill scores
+    (65536, 512, torch.float32, ("warp", 1)),
+    (128, 513, torch.bfloat16, ("warp", 1)),         # decode scores: one element a lane
+    (4, 128256, torch.float32, ("cluster", 16)),     # vocab: 16 slices of 32 KB
+    (128, 513, torch.float32, ("warp", 1)),
+    (256, 512, torch.float32, ("warp", 1)),
+    (300, 1000, torch.float32, ("warp", 1)),
+    (4096, 128, torch.float32, ("warp", 1)),
+    (37, 5000, torch.float32, ("cluster", 2)),       # slices of 8 KB at least
+    (16, 32768, torch.bfloat16, ("cluster", 8)),
+    (5, 1025, torch.float32, ("row", 1)),            # too short to split
+    (7, 1, torch.float32, ("warp", 1)),
+    (1, 128256, torch.float32, ("cluster", 16)),
+    (4, 128256, torch.bfloat16, ("cluster", 16)),
+    (512, 4096, torch.bfloat16, ("row", 1)),         # rows enough for the SMs
+    (300, 5000, torch.float32, ("row", 1)),
+    (1000, 16, torch.bfloat16, ("warp", 1)),
+    (4096, 64, torch.float32, ("warp", 1)),
+    (1, 917000, torch.float32, ("cluster", 16)),     # the largest slices of 16
+    (1, 918000, torch.float32, ("three_pass", 1)),   # past 16 slices
+    (2, 1 << 20, torch.float32, ("three_pass", 1)),
+    (1000, 50000, torch.float32, ("row", 1)),        # 195 KB rows, rows enough
+    (1000, 60000, torch.float32, ("cluster", 2)),    # 234 KB rows: two slices
+])
+def test_softmax_route_takes_the_documented_route(rows, n, dtype, want):
+    assert psm.route(rows, n, dtype) == want
+    assert psm.takes(*want, rows, n, dtype)
+    if want[0] != "warp":
+        assert not psm.takes("warp", 1, rows, n, dtype)
+    if want[0] == "three_pass":
+        assert not any(psm.takes("cluster", cs, rows, n, dtype)
+                       for cs in range(2, MAX_CLUSTER + 1))
+    if want[0] == "cluster":
+        assert slice_bytes(n, dtype, want[1]) <= SLICE_MAX_BYTES
+        assert slice_bytes(n, dtype, want[1]) >= MIN_SLICE_BYTES or want[1] == 2
+
+
+def test_softmax_route_refuses_what_no_route_takes():
+    with pytest.raises(TypeError):
+        psm.route(4, 8, torch.float16)
+    for rows, n in ((0, 8), (4, 0), (4, 2 ** 31), (2 ** 31, 4)):
+        with pytest.raises(ValueError):
+            psm.route(rows, n, torch.float32)
+    with pytest.raises(ValueError, match="no route"):
+        psm.takes("one_pass", 1, 4, 8, torch.float32)
+    assert not psm.takes("cluster", 1, 4, 4096, torch.float32)       # a cluster of one
+    assert not psm.takes("cluster", 32, 4, 4096, torch.float32)      # past 16
+    assert not psm.takes("row", 2, 4, 4096, torch.float32)
+    assert not psm.takes("warp", 1, 4, 1025, torch.float32)
+    assert vector_rows(512, torch.bfloat16) and not vector_rows(513, torch.bfloat16)
+    assert vector_rows(4, torch.float32) and not vector_rows(2, torch.float32)
 
 
 # ---------------------------------------------------------------------------
