@@ -22,8 +22,8 @@ Phases, each of which fails the run if it fails:
                 three_pass) with the route and CTAs per SM logged, the
                 other routes that take a main-path shape held and timed,
                 edge rows bit-equal and non-finite rows NaN where the plain
-                version is on every route, and whether the attention
-                kernels keep a NaN score (logged); CIM
+                version is on every route, and the attention kernels' NaN
+                rows on a NaN score held to the plain versions'; CIM
                 matmul: bfloat16 and float32 x, calibration tiles from
                 16 x 26 to unblocked, adc_bits 6 to 16, each of its three routes
                 with the route and the CTAs resident per SM logged, every
@@ -34,9 +34,12 @@ Phases, each of which fails the run if it fails:
                 with CUDA events.
   serve         llama3-8b at full width and depth in bf16, random weights
                 from a seed: prefill of 4 x 512 tokens, then 32 greedy
-                decode steps through the user-facing step functions; the
-                kernels' launch counters are zeroed just before and read
-                just after.
+                decode steps through the user-facing step functions, first
+                eager (the yardstick), then through the serve step captured
+                as a CUDA graph (``launch.steps.CompiledServeStep``) from
+                the same prompt, greedy ids held equal; the main path is
+                the prefill and the graph's decode: the kernels' launch
+                counters are zeroed just before and read just after.
   ssm_serve     the same for mamba2-2.7b (64 mamba layers): 64 SSD-scan
                 launches in the prefill, no attention.
   hybrid_serve  the same for zamba2-2.7b (54 mamba layers, 9 applications
@@ -57,12 +60,13 @@ Phases, each of which fails the run if it fails:
                 group: 6 mambas + the shared block), and prefill(S-1) +
                 decode(1) against forward(S) on the card.
   server        requests through ``Server.admit`` / ``decode_round``, for
-                llama3-8b and mamba2-2.7b.
+                llama3-8b, mamba2-2.7b and zamba2-2.7b; on the card the
+                Server replays its captured graph.
   profile       (only when named) device time by kernel under torch.profiler
-                for one full-width prefill and 8 decode steps of each of
-                the three served models, and for the cim_scu layer's
-                prefill and decode step, and the device's busy share of
-                the host-clock window.
+                for one full-width prefill and 8 decode steps (eager, and
+                through the graph) of each of the three served models, and
+                for the cim_scu layer's prefill and decode step, and the
+                device's busy share of the host-clock window.
 
 The line before the last two is a JSON object ``{"kernels": [...]}``, then
 the card's name and power limit as nvidia-smi reports them, and the last
@@ -578,12 +582,11 @@ def phase_kernels_softmax(torch, timer, randn, extra):
         ROUTES, agreement_nan, edge_rows, exp_mismatches, occupancy, pwl_softmax_cuda,
         pwl_softmax_plain, route, takes, vector_rows)
 
-    chain, attn = exp_mismatches()
-    log(f"[kernels] pwl_softmax indexed PWL exp over all 2**32 float32 inputs: {chain} "
-        f"differ from the select chain (NaN kept), {attn} non-NaN differ from the "
-        f"attention kernels' pwl_exp")
-    if chain or attn:
-        raise AssertionError(f"pwl_softmax: the indexed PWL exp differs ({chain}, {attn})")
+    bad = exp_mismatches()
+    log(f"[kernels] pwl_softmax indexed PWL exp over all 2**32 float32 inputs: {bad} "
+        f"differ from the attention kernels' select chain pwl_exp (NaN kept)")
+    if bad:
+        raise AssertionError(f"pwl_softmax: the indexed PWL exp differs on {bad} inputs")
 
     def scores(shape, dt, scale, causal):
         x = randn(shape, "float32", scale)
@@ -725,35 +728,50 @@ def nonfinite_rows(torch, randn, rows, n, dt):
 
 
 def attention_nan_scores(torch, randn):
-    """Whether the attention kernels drop a NaN score, exact and PWL: one
-    NaN in a key of a small case; the rows with a NaN in the kernel's and
-    in the plain version's output are logged (not held: ROADMAP §C)."""
+    """The attention kernels keep a NaN score where their plain versions
+    do (as the Pallas kernels do): one NaN in a key of a small case, exact
+    and PWL, float32 and bfloat16; flash causal and not; paged with one
+    split and with several (split + combine), a NaN past one sequence's
+    context besides, which no version reads.  The rows with a NaN must be
+    the plain version's exactly."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.kernels.paged_attention import (
-        contiguous_block_tokens, identity_block_table, paged_attention_plain)
+        contiguous_block_tokens, identity_block_table, paged_attention_plain, split_plan)
+
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def nan_rows(t):
+        return torch.isnan(t.float()).any(-1)
+
+    def hold(what, got, want):
+        g, w = nan_rows(got), nan_rows(want)
+        log(f"[kernels] attention with one NaN key score, {what}: NaN rows {int(g.sum())} "
+            f"(plain {int(w.sum())}) of {w.numel()}")
+        if not torch.equal(g, w) or not w.any():
+            raise AssertionError(f"{what}: the kernel's NaN rows are not the plain version's")
 
     for dt in ("bfloat16", "float32"):
         q, k, v = (randn((1, 128, h, 64), dt) for h in (4, 2, 2))
         k[0, 5, 0, 0] = float("nan")
-        bt = contiguous_block_tokens(128)
-        table = identity_block_table(1, 128, bt, device="cuda")
-        lens = torch.tensor([128], dtype=torch.int32, device="cuda")
-        pk, pv = k.view(128 // bt, bt, 2, 64), v.view(128 // bt, bt, 2, 64)
         for pwl in (False, True):
-            got = ops.flash_attention(q, k, v, causal=True, use_pwl=pwl)
-            want = flash_attention_plain(q, k, v, causal=True, use_pwl=pwl)
-            pgot = ops.paged_attention(q[:, -1], pk, pv, table, lens, use_pwl=pwl)
-            pwant = paged_attention_plain(q[:, -1], pk, pv, table, lens, use_pwl=pwl)
-            torch.cuda.synchronize()
-
-            def nan_rows(t):
-                return int(torch.isnan(t.float()).any(-1).sum())
-
-            log(f"[kernels] attention with one NaN key score {dt} pwl={pwl}: flash NaN "
-                f"(query, head) rows {nan_rows(got)} (plain {nan_rows(want)}) of "
-                f"{got.shape[1] * got.shape[2]}; paged {nan_rows(pgot)} (plain "
-                f"{nan_rows(pwant)}) of {pgot.shape[1]}")
+            for causal in (True, False):
+                hold(f"flash {dt} pwl={pwl} causal={causal}",
+                     ops.flash_attention(q, k, v, causal=causal, use_pwl=pwl),
+                     flash_attention_plain(q, k, v, causal=causal, use_pwl=pwl))
+        for max_len, ctx in ((64, [50, 64]), (1024, [1000, 300])):
+            cache_k, cache_v = (randn((2, max_len, 2, 64), dt) for _ in range(2))
+            cache_k[0, ctx[0] // 2, 0, 3] = float("nan")
+            cache_k[1, ctx[1]:, 1, 0] = float("nan")
+            bt = contiguous_block_tokens(max_len)
+            args = (randn((2, 8, 64), dt), cache_k.view(-1, bt, 2, 64),
+                    cache_v.view(-1, bt, 2, 64), identity_block_table(2, max_len, bt, device="cuda"),
+                    torch.tensor(ctx, dtype=torch.int32, device="cuda"))
+            for pwl in (False, True):
+                n_splits, _ = split_plan(4, max_len // bt, bt, n_sms, use_pwl=pwl)
+                hold(f"paged {dt} pwl={pwl} ctx {ctx}, {n_splits} splits",
+                     ops.paged_attention(*args, use_pwl=pwl),
+                     paged_attention_plain(*args, use_pwl=pwl))
 
 
 def phase_kernels_cim(torch, timer, randn, extra):
@@ -886,11 +904,29 @@ def expected_launches(cfg, new: int):
             "ssd_scan": n_mamba, "pwl_softmax": 0, "cim_matmul": 0}
 
 
+def decode_loop(torch, step, params, cache, tok):
+    """NEW greedy steps of ``step`` from the prefill's token, timed on the
+    host clock; returns (ids (B, NEW + 1), seconds).  Each step's token is
+    copied: the graph's output buffer is overwritten by the next replay."""
+    ids = [tok]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for i in range(NEW):
+        tok, cache = step(params, cache, tok, PROMPT + i + 1)
+        ids.append(tok.clone())
+    torch.cuda.synchronize()
+    return torch.cat(ids, 1), time.time() - t0
+
+
 def phase_serve(torch, results, phase):
+    """Prefill, then NEW decode steps, eager and then under the captured
+    graph, from the same prompt; the main path (counted) is the prefill and
+    the graph's decode, as the card's Server runs it."""
     from repro_torch import models
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.launch.steps import (CompiledServeStep, make_prefill_step,
+                                          make_serve_step)
     import numpy as np
 
     tag = f"[{phase}]"
@@ -906,23 +942,41 @@ def phase_serve(torch, results, phase):
     prefill = make_prefill_step(cfg, kv_max=MAX_LEN)
     serve = make_serve_step(cfg)
 
-    # warm-up outside the counted window (cuBLAS heuristics, allocator)
+    # warm-up outside the counted window (cuBLAS heuristics, allocator), and
+    # the graph captured over a cache of its own, into which the prefill's
+    # cache is copied; its memory is what the capture leaves reserved
     prefill(params, {"tokens": prompt[:, :64]})
+    graph_cache = models.init_cache(cfg, B_MAIN, MAX_LEN, device="cuda")
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    t0 = time.time()
+    compiled = CompiledServeStep(cfg, params, graph_cache, B_MAIN)
+    torch.cuda.synchronize()
+    t_build = time.time() - t0
+    torch.cuda.empty_cache()
+    graph_gib = (torch.cuda.memory_reserved() - reserved) / 2 ** 30
 
+    # the eager step, outside the counted window: the yardstick
+    tok, eager_cache = prefill(params, {"tokens": prompt})
+    ops.reset_launch_counts()
+    ids_eager, t_eager = decode_loop(torch, serve, params, eager_cache, tok)
+    want_eager = {**expected_launches(cfg, NEW), "flash_attention": 0, "ssd_scan": 0}
+    if dict(ops.LAUNCHES) != want_eager:
+        raise AssertionError(f"eager decode launches {ops.LAUNCHES}, expected {want_eager}")
+
+    # the main path: prefill, then the decode through the graph
+    torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.time()
     tok, cache = prefill(params, {"tokens": prompt})
     torch.cuda.synchronize()
     t_prefill = time.time() - t0
-    ids = [tok]
-    t0 = time.time()
-    for step in range(NEW):
-        tok, cache = serve(params, cache, tok, PROMPT + step + 1)
-        ids.append(tok)
-    torch.cuda.synchronize()
-    t_decode = time.time() - t0
+    for key, entry in cache.items():
+        for name, t in entry.items():
+            graph_cache[key][name].copy_(t)
+    del cache
+    ids, t_decode = decode_loop(torch, compiled, params, graph_cache, tok)
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
@@ -930,9 +984,11 @@ def phase_serve(torch, results, phase):
     log(f"{tag} launches on the main path: {launches} (expected {want})")
     if launches != want:
         raise AssertionError(f"main path launches {launches}, expected {want}")
-    ids = torch.cat(ids, dim=1)
     if not bool(((ids >= 0) & (ids < cfg.vocab_size)).all()):
         raise AssertionError("token id out of range")
+    if not torch.equal(ids, ids_eager):
+        raise AssertionError(f"graph and eager greedy ids differ: {ids.tolist()} against "
+                             f"{ids_eager.tolist()}")
     # logits check, outside the counted window: the prefill's logits are
     # finite and their last-position argmax is the prefill step's token
     with torch.no_grad():
@@ -941,23 +997,32 @@ def phase_serve(torch, results, phase):
         raise AssertionError("prefill logits are not finite")
     if not torch.equal(logits[:, -1:].float().argmax(-1), ids[:, :1]):
         raise AssertionError("prefill argmax differs from the prefill step's token")
-    for key, entry in cache.items():
+    cache_equal = True
+    for key, entry in graph_cache.items():
         for name, t in entry.items():
+            cache_equal &= torch.equal(t, eager_cache[key][name])
             if name in ("k", "v"):
                 t = t[:, :, :PROMPT + NEW]
             if not bool(torch.isfinite(t.float()).all()):
                 raise AssertionError(f"cache {key}/{name} is not finite")
-    decode_ms = t_decode / NEW * 1e3
+    del eager_cache
     res = {"arch": cfg.name, "dtype": cfg.dtype, "batch": B_MAIN, "prompt": PROMPT,
            "new_tokens": NEW, "prefill_ms": t_prefill * 1e3,
-           "decode_ms_per_step": decode_ms,
-           "decode_tokens_per_s": B_MAIN * NEW / t_decode,
            "prefill_tokens_per_s": B_MAIN * PROMPT / t_prefill,
+           "decode_ms_per_step": t_decode / NEW * 1e3,
+           "decode_tokens_per_s": B_MAIN * NEW / t_decode,
+           "eager_decode_ms_per_step": t_eager / NEW * 1e3,
+           "eager_decode_tokens_per_s": B_MAIN * NEW / t_eager,
+           "graph_build_s": t_build, "graph_reserved_gib": graph_gib,
+           "graph_cache_bit_equal_to_eager": cache_equal,
            "peak_mem_gib": peak, "launches": launches}
     results[phase] = res
-    log(f"{tag} prefill {res['prefill_ms']:.2f} ms ({res['prefill_tokens_per_s']:.0f} tok/s), "
-        f"decode {decode_ms:.3f} ms/step ({res['decode_tokens_per_s']:.1f} tok/s), "
-        f"peak {peak:.2f} GiB")
+    log(f"{tag} prefill {res['prefill_ms']:.2f} ms ({res['prefill_tokens_per_s']:.0f} tok/s); "
+        f"decode eager {res['eager_decode_ms_per_step']:.3f} ms/step "
+        f"({res['eager_decode_tokens_per_s']:.1f} tok/s), graph "
+        f"{res['decode_ms_per_step']:.3f} ms/step ({res['decode_tokens_per_s']:.1f} tok/s); "
+        f"greedy ids equal, caches bit-equal {cache_equal}; graph built in {t_build:.2f}s, "
+        f"{graph_gib:.3f} GiB reserved by it; peak {peak:.2f} GiB")
     log(f"{tag} first ids per sequence: {ids[:, :8].tolist()}")
     return launches
 
@@ -1254,15 +1319,24 @@ def phase_ssm_parity(torch, results):
 
 
 def phase_server(torch, results):
+    """Requests through the card's Server, whose decode step is a captured
+    CUDA graph, for the three served models; the launch counters, zeroed
+    after the Server is built, count each replay's kernels exactly."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import Server
+    from repro_torch.launch.steps import CompiledServeStep
     import numpy as np
 
     out = {}
-    for arch in ("llama3-8b", "mamba2-2.7b"):
+    for arch in SERVE_ARCH.values():
         cfg = get_config(arch)
+        t0 = time.time()
         srv = Server(cfg, max_batch=4, max_len=64, seed=0)
+        torch.cuda.synchronize()
+        t_build = time.time() - t0
+        if not isinstance(srv.step_fn, CompiledServeStep):
+            raise AssertionError("the card's Server does not run the captured step")
         rng = np.random.default_rng(2)
         prompts = [rng.integers(2, cfg.vocab_size, size=n) for n in (8, 5, 11)]
         rounds = 8
@@ -1287,9 +1361,11 @@ def phase_server(torch, results):
                 raise AssertionError("token id out of range")
         if srv.active() != len(prompts):
             raise AssertionError("wrong number of active slots")
-        log(f"[server] {arch}: {len(prompts)} requests, {steps} decode steps in {dt:.2f}s, "
-            f"launches {dict(ops.LAUNCHES)}")
-        out[arch] = {"requests": len(prompts), "steps": steps, "seconds": dt}
+        log(f"[server] {arch}: built (params, cache, graph) in {t_build:.1f}s; "
+            f"{len(prompts)} requests, {steps} decode steps in {dt:.2f}s "
+            f"({dt / steps * 1e3:.2f} ms a step), launches {dict(ops.LAUNCHES)}")
+        out[arch] = {"requests": len(prompts), "steps": steps, "seconds": dt,
+                     "build_s": t_build}
         del srv
         torch.cuda.empty_cache()
     results["server"] = out
@@ -1317,12 +1393,14 @@ def _kernel_class(name: str) -> str:
 def profile_windows(torch, arch):
     """The (name, function) windows the profile phase traces for ``arch``,
     warmed up: a full-width prefill and 8 decode steps of a served model,
-    or the cim_scu phase's layer prefill (with the vocab softmax) and decode
+    eager and through the captured graph (on a copy of the cache), or the
+    cim_scu phase's layer prefill (with the vocab softmax) and decode
     step."""
     from repro_torch import models
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.launch.steps import (CompiledServeStep, make_prefill_step,
+                                          make_serve_step)
     from repro_torch.models.common import rmsnorm
     import numpy as np
 
@@ -1348,8 +1426,11 @@ def profile_windows(torch, arch):
     prefill = make_prefill_step(cfg, kv_max=MAX_LEN)
     serve = make_serve_step(cfg)
     tok, cache = prefill(params, {"tokens": prompt})            # warm-up
+    graph_cache = {k: {n: t.clone() for n, t in e.items()} for k, e in cache.items()}
+    compiled = CompiledServeStep(cfg, params, graph_cache, B_MAIN)
+    compiled(params, graph_cache, tok, PROMPT + 1)
     tok, cache = serve(params, cache, tok, PROMPT + 1)
-    state = {"tok": tok, "cache": cache}
+    state = {"tok": tok, "cache": cache, "graph_tok": tok.clone()}
 
     def do_prefill():
         state["tok"], state["cache"] = prefill(params, {"tokens": prompt})
@@ -1359,7 +1440,14 @@ def profile_windows(torch, arch):
             state["tok"], state["cache"] = serve(params, state["cache"],
                                                  state["tok"], PROMPT + i + 1)
 
-    return [("prefill", do_prefill), ("decode_x8", do_decode)]
+    def do_decode_graph():
+        tok = state["graph_tok"]
+        for i in range(8):
+            tok, _ = compiled(params, graph_cache, tok, PROMPT + i + 1)
+        state["graph_tok"] = tok.clone()
+
+    return [("prefill", do_prefill), ("decode_x8", do_decode),
+            ("decode_x8_graph", do_decode_graph)]
 
 
 def phase_profile(torch, results, arch):

@@ -1,5 +1,6 @@
-// Shared device helpers of the port's kernels: the SCU's 8-segment PWL exp,
-// the SFU's 2^x, float32/bfloat16 conversion, warp reductions, cp.async,
+// Shared device helpers of the port's kernels: max and min that keep a NaN,
+// the SCU's 8-segment PWL exp, the SFU's 2^x, float32/bfloat16
+// conversion, warp reductions, cp.async,
 // ldmatrix, the bf16 tensor-core product with its hi + lo split of
 // float32 operands, and thread block cluster addressing and barriers.
 #pragma once
@@ -22,11 +23,26 @@ struct PwlCoeffs {
   float x_min, x_max;
 };
 
+// max and min that keep a NaN, as jnp.max / torch.amax / jnp.clip do
+// (fmaxf and fminf return the other operand)
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 // The Pallas select chain _pwl_exp_vec: clip to [x_min, x_max], the last
 // segment whose lower edge is <= x wins, 0 below x_min.  Multiply and add
 // are rounded separately (no FMA contraction), as the reference computes.
+// The clip keeps a NaN, so a NaN gives NaN, as in the reference.
 __device__ __forceinline__ float pwl_exp(float x, const PwlCoeffs& c) {
-  const float xc = fminf(fmaxf(x, c.x_min), c.x_max);
+  const float xc = min_nan(max_nan(x, c.x_min), c.x_max);
   const float seg_w = (c.x_max - c.x_min) / kPwlSegments;
   float y = __fadd_rn(__fmul_rn(c.slope[0], xc), c.intercept[0]);
 #pragma unroll
@@ -70,9 +86,10 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
+// over the 32 lanes; a NaN in any lane gives NaN
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  for (int o = 16; o > 0; o >>= 1) x = max_nan(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;
 }
 

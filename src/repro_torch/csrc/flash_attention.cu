@@ -10,6 +10,10 @@
 // padding); the causal loop stops at the diagonal step; the KV head is
 // h / (Hq / Hkv) (no repeat in memory); D = 32, 64, 80 or 128 (80 is
 // zamba2's shared attention).
+// A NaN score goes through as in the Pallas kernel and the plain version:
+// the row max keeps it (max.NaN), the PWL exp's clip keeps it, and a
+// row's "sees a key" test comes from the mask, so the (query, head) rows
+// that see a NaN key come out NaN and no other row does.
 //
 // What bounds it on an H100: at prefill shapes (S = 512, D = 128) the
 // causal work is ~2 * S * D FLOPs per byte of q/k/v/o, far above the card's
@@ -183,12 +187,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         const int kpos = k0 + lane + 32 * c;
         ok[c] = kpos < Skv && (!causal || qpos >= kpos);
         sv[c] = Ps[r * BKP + lane + 32 * c];
-        if (ok[c]) mx = fmaxf(mx, sv[c]);
+        if (ok[c]) mx = max_nan(mx, sv[c]);
       }
       mx = warp_max(mx);
       const bool seen = __any_sync(0xffffffffu, ok[0] || ok[1] || ok[2] || ok[3]);
       const float m_prev = m_s[r];
-      const float m_new = seen ? fmaxf(m_prev, mx) : m_prev;
+      const float m_new = seen ? max_nan(m_prev, mx) : m_prev;
       float sum = 0.f;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
@@ -238,7 +242,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int i = 0; i < 4; ++i) {
     const int r = ty * 4 + i;
     if (q0 + r >= Sq) continue;
-    const float denom = fmaxf(l_s[r], 1e-30f);
+    const float denom = max_nan(l_s[r], 1e-30f);
 #pragma unroll
     for (int j = 0; j < CPT; ++j) {
       ob[(q0 + r) * q_stride + tx + 16 * j] = from_float<T>(acc[i][j] / denom);
@@ -345,20 +349,22 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
         }
     }
 
-    // online softmax of rows g and g + 8, in registers
+    // online softmax of rows g and g + 8, in registers; the max keeps a
+    // NaN score, and whether a row sees a key of the step comes from the
+    // mask (its first key k0 is valid for it), not from the max
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int nt = 0; nt < kNT; ++nt) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
+      mx[0] = max_nan(mx[0], max_nan(s[nt][0], s[nt][1]));
+      mx[1] = max_nan(mx[1], max_nan(s[nt][2], s[nt][3]));
     }
     float alpha[2], m_sub[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const bool seen = mx[r] > -INFINITY;
-      const float m_new = seen ? fmaxf(m_run[r], mx[r]) : m_run[r];
+      mx[r] = max_nan(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = max_nan(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const bool seen = !kMasked || (k0 < Skv && (!causal || row_w + g + 8 * r >= k0));
+      const float m_new = seen ? max_nan(m_run[r], mx[r]) : m_run[r];
       if constexpr (kPwl) {
         alpha[r] = seen ? pwl_exp(__fsub_rn(__fmul_rn(m_run[r], scale),
                                             __fmul_rn(m_new, scale)), pwl)
@@ -475,7 +481,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     for (int r = 0; r < 2; ++r) {
       l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
       l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-      inv[r] = __frcp_rn(fmaxf(l_run[r], 1e-30f));
+      inv[r] = __frcp_rn(max_nan(l_run[r], 1e-30f));
     }
     __syncthreads();  // every warp is done with that K tile
     __nv_bfloat16* os = Ks + ((gs - 1) & 1) * kTile + warp * 16 * kS;

@@ -5,6 +5,10 @@
 // (sequence, head); K/V read through the block table; masked at the
 // context length; a context of 0 gives zeros; GQA; D = 32, 64, 80 or 128;
 // any block_tokens from 1 to 128.
+// A NaN score goes through as in the Pallas kernel and the plain version:
+// the max keeps it (max.NaN), the PWL exp's clip keeps it, and the
+// combine counts a split whose l is NaN as live, so a head that sees a NaN
+// key in its context comes out NaN.
 //
 // What bounds it on an H100: one query token per sequence, so each K/V
 // element read from device memory feeds 2 * G FLOPs (G = query heads per
@@ -190,10 +194,10 @@ paged_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     // one warp per head: running max, probabilities, denominator
     for (int g = warp; g < G; g += kWarps) {
       float mx = kNegInf;
-      for (int j = lane; j < n_valid; j += 32) mx = fmaxf(mx, Ps[g * bt + j]);
+      for (int j = lane; j < n_valid; j += 32) mx = max_nan(mx, Ps[g * bt + j]);
       mx = warp_max(mx);
       const float m_prev = m_s[g];
-      const float m_new = fmaxf(m_prev, mx);
+      const float m_new = max_nan(m_prev, mx);
       float sum = 0.f;
       for (int j = lane; j < bt; j += 32) {
         const float p = j < n_valid ? softmax_exp<kPwl>(Ps[g * bt + j] - m_new, pwl) : 0.f;
@@ -237,7 +241,7 @@ paged_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   if (n_splits == 1) {
     T* ob = out + head0 * D;
     for (int idx = tid; idx < G * D; idx += kThreads) {
-      ob[idx] = from_float<T>(acc[idx] / fmaxf(l_s[idx / D], 1e-30f));
+      ob[idx] = from_float<T>(acc[idx] / max_nan(l_s[idx / D], 1e-30f));
     }
     return;
   }
@@ -252,6 +256,9 @@ paged_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 // out[b, h] from the n_splits partials of (b, h); one CTA per (b, h).  The
 // first warp takes m = max m_i and the weights e^(m_i - m) into shared
 // memory (0 for a split past the context, l = 0, whose acc is not read).
+// A split that met a NaN score has m = l = NaN: it counts as live, and its
+// NaN goes through the max, the weights and the sum, as in the plain
+// version.
 template <typename T, int D>
 __global__ void __launch_bounds__(kCombineThreads)
 paged_combine_kernel(const float* __restrict__ partials, T* __restrict__ out, int n_splits) {
@@ -261,18 +268,18 @@ paged_combine_kernel(const float* __restrict__ partials, T* __restrict__ out, in
     const int lane = threadIdx.x;
     float m = kNegInf;
     for (int s = lane; s < n_splits; s += 32) {
-      if (part[s * (D + 2) + 1] > 0.f) m = fmaxf(m, part[s * (D + 2)]);
+      if (!(part[s * (D + 2) + 1] <= 0.f)) m = max_nan(m, part[s * (D + 2)]);
     }
     m = warp_max(m);
     float l = 0.f;
     for (int s = lane; s < n_splits; s += 32) {
       const float ls = part[s * (D + 2) + 1];
-      const float ws = ls > 0.f ? expf(part[s * (D + 2)] - m) : 0.f;
+      const float ws = !(ls <= 0.f) ? expf(part[s * (D + 2)] - m) : 0.f;
       w[s] = ws;
       l = fmaf(ws, ls, l);
     }
     l = warp_sum(l);
-    if (lane == 0) w[n_splits] = fmaxf(l, 1e-30f);
+    if (lane == 0) w[n_splits] = max_nan(l, 1e-30f);
   }
   __syncthreads();
   for (int d = threadIdx.x; d < D; d += kCombineThreads) {

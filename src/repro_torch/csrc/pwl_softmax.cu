@@ -74,20 +74,6 @@ enum Route { kRouteWarp = 0, kRouteRow = 1, kRouteCluster = 2, kRouteThreePass =
 template <typename T>
 constexpr int kPerChunk = kChunk / int(sizeof(T));
 
-// max and min that keep a NaN, as jnp.max / torch.amax / jnp.clip do
-// (fmaxf and fminf return the other operand)
-__device__ __forceinline__ float max_nan(float a, float b) {
-  float r;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-
-__device__ __forceinline__ float min_nan(float a, float b) {
-  float r;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-
 // over `width` neighbouring lanes (a power of two <= 32); all 32 lanes call
 __device__ __forceinline__ float group_max(float x, int width) {
   for (int o = width / 2; o > 0; o >>= 1) x = max_nan(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -612,38 +598,22 @@ cudaError_t occupancy(int route, int cs, int n, int* ctas, int* clusters) {
   return max_clusters<T>(cs, smem, clusters);
 }
 
-// The select chain _pwl_exp_vec with a clip that keeps a NaN: the
-// reference pwl_exp_indexed is held to.
-__device__ float pwl_exp_chain(float x, const PwlCoeffs& c) {
-  const float xc = min_nan(max_nan(x, c.x_min), c.x_max);
-  const float seg_w = (c.x_max - c.x_min) / kPwlSegments;
-  float y = __fadd_rn(__fmul_rn(c.slope[0], xc), c.intercept[0]);
-#pragma unroll
-  for (int i = 1; i < kPwlSegments; ++i) {
-    if (xc >= c.x_min + i * seg_w) y = __fadd_rn(__fmul_rn(c.slope[i], xc), c.intercept[i]);
-  }
-  return x < c.x_min ? 0.f : y;
-}
-
-// Over every float32 bit pattern: bad[0] counts the inputs on which
-// pwl_exp_indexed and pwl_exp_chain differ in any bit (two NaNs count as
-// equal), bad[1] those that are not NaN on which it differs from
-// common.cuh's pwl_exp (the attention kernels').
+// Over every float32 bit pattern: *bad counts the inputs on which
+// pwl_exp_indexed and common.cuh's select chain pwl_exp (the attention
+// kernels') differ in any bit; two NaNs count as equal.
 __global__ void exp_check_kernel(PwlCoeffs c, unsigned long long* bad) {
   __shared__ float2 tab[kTable];
   fill_table(tab, c);
-  unsigned long long chain = 0, attention = 0;
+  unsigned long long chain = 0;
   const uint64_t step = uint64_t(gridDim.x) * blockDim.x;
   for (uint64_t i = uint64_t(blockIdx.x) * blockDim.x + threadIdx.x; i < (uint64_t(1) << 32);
        i += step) {
     const float xv = __uint_as_float(static_cast<uint32_t>(i));
     const float got = pwl_exp_indexed(xv, tab);
-    const float want = pwl_exp_chain(xv, c);
+    const float want = pwl_exp(xv, c);
     if (!(isnan(got) && isnan(want)) && __float_as_uint(got) != __float_as_uint(want)) ++chain;
-    if (!isnan(xv) && __float_as_uint(got) != __float_as_uint(pwl_exp(xv, c))) ++attention;
   }
   atomicAdd(bad, chain);
-  atomicAdd(bad + 1, attention);
 }
 
 bool integer_edges(const PwlCoeffs& c) { return c.x_min == kXMin && c.x_max == kXMax; }
@@ -685,7 +655,7 @@ extern "C" int pwl_softmax_occupancy(int route, int cs, int n, int dtype, int* c
   return occupancy<__nv_bfloat16>(route, cs, n, ctas, clusters);
 }
 
-// bad: two uint64 on the card, zeroed by the caller (see exp_check_kernel).
+// bad: one uint64 on the card, zeroed by the caller (see exp_check_kernel).
 extern "C" int pwl_softmax_exp_mismatches(const void* pwl_host, void* bad, void* stream) {
   using namespace repro_torch;
   const PwlCoeffs pwl = read_pwl(pwl_host);

@@ -10,6 +10,11 @@ attends over zero cache rows; every admission step is a full-batch decode
 that writes K/V into every slot, and advances every slot's recurrent state
 for an SSM; and only slot ``i``'s next token is taken during admission.
 
+On a CUDA device the server runs its decode step as one CUDA graph,
+captured once over its params and cache (``CompiledServeStep``), as the
+JAX ``Server`` runs one jitted step with the cache donated; reassigning
+``params`` captures it anew.  On the CPU it runs the eager step.
+
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
       --n-requests 4 --max-new 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
@@ -27,7 +32,7 @@ import torch
 
 from repro_torch import models
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.launch.steps import make_serve_step
+from repro_torch.launch.steps import CompiledServeStep, make_serve_step
 from repro_torch.models.common import resolve_device
 
 
@@ -47,14 +52,29 @@ class Server:
         self.max_batch = max_batch
         self.max_len = max_len
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        self.params = models.init_params(cfg, gen)
-        self.step_fn = make_serve_step(cfg)
         self.cache = models.init_cache(cfg, max_batch, max_len,
                                        device=self.device)
+        self.params = models.init_params(cfg, gen)
         self.slots = [Slot() for _ in range(max_batch)]
         self.cur_len = 0          # shared cache length (continuous batch)
         self.tokens = torch.zeros((max_batch, 1), dtype=torch.long,
                                   device=self.device)
+
+    @property
+    def params(self):
+        return self._params
+
+    @params.setter
+    def params(self, params):
+        """New weights: on a card the step is captured anew over them (the
+        old graph read the old tensors' addresses)."""
+        self._params = params
+        self.step_fn = None       # frees the old graph before the new one
+        if self.device.type == "cuda":
+            self.step_fn = CompiledServeStep(self.cfg, params, self.cache,
+                                             self.max_batch)
+        else:
+            self.step_fn = make_serve_step(self.cfg)
 
     def admit(self, request_id: int, prompt: np.ndarray) -> bool:
         """Prefill a prompt into a free slot (per-slot prefill via the
@@ -77,7 +97,7 @@ class Server:
         self.cur_len += 1
         nxt, self.cache = self.step_fn(self.params, self.cache, self.tokens,
                                        self.cur_len)
-        self.tokens = nxt
+        self.tokens.copy_(nxt)    # nxt may be the graph's static output
         ids = nxt[:, 0].tolist()
         for i, s in enumerate(self.slots):
             if not s.done:

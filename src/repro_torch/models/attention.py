@@ -95,7 +95,7 @@ def attn_sublayer(cfg, p, x, *, positions, causal=True, window=None):
     return out @ p["wo"], (k, v)
 
 
-def attn_decode_sublayer(cfg, p, x, cache_k, cache_v, cache_len: int, *,
+def attn_decode_sublayer(cfg, p, x, cache_k, cache_v, cache_len, *,
                          block_table, context_lens, window=None):
     """One-token decode: x (B, 1, d); cache_k/v (B, max_len, Hkv, D) of one
     layer.  Appends the new K/V to the cache IN PLACE at ``cache_len - 1``
@@ -103,20 +103,26 @@ def attn_decode_sublayer(cfg, p, x, cache_k, cache_v, cache_len: int, *,
     ``cache_len`` rows through ``block_table``, the identity table of the
     cache viewed as a pool of ``max_len / bt`` blocks per sequence
     (``identity_block_table``), with ``context_lens`` = cache_len per
-    sequence.  Returns (out (B, 1, d), cache_k, cache_v)."""
+    sequence.  ``cache_len`` is a Python int, or a 0-dim integer tensor on
+    the cache's device, as the JAX package takes a traced scalar: then no
+    value is read on the host, so the step can be captured in a CUDA graph,
+    and the caller checks ``1 <= cache_len <= max_len`` (an int is checked
+    here).  Returns (out (B, 1, d), cache_k, cache_v)."""
     _unsupported(window)
     q, k, v = qkv_project(cfg, p, x)
     B, max_len = cache_k.shape[:2]
-    if not 1 <= cache_len <= max_len:
-        raise ValueError(f"cache_len {cache_len} outside [1, {max_len}]")
-    pos = torch.full((1, 1), cache_len - 1, dtype=torch.float32,
-                     device=x.device)
+    if isinstance(cache_len, torch.Tensor):
+        idx = (cache_len - 1).reshape(1).long()
+    else:
+        if not 1 <= cache_len <= max_len:
+            raise ValueError(f"cache_len {cache_len} outside [1, {max_len}]")
+        idx = torch.full((1,), cache_len - 1, dtype=torch.long, device=x.device)
     if cfg.use_rope:
+        pos = idx.to(torch.float32).reshape(1, 1)
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
-    idx = cache_len - 1
-    cache_k[:, idx] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, idx] = v[:, 0].to(cache_v.dtype)
+    cache_k.index_copy_(1, idx, k.to(cache_k.dtype))
+    cache_v.index_copy_(1, idx, v.to(cache_v.dtype))
     bt = max_len // block_table.shape[1]
     pool_k = cache_k.view(B * max_len // bt, bt, *cache_k.shape[2:])
     pool_v = cache_v.view(B * max_len // bt, bt, *cache_v.shape[2:])

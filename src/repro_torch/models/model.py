@@ -164,22 +164,45 @@ def init_cache(cfg, batch: int, max_len: int, *, device=None):
     return cache
 
 
+_TABLES: Dict[Tuple[int, int, torch.device], torch.Tensor] = {}
+
+
+def _identity_table(batch: int, max_len: int, device) -> torch.Tensor:
+    """The identity block table of a contiguous (batch, max_len) cache,
+    made once per shape and device and kept, so every step reads the same
+    tensor.  One made while a CUDA graph is being captured lives in that
+    graph's memory pool and is not kept."""
+    key = (batch, max_len, torch.device(device))
+    table = _TABLES.get(key)
+    if table is None:
+        table = identity_block_table(batch, max_len,
+                                     contiguous_block_tokens(max_len),
+                                     device=device)
+        if not (key[2].type == "cuda" and torch.cuda.is_current_stream_capturing()):
+            _TABLES[key] = table
+    return table
+
+
 def decode_step(cfg, params, token, cache, cache_len):
-    """token: (B, 1) int; cache_len: tokens valid AFTER this step.
-    Writes this step's K/V and recurrent state into ``cache`` in place and
-    returns (logits (B, 1, V), cache)."""
+    """token: (B, 1) int; cache_len: tokens valid AFTER this step, a Python
+    int or a 0-dim integer tensor on the cache's device (the JAX package
+    takes a traced scalar).  With a tensor nothing is read on the host, so
+    the step can be captured in a CUDA graph, and the caller checks that
+    it lies in [1, max_len].  Writes this step's K/V and recurrent state
+    into ``cache`` in place and returns (logits (B, 1, V), cache)."""
     kinds, n_groups = group_layout(cfg)
-    cache_len = int(cache_len)
     x = F.embedding(token, params["embed"])
     B = token.shape[0]
     attn = [_cache_key(i, k) for i, k in enumerate(kinds) if k != "mamba"]
     if attn:
-        # one identity table and one context-length vector for every layer
+        # one block table and one context-length vector for every layer
         max_len = cache[attn[0]]["k"].shape[2]
-        table = identity_block_table(B, max_len, contiguous_block_tokens(max_len),
-                                     device=x.device)
-        context_lens = torch.full((B,), cache_len, dtype=torch.int32,
-                                  device=x.device)
+        table = _identity_table(B, max_len, x.device)
+        if isinstance(cache_len, torch.Tensor):
+            context_lens = cache_len.to(torch.int32).expand(B).contiguous()
+        else:
+            context_lens = torch.full((B,), cache_len, dtype=torch.int32,
+                                      device=x.device)
     for g in range(n_groups):
         gp = _layer(params["layers"], g)
         for i, kind in enumerate(kinds):

@@ -21,11 +21,14 @@ from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.cim_matmul import (ROUTES, adc_div_mismatches, calibration_tile,
                                            cim_matmul_cuda, cim_matmul_plain,
                                            quantize_weights, route, takes, weight_layout)
-from repro_torch.kernels.paged_attention import paged_attention_plain, split_plan
+from repro_torch.kernels.paged_attention import (contiguous_block_tokens, identity_block_table,
+                                                 paged_attention_plain, split_plan)
 from repro_torch.kernels import pwl_softmax as psm
 from repro_torch.kernels.pwl_softmax import (agreement, agreement_nan, edge_rows,
                                              exp_mismatches, pwl_softmax_cuda, pwl_softmax_plain)
 from repro_torch.kernels.ssd_scan import ssd_scan_plain
+from repro_torch.launch.serve import Server
+from repro_torch.launch.steps import CompiledServeStep, make_prefill_step, make_serve_step
 
 pytestmark = pytest.mark.gpu
 
@@ -254,10 +257,10 @@ def _bit_equal(got, want):
 
 
 def test_pwl_exp_by_index_equals_the_select_chain_on_every_float(cuda):
-    """The softmax's indexed PWL exp against the select chain (a clip that
-    keeps NaN) on all 2**32 float32 inputs, and against the attention
-    kernels' pwl_exp on the inputs that are not NaN: no bit differs."""
-    assert exp_mismatches() == (0, 0)
+    """The softmax's indexed PWL exp against the attention kernels' select
+    chain pwl_exp (a clip that keeps NaN) on all 2**32 float32 inputs: no
+    bit differs, and a NaN gives NaN in both."""
+    assert exp_mismatches() == 0
 
 
 @pytest.mark.parametrize("way,cs,n", _SOFTMAX_PLANS)
@@ -444,3 +447,161 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+# ---------------------------------------------------------------------------
+# A NaN score, kept as the plain versions and the Pallas kernels keep it
+# ---------------------------------------------------------------------------
+
+def _nan_rows(t):
+    return torch.isnan(t.float()).any(-1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("use_pwl", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D", [(1, 128, 4, 2, 64), (2, 300, 8, 2, 128)])
+def test_flash_kernel_keeps_a_nan_score_where_plain(cuda, B, S, Hq, Hkv, D, causal, use_pwl,
+                                                    dtype):
+    """A NaN at key 5 of sequence 0 and at the last key of the last
+    sequence (which, causal, only the last query sees), both in KV head 0:
+    the (query, head) rows with a NaN are exactly the plain version's, and
+    the other rows agree within the usual bar."""
+    q, k, v = (_randn((B, S, h, D), dtype, 11 + h, cuda) for h in (Hq, Hkv, Hkv))
+    k[0, 5, 0, 0] = float("nan")
+    k[B - 1, S - 1, 0, 1] = float("nan")
+    got = ops.flash_attention(q, k, v, causal=causal, use_pwl=use_pwl)
+    want = flash_attention_plain(q, k, v, causal=causal, use_pwl=use_pwl)
+    torch.cuda.synchronize()
+    nan = _nan_rows(want)
+    assert nan.any() and not nan.all()
+    assert torch.equal(_nan_rows(got), nan)
+    keep = ~nan[..., None].expand_as(want)
+    assert (got.float() - want.float())[keep].abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("use_pwl", [False, True])
+@pytest.mark.parametrize("max_len,ctx", [(64, [50, 64, 0]), (128, [128, 100, 7]),
+                                         (1024, [1000, 300, 700])])
+def test_paged_kernel_keeps_a_nan_score_where_plain(cuda, max_len, ctx, use_pwl, dtype):
+    """One NaN in a key inside the context of sequence 0, one past the
+    context of sequence 1 (never read): the heads with a NaN are exactly
+    the plain version's, with one split (64 rows, or PWL) and with
+    several (128 and 1024 rows, exact), split + combine."""
+    B, H, Hkv, D = len(ctx), 8, 2, 64
+    cache_k, cache_v = (_randn((B, max_len, Hkv, D), dtype, s, cuda) for s in (21, 22))
+    cache_k[0, ctx[0] // 2, 0, 3] = float("nan")
+    cache_k[1, ctx[1]:, 1, 0] = float("nan")
+    bt = contiguous_block_tokens(max_len)
+    n_splits, _ = split_plan(B * Hkv, max_len // bt, bt,
+                             torch.cuda.get_device_properties(cuda).multi_processor_count,
+                             use_pwl=use_pwl)
+    assert (n_splits == 1) == (use_pwl or max_len == 64)
+    args = (_randn((B, H, D), dtype, 23, cuda), cache_k.view(-1, bt, Hkv, D),
+            cache_v.view(-1, bt, Hkv, D), identity_block_table(B, max_len, bt, device=cuda),
+            torch.tensor(ctx, dtype=torch.int32, device=cuda))
+    got = ops.paged_attention(*args, use_pwl=use_pwl)
+    want = paged_attention_plain(*args, use_pwl=use_pwl)
+    torch.cuda.synchronize()
+    nan = _nan_rows(want)
+    assert nan.sum().item() == H // Hkv
+    assert torch.equal(_nan_rows(got), nan)
+    assert (got.float() - want.float())[~nan].abs().max().item() <= TOL[dtype]
+
+
+# ---------------------------------------------------------------------------
+# The compiled serve step (CUDA graph) against the eager step
+# ---------------------------------------------------------------------------
+
+def _copy(cache):
+    return {k: {n: t.clone() for n, t in e.items()} for k, e in cache.items()}
+
+
+def _n_attn(cfg):
+    kinds, n_groups = models.group_layout(cfg)
+    return sum(k != "mamba" for k in kinds) * n_groups
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-2.7b", "zamba2-2.7b"])
+def test_compiled_step_matches_the_eager_step(cuda, arch, dtype):
+    """Prefill, then 8 greedy steps eager and 8 through the captured graph
+    from copies of the prefill's cache: equal ids at every step and equal
+    caches after, bit for bit; the logits' bit-equality is printed.
+    Building the step leaves the cache as it was, and the launch counters
+    count the graph's kernels once a replay."""
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype)
+    params = models.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (3, 21)))
+    tok0, cache0 = make_prefill_step(cfg, kv_max=40)(params, {"tokens": toks.to(cuda)})
+    eager_cache, graph_cache = _copy(cache0), _copy(cache0)
+    step = CompiledServeStep(cfg, params, graph_cache, 3)
+    for key, entry in graph_cache.items():
+        for name, t in entry.items():
+            assert torch.equal(t, cache0[key][name]), "building the step wrote the cache"
+    tok_e, tok_g = tok0, tok0.clone()
+    bit_equal = True
+    ops.reset_launch_counts()
+    for i in range(8):
+        n = 21 + i + 1
+        logits, _ = models.decode_step(cfg, params, tok_e, eager_cache, n)
+        tok_e = torch.argmax(logits[:, -1:], dim=-1)
+        nxt, _ = step(params, graph_cache, tok_g, n)
+        tok_g = nxt.clone()
+        assert torch.equal(tok_g, tok_e), f"step {i}"
+        bit_equal &= torch.equal(step.logits, logits)
+        assert (step.logits - logits).abs().max().item() <= TOL[logits.dtype]
+    for key, entry in graph_cache.items():
+        for name, t in entry.items():
+            assert torch.equal(t, eager_cache[key][name]), f"{key}/{name}"
+    assert ops.LAUNCHES["paged_attention"] == 2 * 8 * _n_attn(cfg)
+    print(f"{arch} {dtype}: graph logits bit-equal to eager: {bit_equal}")
+
+
+def test_compiled_step_refuses_tensors_it_was_not_captured_on(cuda):
+    cfg = dataclasses.replace(get_smoke_config("zamba2-2.7b"), dtype="float32")
+    params = models.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    cache = models.init_cache(cfg, 2, 16, device=cuda)
+    step = CompiledServeStep(cfg, params, cache, 2)
+    tok = torch.zeros((2, 1), dtype=torch.long, device=cuda)
+    step(params, cache, tok, 1)
+    with pytest.raises(ValueError, match="captured"):
+        step(params, _copy(cache), tok, 2)
+    with pytest.raises(ValueError, match="captured"):
+        step(dict(params, embed=params["embed"].clone()), cache, tok, 2)
+    with pytest.raises(ValueError, match="outside"):
+        step(params, cache, tok, 17)
+    step(params, cache, tok, 2)
+
+
+def _serve(srv, prompts, rounds):
+    for rid, p in enumerate(prompts):
+        assert srv.admit(rid, p)
+    for _ in range(rounds):
+        srv.decode_round()
+    return [s.generated for s in srv.slots[:len(prompts)]], srv.tokens[:, 0].tolist()
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-2.7b", "zamba2-2.7b"])
+def test_server_graph_matches_an_eager_step_loop(cuda, arch):
+    """The card's Server (a captured graph) against the same Server driven
+    by the eager step, same seed and prompts; then new params: the graph is
+    captured anew over them, never run on the old ones."""
+    cfg = get_smoke_config(arch)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(2, cfg.vocab_size, size=n) for n in (6, 3, 9)]
+    graph = Server(cfg, max_batch=4, max_len=48, seed=0)
+    assert isinstance(graph.step_fn, CompiledServeStep)
+    eager = Server(cfg, max_batch=4, max_len=48, seed=0)
+    eager.step_fn = make_serve_step(cfg)
+    assert _serve(graph, prompts, 6) == _serve(eager, prompts, 6)
+    assert graph.cur_len == eager.cur_len
+
+    new = models.init_params(cfg, torch.Generator(device=cuda).manual_seed(1))
+    fresh = [Server(cfg, max_batch=4, max_len=48, seed=0) for _ in range(2)]
+    fresh[0].params = new
+    assert isinstance(fresh[0].step_fn, CompiledServeStep)
+    fresh[1].params = new
+    fresh[1].step_fn = make_serve_step(cfg)
+    assert _serve(fresh[0], prompts, 6) == _serve(fresh[1], prompts, 6)

@@ -303,8 +303,8 @@ def test_paged_plain_ignores_rows_past_the_context():
 def test_attention_plain_versions_keep_a_nan_score_as_pallas(use_pwl):
     """One NaN in a key: the (query, head) rows that see it are NaN in the
     Pallas kernels (interpret mode) and in the plain versions alike (246
-    of 512 flash rows, 2 of 4 decode heads).  The card's kernels drop it
-    (ROADMAP §C), which chip_smoke.py logs."""
+    of 512 flash rows, 2 of 4 decode heads).  tests/test_torch_gpu.py
+    holds the card's kernels to the plain versions' NaN rows."""
     q, k, v = _qkv(19, 1, 128, 4, 2, 64)
     k[0, 5, 0, 0] = np.nan
     got = flash_attention_plain(*(torch.from_numpy(a) for a in (q, k, v)), use_pwl=use_pwl)
