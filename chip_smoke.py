@@ -13,7 +13,12 @@ Phases, each of which fails the run if it fails:
                 (attention: exact and PWL, D 32/64/80/128, bf16 flash also
                 by the per-element rule of ``flash_attention.agreement``;
                 paged over scattered tables, bt 1-64, and one 4000-token
-                context split over many CTAs; SSD scan: y and
+                context split over many CTAs; both under mixtral's sliding
+                window: flash at B1 S4160 and B4 S512 with windows of
+                4096, 100 and 130, paged at ctx 4224 with window 4096
+                (33 splits at B1, one at B33 and under PWL), contexts
+                below the window; bf16 paged also per element, float32
+                PWL rows past 2e-5 only at a segment edge; SSD scan: y and
                 final state, float32 and bfloat16, N 128 and 64, short and
                 long memory, S 2048 over 64 sub-chunks, and the CTAs
                 resident per SM; SCU softmax: its indexed PWL exp against
@@ -44,6 +49,12 @@ Phases, each of which fails the run if it fails:
                 launches in the prefill, no attention.
   hybrid_serve  the same for zamba2-2.7b (54 mamba layers, 9 applications
                 of the shared attention block).
+  moe_serve     the same for mixtral-8x7b (MoE, sliding window 4096) at its
+                published widths, depth cut to 16 of 32 layers (the bf16
+                weights of 32 exceed the card): run 1 B4 x 512 with 32
+                steps, run 2 B1 x 4160 with 64 steps (the window binds in
+                prefill and in every step); 16 flash launches a prefill,
+                16 paged a step.
   cim_scu       one llama3-8b layer at full width in bf16 with its seven
                 projections on the RRAM crossbar (``ops.cim_matmul_quantized``,
                 weights quantised once) and its softmax on the SCU
@@ -59,12 +70,15 @@ Phases, each of which fails the run if it fails:
   ssm_parity    the same for mamba2 widths (1 layer) and zamba2 widths (one
                 group: 6 mambas + the shared block), and prefill(S-1) +
                 decode(1) against forward(S) on the card.
+  moe_parity    the same for mixtral widths (1 layer) with the window cut to
+                128 so that it binds at S 300, and on the card at window
+                4096 and S 4160 prefill(S-1) + decode(1) against forward(S).
   server        requests through ``Server.admit`` / ``decode_round``, for
-                llama3-8b, mamba2-2.7b and zamba2-2.7b; on the card the
-                Server replays its captured graph.
+                llama3-8b, mamba2-2.7b, zamba2-2.7b and mixtral-8x7b (16
+                layers); on the card the Server replays its captured graph.
   profile       (only when named) device time by kernel under torch.profiler
                 for one full-width prefill and 8 decode steps (eager, and
-                through the graph) of each of the three served models, and
+                through the graph) of each of the four served models, and
                 for the cim_scu layer's prefill and decode step, and the
                 device's busy share of the host-clock window.
 
@@ -86,12 +100,14 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "serve", "ssm_serve", "hybrid_serve", "cim_scu",
-          "parity", "ssm_parity", "server")
+PHASES = ("build", "kernels", "serve", "ssm_serve", "hybrid_serve", "moe_serve", "cim_scu",
+          "parity", "ssm_parity", "moe_parity", "server")
 EXTRA_PHASES = ("profile",)          # run only when named in --phases
 SERVE_ARCH = {"serve": "llama3-8b", "ssm_serve": "mamba2-2.7b",
               "hybrid_serve": "zamba2-2.7b"}
-# the serve phase whose launch counts each kernel's JSON entry reports
+# the serve phase whose launch counts each kernel's JSON entry reports;
+# mixtral's window cases (in "kernels_other_shapes") name their own
+# "path": run 1 of moe_serve, or run 2, "moe_serve_run2"
 MAIN_PATH_OF = {"flash_attention": "serve", "paged_attention": "serve",
                 "ssd_scan": "ssm_serve", "pwl_softmax": "cim_scu",
                 "cim_matmul": "cim_scu"}
@@ -147,6 +163,11 @@ MAX_LEN = 576                       # >= PROMPT + NEW, a multiple of 64
 # 128 / 64, chunk 256; zamba2's shared attention: 32 heads, kv 32, D 80
 SSM_H, SSM_P, SSM_CHUNK = 80, 64, 256
 ZH, ZD = 32, 80
+# mixtral-8x7b: llama3-8b's attention widths, a sliding window of 4096; the
+# long run's prompt is 64 tokens past the window, its cache 4224 rows (a
+# multiple of 64) for 64 decode steps
+MIX_WINDOW, MIX_LONG, MIX_LONG_MAX = 4096, 4160, 4224
+MIX_LAYERS = 16                     # of 32: the bf16 weights of all 32 exceed 80 GB
 
 
 def log(*a):
@@ -291,6 +312,74 @@ def _check_flash(torch, got, want, dtype, case, pwl):
     return err
 
 
+# A float32 score lies within this of a PWL segment edge when its
+# rounding (dot products of <= 128 terms in another order, ~1e-6) may put
+# it on either side (ROADMAP hazard 4)
+PWL_EDGE_EPS = 1e-5
+
+
+def pwl_edge_scores(torch, q, cache_k, ctx, window, bt, b, h):
+    """The PWL arguments of row (b, h) of a paged call on a contiguous
+    cache that lie within PWL_EDGE_EPS of a segment edge (x = -8, ..., -1),
+    computed in float64 as the kernel forms them: each kept key's score
+    less the running max through its pool block, and each block's rescale
+    m_prev - m_new.  Returns [(kind, key or block, x)]."""
+    from repro_torch.kernels.pwl import SEG_EDGES
+    hkv, d = cache_k.shape[2], q.shape[2]
+    c = int(ctx[b])
+    lo = max(c - window, 0) if window else 0
+    s = cache_k[b, lo:c, h // (q.shape[1] // hkv)].double() @ q[b, h].double() * d ** -0.5
+    blk = torch.arange(lo, c, device=s.device) // bt
+    blk = blk - blk[0]
+    bmax = torch.full((int(blk[-1]) + 1,), -math.inf, dtype=torch.float64, device=s.device)
+    run = bmax.scatter_reduce(0, blk, s, "amax").cummax(0).values
+    edges = torch.tensor(SEG_EDGES[:-1], dtype=torch.float64, device=s.device)
+    found = []
+    for kind, x, first in (("key", s - run[blk], lo), ("block", run[:-1] - run[1:], lo // bt + 1)):
+        near = (x[:, None] - edges).abs().min(-1).values < PWL_EDGE_EPS
+        found += [(kind, first + i, float(x[i])) for i in near.nonzero().flatten().tolist()]
+    return found
+
+
+def _check_paged(torch, got, want, dtype, case, pwl, edge_scores=None):
+    """Windowed paged attention against its plain version: within TOL, and
+    bfloat16 also by the per-element rule of ``flash_attention.agreement``
+    (2**-7 |want| + 2**-12): over a window of 4096 unit-normal keys the
+    outputs are of order 0.03, where TOL alone would pass a window shifted
+    by a block.  float32 with PWL (``edge_scores(b, h)``, see
+    ``pwl_edge_scores``): a row past TOL passes only where one of its PWL
+    arguments lies within rounding of a segment edge, where the two
+    versions may take neighbouring segments (ROADMAP hazard 4); every
+    other row is held to TOL."""
+    from repro_torch.kernels.flash_attention import agreement
+    if edge_scores is not None:
+        per_row = (got.float() - want.float()).abs().amax(-1)
+        off = (per_row > TOL[dtype]).nonzero().tolist()
+        for b, h in off:
+            found = edge_scores(b, h)
+            log(f"[kernels] paged_attention {case}: row b{b} h{h} off by "
+                f"{per_row[b, h].item():.3e}; PWL arguments at a segment edge: {found}")
+            if not found:
+                raise AssertionError(f"paged_attention {case}: row b{b} h{h} disagrees "
+                                     f"with no PWL argument at a segment edge")
+        held = per_row <= TOL[dtype]
+        log(f"[kernels] paged_attention {case}: {len(off)} of {per_row.numel()} rows past "
+            f"{TOL[dtype]:.0e}, each at a segment edge; the other rows held to it")
+        err = per_row.max().item()
+        got, want = got[held], want[held]
+        _check(torch, "paged_attention", got, want, dtype, case)
+    else:
+        err = _check(torch, "paged_attention", got, want, dtype, case)
+    _, ratio, rows_off, ok = agreement(got, want, pwl=pwl)
+    log(f"[kernels] paged_attention {case}: worst element at {ratio:.3f} of its bound "
+        + ("(2e-5)" if dtype == "float32" else
+           f"(2**-7 |want| + 2**-12), {rows_off:.2e} of rows past it"))
+    if not ok:
+        raise AssertionError(f"paged_attention {case}: kernel breaks the agreement rule "
+                             f"(worst element at {ratio} of its bound, {rows_off} of rows)")
+    return err
+
+
 def _check_softmax(torch, got, want, case, tag="kernels"):
     from repro_torch.kernels.pwl_softmax import agreement
     err, share, ok = agreement(got, want)
@@ -374,6 +463,7 @@ def phase_kernels(torch, timer, results):
         elif i == 4:
             extra.append(flash_entry(q, k, v, err, dt))
     torch.cuda.synchronize()
+    flash_window_cases(torch, timer, randn, extra)
 
     # ---- paged attention (decode) -------------------------------------
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -482,6 +572,7 @@ def phase_kernels(torch, timer, results):
         elif i == 4:
             extra.append(paged_entry(case, err, dt))
     torch.cuda.synchronize()
+    paged_window_cases(torch, timer, randn, extra)
 
     # ---- SSD scan (mamba prefill) -------------------------------------
     def ssd_case(b, s, h, p, n, dt, memory):
@@ -567,6 +658,149 @@ def phase_kernels(torch, timer, results):
             f"plain {kern['plain_ms']:.4f} ms, library "
             + ("none" if lib is None else f"{lib:.4f} ms")
             + f", bound {kern['bound_ms']:.5f} ms ({kern['bound_by']})")
+
+
+def window_mask(torch, sq, skv, window, causal=True):
+    """(sq, skv) bool: the keys a query sees under a sliding window (and
+    the causal mask), the yardstick's mask for scaled_dot_product_attention."""
+    qpos = torch.arange(sq, device="cuda")[:, None]
+    kpos = torch.arange(skv, device="cuda")[None, :]
+    valid = (qpos - kpos) < window
+    return valid & (qpos >= kpos) if causal else valid
+
+
+def flash_window_cases(torch, timer, randn, extra):
+    """Flash attention under a sliding window against its plain version:
+    mixtral's long prefill (B1 S4160, window 4096: rows past 4095 lose
+    their oldest keys) in bf16 and float32, mixtral's B4 S512 prefill shape
+    with windows of 100 and 130 (rows whose window starts inside a 128-key
+    step, tiles that skip steps), PWL under a window; the bf16 main shapes
+    timed beside SDPA with the same boolean mask."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+
+    cases = [  # B, S, Hq, Hkv, D, dtype, window, pwl, timed
+        (1, MIX_LONG, HQ, HKV, D, "bfloat16", MIX_WINDOW, False, True),
+        (1, MIX_LONG, HQ, HKV, D, "float32", MIX_WINDOW, False, False),
+        (B_MAIN, PROMPT, HQ, HKV, D, "bfloat16", 100, False, True),
+        (B_MAIN, PROMPT, HQ, HKV, D, "bfloat16", 130, False, False),
+        (B_MAIN, PROMPT, HQ, HKV, D, "float32", 130, False, False),
+        (B_MAIN, PROMPT, HQ, HKV, D, "bfloat16", 130, True, False),
+        (B_MAIN, PROMPT, HQ, HKV, D, "float32", 100, True, False),
+        (1, MIX_LONG, HQ, HKV, D, "bfloat16", MIX_WINDOW, True, False),
+        (2, 300, 8, 2, 64, "float32", 1, False, False),
+        (2, 300, 8, 2, ZD, "bfloat16", 64, True, False),
+    ]
+    for b, s, hq, hkv, d, dt, window, pwl, timed in cases:
+        q, k, v = (randn((b, s, h, d), dt) for h in (hq, hkv, hkv))
+        got = ops.flash_attention(q, k, v, use_pwl=pwl, window=window)
+        want = flash_attention_plain(q, k, v, use_pwl=pwl, window=window)
+        torch.cuda.synchronize()
+        what = f"B{b} S{s} Hq{hq} Hkv{hkv} D{d} {dt} causal window {window}"
+        err = _check_flash(torch, got, want, dt, f"{what} pwl={pwl}", pwl)
+        del got, want
+        if not timed:
+            continue
+        # the (query, key) pairs of the window, each 4 d FLOPs a head
+        pairs = sum(min(i + 1, window) for i in range(s))
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        bms, by = bound(nbytes, 4 * b * hq * d * pairs, dt)
+        mask = window_mask(torch, s, s, window)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        extra.append({
+            "name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:76",
+            "design": "sliding window on the mma.sync path (steps from the tile's first "
+                      "windowed step, a masked step at each row's lower edge)",
+            "shape": f"mixtral {what}", "max_abs_err": err,
+            # launches: mixtral's run at this batch and length (run 1's
+            # window of 4096 does not bind at S 512)
+            "path": "moe_serve_run2" if b == 1 else "moe_serve",
+            "ms": timer.ms(lambda: ops.flash_attention(q, k, v, window=window), 20),
+            "plain_ms": timer.ms(lambda: flash_attention_plain(q, k, v, window=window), 3),
+            "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True), 10),
+            "bound_ms": bms, "bound_by": by,
+        })
+        del q, k, v, qt, kt, vt, mask
+    torch.cuda.synchronize()
+
+
+def paged_window_cases(torch, timer, randn, extra):
+    """Paged attention under a sliding window against its plain version:
+    mixtral's long decode (ctx 4224, window 4096, bt 64: the first 128 keys
+    and the first two pool blocks dropped) at B1 (split_plan: 33 splits of
+    2 blocks, the first wholly below the window), at a batch of 2 CTAs an
+    SM (one split), under PWL (one split), and a batch whose contexts are
+    below, at and past the window; bfloat16 also held by the per-element
+    rule, float32 PWL by ``_check_paged``'s segment-edge rule; the main
+    shape timed beside SDPA with the same boolean mask."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attention import (
+        identity_block_table, paged_attention_plain, split_plan)
+
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bt, max_len = 64, MIX_LONG_MAX
+    n_blocks = max_len // bt
+    one_split = [MIX_LONG_MAX - 4 * i for i in range(-(-2 * n_sms // HKV))]
+    cases = [  # contexts, dtype, pwl, timed
+        ([MIX_LONG_MAX], "bfloat16", False, True),
+        ([MIX_LONG_MAX], "float32", False, False),
+        (one_split, "bfloat16", False, False),
+        ([MIX_LONG_MAX], "bfloat16", True, False),
+        ([MIX_LONG_MAX], "float32", True, False),
+        ([100, MIX_WINDOW, MIX_WINDOW + 1, MIX_LONG_MAX], "bfloat16", False, False),
+        ([100, MIX_WINDOW, MIX_WINDOW + 1, MIX_LONG_MAX], "float32", True, False),
+    ]
+    for ctx, dt, pwl, timed in cases:
+        b = len(ctx)
+        cache_k, cache_v = (randn((b, max_len, HKV, D), dt) for _ in range(2))
+        args = (randn((b, HQ, D), dt), cache_k.view(-1, bt, HKV, D), cache_v.view(-1, bt, HKV, D),
+                identity_block_table(b, max_len, bt, device="cuda"),
+                torch.tensor(ctx, dtype=torch.int32, device="cuda"))
+        n_splits, bps = split_plan(b * HKV, n_blocks, bt, n_sms, use_pwl=pwl)
+        if (n_splits == 1) != (pwl or ctx is one_split):
+            raise AssertionError(f"split_plan gave {n_splits} splits at B{b} pwl={pwl}")
+        got = ops.paged_attention(*args, use_pwl=pwl, window=MIX_WINDOW)
+        want = paged_attention_plain(*args, use_pwl=pwl, window=MIX_WINDOW)
+        torch.cuda.synchronize()
+        shown = ctx if b <= 4 else f"{b} of {ctx[-1]}..{ctx[0]}"
+        what = (f"B{b} H{HQ} Hkv{HKV} D{D} ctx={shown} window {MIX_WINDOW} bt{bt} {dt} "
+                f"pwl={pwl} splits {n_splits} x {bps}")
+        edges = None
+        if pwl and dt == "float32":
+            def edges(bi, hi):
+                return pwl_edge_scores(torch, args[0], cache_k, ctx, MIX_WINDOW, bt, bi, hi)
+        err = _check_paged(torch, got, want, dt, what, pwl, edges)
+        del got, want
+        if not timed:
+            continue
+        lens = args[4]
+        kept = sum(min(c, MIX_WINDOW) for c in ctx)
+        esize = args[0].element_size()
+        nbytes = 2 * args[0].numel() * esize + 2 * kept * HKV * D * esize + b * (n_blocks + 1) * 4
+        bms, by = bound(nbytes, 4 * kept * HQ * D, dt)
+        kpos = torch.arange(max_len, device="cuda")[None, :]
+        mask = ((kpos < lens[:, None]) & (kpos >= lens[:, None] - MIX_WINDOW))[:, None, None, :]
+        ql, kl, vl = args[0][:, :, None], cache_k.transpose(1, 2), cache_v.transpose(1, 2)
+        extra.append({
+            "name": "paged_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention.py:86",
+            "design": "the window's lower bound on the split-KV kernel (blocks from the "
+                      "first kept key's, splits below it empty)",
+            "n_splits": n_splits, "blocks_per_split": bps,
+            "shape": f"mixtral {what}", "max_abs_err": err, "path": "moe_serve_run2",
+            "ms": timer.ms(lambda: ops.paged_attention(*args, window=MIX_WINDOW), 50),
+            "plain_ms": timer.ms(lambda: paged_attention_plain(*args, window=MIX_WINDOW), 3),
+            "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
+                ql, kl, vl, attn_mask=mask, enable_gqa=True), 50),
+            "bound_ms": bms, "bound_by": by,
+        })
+    torch.cuda.synchronize()
 
 
 def phase_kernels_softmax(torch, timer, randn, extra):
@@ -904,54 +1138,72 @@ def expected_launches(cfg, new: int):
             "ssd_scan": n_mamba, "pwl_softmax": 0, "cim_matmul": 0}
 
 
-def decode_loop(torch, step, params, cache, tok):
-    """NEW greedy steps of ``step`` from the prefill's token, timed on the
-    host clock; returns (ids (B, NEW + 1), seconds).  Each step's token is
-    copied: the graph's output buffer is overwritten by the next replay."""
+def decode_loop(torch, step, params, cache, tok, start: int, new: int):
+    """``new`` greedy steps of ``step`` from the prefill's token, the first
+    writing cache row ``start``, timed on the host clock; returns (ids (B,
+    new + 1), seconds).  Each step's token is copied: the graph's output
+    buffer is overwritten by the next replay."""
     ids = [tok]
     torch.cuda.synchronize()
     t0 = time.time()
-    for i in range(NEW):
-        tok, cache = step(params, cache, tok, PROMPT + i + 1)
+    for i in range(new):
+        tok, cache = step(params, cache, tok, start + i + 1)
         ids.append(tok.clone())
     torch.cuda.synchronize()
     return torch.cat(ids, 1), time.time() - t0
 
 
 def phase_serve(torch, results, phase):
-    """Prefill, then NEW decode steps, eager and then under the captured
-    graph, from the same prompt; the main path (counted) is the prefill and
-    the graph's decode, as the card's Server runs it."""
-    from repro_torch import models
+    """The served model of ``phase`` at full width and depth, one run of
+    ``serve_run``."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
-    from repro_torch.launch.steps import (CompiledServeStep, make_prefill_step,
-                                          make_serve_step)
-    import numpy as np
 
-    tag = f"[{phase}]"
     cfg = get_config(SERVE_ARCH[phase])
+    params = init_logged(torch, cfg, f"[{phase}]")
+    res, launches = serve_run(torch, cfg, params, f"[{phase}]", B_MAIN, PROMPT, NEW, MAX_LEN)
+    results[phase] = res
+    return launches
+
+
+def init_logged(torch, cfg, tag):
+    """Random weights of ``cfg`` on the card from seed 0, with their count
+    and init time logged."""
+    from repro_torch import models
     t0 = time.time()
     params = models.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
     log(f"{tag} {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{n_params / 1e9:.3f} B params in {cfg.dtype}, init {time.time() - t0:.1f}s")
+    return params
+
+
+def serve_run(torch, cfg, params, tag, batch, prompt_len, new, max_len):
+    """Prefill ``batch`` x ``prompt_len`` tokens, then ``new`` decode steps,
+    eager and then under the captured graph, from the same prompt; the main
+    path (counted) is the prefill and the graph's decode, as the card's
+    Server runs it.  Returns (results, launches of the main path)."""
+    from repro_torch import models
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import (CompiledServeStep, make_prefill_step,
+                                          make_serve_step)
+    import numpy as np
+
     rng = np.random.default_rng(0)
-    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B_MAIN, PROMPT))).cuda()
-    prefill = make_prefill_step(cfg, kv_max=MAX_LEN)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, prompt_len))).cuda()
+    prefill = make_prefill_step(cfg, kv_max=max_len)
     serve = make_serve_step(cfg)
 
     # warm-up outside the counted window (cuBLAS heuristics, allocator), and
     # the graph captured over a cache of its own, into which the prefill's
     # cache is copied; its memory is what the capture leaves reserved
     prefill(params, {"tokens": prompt[:, :64]})
-    graph_cache = models.init_cache(cfg, B_MAIN, MAX_LEN, device="cuda")
+    graph_cache = models.init_cache(cfg, batch, max_len, device="cuda")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved()
     t0 = time.time()
-    compiled = CompiledServeStep(cfg, params, graph_cache, B_MAIN)
+    compiled = CompiledServeStep(cfg, params, graph_cache, batch)
     torch.cuda.synchronize()
     t_build = time.time() - t0
     torch.cuda.empty_cache()
@@ -960,8 +1212,8 @@ def phase_serve(torch, results, phase):
     # the eager step, outside the counted window: the yardstick
     tok, eager_cache = prefill(params, {"tokens": prompt})
     ops.reset_launch_counts()
-    ids_eager, t_eager = decode_loop(torch, serve, params, eager_cache, tok)
-    want_eager = {**expected_launches(cfg, NEW), "flash_attention": 0, "ssd_scan": 0}
+    ids_eager, t_eager = decode_loop(torch, serve, params, eager_cache, tok, prompt_len, new)
+    want_eager = {**expected_launches(cfg, new), "flash_attention": 0, "ssd_scan": 0}
     if dict(ops.LAUNCHES) != want_eager:
         raise AssertionError(f"eager decode launches {ops.LAUNCHES}, expected {want_eager}")
 
@@ -976,11 +1228,11 @@ def phase_serve(torch, results, phase):
         for name, t in entry.items():
             graph_cache[key][name].copy_(t)
     del cache
-    ids, t_decode = decode_loop(torch, compiled, params, graph_cache, tok)
+    ids, t_decode = decode_loop(torch, compiled, params, graph_cache, tok, prompt_len, new)
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
-    want = expected_launches(cfg, NEW)
+    want = expected_launches(cfg, new)
     log(f"{tag} launches on the main path: {launches} (expected {want})")
     if launches != want:
         raise AssertionError(f"main path launches {launches}, expected {want}")
@@ -992,39 +1244,108 @@ def phase_serve(torch, results, phase):
     # logits check, outside the counted window: the prefill's logits are
     # finite and their last-position argmax is the prefill step's token
     with torch.no_grad():
-        logits, _, _ = models.forward(cfg, params, prompt)
-    if not bool(torch.isfinite(logits.float()).all()):
-        raise AssertionError("prefill logits are not finite")
+        logits, aux, _ = models.forward(cfg, params, prompt)
+    if not bool(torch.isfinite(logits.float()).all()) or not bool(torch.isfinite(aux)):
+        raise AssertionError("prefill logits or aux loss are not finite")
     if not torch.equal(logits[:, -1:].float().argmax(-1), ids[:, :1]):
         raise AssertionError("prefill argmax differs from the prefill step's token")
+    del logits
     cache_equal = True
     for key, entry in graph_cache.items():
         for name, t in entry.items():
             cache_equal &= torch.equal(t, eager_cache[key][name])
             if name in ("k", "v"):
-                t = t[:, :, :PROMPT + NEW]
+                t = t[:, :, :prompt_len + new]
             if not bool(torch.isfinite(t.float()).all()):
                 raise AssertionError(f"cache {key}/{name} is not finite")
     del eager_cache
-    res = {"arch": cfg.name, "dtype": cfg.dtype, "batch": B_MAIN, "prompt": PROMPT,
-           "new_tokens": NEW, "prefill_ms": t_prefill * 1e3,
-           "prefill_tokens_per_s": B_MAIN * PROMPT / t_prefill,
-           "decode_ms_per_step": t_decode / NEW * 1e3,
-           "decode_tokens_per_s": B_MAIN * NEW / t_decode,
-           "eager_decode_ms_per_step": t_eager / NEW * 1e3,
-           "eager_decode_tokens_per_s": B_MAIN * NEW / t_eager,
+    res = {"arch": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype, "batch": batch,
+           "prompt": prompt_len, "new_tokens": new, "max_len": max_len,
+           "prefill_ms": t_prefill * 1e3,
+           "prefill_tokens_per_s": batch * prompt_len / t_prefill,
+           "decode_ms_per_step": t_decode / new * 1e3,
+           "decode_tokens_per_s": batch * new / t_decode,
+           "eager_decode_ms_per_step": t_eager / new * 1e3,
+           "eager_decode_tokens_per_s": batch * new / t_eager,
            "graph_build_s": t_build, "graph_reserved_gib": graph_gib,
-           "graph_cache_bit_equal_to_eager": cache_equal,
+           "graph_cache_bit_equal_to_eager": cache_equal, "aux_loss": aux.item(),
            "peak_mem_gib": peak, "launches": launches}
-    results[phase] = res
-    log(f"{tag} prefill {res['prefill_ms']:.2f} ms ({res['prefill_tokens_per_s']:.0f} tok/s); "
+    log(f"{tag} B{batch} x {prompt_len}: prefill {res['prefill_ms']:.2f} ms "
+        f"({res['prefill_tokens_per_s']:.0f} tok/s); "
         f"decode eager {res['eager_decode_ms_per_step']:.3f} ms/step "
         f"({res['eager_decode_tokens_per_s']:.1f} tok/s), graph "
         f"{res['decode_ms_per_step']:.3f} ms/step ({res['decode_tokens_per_s']:.1f} tok/s); "
         f"greedy ids equal, caches bit-equal {cache_equal}; graph built in {t_build:.2f}s, "
         f"{graph_gib:.3f} GiB reserved by it; peak {peak:.2f} GiB")
     log(f"{tag} first ids per sequence: {ids[:, :8].tolist()}")
-    return launches
+    return res, launches
+
+
+def mixtral_cut():
+    """mixtral-8x7b at its published widths, cut to MIX_LAYERS layers (bf16
+    weights of all 32 do not fit the card)."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("mixtral-8x7b"), n_layers=MIX_LAYERS)
+
+
+def phase_moe_serve(torch, results):
+    """mixtral-8x7b, published widths, MIX_LAYERS layers, bf16: run 1 at
+    the main shape (B4 x 512, 32 steps; the window does not bind), run 2
+    at B1 x 4160 with 64 steps (the window binds in prefill rows >= 4096
+    and in every decode step), each eager and then through the graph.
+    Returns the launches of each run's main path (run 1, run 2)."""
+    cfg = mixtral_cut()
+    log(f"[moe_serve] depth cut to {MIX_LAYERS} of 32 layers: 32 x 2.90 GB of bf16 weights "
+        f"(93 GB) exceed the card's 80 GB; {MIX_LAYERS} layers are "
+        f"{MIX_LAYERS * 2.90:.1f} GB (+0.5 GB embeddings and head)")
+    params = init_logged(torch, cfg, "[moe_serve]")
+    out = {}
+    res, launches = serve_run(torch, cfg, params, "[moe_serve] run 1", B_MAIN, PROMPT, NEW,
+                              MAX_LEN)
+    out["run1"] = res
+    torch.cuda.empty_cache()
+    res, launches2 = serve_run(torch, cfg, params, "[moe_serve] run 2", 1, MIX_LONG,
+                               MIX_LONG_MAX - MIX_LONG, MIX_LONG_MAX)
+    out["run2"] = res
+    results["moe_serve"] = out
+    return launches, launches2
+
+
+def phase_moe_parity(torch, results):
+    """mixtral widths, 1 layer, float32: the card against the CPU with the
+    window cut to 128 so that it binds at S 300; then on the card at the
+    published window 4096 and S 4160, prefill(S-1) + decode(1) against
+    forward(S) at the last token (capacity factor 8: no drops)."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    import numpy as np
+    out = {}
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"), n_layers=1, dtype="float32",
+                              sliding_window=128)
+    params, _, out["card_vs_cpu_window_128"] = _parity(torch, cfg, b=2, s=300, steps=8,
+                                                       max_len=320, seed=3)
+    # capacity factor 8, as tests/test_models.py takes it: no choice is
+    # dropped, so the forward's dispatch and the decode step's dense path
+    # compute the last token alike (capacity drops hit the last tokens)
+    cfg = dataclasses.replace(cfg, sliding_window=MIX_WINDOW,
+                              moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (1, MIX_LONG))).cuda()
+    with torch.no_grad():
+        full, aux, _ = models.forward(cfg, params, toks)
+        last = full[:, -1].clone()
+        del full
+        _, _, cache = models.forward(cfg, params, toks[:, :-1], collect_cache=True,
+                                     kv_max=MIX_LONG_MAX)
+        lg, _ = models.decode_step(cfg, params, toks[:, -1:], cache, MIX_LONG)
+    rel = ((lg[:, 0] - last).abs().max() / last.abs().max()).item()
+    log(f"[moe_parity] {cfg.name} widths x 1 layer fp32, window {MIX_WINDOW}, S {MIX_LONG}: "
+        f"prefill(S-1) + decode(1) vs forward(S) on the card, rel err {rel:.3e} (tol 1e-3); "
+        f"aux {aux.item():.6f}")
+    if not (rel < 1e-3 and bool(torch.isfinite(aux))):
+        raise AssertionError(f"{cfg.name}: decode does not continue the windowed prefill")
+    out["decode_vs_forward_rel_err_window_4096"] = rel
+    results["moe_parity"] = out
 
 
 def cim_scu_layer(torch, cfg, weights, x, pos0, cache=None, *, exact=False, calls=None):
@@ -1320,8 +1641,9 @@ def phase_ssm_parity(torch, results):
 
 def phase_server(torch, results):
     """Requests through the card's Server, whose decode step is a captured
-    CUDA graph, for the three served models; the launch counters, zeroed
-    after the Server is built, count each replay's kernels exactly."""
+    CUDA graph, for the four served models (mixtral at MIX_LAYERS layers);
+    the launch counters, zeroed after the Server is built, count each
+    replay's kernels exactly."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import Server
@@ -1329,8 +1651,8 @@ def phase_server(torch, results):
     import numpy as np
 
     out = {}
-    for arch in SERVE_ARCH.values():
-        cfg = get_config(arch)
+    for arch in (*SERVE_ARCH.values(), "mixtral-8x7b"):
+        cfg = mixtral_cut() if arch == "mixtral-8x7b" else get_config(arch)
         t0 = time.time()
         srv = Server(cfg, max_batch=4, max_len=64, seed=0)
         torch.cuda.synchronize()
@@ -1392,7 +1714,8 @@ def _kernel_class(name: str) -> str:
 
 def profile_windows(torch, arch):
     """The (name, function) windows the profile phase traces for ``arch``,
-    warmed up: a full-width prefill and 8 decode steps of a served model,
+    warmed up: a full-width prefill and 8 decode steps of a served model
+    (mixtral at MIX_LAYERS layers),
     eager and through the captured graph (on a copy of the cache), or the
     cim_scu phase's layer prefill (with the vocab softmax) and decode
     step."""
@@ -1419,7 +1742,7 @@ def profile_windows(torch, arch):
         layer_decode()
         return [("prefill", layer_prefill), ("decode_x1", layer_decode)]
 
-    cfg = get_config(arch)
+    cfg = mixtral_cut() if arch == "mixtral-8x7b" else get_config(arch)
     params = models.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     prompt = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (B_MAIN, PROMPT))).cuda()
@@ -1527,25 +1850,33 @@ def main(argv=None) -> int:
             phase_kernels(torch, timer, results)
         elif phase in SERVE_ARCH:
             launches_of[phase] = phase_serve(torch, results, phase)
+        elif phase == "moe_serve":
+            launches_of[phase], launches_of["moe_serve_run2"] = phase_moe_serve(torch, results)
         elif phase == "cim_scu":
             launches_of[phase] = phase_cim_scu(torch, results)
         elif phase == "parity":
             phase_parity(torch, results)
         elif phase == "ssm_parity":
             phase_ssm_parity(torch, results)
+        elif phase == "moe_parity":
+            phase_moe_parity(torch, results)
         elif phase == "server":
             phase_server(torch, results)
         elif phase == "profile":
-            for arch in (*SERVE_ARCH.values(), "cim_scu"):
+            for arch in (*SERVE_ARCH.values(), "mixtral-8x7b", "cim_scu"):
                 phase_profile(torch, results, arch)
                 torch.cuda.empty_cache()
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         log(f"[{phase}] ok in {time.time() - t0:.1f}s")
     log(f"[all] ok in {time.time() - t_start:.1f}s")
-    for kern in results.get("kernels", []):
-        path = launches_of.get(MAIN_PATH_OF[kern["name"]])
+    windowed = [k for k in results.get("kernels_other_shapes", []) if "path" in k]
+    for kern in results.get("kernels", []) + windowed:
+        path = launches_of.get(kern.get("path", MAIN_PATH_OF[kern["name"]]))
         kern["launches"] = None if path is None else path[kern["name"]]
+    for kern in windowed:
+        log(f"[kernels] {kern['name']} at {kern['shape']}: {kern['launches']} launches "
+            f"on {kern['path']}")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(results, indent=1))

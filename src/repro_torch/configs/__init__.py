@@ -1,6 +1,7 @@
 """Config registry of the port: ``get_config("<arch-id>")`` returns the full
 ModelConfig.  The registry holds the architectures of ``repro.configs``
-whose families the port runs (dense, ssm, hybrid), under the same arch ids.
+whose families the port runs (dense, moe, ssm, hybrid), under the same arch
+ids.
 """
 from __future__ import annotations
 
@@ -14,6 +15,9 @@ _REGISTRY = {
     "olmo-1b": "olmo_1b",
     "smollm-360m": "smollm_360m",
     "yi-34b": "yi_34b",
+    # mixture of experts: mixtral (sliding window), llama4 (shared expert)
+    "llama4-maverick-400b-a17b": "llama4_maverick",
+    "mixtral-8x7b": "mixtral_8x7b",
     # attention-free SSM and the Mamba2 + shared-attention hybrid
     "mamba2-2.7b": "mamba2_2p7b",
     "zamba2-2.7b": "zamba2_2p7b",

@@ -10,6 +10,13 @@
 // padding); the causal loop stops at the diagonal step; the KV head is
 // h / (Hq / Hkv) (no repeat in memory); D = 32, 64, 80 or 128 (80 is
 // zamba2's shared attention).
+// A sliding window (window > 0; the JAX model's, which the Pallas kernel
+// does not take) masks a key window or more positions before its query,
+// causal or not.  Steps stay aligned to absolute key positions, as the
+// plain version steps, so the PWL result under a window is the plain
+// version's step for step: a tile starts at the step that holds the first
+// key inside the window of its first row, and the steps before it, which
+// no row of the tile sees, contribute nothing.
 // A NaN score goes through as in the Pallas kernel and the plain version:
 // the row max keeps it (max.NaN), the PWL exp's clip keeps it, and a
 // row's "sees a key" test comes from the mask, so the (query, head) rows
@@ -40,9 +47,10 @@
 //   hold one CTA of 8 warps per SM anyway.
 // - S = Q K^T by mma.sync m16n8k16 bf16 -> f32; the mask, the row max, p
 //   (ex2.approx, or common.cuh's pwl_exp) and the alpha rescale stay in
-//   registers.  Only a step that holds the causal diagonal or keys past Skv
-//   masks; there a warp also skips the key tiles past its last row.  The
-//   other steps run without a branch.
+//   registers.  Only a step that holds the causal diagonal, the window's
+//   lower edge of a row of the warp, or keys past Skv masks; there a warp
+//   also skips the 16-key tiles past its last row and below its first
+//   row's window.  The other steps run without a branch.
 // - P V: the m16n8k16 accumulator layout is the A-fragment layout of the
 //   next product, so P goes to bf16 in registers, with no trip through
 //   shared memory; V is the B operand by ldmatrix.trans.  P is split into
@@ -85,6 +93,25 @@ constexpr size_t flash_smem_bytes() {
          (size_t(kBQ) * (D + 1) + size_t(kBK) * (D + 1) + size_t(kBQ) * (kBK + 1) + 3 * kBQ);
 }
 
+// The key steps [first, last) of a tile of q rows [q0, q1): from the step
+// that holds the first key inside the window of row q0 (later rows'
+// windows start later; 0 without a window) to the last step with a key
+// before Skv, or, causal, at or before row q1 - 1.  At least one step: a
+// tile whose rows see no key (non-causal, Skv far below the window) runs
+// its last step, fully masked, and gives zeros as the plain version does.
+__device__ __forceinline__ int2 step_range(int q0, int q1, int Skv, int causal, int window) {
+  int last = (Skv + kBK - 1) / kBK;
+  if (causal) last = min(last, (q1 - 1) / kBK + 1);
+  const int first = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
+  return make_int2(min(first, last - 1), last);
+}
+
+// Whether key kpos is valid for query qpos: inside the sequence, not after
+// the query when causal, and fewer than window positions before it.
+__device__ __forceinline__ bool key_valid(int qpos, int kpos, int Skv, int causal, int window) {
+  return kpos < Skv && (!causal || qpos >= kpos) && (window <= 0 || qpos - kpos < window);
+}
+
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(float* dst, const T* src, int row0, int n_rows,
                                           int64_t row_stride, int n_valid) {
@@ -100,7 +127,7 @@ template <typename T, int D, bool kPwl>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ out, int Sq, int Skv, int Hq, int Hkv, int causal,
-                 float scale, PwlCoeffs pwl) {
+                 int window, float scale, PwlCoeffs pwl) {
   constexpr int DP = D + 1, BKP = kBK + 1, CPT = D / 16;
   extern __shared__ float smem[];
   float* Qs = smem;                 // kBQ x DP, pre-scaled q
@@ -135,10 +162,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
     for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
 
-  int n_steps = (Skv + kBK - 1) / kBK;
-  if (causal) n_steps = min(n_steps, (min(q0 + kBQ, Sq) - 1) / kBK + 1);
-
-  for (int step = 0; step < n_steps; ++step) {
+  const int2 steps = step_range(q0, min(q0 + kBQ, Sq), Skv, causal, window);
+  for (int step = steps.x; step < steps.y; ++step) {
     const int k0 = step * kBK;
     load_tile<T, D>(KVs, kb, k0, kBK, kv_stride, Skv);
     __syncthreads();
@@ -167,7 +192,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int kpos = k0 + tx + 16 * j;
-        const bool ok = kpos < Skv && (!causal || qpos >= kpos);
+        const bool ok = key_valid(qpos, kpos, Skv, causal, window);
         Ps[(ty * 4 + i) * BKP + tx + 16 * j] = ok ? s[i][j] : kNegInf;
       }
     }
@@ -185,7 +210,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int kpos = k0 + lane + 32 * c;
-        ok[c] = kpos < Skv && (!causal || qpos >= kpos);
+        ok[c] = key_valid(qpos, kpos, Skv, causal, window);
         sv[c] = Ps[r * BKP + lane + 32 * c];
         if (ok[c]) mx = max_nan(mx, sv[c]);
       }
@@ -281,8 +306,8 @@ template <int D, bool kPwl>
 __global__ void __launch_bounds__(kMmaThreads, 1)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                     int B, int Sq, int Skv, int Hq, int Hkv, int causal, float scale,
-                     PwlCoeffs pwl) {
+                     int B, int Sq, int Skv, int Hq, int Hkv, int causal, int window,
+                     float scale, PwlCoeffs pwl) {
   constexpr int kS = kMmaStride<D>;
   constexpr int kTile = kBK * kS;  // elements of one staged tile
   constexpr int kKC = D / 16;      // k16 chunks of Q K^T = pairs of n8 d-tiles of P V
@@ -315,13 +340,20 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   int row_w = 0;             // the warp's first q row in the tile
   const float scale_log2 = scale * kLog2e;
 
+  auto steps_of = [&](int t) {
+    return step_range(q0_of(t), min(q0_of(t) + kMmaBQ, Sq), Skv, causal, window);
+  };
+
   // One online-softmax step over keys [k0, k0 + 128) from stage st.
-  // kMasked: the step holds keys past Skv or past a row of this warp (the
-  // causal diagonal); there the warp skips the key tiles it cannot see and
-  // masks the rest; every other step runs without a branch.
+  // kMasked: the step holds keys past Skv, past a row of this warp (the
+  // causal diagonal) or before a row's window; there the warp skips the
+  // 16-key tiles it cannot see, [k0, k0 + k_lo) and [k0 + n_keys, k0 +
+  // 128), and masks the rest; every other step runs without a branch.
   auto run_step = [&](auto masked, int k0, int st) {
     constexpr bool kMasked = decltype(masked)::value;
     const int n_keys = kMasked && causal ? max(0, min(kBK, row_w + 16 - k0)) : kBK;
+    // keys before k0 + k_lo are outside the window of the warp's first row
+    const int k_lo = kMasked && window > 0 ? min(kBK, max(0, row_w - window + 1 - k0)) : 0;
     float s[kNT][4];
 #pragma unroll
     for (int nt = 0; nt < kNT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
@@ -330,7 +362,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     for (int kc = 0; kc < kKC; ++kc) {
 #pragma unroll
       for (int np = 0; np < kNT / 2; ++np) {
-        if (!kMasked || 16 * np < n_keys) {
+        if (!kMasked || (16 * np < n_keys && 16 * np + 16 > k_lo)) {
           uint32_t r[4];
           ldsm_x4(r, krow + np * 16 * kS + kc * 16);
           mma_bf16(s[2 * np], qf[kc], r[0], r[1]);
@@ -345,13 +377,16 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
         for (int e = 0; e < 4; ++e) {
           const int row = row_w + g + (e >> 1) * 8;
           const int key = k0 + nt * 8 + 2 * t4 + (e & 1);
-          if (!(key < Skv && (!causal || row >= key))) s[nt][e] = -INFINITY;
+          if (!key_valid(row, key, Skv, causal, window)) s[nt][e] = -INFINITY;
         }
     }
 
     // online softmax of rows g and g + 8, in registers; the max keeps a
     // NaN score, and whether a row sees a key of the step comes from the
-    // mask (its first key k0 is valid for it), not from the max
+    // mask (some key of the step is valid for it: the step's keys [k0,
+    // k0 + 128) meet the row's [row - window + 1, row] or [0, Skv)), not
+    // from the max; under a window the step's first key may be too old for
+    // a row that sees later keys of the step
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int nt = 0; nt < kNT; ++nt) {
@@ -363,7 +398,13 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     for (int r = 0; r < 2; ++r) {
       mx[r] = max_nan(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = max_nan(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const bool seen = !kMasked || (k0 < Skv && (!causal || row_w + g + 8 * r >= k0));
+      bool seen = true;
+      if constexpr (kMasked) {
+        const int row = row_w + g + 8 * r;
+        const int lo = window > 0 ? max(k0, row - window + 1) : k0;
+        const int hi = min(min(k0 + kBK, Skv), causal ? row + 1 : Skv);
+        seen = lo < hi;
+      }
       const float m_new = seen ? max_nan(m_run[r], mx[r]) : m_run[r];
       if constexpr (kPwl) {
         alpha[r] = seen ? pwl_exp(__fsub_rn(__fmul_rn(m_run[r], scale),
@@ -405,7 +446,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     const __nv_bfloat16* vrow = Vs + st * kTile + ((mi & 1) * 8 + mr) * kS + (mi >> 1) * 8;
 #pragma unroll
     for (int kc = 0; kc < kBK / 16; ++kc) {
-      if (!kMasked || 16 * kc < n_keys) {
+      if (!kMasked || (16 * kc < n_keys && 16 * kc + 16 > k_lo)) {
         uint32_t a_hi[4], a_lo[4];
         a_hi[0] = split_bf16x2(s[2 * kc][0], s[2 * kc][1], a_lo[0]);
         a_hi[1] = split_bf16x2(s[2 * kc][2], s[2 * kc][3], a_lo[1]);
@@ -427,15 +468,15 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   int t = blockIdx.x;
   if (t >= n_tiles) return;
   load_tile_async<D>(Qs, q + q_off(t), q0_of(t), q_stride, Sq);
-  load_tile_async<D>(Ks, k + kv_off(t), 0, kv_stride, Skv);
-  load_tile_async<D>(Vs, v + kv_off(t), 0, kv_stride, Skv);
+  load_tile_async<D>(Ks, k + kv_off(t), steps_of(t).x * kBK, kv_stride, Skv);
+  load_tile_async<D>(Vs, v + kv_off(t), steps_of(t).x * kBK, kv_stride, Skv);
   cp_async_commit();
   int gs = 0;  // steps taken by the CTA: their stage alternates
   for (; t < n_tiles; t += gridDim.x) {
     const int q0 = q0_of(t), t_next = t + gridDim.x;
     const int64_t kvo = kv_off(t);
-    int n_steps = (Skv + kBK - 1) / kBK;
-    if (causal) n_steps = min(n_steps, (min(q0 + kMmaBQ, Sq) - 1) / kBK + 1);
+    const int2 steps = steps_of(t);
+    const int step0 = steps.x, n_steps = steps.y;
     row_w = q0 + warp * 16;
     cp_async_wait<0>();  // Q and step 0's K and V of this tile
     __syncthreads();
@@ -453,20 +494,22 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     // and frees the other stage (read by the step before) for the copies
     // of the next step, or of the next tile's Q and first step after the
     // last, which run while this step computes.
-    for (int step = 0; step < n_steps; ++step) {
+    for (int step = step0; step < n_steps; ++step) {
       const int k0 = step * kBK, st = gs & 1;
-      if (step > 0) cp_async_wait<0>();
-      __syncthreads();  // step 0: every warp holds its Q fragments, Qs is free
+      if (step > step0) cp_async_wait<0>();
+      __syncthreads();  // the first step: every warp holds its Q fragments, Qs is free
       if (step + 1 < n_steps) {
         load_tile_async<D>(Ks + (st ^ 1) * kTile, k + kvo, k0 + kBK, kv_stride, Skv);
         load_tile_async<D>(Vs + (st ^ 1) * kTile, v + kvo, k0 + kBK, kv_stride, Skv);
       } else if (t_next < n_tiles) {
         load_tile_async<D>(Qs, q + q_off(t_next), q0_of(t_next), q_stride, Sq);
-        load_tile_async<D>(Ks + (st ^ 1) * kTile, k + kv_off(t_next), 0, kv_stride, Skv);
-        load_tile_async<D>(Vs + (st ^ 1) * kTile, v + kv_off(t_next), 0, kv_stride, Skv);
+        const int k0_next = steps_of(t_next).x * kBK;
+        load_tile_async<D>(Ks + (st ^ 1) * kTile, k + kv_off(t_next), k0_next, kv_stride, Skv);
+        load_tile_async<D>(Vs + (st ^ 1) * kTile, v + kv_off(t_next), k0_next, kv_stride, Skv);
       }
       cp_async_commit();
-      if (k0 + kBK > Skv || (causal && k0 + kBK - 1 > row_w)) {
+      if (k0 + kBK > Skv || (causal && k0 + kBK - 1 > row_w) ||
+          (window > 0 && k0 < row_w + 16 - window)) {
         run_step(std::true_type{}, k0, st);
       } else {
         run_step(std::false_type{}, k0, st);
@@ -508,7 +551,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 
 template <int D, bool kPwl>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-                       int Skv, int Hq, int Hkv, int causal, const PwlCoeffs& pwl,
+                       int Skv, int Hq, int Hkv, int causal, int window, const PwlCoeffs& pwl,
                        cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<D>();
   auto kernel = flash_fwd_mma_kernel<D, kPwl>;
@@ -524,16 +567,17 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, i
   using bf16 = __nv_bfloat16;
   kernel<<<n_tiles < n_sm ? n_tiles : n_sm, kMmaThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), B, Sq, Skv, Hq, Hkv, causal, float(pow(double(D), -0.5)), pwl);
+      static_cast<bf16*>(out), B, Sq, Skv, Hq, Hkv, causal, window, float(pow(double(D), -0.5)),
+      pwl);
   return cudaGetLastError();
 }
 
 template <typename T, int D, bool kPwl>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-                   int Skv, int Hq, int Hkv, int causal, const PwlCoeffs& pwl,
+                   int Skv, int Hq, int Hkv, int causal, int window, const PwlCoeffs& pwl,
                    cudaStream_t stream) {
   if constexpr (!std::is_same_v<T, float>) {
-    return launch_mma<D, kPwl>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, pwl, stream);
+    return launch_mma<D, kPwl>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, window, pwl, stream);
   } else {
     constexpr size_t smem = flash_smem_bytes<D>();
     auto kernel = flash_fwd_kernel<T, D, kPwl>;
@@ -543,20 +587,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
     const dim3 grid(B * Hq, (Sq + kBQ - 1) / kBQ);
     kernel<<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(out), Sq, Skv, Hq, Hkv, causal, float(pow(double(D), -0.5)), pwl);
+        static_cast<T*>(out), Sq, Skv, Hq, Hkv, causal, window, float(pow(double(D), -0.5)), pwl);
     return cudaGetLastError();
   }
 }
 
 template <typename T, bool kPwl>
 cudaError_t dispatch_dim(int D, const void* q, const void* k, const void* v, void* out, int B,
-                         int Sq, int Skv, int Hq, int Hkv, int causal, const PwlCoeffs& pwl,
-                         cudaStream_t stream) {
+                         int Sq, int Skv, int Hq, int Hkv, int causal, int window,
+                         const PwlCoeffs& pwl, cudaStream_t s) {
   switch (D) {
-    case 32: return launch<T, 32, kPwl>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, pwl, stream);
-    case 64: return launch<T, 64, kPwl>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, pwl, stream);
-    case 80: return launch<T, 80, kPwl>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, pwl, stream);
-    case 128: return launch<T, 128, kPwl>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, pwl, stream);
+    case 32: return launch<T, 32, kPwl>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, window, pwl, s);
+    case 64: return launch<T, 64, kPwl>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, window, pwl, s);
+    case 80: return launch<T, 80, kPwl>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, window, pwl, s);
+    case 128:
+      return launch<T, 128, kPwl>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, window, pwl, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -565,23 +610,27 @@ cudaError_t dispatch_dim(int D, const void* q, const void* k, const void* v, voi
 }  // namespace repro_torch
 
 // q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D); out: (B, Sq, Hq, D), all
-// contiguous.  dtype 0 = float32, 1 = bfloat16.  Returns cudaGetLastError()
-// after the launch.
+// contiguous.  dtype 0 = float32, 1 = bfloat16.  window > 0 masks keys
+// window or more positions before the query; 0 is no window.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out, int B,
                                    int Sq, int Skv, int Hq, int Hkv, int D, int dtype, int causal,
-                                   int use_pwl, const void* pwl_host, void* stream) {
+                                   int window, int use_pwl, const void* pwl_host, void* stream) {
   using namespace repro_torch;
-  if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0) return cudaErrorInvalidValue;
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0 || window < 0)
+    return cudaErrorInvalidValue;
   const PwlCoeffs pwl = read_pwl(pwl_host);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int w = window;
   if (dtype == 0) {
-    return use_pwl ? dispatch_dim<float, true>(D, q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, pwl, s)
-                   : dispatch_dim<float, false>(D, q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, pwl, s);
+    return use_pwl ? dispatch_dim<float, true>(D, q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, w, pwl, s)
+                   : dispatch_dim<float, false>(D, q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, w, pwl, s);
   }
   if (dtype == 1) {
-    return use_pwl
-               ? dispatch_dim<__nv_bfloat16, true>(D, q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, pwl, s)
-               : dispatch_dim<__nv_bfloat16, false>(D, q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, pwl, s);
+    return use_pwl ? dispatch_dim<__nv_bfloat16, true>(D, q, k, v, out, B, Sq, Skv, Hq, Hkv, causal,
+                                                       w, pwl, s)
+                   : dispatch_dim<__nv_bfloat16, false>(D, q, k, v, out, B, Sq, Skv, Hq, Hkv,
+                                                        causal, w, pwl, s);
   }
   return cudaErrorInvalidValue;
 }

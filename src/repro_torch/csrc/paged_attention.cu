@@ -5,6 +5,11 @@
 // (sequence, head); K/V read through the block table; masked at the
 // context length; a context of 0 gives zeros; GQA; D = 32, 64, 80 or 128;
 // any block_tokens from 1 to 128.
+// A sliding window (window > 0; the JAX model's, which the Pallas kernel
+// does not take) keeps the keys [max(ctx - window, 0), ctx) of a sequence
+// of context ctx: a CTA starts at the block that holds the first of them
+// and masks the keys before it in that block, so blocks stay aligned to
+// absolute positions and the PWL result composes as without a window.
 // A NaN score goes through as in the Pallas kernel and the plain version:
 // the max keeps it (max.NaN), the PWL exp's clip keeps it, and the
 // combine counts a split whose l is NaN as live, so a head that sees a NaN
@@ -43,8 +48,8 @@
 //   paged_combine_kernel, launched next on the same stream by the same C
 //   entry, merges a (sequence, head)'s partials: m = max m_i, l = sum
 //   e^(m_i - m) l_i, out = sum e^(m_i - m) acc_i / max(l, 1e-30).  A split
-//   past its sequence's last block writes m = -1e30, l = 0 and the combine
-//   skips it; a context of 0 gives zeros.
+//   past its sequence's last block, or wholly below its window, writes
+//   m = -1e30, l = 0 and the combine skips it; a context of 0 gives zeros.
 // - PWL exp is not multiplicative, so splitting and combining would not
 //   compose the segments as the Pallas kernel does (block by block, in
 //   order): with use_pwl the wrapper asks for one split and the entry
@@ -113,7 +118,7 @@ paged_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                  const T* __restrict__ v_pool, const int* __restrict__ tables,
                  const int* __restrict__ context_lens, T* __restrict__ out,
                  float* __restrict__ partials, int H, int Hkv, int bt, int max_blocks,
-                 int blocks_per_split, int stages, float scale, PwlCoeffs pwl) {
+                 int blocks_per_split, int window, int stages, float scale, PwlCoeffs pwl) {
   constexpr int KS = kKvStride<T, D>;
   constexpr int kChunk = 16 / int(sizeof(T));  // elements per 16-byte copy
   const int G = H / Hkv;
@@ -131,9 +136,10 @@ paged_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int ctx = context_lens[b];
+  const int lo = window > 0 ? max(ctx - window, 0) : 0;  // the first key kept
   const int n_blocks = min((ctx + bt - 1) / bt, max_blocks);
-  const int first = split * blocks_per_split;
-  const int last = min(first + blocks_per_split, n_blocks);  // may be <= first
+  const int first = max(split * blocks_per_split, lo / bt);
+  const int last = min(split * blocks_per_split + blocks_per_split, n_blocks);  // may be <= first
   const int* table = tables + int64_t(b) * max_blocks;
   const int64_t tok_stride = int64_t(Hkv) * D;  // between tokens of the pool
   const T* qb = q + (int64_t(b) * H + int64_t(hk) * G) * D;
@@ -147,11 +153,12 @@ paged_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     l_s[g] = 0.f;
   }
 
-  // K and V rows of pool block i (of this sequence) into stage st; rows past
-  // the context are zeros
+  // K and V rows of pool block i (of this sequence) into stage st; rows
+  // outside [lo, ctx) are zeros
   auto load_block = [&](int i, int st) {
     const int64_t phys = table[i];
     const int n_valid = min(bt, ctx - i * bt);
+    const int j_lo = max(lo - i * bt, 0);
     const T* kblk = k_pool + phys * bt * tok_stride + int64_t(hk) * D;
     const T* vblk = v_pool + phys * bt * tok_stride + int64_t(hk) * D;
     T* kd = Ks + st * bt * KS;
@@ -159,7 +166,7 @@ paged_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     constexpr int kPerRow = D / kChunk;
     for (int c = tid; c < bt * kPerRow; c += kThreads) {
       const int j = c / kPerRow, d = (c % kPerRow) * kChunk;
-      const bool ok = j < n_valid;
+      const bool ok = j >= j_lo && j < n_valid;
       const int64_t off = ok ? j * tok_stride + d : 0;
       cp_async16(kd + j * KS + d, kblk + off, ok);
       cp_async16(vd + j * KS + d, vblk + off, ok);
@@ -178,7 +185,8 @@ paged_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
       cp_async_wait<0>();
     }
     __syncthreads();
-    const int n_valid = min(bt, ctx - i * bt);
+    const int n_valid = min(bt, ctx - i * bt);  // keys [j_lo, n_valid) of the block
+    const int j_lo = max(lo - i * bt, 0);
     const T* kt = Ks + st * bt * KS;
     const T* vt = Vs + st * bt * KS;
 
@@ -187,20 +195,21 @@ paged_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
       float s = 0.f;
 #pragma unroll
       for (int d = 0; d < D; d += 8) s += dot8(Qs + g * D + d, kt + j * KS + d);
-      Ps[idx] = j < n_valid ? s : kNegInf;
+      Ps[idx] = j >= j_lo && j < n_valid ? s : kNegInf;
     }
     __syncthreads();
 
     // one warp per head: running max, probabilities, denominator
     for (int g = warp; g < G; g += kWarps) {
       float mx = kNegInf;
-      for (int j = lane; j < n_valid; j += 32) mx = max_nan(mx, Ps[g * bt + j]);
+      for (int j = j_lo + lane; j < n_valid; j += 32) mx = max_nan(mx, Ps[g * bt + j]);
       mx = warp_max(mx);
       const float m_prev = m_s[g];
       const float m_new = max_nan(m_prev, mx);
       float sum = 0.f;
       for (int j = lane; j < bt; j += 32) {
-        const float p = j < n_valid ? softmax_exp<kPwl>(Ps[g * bt + j] - m_new, pwl) : 0.f;
+        const float p =
+            j >= j_lo && j < n_valid ? softmax_exp<kPwl>(Ps[g * bt + j] - m_new, pwl) : 0.f;
         Ps[g * bt + j] = p;
         sum += p;
       }
@@ -218,7 +227,7 @@ paged_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     for (int idx = tid; idx < G * D / 2; idx += kThreads) {
       const int g = idx / (D / 2), d = 2 * (idx % (D / 2));
       float pv0 = 0.f, pv1 = 0.f;
-      for (int j = 0; j < n_valid; ++j) {
+      for (int j = j_lo; j < n_valid; ++j) {
         const float p = Ps[g * bt + j];
         const float2 vv = load2(vt + j * KS + d);
         pv0 = fmaf(p, vv.x, pv0);
@@ -294,7 +303,7 @@ paged_combine_kernel(const float* __restrict__ partials, T* __restrict__ out, in
 template <typename T, int D, bool kPwl>
 cudaError_t launch(const void* q, const void* k_pool, const void* v_pool, const void* tables,
                    const void* context_lens, void* out, void* scratch, int B, int H, int Hkv,
-                   int bt, int max_blocks, int n_splits, int blocks_per_split,
+                   int bt, int max_blocks, int n_splits, int blocks_per_split, int window,
                    const PwlCoeffs& pwl, cudaStream_t stream) {
   const int G = H / Hkv;
   // a second stage only where a split has a next block to load into it
@@ -312,7 +321,7 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool, const 
       static_cast<const T*>(q), static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
       static_cast<const int*>(tables), static_cast<const int*>(context_lens),
       static_cast<T*>(out), static_cast<float*>(scratch), H, Hkv, bt, max_blocks,
-      blocks_per_split, stages, float(pow(double(D), -0.5)), pwl);
+      blocks_per_split, window, stages, float(pow(double(D), -0.5)), pwl);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_splits == 1) return err;
   paged_combine_kernel<T, D><<<B * H, kCombineThreads, (n_splits + 1) * sizeof(float), stream>>>(
@@ -323,17 +332,18 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool, const 
 template <typename T, bool kPwl>
 cudaError_t dispatch_dim(int D, const void* q, const void* kp, const void* vp, const void* tb,
                          const void* cl, void* out, void* scratch, int B, int H, int Hkv,
-                         int bt, int mb, int ns, int bps, const PwlCoeffs& pwl,
+                         int bt, int mb, int ns, int bps, int w, const PwlCoeffs& pwl,
                          cudaStream_t s) {
   switch (D) {
     case 32:
-      return launch<T, 32, kPwl>(q, kp, vp, tb, cl, out, scratch, B, H, Hkv, bt, mb, ns, bps, pwl, s);
+      return launch<T, 32, kPwl>(q, kp, vp, tb, cl, out, scratch, B, H, Hkv, bt, mb, ns, bps, w, pwl, s);
     case 64:
-      return launch<T, 64, kPwl>(q, kp, vp, tb, cl, out, scratch, B, H, Hkv, bt, mb, ns, bps, pwl, s);
+      return launch<T, 64, kPwl>(q, kp, vp, tb, cl, out, scratch, B, H, Hkv, bt, mb, ns, bps, w, pwl, s);
     case 80:
-      return launch<T, 80, kPwl>(q, kp, vp, tb, cl, out, scratch, B, H, Hkv, bt, mb, ns, bps, pwl, s);
+      return launch<T, 80, kPwl>(q, kp, vp, tb, cl, out, scratch, B, H, Hkv, bt, mb, ns, bps, w, pwl, s);
     case 128:
-      return launch<T, 128, kPwl>(q, kp, vp, tb, cl, out, scratch, B, H, Hkv, bt, mb, ns, bps, pwl, s);
+      return launch<T, 128, kPwl>(q, kp, vp, tb, cl, out, scratch, B, H, Hkv, bt, mb, ns, bps, w, pwl,
+                                  s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -348,34 +358,36 @@ cudaError_t dispatch_dim(int D, const void* q, const void* kp, const void* vp, c
 // context is cut into n_splits ranges of blocks_per_split pool blocks
 // (n_splits * blocks_per_split >= max_blocks); with n_splits > 1, scratch
 // holds B * H * n_splits * (D + 2) floats, else it is not read.  use_pwl
-// needs n_splits == 1.  Returns cudaGetLastError() after the launches.
+// needs n_splits == 1.  window > 0 keeps only the keys [ctx - window, ctx)
+// of each sequence; 0 is no window.  Returns cudaGetLastError() after the
+// launches.
 extern "C" int paged_attention_fwd(const void* q, const void* k_pool, const void* v_pool,
                                    const void* tables, const void* context_lens, void* out,
                                    void* scratch, int B, int H, int Hkv, int D, int bt,
-                                   int max_blocks, int n_splits, int blocks_per_split,
+                                   int max_blocks, int n_splits, int blocks_per_split, int window,
                                    int dtype, int use_pwl, const void* pwl_host, void* stream) {
   using namespace repro_torch;
-  if (B <= 0 || Hkv <= 0 || H % Hkv != 0 || bt <= 0 || n_splits < 1 ||
+  if (B <= 0 || Hkv <= 0 || H % Hkv != 0 || bt <= 0 || n_splits < 1 || window < 0 ||
       blocks_per_split < 1 || int64_t(n_splits) * blocks_per_split < max_blocks ||
       (use_pwl && n_splits != 1) || (n_splits > 1 && scratch == nullptr)) {
     return cudaErrorInvalidValue;
   }
   const PwlCoeffs pwl = read_pwl(pwl_host);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int ns = n_splits, bps = blocks_per_split;
+  const int ns = n_splits, bps = blocks_per_split, w = window;
   if (dtype == 0) {
     return use_pwl ? dispatch_dim<float, true>(D, q, k_pool, v_pool, tables, context_lens, out,
-                                               scratch, B, H, Hkv, bt, max_blocks, ns, bps, pwl, s)
+                                               scratch, B, H, Hkv, bt, max_blocks, ns, bps, w, pwl, s)
                    : dispatch_dim<float, false>(D, q, k_pool, v_pool, tables, context_lens, out,
-                                                scratch, B, H, Hkv, bt, max_blocks, ns, bps, pwl, s);
+                                                scratch, B, H, Hkv, bt, max_blocks, ns, bps, w, pwl, s);
   }
   if (dtype == 1) {
     return use_pwl ? dispatch_dim<__nv_bfloat16, true>(D, q, k_pool, v_pool, tables,
                                                        context_lens, out, scratch, B, H, Hkv,
-                                                       bt, max_blocks, ns, bps, pwl, s)
+                                                       bt, max_blocks, ns, bps, w, pwl, s)
                    : dispatch_dim<__nv_bfloat16, false>(D, q, k_pool, v_pool, tables,
                                                         context_lens, out, scratch, B, H, Hkv,
-                                                        bt, max_blocks, ns, bps, pwl, s);
+                                                        bt, max_blocks, ns, bps, w, pwl, s);
   }
   return cudaErrorInvalidValue;
 }

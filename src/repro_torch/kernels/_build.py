@@ -26,9 +26,9 @@ _VOID_P, _INT = ctypes.c_void_p, ctypes.c_int
 # C entry point of each source: (name, argtypes); each returns cudaError_t
 SIGNATURES = {
     "flash_attention": ("flash_attention_fwd",
-                        [_VOID_P] * 4 + [_INT] * 9 + [_VOID_P, _VOID_P]),
+                        [_VOID_P] * 4 + [_INT] * 10 + [_VOID_P, _VOID_P]),
     "paged_attention": ("paged_attention_fwd",
-                        [_VOID_P] * 7 + [_INT] * 10 + [_VOID_P, _VOID_P]),
+                        [_VOID_P] * 7 + [_INT] * 11 + [_VOID_P, _VOID_P]),
     "ssd_scan": ("ssd_scan_fwd", [_VOID_P] * 7 + [_INT] * 8 + [_VOID_P]),
     "pwl_softmax": ("pwl_softmax_fwd", [_VOID_P] * 2 + [_INT] * 5 + [_VOID_P, _VOID_P]),
     "cim_matmul": ("cim_matmul_fwd", [_VOID_P] * 8 + [_INT] * 10 + [_VOID_P]),

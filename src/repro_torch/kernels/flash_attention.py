@@ -20,11 +20,17 @@ terms (``hi + lo``, ~2^-17 of p) against bf16 V, so the two agree to the
 float32 summation order before the output is rounded to bf16.
 ``agreement`` states how far they may lie apart.
 
+``window`` (the JAX model's sliding window, which the Pallas kernel does
+not take) also masks a key ``window`` or more positions before its query
+(``qpos - kpos >= window``), as ``repro.models.attention`` does; ``None``
+is no window.
+
 In PWL mode the result depends on how the keys are cut into online-softmax
 steps (PWL exp is not multiplicative), so both versions step over keys
-``[0, 128), [128, 256), ...`` as the Pallas kernel does, and a row skips a
-step in which it sees no key, as the kernel's causal loop stops at the
-diagonal.
+``[0, 128), [128, 256), ...`` as the Pallas kernel does, also under a
+window, and a row skips a step in which it sees no key, as the kernel's
+causal loop stops at the diagonal and its windowed loop starts at the
+window's first step.
 """
 from __future__ import annotations
 
@@ -63,10 +69,21 @@ PWL_ROWS_OFF = 1e-3
 BF16_PWL_ATOL = 2.0 ** -6
 
 
+def window_arg(window) -> int:
+    """The kernels' window argument: a positive int, or 0 for ``None``
+    (no window)."""
+    if window is None:
+        return 0
+    if int(window) < 1:
+        raise ValueError(f"window must be a positive int or None, got {window}")
+    return int(window)
+
+
 def flash_attention_plain(q, k, v, *, causal: bool = True,
-                          use_pwl: bool = False) -> torch.Tensor:
+                          use_pwl: bool = False, window=None) -> torch.Tensor:
     """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D), Hq % Hkv == 0.
     Returns (B, Sq, Hq, D) in q.dtype, computed in float32."""
+    window = window_arg(window)
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
     G = Hq // Hkv
@@ -88,6 +105,8 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
         else:
             valid = torch.ones((Sq, kb.shape[2]), dtype=torch.bool,
                                device=q.device)
+        if window:
+            valid &= (qpos[:, None] - kpos[None, :]) < window
         seen = valid.any(dim=-1)                           # rows this step
         s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kb)
         s = torch.where(valid, s, torch.full_like(s, NEG_INF))
@@ -130,8 +149,9 @@ def agreement(got: torch.Tensor, want: torch.Tensor, *, pwl: bool = False):
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True,
-                         use_pwl: bool = False) -> torch.Tensor:
+                         use_pwl: bool = False, window=None) -> torch.Tensor:
     """Launch ``csrc/flash_attention.cu`` on PyTorch's current stream."""
+    window = window_arg(window)
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, Dk = k.shape
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
@@ -151,7 +171,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     lib = _build.library("flash_attention")
     _build.check(lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, Sq, Skv, Hq, Hkv, D, _DTYPE_CODES[q.dtype], int(causal),
+        B, Sq, Skv, Hq, Hkv, D, _DTYPE_CODES[q.dtype], int(causal), window,
         int(use_pwl), ctypes.addressof(PWL_COEFFS),
         torch.cuda.current_stream(q.device).cuda_stream), "flash_attention")
     return out

@@ -28,21 +28,26 @@ def _route(t) -> str:
     return t.device.type
 
 
-def flash_attention(q, k, v, *, causal: bool = True, use_pwl: bool = False):
-    """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D).  Returns (B, Sq, Hq, D)."""
+def flash_attention(q, k, v, *, causal: bool = True, use_pwl: bool = False,
+                    window=None):
+    """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D).  Returns (B, Sq, Hq, D).
+    ``window``: mask keys ``window`` or more positions before the query."""
+    kw = dict(causal=causal, use_pwl=use_pwl, window=window)
     if _route(q) == "cpu":
-        return _fa.flash_attention_plain(q, k, v, causal=causal, use_pwl=use_pwl)
-    return _fa.flash_attention_cuda(q, k, v, causal=causal, use_pwl=use_pwl)
+        return _fa.flash_attention_plain(q, k, v, **kw)
+    return _fa.flash_attention_cuda(q, k, v, **kw)
 
 
 def paged_attention(q, k_cache, v_cache, block_tables, context_lens, *,
-                    use_pwl: bool = False):
-    """q: (B, H, D); k/v_cache: (N, block_tokens, H_kv, D).  Returns (B, H, D)."""
+                    use_pwl: bool = False, window=None):
+    """q: (B, H, D); k/v_cache: (N, block_tokens, H_kv, D).  Returns (B, H, D).
+    ``window``: mask the keys below ``context_lens - window``."""
+    kw = dict(use_pwl=use_pwl, window=window)
     if _route(q) == "cpu":
         return _pa.paged_attention_plain(q, k_cache, v_cache, block_tables,
-                                         context_lens, use_pwl=use_pwl)
+                                         context_lens, **kw)
     return _pa.paged_attention_cuda(q, k_cache, v_cache, block_tables,
-                                    context_lens, use_pwl=use_pwl)
+                                    context_lens, **kw)
 
 
 def ssd_scan(x, dt, a_neg, B, C, *, chunk: int):

@@ -17,6 +17,14 @@ unnormalised output) in a second kernel: the same function in another
 summation order.  ``split_plan`` alone chooses the split; with ``use_pwl``
 it takes one, so the PWL result composes block by block in order.
 
+``window`` (the JAX model's sliding window, which the Pallas kernel does
+not take) also masks the keys below ``context_lens - window``, as
+``repro.models.attention.decode_attention`` does: each sequence's first
+key is ``max(ctx - window, 0)``, computed from ``context_lens`` where it
+lies (on the card, in the kernel), and blocks wholly below it are skipped.
+Blocks stay aligned to absolute positions, so the PWL result composes as
+without a window.
+
 A contiguous cache ``(B, max_len, H_kv, D)`` is the pool
 ``(B * max_len / bt, bt, H_kv, D)`` under the identity table
 (``identity_block_table``): a view, no copy.
@@ -29,6 +37,7 @@ import functools
 import torch
 
 from . import _build
+from .flash_attention import window_arg
 from .pwl import PWL_COEFFS, pwl_exp
 
 NEG_INF = -1e30
@@ -69,28 +78,30 @@ def identity_block_table(batch: int, max_len: int, block_tokens: int,
 
 
 def paged_attention_plain(q, k_cache, v_cache, block_tables, context_lens, *,
-                          use_pwl: bool = False) -> torch.Tensor:
+                          use_pwl: bool = False, window=None) -> torch.Tensor:
     """q: (B, H, D); k/v_cache: (N_blocks, bt, H_kv, D); block_tables:
     (B, max_blocks) int; context_lens: (B,) int.  Returns (B, H, D)."""
+    window = window_arg(window)
     B, H, D = q.shape
     _, bt, Hkv, _ = k_cache.shape
     G = H // Hkv
     exp_fn = pwl_exp if use_pwl else torch.exp
     qf = q.float().reshape(B, Hkv, G, D) * D ** -0.5
     ctx = context_lens.to(device=q.device, dtype=torch.long)
+    lo = (ctx - window).clamp_min(0) if window else torch.zeros_like(ctx)
     tables = block_tables.to(device=q.device, dtype=torch.long)
     n_steps = -(-int(ctx.max()) // bt) if B else 0
     m = torch.full((B, Hkv, G), NEG_INF, device=q.device)
     l = torch.zeros((B, Hkv, G), device=q.device)
     acc = torch.zeros((B, Hkv, G, D), device=q.device)
     for i in range(n_steps):
-        live = ctx > i * bt                                  # (B,) rows this step
+        live = (ctx > i * bt) & (lo < (i + 1) * bt)          # (B,) rows this step
         phys = torch.where(live, tables[:, i], torch.zeros_like(tables[:, i]))
         pos = i * bt + torch.arange(bt, device=q.device)
-        valid = pos[None, :] < ctx[:, None]                  # (B, bt)
+        valid = (pos[None, :] < ctx[:, None]) & (pos[None, :] >= lo[:, None])  # (B, bt)
         kb = k_cache[phys].float()                           # (B, bt, Hkv, D)
         vb = v_cache[phys].float()
-        # rows past the context are never read: zero them, as the kernel does
+        # rows outside [lo, ctx) are never read: zero them, as the kernel does
         kb = torch.where(valid[:, :, None, None], kb, torch.zeros_like(kb))
         vb = torch.where(valid[:, :, None, None], vb, torch.zeros_like(vb))
         s = torch.einsum("bhgd,bkhd->bhgk", qf, kb)
@@ -113,8 +124,9 @@ def _sm_count(device: torch.device) -> int:
 
 
 def paged_attention_cuda(q, k_cache, v_cache, block_tables, context_lens, *,
-                         use_pwl: bool = False) -> torch.Tensor:
+                         use_pwl: bool = False, window=None) -> torch.Tensor:
     """Launch ``csrc/paged_attention.cu`` on PyTorch's current stream."""
+    window = window_arg(window)
     B, H, D = q.shape
     n_blocks, bt, Hkv, Dk = k_cache.shape
     dev = q.device
@@ -153,7 +165,7 @@ def paged_attention_cuda(q, k_cache, v_cache, block_tables, context_lens, *,
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
         None if scratch is None else scratch.data_ptr(),
-        B, H, Hkv, D, bt, max_blocks, n_splits, bps, _DTYPE_CODES[q.dtype],
-        int(use_pwl), ctypes.addressof(PWL_COEFFS),
+        B, H, Hkv, D, bt, max_blocks, n_splits, bps, window,
+        _DTYPE_CODES[q.dtype], int(use_pwl), ctypes.addressof(PWL_COEFFS),
         torch.cuda.current_stream(dev).cuda_stream), "paged_attention")
     return out

@@ -4,11 +4,13 @@ Port of the single-device path of ``repro.models.attention``.  Prefill
 attention goes to ``kernels.ops.flash_attention`` and decode attention to
 ``kernels.ops.paged_attention`` over the identity block table of the
 contiguous cache: the Hopper kernels on a CUDA tensor, their plain
-versions on a CPU tensor.  ``full_attention`` is the exact quadratic
-reference, for tests and non-causal use.  The sequence-parallel and PICNIC
-distributed-scratchpad paths, and prefill with a bidirectional prefix or a
-query offset, belong to later slices of the port; a sliding window raises
-``NotImplementedError``.
+versions on a CPU tensor; both take the sliding window (mixtral), which
+the kernels apply in place of the JAX package's mask.  ``full_attention``
+is the exact quadratic reference, for tests and non-causal use.  The
+sequence-parallel and PICNIC distributed-scratchpad paths, and prefill
+with a bidirectional prefix (``prefix_len`` raises
+``NotImplementedError``) or a query offset, belong to later slices of the
+port.
 """
 from __future__ import annotations
 
@@ -70,26 +72,25 @@ def full_attention(q, k, v, *, causal=True, window=None, q_offset=0,
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D).to(q.dtype)
 
 
-def _unsupported(window):
-    if window is not None:
-        raise NotImplementedError("the port's attention takes no sliding "
-                                  "window yet")
-
-
 # ---------------------------------------------------------------------------
 # Full attention sublayer (projections + rope + attention + output)
 # ---------------------------------------------------------------------------
 
-def attn_sublayer(cfg, p, x, *, positions, causal=True, window=None):
+def attn_sublayer(cfg, p, x, *, positions, causal=True, window=None,
+                  prefix_len=0):
     """Returns (out (B, S, d), (k, v)).  The JAX package picks between two
     exact paths by sequence length (``impl``); both are the flash kernel
-    here."""
-    _unsupported(window)
+    here.  ``window``: keys ``window`` or more positions before a query
+    are masked.  A bidirectional prefix (``prefix_len > 0``, paligemma) is
+    not ported yet."""
+    if prefix_len:
+        raise NotImplementedError("the port's attention takes no "
+                                  "bidirectional prefix yet")
     q, k, v = qkv_project(cfg, p, x)
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    out = ops.flash_attention(q, k, v, causal=causal)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
     B, S = x.shape[:2]
     out = out.reshape(B, S, cfg.q_dim)
     return out @ p["wo"], (k, v)
@@ -107,8 +108,9 @@ def attn_decode_sublayer(cfg, p, x, cache_k, cache_v, cache_len, *,
     the cache's device, as the JAX package takes a traced scalar: then no
     value is read on the host, so the step can be captured in a CUDA graph,
     and the caller checks ``1 <= cache_len <= max_len`` (an int is checked
-    here).  Returns (out (B, 1, d), cache_k, cache_v)."""
-    _unsupported(window)
+    here).  Under a ``window`` only the keys from ``cache_len - window`` on
+    are attended, a bound the kernel takes from ``context_lens`` on the
+    device.  Returns (out (B, 1, d), cache_k, cache_v)."""
     q, k, v = qkv_project(cfg, p, x)
     B, max_len = cache_k.shape[:2]
     if isinstance(cache_len, torch.Tensor):
@@ -127,5 +129,5 @@ def attn_decode_sublayer(cfg, p, x, cache_k, cache_v, cache_len, *,
     pool_k = cache_k.view(B * max_len // bt, bt, *cache_k.shape[2:])
     pool_v = cache_v.view(B * max_len // bt, bt, *cache_v.shape[2:])
     out = ops.paged_attention(q[:, 0], pool_k, pool_v, block_table,
-                              context_lens)
+                              context_lens, window=window)
     return out.reshape(B, 1, cfg.q_dim) @ p["wo"], cache_k, cache_v

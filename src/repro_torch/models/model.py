@@ -1,5 +1,5 @@
-"""Model assembly, dense / ssm / hybrid families: init, prefill forward and
-cached decode.
+"""Model assembly, dense / moe / ssm / hybrid families: init, prefill
+forward and cached decode.
 
 Port of those families of ``repro.models.model``.  Params and cache keep
 the JAX package's nesting: every layer-group tensor has a stacked leading
@@ -7,6 +7,9 @@ axis (``params["layers"]["b0_dense"]["attn"]["wq"]`` is ``(n_groups, d,
 q_dim)``).  Groups:
 
   dense  : [attn+mlp]                                x n_layers
+  moe    : [attn+moe]                                x n_layers (mixtral)
+           [attn+mlp x (moe_every-1), attn+moe]      x n_layers / moe_every
+                                                     (llama4-maverick)
   ssm    : [mamba]                                   x n_layers
   hybrid : [mamba x attn_every, shared attn+mlp]     x n_layers / attn_every
 
@@ -15,8 +18,10 @@ The hybrid's shared block (zamba2) is ONE unstacked param set,
 ``b{i}_shared`` has one K/V slice per application.  Attention caches are
 ``(n_groups, B, max_len, H_kv, D)`` per K and V; a mamba block's cache is
 ``conv`` ``(n_groups, B, W-1, conv_dim)`` and ``ssm`` ``(n_groups, B, H, P,
-N)`` float32.  The JAX ``lax.scan`` over layer groups is a Python loop
-here.  The other families (MoE, VLM, audio) belong to later slices.
+N)`` float32.  An attention block applies the config's sliding window
+(mixtral) in prefill and decode.  ``forward`` returns the MoE blocks'
+summed aux loss.  The JAX ``lax.scan`` over layer groups is a Python loop
+here.  The other families (VLM, audio) belong to later slices.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ from repro_torch.kernels.paged_attention import (contiguous_block_tokens,
                                                  identity_block_table)
 from . import attention as A
 from . import mlp as M
+from . import moe as X
 from . import ssm as S
 from .common import apply_norm, dense_init, dtype_of, init_norm
 
@@ -37,13 +43,18 @@ def group_layout(cfg) -> Tuple[Tuple[str, ...], int]:
     """Returns (block kinds within a group, number of groups)."""
     if cfg.family == "dense":
         return ("dense",), cfg.n_layers
+    if cfg.family == "moe":
+        if cfg.moe_every == 1:
+            return ("moe",), cfg.n_layers
+        return ("dense",) * (cfg.moe_every - 1) + ("moe",), \
+            cfg.n_layers // cfg.moe_every
     if cfg.family == "ssm":
         return ("mamba",), cfg.n_layers
     if cfg.family == "hybrid":
         return ("mamba",) * cfg.attn_every + ("shared_attn",), \
             cfg.n_layers // cfg.attn_every
     raise NotImplementedError(
-        f"the port runs the dense, ssm and hybrid families; {cfg.family!r} "
+        f"the port runs the dense, moe, ssm and hybrid families; {cfg.family!r} "
         "is not ported yet")
 
 
@@ -56,10 +67,14 @@ def _init_block(cfg, kind: str, gen: torch.Generator, n_stack: int):
     if kind == "mamba":
         return {"ln1": init_norm(cfg, lead, device=gen.device),
                 "mamba": S.init_mamba(cfg, gen, n_stack=n_stack)}
-    return {"ln1": init_norm(cfg, lead, device=gen.device),
-            "attn": A.init_attention(cfg, gen, n_stack=n_stack),
-            "ln2": init_norm(cfg, lead, device=gen.device),
-            "mlp": M.init_mlp(cfg, gen, n_stack=n_stack)}
+    block = {"ln1": init_norm(cfg, lead, device=gen.device),
+             "attn": A.init_attention(cfg, gen, n_stack=n_stack),
+             "ln2": init_norm(cfg, lead, device=gen.device)}
+    if kind == "moe":
+        block["moe"] = X.init_moe(cfg, gen, n_stack=n_stack)
+    else:
+        block["mlp"] = M.init_mlp(cfg, gen, n_stack=n_stack)
+    return block
 
 
 def init_params(cfg, gen: torch.Generator) -> Dict[str, Any]:
@@ -99,7 +114,8 @@ def _block_params(params, gp, i: int, kind: str):
 
 def forward(cfg, params, tokens, *, collect_cache: bool = False,
             kv_max: int = 0):
-    """tokens: (B, S) int -> (logits (B, S, V), aux, cache | None).
+    """tokens: (B, S) int -> (logits (B, S, V), aux, cache | None); aux is
+    the float32 sum of the MoE blocks' aux losses (0 without MoE).
 
     With ``collect_cache`` an attention block's cache holds the prompt's
     K/V in rows [0, S) of a ``max(kv_max, S)``-row buffer, zeros after, and
@@ -110,6 +126,7 @@ def forward(cfg, params, tokens, *, collect_cache: bool = False,
     positions = torch.arange(Sq, device=x.device)
     cache = (init_cache(cfg, B, max(kv_max, Sq), device=x.device)
              if collect_cache else None)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for g in range(n_groups):
         gp = _layer(params["layers"], g)
         for i, kind in enumerate(kinds):
@@ -133,10 +150,14 @@ def forward(cfg, params, tokens, *, collect_cache: bool = False,
                 c["k"][g, :, :Sq] = k
                 c["v"][g, :, :Sq] = v
             h = apply_norm(cfg, p["ln2"], x)
-            x = x + M.mlp_sublayer(cfg, p["mlp"], h)
+            if kind == "moe":
+                y, a = X.moe_sublayer(cfg, p["moe"], h)
+                aux = aux + a
+            else:
+                y = M.mlp_sublayer(cfg, p["mlp"], h)
+            x = x + y
     x = apply_norm(cfg, params["final_norm"], x)
     logits = x @ _head(cfg, params)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return logits, aux, cache
 
 
@@ -220,6 +241,10 @@ def decode_step(cfg, params, token, cache, cache_len):
                 context_lens=context_lens)
             x = x + attn_out
             h = apply_norm(cfg, p["ln2"], x)
-            x = x + M.mlp_sublayer(cfg, p["mlp"], h)
+            if kind == "moe":
+                y, _ = X.moe_sublayer(cfg, p["moe"], h)
+            else:
+                y = M.mlp_sublayer(cfg, p["mlp"], h)
+            x = x + y
     x = apply_norm(cfg, params["final_norm"], x)
     return x @ _head(cfg, params), cache

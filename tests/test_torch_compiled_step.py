@@ -29,15 +29,21 @@ from repro_torch.launch import serve as tserve
 from repro_torch.launch import steps as tsteps
 from repro_torch.params import from_jax
 
-ARCHS = ["llama3-8b", "mamba2-2.7b", "zamba2-2.7b"]
+ARCHS = ["llama3-8b", "mamba2-2.7b", "zamba2-2.7b", "mixtral-8x7b"]
 # float32 on both sides, logits of order 1 through a few smoke layers: the
 # bar of tests/test_torch_models.py and tests/test_torch_ssm.py
 ATOL = 1e-4
 
 
 def _setup(arch, seed=0):
-    jcfg = dataclasses.replace(jconfigs.get_smoke_config(arch), dtype="float32")
-    tcfg = dataclasses.replace(tconfigs.get_smoke_config(arch), dtype="float32")
+    """float32 smoke configs of both packages and the same weights; a
+    sliding window (mixtral's 64) is cut to 16 so that it binds within the
+    tests' 29-35 rows."""
+    kw = {"dtype": "float32"}
+    if jconfigs.get_smoke_config(arch).sliding_window:
+        kw["sliding_window"] = 16
+    jcfg = dataclasses.replace(jconfigs.get_smoke_config(arch), **kw)
+    tcfg = dataclasses.replace(tconfigs.get_smoke_config(arch), **kw)
     jp = jax.jit(lambda k: jmodels.init_params(jcfg, k))(jax.random.PRNGKey(seed))
     return jcfg, tcfg, jp, from_jax(jax.tree.map(np.asarray, jp), "cpu")
 

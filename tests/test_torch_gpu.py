@@ -7,6 +7,7 @@ it runs where JAX is not installed:
 
   PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 """
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -15,15 +16,17 @@ import torch
 
 from repro_torch import models
 from repro_torch.configs import get_smoke_config
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, ops
 from repro_torch.kernels.flash_attention import agreement as flash_agreement
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.cim_matmul import (ROUTES, adc_div_mismatches, calibration_tile,
                                            cim_matmul_cuda, cim_matmul_plain,
                                            quantize_weights, route, takes, weight_layout)
 from repro_torch.kernels.paged_attention import (contiguous_block_tokens, identity_block_table,
-                                                 paged_attention_plain, split_plan)
+                                                 paged_attention_cuda, paged_attention_plain,
+                                                 split_plan)
 from repro_torch.kernels import pwl_softmax as psm
+from repro_torch.kernels.pwl import PWL_COEFFS
 from repro_torch.kernels.pwl_softmax import (agreement, agreement_nan, edge_rows,
                                              exp_mismatches, pwl_softmax_cuda, pwl_softmax_plain)
 from repro_torch.kernels.ssd_scan import ssd_scan_plain
@@ -87,6 +90,70 @@ def test_flash_kernel_matches_plain(cuda, D, use_pwl, dtype):
         assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
         err, ratio, rows_off, ok = flash_agreement(got, want, pwl=use_pwl)
         assert ok, (causal, err, ratio, rows_off)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("use_pwl", [False, True])
+@pytest.mark.parametrize("D", [32, 128])
+@pytest.mark.parametrize("S,window", [(300, 1), (300, 64), (300, 100), (300, 130), (300, 4096),
+                                      (600, 130), (1100, 256)])
+def test_flash_kernel_window_matches_plain(cuda, S, window, D, use_pwl, dtype):
+    """A sliding window, causal and not: rows whose window starts inside a
+    128-key step, tiles that start past step 0, a window of 1 (each row
+    sees itself) and one wider than the sequence."""
+    q, k, v = (_randn((2, S, h, D), dtype, S + window + h, cuda) for h in (8, 2, 2))
+    for causal in (True, False):
+        got = ops.flash_attention(q, k, v, causal=causal, use_pwl=use_pwl, window=window)
+        want = flash_attention_plain(q, k, v, causal=causal, use_pwl=use_pwl, window=window)
+        torch.cuda.synchronize()
+        assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+        err, ratio, rows_off, ok = flash_agreement(got, want, pwl=use_pwl)
+        assert ok, (causal, err, ratio, rows_off)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_window_rows_that_see_no_key_give_zeros(cuda, dtype):
+    """Non-causal, 400 queries against 100 keys under a window of 64: the
+    queries from 164 on see no key; both versions give them zeros (each
+    tile still runs one fully masked step)."""
+    q = _randn((1, 400, 4, 64), dtype, 31, cuda)
+    k, v = (_randn((1, 100, 2, 64), dtype, s, cuda) for s in (32, 33))
+    got = ops.flash_attention(q, k, v, causal=False, window=64)
+    want = flash_attention_plain(q, k, v, causal=False, window=64)
+    torch.cuda.synchronize()
+    assert not got[:, 164:].any() and not want[:, 164:].any()
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("use_pwl,repeat", [(False, 1), (False, 30), (True, 1)])
+def test_paged_kernel_window_matches_plain(cuda, repeat, use_pwl, dtype):
+    """A window of 64 over 16-token blocks: contexts of 0, below the window,
+    the window, one past it and far past it (its first live block starts
+    mid-block), once (split_plan gives 8 splits of 4 blocks; splits wholly
+    below the window give l = 0) and 30 times over (B * H_kv 360 >= 2 CTAs
+    an SM: one split); PWL takes one split."""
+    window, bt, H, Hkv, D, max_len = 64, 16, 8, 2, 64, 512
+    ctx = [0, 40, window, window + 1, 3 * window + 5, max_len] * repeat
+    B = len(ctx)
+    cache_k, cache_v = (_randn((B, max_len, Hkv, D), dtype, s, cuda) for s in (41, 42))
+    args = (_randn((B, H, D), dtype, 43, cuda), cache_k.view(-1, bt, Hkv, D),
+            cache_v.view(-1, bt, Hkv, D), identity_block_table(B, max_len, bt, device=cuda),
+            torch.tensor(ctx, dtype=torch.int32, device=cuda))
+    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    n_splits, _ = split_plan(B * Hkv, max_len // bt, bt, n_sms, use_pwl=use_pwl)
+    assert (n_splits > 1) == (repeat == 1 and not use_pwl)
+    before = ops.LAUNCHES["paged_attention"]
+    got = paged_attention_cuda(*args, use_pwl=use_pwl, window=window)
+    assert ops.LAUNCHES["paged_attention"] == before + 1
+    want = paged_attention_plain(*args, use_pwl=use_pwl, window=window)
+    torch.cuda.synchronize()
+    assert not got[0].any()                                  # context 0 -> 0
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    # bf16 outputs here are of order 0.1: each element also within
+    # 2**-7 |want| + 2**-12, which a window shifted by one block breaks
+    err, ratio, rows_off, ok = flash_agreement(got, want, pwl=use_pwl)
+    assert ok, (err, ratio, rows_off)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -419,13 +486,36 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
         ops.cim_matmul_quantized(xm.half(), wq, ws)
     with pytest.raises(ValueError, match="wqt"):
         ops.cim_matmul_quantized(xm, wq, ws, wqt=wq)
+    qa = torch.zeros((2, 8, 64), device=cuda)
+    pool = torch.zeros((8, 16, 2, 64), device=cuda)
+    table = identity_block_table(2, 64, 16, device=cuda)
+    lens = torch.tensor([3, 64], dtype=torch.int32, device=cuda)
+    # the C entry refuses splits that leave a block out, or split a PWL context
+    out = torch.empty_like(qa)
+    scratch = torch.empty(2 * 8 * 2 * 66, device=cuda)
+    lib = _build.library("paged_attention")
+    for n_splits, bps, use_pwl in ((1, 3, 0), (2, 2, 1)):
+        assert lib.paged_attention_fwd(
+            qa.data_ptr(), pool.data_ptr(), pool.data_ptr(), table.data_ptr(), lens.data_ptr(),
+            out.data_ptr(), scratch.data_ptr(), 2, 8, 2, 64, 16, 4, n_splits, bps, 0, 0,
+            use_pwl, ctypes.addressof(PWL_COEFFS),
+            torch.cuda.current_stream(cuda).cuda_stream) != 0
+    with pytest.raises(ValueError, match="window"):
+        paged_attention_cuda(qa, pool, pool, table, lens, window=0)
 
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-2.7b", "zamba2-2.7b"])
+def _binding(cfg):
+    """A smoke config whose sliding window (mixtral's is 64) binds within
+    the tests' 20-40 tokens."""
+    return dataclasses.replace(cfg, sliding_window=16) if cfg.sliding_window else cfg
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-2.7b", "zamba2-2.7b", "mixtral-8x7b",
+                                  "llama4-maverick-400b-a17b"])
 def test_smoke_model_on_card_matches_cpu(cuda, arch):
     """Prefill and 4 decode steps of a float32 smoke model: the card
     (kernels) against the CPU (plain versions), same weights."""
-    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    cfg = _binding(dataclasses.replace(get_smoke_config(arch), dtype="float32"))
     params = models.init_params(cfg, torch.Generator().manual_seed(0))
     toks = torch.from_numpy(
         np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 41)))
@@ -524,14 +614,15 @@ def _n_attn(cfg):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-2.7b", "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-2.7b", "zamba2-2.7b", "mixtral-8x7b",
+                                  "llama4-maverick-400b-a17b"])
 def test_compiled_step_matches_the_eager_step(cuda, arch, dtype):
     """Prefill, then 8 greedy steps eager and 8 through the captured graph
     from copies of the prefill's cache: equal ids at every step and equal
     caches after, bit for bit; the logits' bit-equality is printed.
     Building the step leaves the cache as it was, and the launch counters
     count the graph's kernels once a replay."""
-    cfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype)
+    cfg = _binding(dataclasses.replace(get_smoke_config(arch), dtype=dtype))
     params = models.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
     toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (3, 21)))
     tok0, cache0 = make_prefill_step(cfg, kv_max=40)(params, {"tokens": toks.to(cuda)})
@@ -583,12 +674,12 @@ def _serve(srv, prompts, rounds):
     return [s.generated for s in srv.slots[:len(prompts)]], srv.tokens[:, 0].tolist()
 
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-2.7b", "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-2.7b", "zamba2-2.7b", "mixtral-8x7b"])
 def test_server_graph_matches_an_eager_step_loop(cuda, arch):
     """The card's Server (a captured graph) against the same Server driven
     by the eager step, same seed and prompts; then new params: the graph is
     captured anew over them, never run on the old ones."""
-    cfg = get_smoke_config(arch)
+    cfg = _binding(get_smoke_config(arch))
     rng = np.random.default_rng(5)
     prompts = [rng.integers(2, cfg.vocab_size, size=n) for n in (6, 3, 9)]
     graph = Server(cfg, max_batch=4, max_len=48, seed=0)

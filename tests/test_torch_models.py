@@ -189,12 +189,17 @@ def test_init_cache_matches_jax_layout():
 
 
 def test_unported_families_and_variants_raise():
-    cfg = jconfigs.get_smoke_config("mixtral-8x7b")
-    tcfg = tconfigs.base.ModelConfig(**dataclasses.asdict(cfg) | {
-        "moe": None})
+    """What is still unported raises: the audio family (whisper's
+    encoder-decoder) and attention with a bidirectional prefix
+    (paligemma)."""
+    from repro_torch.models import attention as tattn
+    cfg = jconfigs.get_smoke_config("whisper-large-v3")
+    tcfg = tconfigs.base.ModelConfig(**dataclasses.asdict(cfg))
+    assert tcfg.family == "audio"
     with pytest.raises(NotImplementedError):
         tmodels.init_params(tcfg, torch.Generator())
-    _, dense = _cfgs("llama3-8b", sliding_window=16)
-    tp = tmodels.init_params(dense, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError):
-        tmodels.forward(dense, tp, torch.zeros((1, 4), dtype=torch.long))
+    _, dense = _cfgs("llama3-8b")
+    p = tattn.init_attention(dense, torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="prefix"):
+        tattn.attn_sublayer(dense, p, torch.zeros((1, 20, dense.d_model)),
+                            positions=torch.arange(20), prefix_len=16)

@@ -41,9 +41,10 @@ def _scattered(ctx, bt, h=8, hkv=2, d=32, seed=0):
             torch.from_numpy(table), torch.tensor(ctx, dtype=torch.int32))
 
 
-def _partial(q, k_pool, v_pool, table, ctx, use_pwl):
-    """One CTA's work: the online softmax over the blocks of ``table``, up
-    to ``ctx`` tokens; returns the unnormalised (m, l, acc)."""
+def _partial(q, k_pool, v_pool, table, ctx, use_pwl, lo=None):
+    """One CTA's work: the online softmax over the blocks of ``table``,
+    the tokens [lo, ctx) (lo: a window's first kept token, else 0); returns
+    the unnormalised (m, l, acc)."""
     B, H, D = q.shape
     bt, Hkv = k_pool.shape[1], k_pool.shape[2]
     G = H // Hkv
@@ -52,12 +53,15 @@ def _partial(q, k_pool, v_pool, table, ctx, use_pwl):
     m = torch.full((B, Hkv, G), NEG_INF)
     l = torch.zeros((B, Hkv, G))
     acc = torch.zeros((B, Hkv, G, D))
+    lo = torch.zeros_like(ctx) if lo is None else lo
     for i in range(table.shape[1]):
         n_valid = (ctx - i * bt).clamp(0, bt)                 # (B,)
-        live = n_valid > 0
-        if not live.any():
+        j_lo = (lo - i * bt).clamp(0, bt)
+        live = n_valid > j_lo
+        if not (n_valid > 0).any():
             break
-        valid = torch.arange(bt)[None, :] < n_valid[:, None]  # (B, bt)
+        j = torch.arange(bt)[None, :]
+        valid = (j < n_valid[:, None]) & (j >= j_lo[:, None])  # (B, bt)
         kb = torch.where(valid[:, :, None, None], k_pool[table[:, i].long()], 0.0)
         vb = torch.where(valid[:, :, None, None], v_pool[table[:, i].long()], 0.0)
         s = torch.einsum("bhgd,bkhd->bhgk", qf, kb)
@@ -73,16 +77,21 @@ def _partial(q, k_pool, v_pool, table, ctx, use_pwl):
     return m.reshape(B, H), l.reshape(B, H), acc.reshape(B, H, D)
 
 
-def split_and_combine(q, k_pool, v_pool, table, ctx, use_pwl, sm_count=H100_SMS):
-    """The kernel's split-KV path in PyTorch, planned by ``split_plan``."""
+def split_and_combine(q, k_pool, v_pool, table, ctx, use_pwl, sm_count=H100_SMS,
+                      window=None):
+    """The kernel's split-KV path in PyTorch, planned by ``split_plan``;
+    under a ``window`` each split keeps the tokens from ``ctx - window`` on
+    (a split wholly below them is empty: l = 0)."""
     B, H, D = q.shape
     bt, Hkv = k_pool.shape[1], k_pool.shape[2]
     n_splits, bps = split_plan(B * Hkv, table.shape[1], bt, sm_count, use_pwl=use_pwl)
+    lo = (ctx.long() - window).clamp_min(0) if window else torch.zeros_like(ctx.long())
     parts = []
     for s in range(n_splits):
         sub = table[:, s * bps:(s + 1) * bps]
         ctx_s = (ctx.long() - s * bps * bt).clamp(0, sub.shape[1] * bt)
-        parts.append(_partial(q, k_pool, v_pool, sub, ctx_s, use_pwl))
+        lo_s = (lo - s * bps * bt).clamp(0, sub.shape[1] * bt)
+        parts.append(_partial(q, k_pool, v_pool, sub, ctx_s, use_pwl, lo_s))
     if n_splits == 1:
         m, l, acc = parts[0]
         return acc / l.clamp_min(1e-30)[..., None], n_splits
@@ -126,6 +135,21 @@ def test_split_and_combine_long_context_several_blocks_a_split(use_pwl):
     else:
         n, bps = split_plan(8, 250, 16, H100_SMS)
         assert (n, bps) == (n_splits, 8) and n > 1 and bps > 1
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("use_pwl", [False, True])
+@pytest.mark.parametrize("window", [5, 64, 1000])
+def test_split_and_combine_under_a_window_matches_plain(window, use_pwl):
+    """A window over contexts that are below it, at it and far past it:
+    whole splits below a sequence's first kept token give l = 0 and the
+    combine skips them."""
+    ctx = [0, 3, window, window + 1, 4000]
+    args = _scattered(ctx, 16, seed=window)
+    got, n_splits = split_and_combine(*args, use_pwl, window=window)
+    want = paged_attention_plain(*args, use_pwl=use_pwl, window=window)
+    assert (n_splits == 1) if use_pwl else (n_splits > 1)
+    assert not got[0].any()
     torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
 
 

@@ -130,12 +130,15 @@ def test_port_imports_with_jax_blocked():
         "for n in names: importlib.import_module(n)\n"
         "assert not any(m == 'repro' or m.startswith(('repro.', 'jax')) for m in sys.modules"
         " if sys.modules[m] is not None)\n"
-        "print(len(names))\n")
+        "print(' '.join(names))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, "-c", code], env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 15
+    names = r.stdout.split()
+    assert len(names) >= 15
+    assert {"repro_torch.models.moe", "repro_torch.configs.mixtral_8x7b",
+            "repro_torch.configs.llama4_maverick"} <= set(names)
 
 
 def _imports(path: Path):
