@@ -18,7 +18,11 @@ Phases, each of which fails the run if it fails:
                 4096, 100 and 130, paged at ctx 4224 with window 4096
                 (33 splits at B1, one at B33 and under PWL), contexts
                 below the window; bf16 paged also per element, float32
-                PWL rows past 2e-5 only at a segment edge; SSD scan: y and
+                PWL rows past 2e-5 only at a segment edge; whisper's
+                shapes: flash non-causal B4 S1500 H20 D64 (the encoder)
+                and Sq 4 against 1500 keys (cross prefill), paged at ctx
+                1500 over the 1536-row cross cache and at ctx 132 over the
+                448-row self cache; SSD scan: y and
                 final state, float32 and bfloat16, N 128 and 64, short and
                 long memory, S 2048 over 64 sub-chunks, and the CTAs
                 resident per SM; SCU softmax: its indexed PWL exp against
@@ -55,6 +59,13 @@ Phases, each of which fails the run if it fails:
                 steps, run 2 B1 x 4160 with 64 steps (the window binds in
                 prefill and in every step); 16 flash launches a prefill,
                 16 paged a step.
+  audio_serve   the same for whisper-large-v3 (encoder-decoder) at published
+                widths and full depth (32 + 32 layers), frame embeddings of
+                B4 x 1500 x 1280 from a seed: a 4-token start-of-transcript
+                prompt, 128 steps over a 448-row self cache; 96 flash
+                launches a prefill (32 encoder, 32 decoder self, 32 cross),
+                64 paged a step (32 self, 32 cross over a 1536-row cross
+                cache); graph caches held bit-equal to the eager ones.
   cim_scu       one llama3-8b layer at full width in bf16 with its seven
                 projections on the RRAM crossbar (``ops.cim_matmul_quantized``,
                 weights quantised once) and its softmax on the SCU
@@ -73,14 +84,17 @@ Phases, each of which fails the run if it fails:
   moe_parity    the same for mixtral widths (1 layer) with the window cut to
                 128 so that it binds at S 300, and on the card at window
                 4096 and S 4160 prefill(S-1) + decode(1) against forward(S).
+  audio_parity  the same for whisper widths, 4 + 4 layers, 1500 frames.
   server        requests through ``Server.admit`` / ``decode_round``, for
-                llama3-8b, mamba2-2.7b, zamba2-2.7b and mixtral-8x7b (16
-                layers); on the card the Server replays its captured graph.
+                llama3-8b, mamba2-2.7b, zamba2-2.7b, mixtral-8x7b (16
+                layers) and whisper-large-v3 (no encoder run, as the JAX
+                Server); on the card the Server replays its captured graph.
   profile       (only when named) device time by kernel under torch.profiler
                 for one full-width prefill and 8 decode steps (eager, and
-                through the graph) of each of the four served models, and
-                for the cim_scu layer's prefill and decode step, and the
-                device's busy share of the host-clock window.
+                through the graph) of each of the five served models
+                (whisper's prefill with its encoder), and for the cim_scu
+                layer's prefill and decode step, and the device's busy
+                share of the host-clock window.
 
 The line before the last two is a JSON object ``{"kernels": [...]}``, then
 the card's name and power limit as nvidia-smi reports them, and the last
@@ -100,14 +114,15 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "serve", "ssm_serve", "hybrid_serve", "moe_serve", "cim_scu",
-          "parity", "ssm_parity", "moe_parity", "server")
+PHASES = ("build", "kernels", "serve", "ssm_serve", "hybrid_serve", "moe_serve", "audio_serve",
+          "cim_scu", "parity", "ssm_parity", "moe_parity", "audio_parity", "server")
 EXTRA_PHASES = ("profile",)          # run only when named in --phases
 SERVE_ARCH = {"serve": "llama3-8b", "ssm_serve": "mamba2-2.7b",
               "hybrid_serve": "zamba2-2.7b"}
 # the serve phase whose launch counts each kernel's JSON entry reports;
-# mixtral's window cases (in "kernels_other_shapes") name their own
-# "path": run 1 of moe_serve, or run 2, "moe_serve_run2"
+# mixtral's window cases and whisper's shapes (in "kernels_other_shapes")
+# name their own "path": run 1 of moe_serve, or run 2, "moe_serve_run2",
+# or "audio_serve"
 MAIN_PATH_OF = {"flash_attention": "serve", "paged_attention": "serve",
                 "ssd_scan": "ssm_serve", "pwl_softmax": "cim_scu",
                 "cim_matmul": "cim_scu"}
@@ -159,6 +174,9 @@ TOL_CIM_REL = 1e-6
 # main-path shapes of llama3-8b: 32 query heads, 8 KV heads, head_dim 128
 B_MAIN, PROMPT, NEW, HQ, HKV, D = 4, 512, 32, 32, 8, 128
 MAX_LEN = 576                       # >= PROMPT + NEW, a multiple of 64
+# prefills timed before each serve run's counted one (a host-clock spread,
+# and the cudaMalloc calls each makes)
+PREFILL_REPEATS = 3
 # mamba2-2.7b / zamba2-2.7b: d_inner 5120 = 80 SSD heads of 64, d_state
 # 128 / 64, chunk 256; zamba2's shared attention: 32 heads, kv 32, D 80
 SSM_H, SSM_P, SSM_CHUNK = 80, 64, 256
@@ -168,6 +186,15 @@ ZH, ZD = 32, 80
 # multiple of 64) for 64 decode steps
 MIX_WINDOW, MIX_LONG, MIX_LONG_MAX = 4096, 4160, 4224
 MIX_LAYERS = 16                     # of 32: the bf16 weights of all 32 exceed 80 GB
+# whisper-large-v3: 20 heads of 64 (MHA), 1500 encoder frames, a cross
+# cache of 1536 rows (models.model.cross_rows: a multiple of 64); the
+# decoder prompt is Whisper's start-of-transcript sequence
+# <|startoftranscript|><|en|><|transcribe|><|notimestamps|> in large-v3's
+# vocabulary, then 128 steps over a 448-row self cache (the published
+# max_target_positions)
+WH, WD, W_FRAMES, W_CROSS = 20, 64, 1500, 1536
+W_SOT = (50258, 50259, 50360, 50364)
+W_NEW, W_MAX_LEN = 128, 448
 
 
 def log(*a):
@@ -573,6 +600,7 @@ def phase_kernels(torch, timer, results):
             extra.append(paged_entry(case, err, dt))
     torch.cuda.synchronize()
     paged_window_cases(torch, timer, randn, extra)
+    audio_attention_cases(torch, timer, randn, extra)
 
     # ---- SSD scan (mamba prefill) -------------------------------------
     def ssd_case(b, s, h, p, n, dt, memory):
@@ -677,7 +705,7 @@ def flash_window_cases(torch, timer, randn, extra):
     step, tiles that skip steps), PWL under a window; the bf16 main shapes
     timed beside SDPA with the same boolean mask."""
     import torch.nn.functional as F
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import flash_attention as fa, ops
     from repro_torch.kernels.flash_attention import flash_attention_plain
 
     cases = [  # B, S, Hq, Hkv, D, dtype, window, pwl, timed
@@ -715,9 +743,11 @@ def flash_window_cases(torch, timer, randn, extra):
             "design": "sliding window on the mma.sync path (steps from the tile's first "
                       "windowed step, a masked step at each row's lower edge)",
             "shape": f"mixtral {what}", "max_abs_err": err,
-            # launches: mixtral's run at this batch and length (run 1's
-            # window of 4096 does not bind at S 512)
+            # launches: those of this shape and window in mixtral's run at
+            # this batch and length (run 1 runs the published window 4096,
+            # so the windows of 100 and 130 count none there)
             "path": "moe_serve_run2" if b == 1 else "moe_serve",
+            "launch_key": fa.launch_key(q, k, window=window),
             "ms": timer.ms(lambda: ops.flash_attention(q, k, v, window=window), 20),
             "plain_ms": timer.ms(lambda: flash_attention_plain(q, k, v, window=window), 3),
             "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
@@ -738,7 +768,7 @@ def paged_window_cases(torch, timer, randn, extra):
     rule, float32 PWL by ``_check_paged``'s segment-edge rule; the main
     shape timed beside SDPA with the same boolean mask."""
     import torch.nn.functional as F
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, paged_attention as pa
     from repro_torch.kernels.paged_attention import (
         identity_block_table, paged_attention_plain, split_plan)
 
@@ -794,12 +824,105 @@ def paged_window_cases(torch, timer, randn, extra):
                       "first kept key's, splits below it empty)",
             "n_splits": n_splits, "blocks_per_split": bps,
             "shape": f"mixtral {what}", "max_abs_err": err, "path": "moe_serve_run2",
+            "launch_key": pa.launch_key(args[0], args[1], args[3], window=MIX_WINDOW),
             "ms": timer.ms(lambda: ops.paged_attention(*args, window=MIX_WINDOW), 50),
             "plain_ms": timer.ms(lambda: paged_attention_plain(*args, window=MIX_WINDOW), 3),
             "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
                 ql, kl, vl, attn_mask=mask, enable_gqa=True), 50),
             "bound_ms": bms, "bound_by": by,
         })
+    torch.cuda.synchronize()
+
+
+def audio_attention_cases(torch, timer, randn, extra):
+    """whisper-large-v3's attention shapes (20 heads of 64, MHA, B4), each
+    held to its plain version and timed beside SDPA: flash non-causal over
+    the encoder's 1500 frames (bf16, the main path, and float32, audio_parity's
+    type; ragged against the 128-key step), the decoder's causal
+    self-attention over the 4-token prompt, and cross prefill (the prompt
+    against 1500 keys); paged over the cross cache (ctx 1500 of 1536 rows,
+    bt 64) and over the self cache (ctx 132 of 448 rows, the last of
+    audio_serve's 128 steps).  Each entry's launches are those of its own
+    shape (``launch_key``) in audio_serve's run (none of the float32 one)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import flash_attention as fa, paged_attention as pa
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.paged_attention import (
+        contiguous_block_tokens, identity_block_table, paged_attention_plain, split_plan)
+
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    prompt = len(W_SOT)
+    for sq, skv, dt, causal, what in (
+            (W_FRAMES, W_FRAMES, "bfloat16", False, "whisper encoder"),
+            (W_FRAMES, W_FRAMES, "float32", False, "whisper encoder (audio_parity's type)"),
+            (prompt, prompt, "bfloat16", True, "whisper decoder self prefill"),
+            (prompt, W_FRAMES, "bfloat16", False, "whisper cross prefill")):
+        q = randn((B_MAIN, sq, WH, WD), dt)
+        k, v = (randn((B_MAIN, skv, WH, WD), dt) for _ in range(2))
+        got = ops.flash_attention(q, k, v, causal=causal)
+        want = flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        shape = (f"{what}: B{B_MAIN} Sq{sq} Skv{skv} H{WH} Hkv{WH} D{WD} {dt} "
+                 + ("causal" if causal else "non-causal"))
+        err = _check_flash(torch, got, want, dt, shape, False)
+        del got, want
+        pairs = sq * (sq + 1) // 2 if causal else sq * skv
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        bms, by = bound(nbytes, 4 * B_MAIN * WH * WD * pairs, dt)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        extra.append({
+            "name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:76",
+            "design": ("float32 SIMT" if dt == "float32" else "the mma.sync path")
+                      + (", causal" if causal else ", non-causal, keys masked at Skv"),
+            "shape": shape, "max_abs_err": err, "path": "audio_serve",
+            "launch_key": fa.launch_key(q, k, causal=causal),
+            "ms": timer.ms(lambda: ops.flash_attention(q, k, v, causal=causal), 20),
+            "plain_ms": timer.ms(lambda: flash_attention_plain(q, k, v, causal=causal), 3),
+            "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal), 20),
+            "bound_ms": bms, "bound_by": by,
+        })
+        del q, k, v, qt, kt, vt
+    for rows, ctx, what in ((W_CROSS, W_FRAMES, "whisper cross decode"),
+                            (W_MAX_LEN, prompt + W_NEW, "whisper self decode, last step")):
+        dt = "bfloat16"
+        cache_k, cache_v = (randn((B_MAIN, rows, WH, WD), dt) for _ in range(2))
+        bt = contiguous_block_tokens(rows)
+        args = (randn((B_MAIN, WH, WD), dt), cache_k.view(-1, bt, WH, WD),
+                cache_v.view(-1, bt, WH, WD), identity_block_table(B_MAIN, rows, bt, device="cuda"),
+                torch.full((B_MAIN,), ctx, dtype=torch.int32, device="cuda"))
+        n_splits, bps = split_plan(B_MAIN * WH, rows // bt, bt, n_sms)
+        got = ops.paged_attention(*args)
+        want = paged_attention_plain(*args)
+        torch.cuda.synchronize()
+        shape = (f"{what}: B{B_MAIN} H{WH} Hkv{WH} D{WD} ctx{ctx} of {rows} rows bt{bt} {dt} "
+                 f"splits {n_splits} x {bps}")
+        err = _check_paged(torch, got, want, dt, shape, False)
+        del got, want
+        esize = args[0].element_size()
+        nbytes = (2 * args[0].numel() * esize + 2 * B_MAIN * ctx * WH * WD * esize
+                  + args[3].numel() * 4 + B_MAIN * 4)
+        bms, by = bound(nbytes, 4 * B_MAIN * ctx * WH * WD, dt)
+        mask = (torch.arange(rows, device="cuda") < ctx)[None, None, None, :]
+        ql, kl, vl = args[0][:, :, None], cache_k.transpose(1, 2), cache_v.transpose(1, 2)
+        extra.append({
+            "name": "paged_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention.py:86",
+            "design": "split-KV + combine over the identity table of a contiguous cache",
+            "n_splits": n_splits, "blocks_per_split": bps,
+            "shape": shape, "max_abs_err": err, "path": "audio_serve",
+            "launch_key": pa.launch_key(args[0], args[1], args[3]),
+            "ms": timer.ms(lambda: ops.paged_attention(*args), 50),
+            "plain_ms": timer.ms(lambda: paged_attention_plain(*args), 3),
+            "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
+                ql, kl, vl, attn_mask=mask), 50),
+            "bound_ms": bms, "bound_by": by,
+        })
+        del cache_k, cache_v, args, ql, kl, vl
     torch.cuda.synchronize()
 
 
@@ -1129,12 +1252,15 @@ def expected_launches(cfg, new: int):
     """Kernel launches of one prefill and ``new`` decode steps: one flash
     per attention block application in the prefill, one paged per
     attention block application and step, one SSD scan per mamba layer in
-    the prefill."""
+    the prefill.  A decoder block of an encoder-decoder attends twice (to
+    itself, then to the encoder output), and the encoder's layers launch
+    one flash each in the prefill."""
     from repro_torch import models
     kinds, n_groups = models.group_layout(cfg)
     n_mamba = kinds.count("mamba") * n_groups
-    n_attn = len(kinds) * n_groups - n_mamba
-    return {"flash_attention": n_attn, "paged_attention": n_attn * new,
+    n_attn = sum({"mamba": 0, "dec": 2}.get(k, 1) for k in kinds) * n_groups
+    n_enc = cfg.n_encoder_layers if cfg.is_encoder_decoder else 0
+    return {"flash_attention": n_attn + n_enc, "paged_attention": n_attn * new,
             "ssd_scan": n_mamba, "pwl_softmax": 0, "cim_matmul": 0}
 
 
@@ -1160,9 +1286,17 @@ def phase_serve(torch, results, phase):
 
     cfg = get_config(SERVE_ARCH[phase])
     params = init_logged(torch, cfg, f"[{phase}]")
-    res, launches = serve_run(torch, cfg, params, f"[{phase}]", B_MAIN, PROMPT, NEW, MAX_LEN)
+    res, launches = serve_run(torch, cfg, params, f"[{phase}]",
+                              random_prompt(torch, cfg, B_MAIN, PROMPT), NEW, MAX_LEN)
     results[phase] = res
     return launches
+
+
+def random_prompt(torch, cfg, batch, length):
+    """(batch, length) token ids on the card from numpy seed 0."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    return torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, length))).cuda()
 
 
 def init_logged(torch, cfg, tag):
@@ -1178,26 +1312,27 @@ def init_logged(torch, cfg, tag):
     return params
 
 
-def serve_run(torch, cfg, params, tag, batch, prompt_len, new, max_len):
-    """Prefill ``batch`` x ``prompt_len`` tokens, then ``new`` decode steps,
-    eager and then under the captured graph, from the same prompt; the main
-    path (counted) is the prefill and the graph's decode, as the card's
-    Server runs it.  Returns (results, launches of the main path)."""
+def serve_run(torch, cfg, params, tag, prompt, new, max_len, encoder_embeds=None):
+    """Prefill the (batch, prompt_len) ``prompt`` (and an encoder-decoder's
+    ``encoder_embeds``), then ``new`` decode steps, eager and then under
+    the captured graph, from the same prompt; the main path (counted) is
+    the prefill and the graph's decode, as the card's Server runs it.  The
+    graph's ids and caches must equal the eager step's.  Returns (results,
+    launches of the main path, per kernel and per (kernel, launch_key))."""
     from repro_torch import models
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import (CompiledServeStep, make_prefill_step,
                                           make_serve_step)
-    import numpy as np
 
-    rng = np.random.default_rng(0)
-    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, prompt_len))).cuda()
+    batch, prompt_len = prompt.shape
+    enc = {} if encoder_embeds is None else {"encoder_embeds": encoder_embeds}
     prefill = make_prefill_step(cfg, kv_max=max_len)
     serve = make_serve_step(cfg)
 
     # warm-up outside the counted window (cuBLAS heuristics, allocator), and
     # the graph captured over a cache of its own, into which the prefill's
     # cache is copied; its memory is what the capture leaves reserved
-    prefill(params, {"tokens": prompt[:, :64]})
+    prefill(params, {"tokens": prompt[:, :64], **enc})
     graph_cache = models.init_cache(cfg, batch, max_len, device="cuda")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1210,26 +1345,38 @@ def serve_run(torch, cfg, params, tag, batch, prompt_len, new, max_len):
     graph_gib = (torch.cuda.memory_reserved() - reserved) / 2 ** 30
 
     # the eager step, outside the counted window: the yardstick
-    tok, eager_cache = prefill(params, {"tokens": prompt})
+    tok, eager_cache = prefill(params, {"tokens": prompt, **enc})
     ops.reset_launch_counts()
     ids_eager, t_eager = decode_loop(torch, serve, params, eager_cache, tok, prompt_len, new)
     want_eager = {**expected_launches(cfg, new), "flash_attention": 0, "ssd_scan": 0}
     if dict(ops.LAUNCHES) != want_eager:
         raise AssertionError(f"eager decode launches {ops.LAUNCHES}, expected {want_eager}")
 
+    def timed_prefill():
+        """(token, cache, host ms, cudaMalloc calls) of one prefill."""
+        segments = torch.cuda.memory_stats()["segment.all.allocated"]
+        t0 = time.time()
+        out = prefill(params, {"tokens": prompt, **enc})
+        torch.cuda.synchronize()
+        return (*out, (time.time() - t0) * 1e3,
+                torch.cuda.memory_stats()["segment.all.allocated"] - segments)
+
+    # prefills outside the counted window, each cache freed before the next,
+    # so the allocator holds the blocks that the counted prefill takes (the
+    # eager step's cache is still alive, kept for the comparison below)
+    repeats = [timed_prefill()[2:] for _ in range(PREFILL_REPEATS)]
+
     # the main path: prefill, then the decode through the graph
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    t0 = time.time()
-    tok, cache = prefill(params, {"tokens": prompt})
-    torch.cuda.synchronize()
-    t_prefill = time.time() - t0
+    tok, cache, prefill_ms, prefill_mallocs = timed_prefill()
     for key, entry in cache.items():
         for name, t in entry.items():
             graph_cache[key][name].copy_(t)
     del cache
     ids, t_decode = decode_loop(torch, compiled, params, graph_cache, tok, prompt_len, new)
     launches = dict(ops.LAUNCHES)
+    by_shape = dict(ops.LAUNCHES_BY_SHAPE)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
     want = expected_launches(cfg, new)
@@ -1244,7 +1391,7 @@ def serve_run(torch, cfg, params, tag, batch, prompt_len, new, max_len):
     # logits check, outside the counted window: the prefill's logits are
     # finite and their last-position argmax is the prefill step's token
     with torch.no_grad():
-        logits, aux, _ = models.forward(cfg, params, prompt)
+        logits, aux, _ = models.forward(cfg, params, prompt, **enc)
     if not bool(torch.isfinite(logits.float()).all()) or not bool(torch.isfinite(aux)):
         raise AssertionError("prefill logits or aux loss are not finite")
     if not torch.equal(logits[:, -1:].float().argmax(-1), ids[:, :1]):
@@ -1259,17 +1406,22 @@ def serve_run(torch, cfg, params, tag, batch, prompt_len, new, max_len):
             if not bool(torch.isfinite(t.float()).all()):
                 raise AssertionError(f"cache {key}/{name} is not finite")
     del eager_cache
+    if not cache_equal:
+        raise AssertionError("the graph's cache differs from the eager step's")
     res = {"arch": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype, "batch": batch,
            "prompt": prompt_len, "new_tokens": new, "max_len": max_len,
-           "prefill_ms": t_prefill * 1e3,
-           "prefill_tokens_per_s": batch * prompt_len / t_prefill,
+           "prefill_ms": prefill_ms, "prefill_cuda_mallocs": prefill_mallocs,
+           "prefill_tokens_per_s": batch * prompt_len / prefill_ms * 1e3,
+           "prefill_repeats_ms": [ms for ms, _ in repeats],
+           "prefill_repeats_cuda_mallocs": [n for _, n in repeats],
            "decode_ms_per_step": t_decode / new * 1e3,
            "decode_tokens_per_s": batch * new / t_decode,
            "eager_decode_ms_per_step": t_eager / new * 1e3,
            "eager_decode_tokens_per_s": batch * new / t_eager,
            "graph_build_s": t_build, "graph_reserved_gib": graph_gib,
            "graph_cache_bit_equal_to_eager": cache_equal, "aux_loss": aux.item(),
-           "peak_mem_gib": peak, "launches": launches}
+           "peak_mem_gib": peak, "launches": launches,
+           "launches_by_shape": {f"{n} {key}": c for (n, key), c in sorted(by_shape.items())}}
     log(f"{tag} B{batch} x {prompt_len}: prefill {res['prefill_ms']:.2f} ms "
         f"({res['prefill_tokens_per_s']:.0f} tok/s); "
         f"decode eager {res['eager_decode_ms_per_step']:.3f} ms/step "
@@ -1277,8 +1429,13 @@ def serve_run(torch, cfg, params, tag, batch, prompt_len, new, max_len):
         f"{res['decode_ms_per_step']:.3f} ms/step ({res['decode_tokens_per_s']:.1f} tok/s); "
         f"greedy ids equal, caches bit-equal {cache_equal}; graph built in {t_build:.2f}s, "
         f"{graph_gib:.3f} GiB reserved by it; peak {peak:.2f} GiB")
+    log(f"{tag} prefill {prefill_ms:.2f} ms ({prefill_mallocs} cudaMalloc), before it "
+        f"outside the counted window: " + ", ".join(f"{ms:.2f} ms ({n} cudaMalloc)"
+                                                   for ms, n in repeats))
     log(f"{tag} first ids per sequence: {ids[:, :8].tolist()}")
-    return res, launches
+    for what, c in res["launches_by_shape"].items():
+        log(f"{tag} launches of {what}: {c}")
+    return res, {**launches, **by_shape}
 
 
 def mixtral_cut():
@@ -1300,11 +1457,12 @@ def phase_moe_serve(torch, results):
         f"{MIX_LAYERS * 2.90:.1f} GB (+0.5 GB embeddings and head)")
     params = init_logged(torch, cfg, "[moe_serve]")
     out = {}
-    res, launches = serve_run(torch, cfg, params, "[moe_serve] run 1", B_MAIN, PROMPT, NEW,
-                              MAX_LEN)
+    res, launches = serve_run(torch, cfg, params, "[moe_serve] run 1",
+                              random_prompt(torch, cfg, B_MAIN, PROMPT), NEW, MAX_LEN)
     out["run1"] = res
     torch.cuda.empty_cache()
-    res, launches2 = serve_run(torch, cfg, params, "[moe_serve] run 2", 1, MIX_LONG,
+    res, launches2 = serve_run(torch, cfg, params, "[moe_serve] run 2",
+                               random_prompt(torch, cfg, 1, MIX_LONG),
                                MIX_LONG_MAX - MIX_LONG, MIX_LONG_MAX)
     out["run2"] = res
     results["moe_serve"] = out
@@ -1346,6 +1504,65 @@ def phase_moe_parity(torch, results):
         raise AssertionError(f"{cfg.name}: decode does not continue the windowed prefill")
     out["decode_vs_forward_rel_err_window_4096"] = rel
     results["moe_parity"] = out
+
+
+def whisper_frames(torch, cfg, batch, seed):
+    """(batch, encoder_seq, d_model) float32 frame embeddings (the conv
+    front end's output, a stub in both packages) from a seed, on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((batch, cfg.encoder_seq, cfg.d_model), generator=gen, device="cuda")
+
+
+def phase_audio_serve(torch, results):
+    """whisper-large-v3 at published widths and full depth (32 encoder, 32
+    decoder layers), bf16, weights and frames from a seed: the encoder
+    alone (its launches counted), then ``serve_run`` from the 4-token
+    start-of-transcript prompt with 128 steps over a 448-row self cache.
+    Returns the launches of the main path."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import cross_rows
+
+    cfg = get_config("whisper-large-v3")
+    if cross_rows(cfg.encoder_seq) != W_CROSS:
+        raise AssertionError(f"cross cache of {cross_rows(cfg.encoder_seq)} rows")
+    params = init_logged(torch, cfg, "[audio_serve]")
+    frames = whisper_frames(torch, cfg, B_MAIN, seed=0)
+    with torch.no_grad():
+        models.encode(cfg, params, frames)                          # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.time()
+        enc = models.encode(cfg, params, frames)
+        torch.cuda.synchronize()
+    t_enc = time.time() - t0
+    enc_launches = dict(ops.LAUNCHES)
+    log(f"[audio_serve] the encoder alone, B{B_MAIN} x {cfg.encoder_seq} frames: "
+        f"{t_enc * 1e3:.2f} ms, launches {enc_launches}")
+    if enc_launches["flash_attention"] != cfg.n_encoder_layers or \
+            sum(enc_launches.values()) != cfg.n_encoder_layers:
+        raise AssertionError(f"encoder launches {enc_launches}")
+    if not bool(torch.isfinite(enc.float()).all()):
+        raise AssertionError("encoder output is not finite")
+    del enc
+    prompt = torch.tensor([W_SOT] * B_MAIN, device="cuda")
+    res, launches = serve_run(torch, cfg, params, "[audio_serve]", prompt, W_NEW, W_MAX_LEN,
+                              encoder_embeds=frames)
+    res.update(encoder_layers=cfg.n_encoder_layers, encoder_frames=cfg.encoder_seq,
+               encoder_ms=t_enc * 1e3, encoder_launches=enc_launches)
+    results["audio_serve"] = res
+    return launches
+
+
+def phase_audio_parity(torch, results):
+    """whisper widths, 4 encoder + 4 decoder layers, 1500 frames, float32:
+    the card (kernels) against the CPU (plain versions)."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("whisper-large-v3"), n_layers=4, n_encoder_layers=4,
+                              dtype="float32")
+    results["audio_parity"] = _parity(torch, cfg, b=2, s=len(W_SOT), steps=8, max_len=64,
+                                      seed=5)[2]
 
 
 def cim_scu_layer(torch, cfg, weights, x, pos0, cache=None, *, exact=False, calls=None):
@@ -1551,7 +1768,8 @@ def _tree_to(tree, device):
 
 def _parity(torch, cfg, *, b, s, steps, max_len, seed):
     """float32 weights from a seed on the card, copied to the CPU: prefill
-    logits, ``steps`` decode-step logits and the greedy ids of both."""
+    logits, ``steps`` decode-step logits and the greedy ids of both (an
+    encoder-decoder also takes frame embeddings from the seed)."""
     from repro_torch import models
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
@@ -1564,13 +1782,18 @@ def _parity(torch, cfg, *, b, s, steps, max_len, seed):
     params["cpu"] = _tree_to(params["cuda"], "cpu")
     rng = np.random.default_rng(seed)
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)))
+    frames = (torch.from_numpy(rng.standard_normal((b, cfg.encoder_seq, cfg.d_model),
+                                                   dtype=np.float32))
+              if cfg.is_encoder_decoder else None)
     out = {}
     for dev in ("cuda", "cpu"):
         ops.reset_launch_counts()
         t0 = time.time()
+        enc = {} if frames is None else {"encoder_embeds": frames.to(dev)}
         with torch.no_grad():
-            logits, _, _ = models.forward(cfg, params[dev], prompt.to(dev))
-        tok, cache = make_prefill_step(cfg, kv_max=max_len)(params[dev], {"tokens": prompt.to(dev)})
+            logits, _, _ = models.forward(cfg, params[dev], prompt.to(dev), **enc)
+        tok, cache = make_prefill_step(cfg, kv_max=max_len)(
+            params[dev], {"tokens": prompt.to(dev), **enc})
         serve = make_serve_step(cfg)
         ids, step_logits = [tok.cpu()], []
         for i in range(steps):
@@ -1641,7 +1864,8 @@ def phase_ssm_parity(torch, results):
 
 def phase_server(torch, results):
     """Requests through the card's Server, whose decode step is a captured
-    CUDA graph, for the four served models (mixtral at MIX_LAYERS layers);
+    CUDA graph, for the five served models (mixtral at MIX_LAYERS layers;
+    whisper without its encoder, as the JAX Server: a zero cross cache);
     the launch counters, zeroed after the Server is built, count each
     replay's kernels exactly."""
     from repro_torch.configs import get_config
@@ -1651,7 +1875,7 @@ def phase_server(torch, results):
     import numpy as np
 
     out = {}
-    for arch in (*SERVE_ARCH.values(), "mixtral-8x7b"):
+    for arch in (*SERVE_ARCH.values(), "mixtral-8x7b", "whisper-large-v3"):
         cfg = mixtral_cut() if arch == "mixtral-8x7b" else get_config(arch)
         t0 = time.time()
         srv = Server(cfg, max_batch=4, max_len=64, seed=0)
@@ -1715,7 +1939,8 @@ def _kernel_class(name: str) -> str:
 def profile_windows(torch, arch):
     """The (name, function) windows the profile phase traces for ``arch``,
     warmed up: a full-width prefill and 8 decode steps of a served model
-    (mixtral at MIX_LAYERS layers),
+    (mixtral at MIX_LAYERS layers; whisper's prefill with its encoder over
+    1500 frames, from its 4-token prompt into a 448-row cache),
     eager and through the captured graph (on a copy of the cache), or the
     cim_scu phase's layer prefill (with the vocab softmax) and decode
     step."""
@@ -1725,7 +1950,6 @@ def profile_windows(torch, arch):
     from repro_torch.launch.steps import (CompiledServeStep, make_prefill_step,
                                           make_serve_step)
     from repro_torch.models.common import rmsnorm
-    import numpy as np
 
     if arch == "cim_scu":
         cfg, weights, head, x, x_new = cim_scu_setup(torch)
@@ -1744,29 +1968,35 @@ def profile_windows(torch, arch):
 
     cfg = mixtral_cut() if arch == "mixtral-8x7b" else get_config(arch)
     params = models.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
-    prompt = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (B_MAIN, PROMPT))).cuda()
-    prefill = make_prefill_step(cfg, kv_max=MAX_LEN)
+    if cfg.is_encoder_decoder:
+        prompt = torch.tensor([W_SOT] * B_MAIN, device="cuda")
+        batch = {"tokens": prompt, "encoder_embeds": whisper_frames(torch, cfg, B_MAIN, 0)}
+        max_len = W_MAX_LEN
+    else:
+        prompt = random_prompt(torch, cfg, B_MAIN, PROMPT)
+        batch, max_len = {"tokens": prompt}, MAX_LEN
+    start = prompt.shape[1]
+    prefill = make_prefill_step(cfg, kv_max=max_len)
     serve = make_serve_step(cfg)
-    tok, cache = prefill(params, {"tokens": prompt})            # warm-up
+    tok, cache = prefill(params, batch)                         # warm-up
     graph_cache = {k: {n: t.clone() for n, t in e.items()} for k, e in cache.items()}
     compiled = CompiledServeStep(cfg, params, graph_cache, B_MAIN)
-    compiled(params, graph_cache, tok, PROMPT + 1)
-    tok, cache = serve(params, cache, tok, PROMPT + 1)
+    compiled(params, graph_cache, tok, start + 1)
+    tok, cache = serve(params, cache, tok, start + 1)
     state = {"tok": tok, "cache": cache, "graph_tok": tok.clone()}
 
     def do_prefill():
-        state["tok"], state["cache"] = prefill(params, {"tokens": prompt})
+        state["tok"], state["cache"] = prefill(params, batch)
 
     def do_decode():
         for i in range(8):
             state["tok"], state["cache"] = serve(params, state["cache"],
-                                                 state["tok"], PROMPT + i + 1)
+                                                 state["tok"], start + i + 1)
 
     def do_decode_graph():
         tok = state["graph_tok"]
         for i in range(8):
-            tok, _ = compiled(params, graph_cache, tok, PROMPT + i + 1)
+            tok, _ = compiled(params, graph_cache, tok, start + i + 1)
         state["graph_tok"] = tok.clone()
 
     return [("prefill", do_prefill), ("decode_x8", do_decode),
@@ -1852,6 +2082,8 @@ def main(argv=None) -> int:
             launches_of[phase] = phase_serve(torch, results, phase)
         elif phase == "moe_serve":
             launches_of[phase], launches_of["moe_serve_run2"] = phase_moe_serve(torch, results)
+        elif phase == "audio_serve":
+            launches_of[phase] = phase_audio_serve(torch, results)
         elif phase == "cim_scu":
             launches_of[phase] = phase_cim_scu(torch, results)
         elif phase == "parity":
@@ -1860,23 +2092,29 @@ def main(argv=None) -> int:
             phase_ssm_parity(torch, results)
         elif phase == "moe_parity":
             phase_moe_parity(torch, results)
+        elif phase == "audio_parity":
+            phase_audio_parity(torch, results)
         elif phase == "server":
             phase_server(torch, results)
         elif phase == "profile":
-            for arch in (*SERVE_ARCH.values(), "mixtral-8x7b", "cim_scu"):
+            for arch in (*SERVE_ARCH.values(), "mixtral-8x7b", "whisper-large-v3", "cim_scu"):
                 phase_profile(torch, results, arch)
                 torch.cuda.empty_cache()
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         log(f"[{phase}] ok in {time.time() - t0:.1f}s")
     log(f"[all] ok in {time.time() - t_start:.1f}s")
-    windowed = [k for k in results.get("kernels_other_shapes", []) if "path" in k]
-    for kern in results.get("kernels", []) + windowed:
+    # a main entry counts its kernel's launches on its path; an entry of
+    # another shape counts those of its own launch_key on its path (None:
+    # its path's phase was not run)
+    shaped = [k for k in results.get("kernels_other_shapes", []) if "path" in k]
+    for kern in results.get("kernels", []) + shaped:
         path = launches_of.get(kern.get("path", MAIN_PATH_OF[kern["name"]]))
-        kern["launches"] = None if path is None else path[kern["name"]]
-    for kern in windowed:
+        key = (kern["name"], kern["launch_key"]) if "launch_key" in kern else kern["name"]
+        kern["launches"] = None if path is None else path.get(key, 0)
+    for kern in shaped:
         log(f"[kernels] {kern['name']} at {kern['shape']}: {kern['launches']} launches "
-            f"on {kern['path']}")
+            f"of this shape on {kern['path']}")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(results, indent=1))

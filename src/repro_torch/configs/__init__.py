@@ -1,7 +1,7 @@
 """Config registry of the port: ``get_config("<arch-id>")`` returns the full
 ModelConfig.  The registry holds the architectures of ``repro.configs``
-whose families the port runs (dense, moe, ssm, hybrid), under the same arch
-ids.
+whose families the port runs (dense, moe, ssm, hybrid, audio), under the
+same arch ids; the VLM family (paligemma) is not ported yet.
 """
 from __future__ import annotations
 
@@ -21,6 +21,8 @@ _REGISTRY = {
     # attention-free SSM and the Mamba2 + shared-attention hybrid
     "mamba2-2.7b": "mamba2_2p7b",
     "zamba2-2.7b": "zamba2_2p7b",
+    # encoder-decoder: whisper's encoder over precomputed frame embeddings
+    "whisper-large-v3": "whisper_large_v3",
     # the paper's own evaluation models (Table II)
     "llama3.2-1b": "llama32_1b",
     "llama3-8b": "llama3_8b",

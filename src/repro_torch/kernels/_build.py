@@ -15,7 +15,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -34,8 +34,10 @@ SIGNATURES = {
     "cim_matmul": ("cim_matmul_fwd", [_VOID_P] * 8 + [_INT] * 10 + [_VOID_P]),
 }
 
-# kernel launches per source, counted by the launching wrapper
+# kernel launches per source, counted by the launching wrapper, and per
+# (source, shape key) for the wrappers that give a key (``launch_key``)
 LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
+LAUNCHES_BY_SHAPE: Dict[Tuple[str, str], int] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOGS: Dict[str, str] = {}
 
@@ -110,9 +112,12 @@ def aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def check(err: int, name: str) -> None:
+def check(err: int, name: str, shape: str = "") -> None:
     """Raise if a C entry point returned a CUDA error (its launch check);
-    else count the launch."""
+    else count the launch, also under ``shape`` where one is given."""
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
+    if shape:
+        key = (name, shape)
+        LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1

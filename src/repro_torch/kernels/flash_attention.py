@@ -148,6 +148,16 @@ def agreement(got: torch.Tensor, want: torch.Tensor, *, pwl: bool = False):
     return diff.max().item(), ratio, rows_off, ok
 
 
+def launch_key(q, k, *, causal: bool = True, use_pwl: bool = False,
+               window=None) -> str:
+    """The shape under which ``flash_attention_cuda`` counts a launch in
+    ``_build.LAUNCHES_BY_SHAPE``."""
+    B, Sq, Hq, D = q.shape
+    return (f"B{B} Sq{Sq} Skv{k.shape[1]} Hq{Hq} Hkv{k.shape[2]} D{D} "
+            f"{str(q.dtype).removeprefix('torch.')} causal={int(causal)} "
+            f"window={window or 0} pwl={int(use_pwl)}")
+
+
 def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          use_pwl: bool = False, window=None) -> torch.Tensor:
     """Launch ``csrc/flash_attention.cu`` on PyTorch's current stream."""
@@ -173,5 +183,6 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, Sq, Skv, Hq, Hkv, D, _DTYPE_CODES[q.dtype], int(causal), window,
         int(use_pwl), ctypes.addressof(PWL_COEFFS),
-        torch.cuda.current_stream(q.device).cuda_stream), "flash_attention")
+        torch.cuda.current_stream(q.device).cuda_stream), "flash_attention",
+        launch_key(q, k, causal=causal, use_pwl=use_pwl, window=window))
     return out

@@ -5,7 +5,8 @@ goes to the hand-written Hopper kernel, or the call raises.  There is no
 fallback from one to the other.  ``LAUNCHES`` counts the kernel launches
 of each wrapper, so a run can show that its path went through the
 kernels; each kernel module adds one where it launches, and the plain
-versions are not counted.
+versions are not counted.  ``LAUNCHES_BY_SHAPE`` counts the attention
+kernels' launches apart by (kernel, ``launch_key``).
 """
 from __future__ import annotations
 
@@ -14,12 +15,13 @@ from . import flash_attention as _fa
 from . import paged_attention as _pa
 from . import pwl_softmax as _ps
 from . import ssd_scan as _ssd
-from ._build import LAUNCHES
+from ._build import LAUNCHES, LAUNCHES_BY_SHAPE
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    LAUNCHES_BY_SHAPE.clear()
 
 
 def _route(t) -> str:

@@ -123,6 +123,18 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def launch_key(q, k_cache, block_tables, *, use_pwl: bool = False,
+               window=None) -> str:
+    """The shape under which ``paged_attention_cuda`` counts a launch in
+    ``_build.LAUNCHES_BY_SHAPE`` (the context lengths live on the device
+    and are not part of it)."""
+    B, H, D = q.shape
+    _, bt, Hkv, _ = k_cache.shape
+    return (f"B{B} H{H} Hkv{Hkv} D{D} bt{bt} blocks{block_tables.shape[1]} "
+            f"{str(q.dtype).removeprefix('torch.')} window={window or 0} "
+            f"pwl={int(use_pwl)}")
+
+
 def paged_attention_cuda(q, k_cache, v_cache, block_tables, context_lens, *,
                          use_pwl: bool = False, window=None) -> torch.Tensor:
     """Launch ``csrc/paged_attention.cu`` on PyTorch's current stream."""
@@ -167,5 +179,6 @@ def paged_attention_cuda(q, k_cache, v_cache, block_tables, context_lens, *,
         None if scratch is None else scratch.data_ptr(),
         B, H, Hkv, D, bt, max_blocks, n_splits, bps, window,
         _DTYPE_CODES[q.dtype], int(use_pwl), ctypes.addressof(PWL_COEFFS),
-        torch.cuda.current_stream(dev).cuda_stream), "paged_attention")
+        torch.cuda.current_stream(dev).cuda_stream), "paged_attention",
+        launch_key(q, k_cache, block_tables, use_pwl=use_pwl, window=window))
     return out

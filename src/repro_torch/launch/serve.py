@@ -8,7 +8,10 @@ quirks included: one shared ``cur_len`` for all slots; admission sets
 ``cur_len = max(cur_len + 1, len(prompt))``, so a prompt's first token
 attends over zero cache rows; every admission step is a full-batch decode
 that writes K/V into every slot, and advances every slot's recurrent state
-for an SSM; and only slot ``i``'s next token is taken during admission.
+for an SSM; only slot ``i``'s next token is taken during admission; and an
+encoder-decoder (whisper) is served without its encoder, so every step
+attends over a cross cache of zeros (the JAX ``Server`` runs no encoder
+either; ROADMAP hazard 6).
 
 On a CUDA device the server runs its decode step as one CUDA graph,
 captured once over its params and cache (``CompiledServeStep``), as the
@@ -18,6 +21,8 @@ JAX ``Server`` runs one jitted step with the cache donated; reassigning
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
       --n-requests 4 --max-new 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
+      --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-large-v3 \\
       --smoke --device cpu
 """
 from __future__ import annotations

@@ -10,13 +10,20 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch import models
-from repro_torch.kernels._build import LAUNCHES
+from repro_torch.kernels._build import LAUNCHES, LAUNCHES_BY_SHAPE
 
 
 def make_prefill_step(cfg, *, kv_max: int):
+    """``batch``: ``tokens`` (B, S), and ``encoder_embeds`` (B, S_enc, d)
+    for an encoder-decoder (whisper).  A ``prefix_embeds`` (paligemma's
+    prefix) is not ported yet and raises."""
     @torch.no_grad()
     def prefill_step(params, batch):
+        if batch.get("prefix_embeds") is not None:
+            raise NotImplementedError("the port's prefill takes no "
+                                      "prefix_embeds (VLM) yet")
         logits, _, cache = models.forward(cfg, params, batch["tokens"],
+                                          encoder_embeds=batch.get("encoder_embeds"),
                                           collect_cache=True, kv_max=kv_max)
         next_tok = torch.argmax(logits[:, -1:], dim=-1)
         return next_tok, cache
@@ -51,8 +58,9 @@ def tensor_addresses(*trees) -> Dict[str, Tuple]:
 
 
 def _attention_rows(cache):
-    """Rows of the contiguous attention cache, or None for a model
-    without attention (its decode reads no length)."""
+    """Rows of the contiguous self-attention cache (never the cross
+    cache's), or None for a model without attention (its decode reads no
+    length)."""
     for entry in cache.values():
         if "k" in entry:
             return entry["k"].shape[2]
@@ -77,10 +85,10 @@ class CompiledServeStep:
     read or write the captured addresses.  A failed capture or replay
     raises; nothing falls back to the eager step.
 
-    ``kernels.ops.LAUNCHES`` counts a kernel launch when its wrapper runs,
-    which for a graph is during capture; the capture's counts are taken
-    back and added again on every replay, so the counters read as the
-    eager step's would.  ``logits`` is the static (B, 1, V) output of the
+    ``kernels.ops.LAUNCHES`` (and ``LAUNCHES_BY_SHAPE``) count a kernel
+    launch when its wrapper runs, which for a graph is during capture; the
+    capture's counts are taken back and added again on every replay, so
+    the counters read as the eager step's would.  ``logits`` is the static (B, 1, V) output of the
     last call."""
 
     def __init__(self, cfg, params, cache, batch: int):
@@ -103,14 +111,19 @@ class CompiledServeStep:
             step({k: {n: t.clone() for n, t in e.items()}
                   for k, e in cache.items()})                   # warm-up
             torch.cuda.synchronize(self.device)
-            counts = dict(LAUNCHES)
+            counts, shapes = dict(LAUNCHES), dict(LAUNCHES_BY_SHAPE)
             self.graph = torch.cuda.CUDAGraph()
             try:
                 with torch.cuda.graph(self.graph):
                     self.logits, self.next_token = step(cache)
             finally:
                 self.launches = {k: LAUNCHES[k] - counts[k] for k in LAUNCHES}
+                self.launches_by_shape = {
+                    k: n - shapes.get(k, 0) for k, n in LAUNCHES_BY_SHAPE.items()
+                    if n != shapes.get(k, 0)}
                 LAUNCHES.update(counts)
+                LAUNCHES_BY_SHAPE.clear()
+                LAUNCHES_BY_SHAPE.update(shapes)
 
     def __call__(self, params, cache, token, cache_len: int):
         if tensor_addresses(params, cache) != self.addresses:
@@ -124,4 +137,6 @@ class CompiledServeStep:
         self.graph.replay()
         for name, n in self.launches.items():
             LAUNCHES[name] += n
+        for key, n in self.launches_by_shape.items():
+            LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + n
         return self.next_token, cache

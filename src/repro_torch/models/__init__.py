@@ -1,5 +1,5 @@
-from .model import (decode_step, forward, group_layout, init_cache,
+from .model import (decode_step, encode, forward, group_layout, init_cache,
                     init_params)
 
-__all__ = ["decode_step", "forward", "group_layout", "init_cache",
+__all__ = ["decode_step", "encode", "forward", "group_layout", "init_cache",
            "init_params"]

@@ -1,16 +1,18 @@
 """Attention: GQA/MQA/MHA projections, prefill attention and cached decode.
 
-Port of the single-device path of ``repro.models.attention``.  Prefill
-attention goes to ``kernels.ops.flash_attention`` and decode attention to
+Port of the single-device path of ``repro.models.attention``, and of the
+cross-attention that ``repro.models.model`` writes inline for whisper's
+decoder (``cross_attn_sublayer``, ``cross_attn_decode_sublayer``).
+Prefill attention, causal or not (whisper's encoder and cross-attention),
+goes to ``kernels.ops.flash_attention`` and decode attention to
 ``kernels.ops.paged_attention`` over the identity block table of the
 contiguous cache: the Hopper kernels on a CUDA tensor, their plain
 versions on a CPU tensor; both take the sliding window (mixtral), which
 the kernels apply in place of the JAX package's mask.  ``full_attention``
-is the exact quadratic reference, for tests and non-causal use.  The
-sequence-parallel and PICNIC distributed-scratchpad paths, and prefill
-with a bidirectional prefix (``prefix_len`` raises
-``NotImplementedError``) or a query offset, belong to later slices of the
-port.
+is the exact quadratic reference, for tests.  The sequence-parallel and
+PICNIC distributed-scratchpad paths, and prefill with a bidirectional
+prefix (``prefix_len`` raises ``NotImplementedError``; paligemma's) or a
+query offset, belong to later slices of the port.
 """
 from __future__ import annotations
 
@@ -131,3 +133,37 @@ def attn_decode_sublayer(cfg, p, x, cache_k, cache_v, cache_len, *,
     out = ops.paged_attention(q[:, 0], pool_k, pool_v, block_table,
                               context_lens, window=window)
     return out.reshape(B, 1, cfg.q_dim) @ p["wo"], cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (whisper's decoder over the encoder output)
+# ---------------------------------------------------------------------------
+
+def cross_attn_sublayer(cfg, p, x, enc):
+    """x: (B, S, d) decoder states; enc: (B, S_enc, d) encoder output.
+    Queries from x, keys and values from enc, no mask: the flash kernel,
+    non-causal, with S != S_enc (the JAX package takes the exact
+    ``full_attention``).  Returns (out (B, S, d), (k, v)), k and v (B,
+    S_enc, H_kv, D): the cross cache of this layer."""
+    B, S, _ = x.shape
+    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    k = (enc @ p["wk"]).reshape(B, enc.shape[1], cfg.n_kv_heads, cfg.head_dim)
+    v = (enc @ p["wv"]).reshape(B, enc.shape[1], cfg.n_kv_heads, cfg.head_dim)
+    out = ops.flash_attention(q, k, v, causal=False)
+    return out.reshape(B, S, cfg.q_dim) @ p["wo"], (k, v)
+
+
+def cross_attn_decode_sublayer(cfg, p, x, cross_k, cross_v, *, block_table,
+                               context_lens):
+    """One decoder token over the cross cache of one layer: x (B, 1, d);
+    cross_k/v (B, rows, H_kv, D), read through ``block_table``, the identity
+    table of the cache viewed as ``rows / bt`` blocks a sequence, and masked
+    at ``context_lens`` (the encoder's length; rows past it are padding).
+    The cache is only read.  Returns (B, 1, d)."""
+    B, rows = cross_k.shape[:2]
+    q = (x @ p["wq"]).reshape(B, cfg.n_heads, cfg.head_dim)
+    bt = rows // block_table.shape[1]
+    pool_k = cross_k.view(B * rows // bt, bt, *cross_k.shape[2:])
+    pool_v = cross_v.view(B * rows // bt, bt, *cross_v.shape[2:])
+    out = ops.paged_attention(q, pool_k, pool_v, block_table, context_lens)
+    return out.reshape(B, 1, cfg.q_dim) @ p["wo"]

@@ -5,7 +5,7 @@ layer stacks keep the stacked leading axis of the JAX package.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -30,6 +30,22 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("no CUDA device: pass device='cpu' to run the "
                            "port's plain PyTorch path on the CPU")
     return torch.device("cuda")
+
+
+_KEPT: Dict[Tuple, torch.Tensor] = {}
+
+
+def kept(key: Tuple, device, make) -> torch.Tensor:
+    """``make()``, made once per key and device and kept, so every step
+    reads the same tensor.  One made while a CUDA graph is being captured
+    lives in that graph's memory pool and is not kept."""
+    device = torch.device(device)
+    t = _KEPT.get(key + (device,))
+    if t is None:
+        t = make()
+        if not (device.type == "cuda" and torch.cuda.is_current_stream_capturing()):
+            _KEPT[key + (device,)] = t
+    return t
 
 
 # ---------------------------------------------------------------------------
@@ -104,6 +120,42 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Sinusoidal positions (whisper)
+# ---------------------------------------------------------------------------
+# Angles reach the largest position in radians, where one float32 step of
+# the angle is ~1.2e-4 at 1500; the JAX package's own table and its
+# sinusoidal_at differ by that much, so the port's agree with them to a
+# step of the angle, not bit for bit (ROADMAP hazard 9).
+
+def sinusoidal_positions(seq: int, d_model: int, device=None) -> torch.Tensor:
+    """Whisper-style sinusoidal embeddings (seq, d_model) float32: sin of
+    ``pos / 10000 ** (2 i / d_model)`` for i < d_model / 2, then cos."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d_model // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / (10000 ** (2 * dim / d_model))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def sinusoidal_at(pos, d_model: int, device=None) -> torch.Tensor:
+    """The embedding at one position -> (d_model,) float32 on ``pos``'s
+    device (an int's on ``device``).  ``pos`` is an int or a 0-dim tensor,
+    whose value is not read on the host (a CUDA graph can capture the
+    call)."""
+    pos = torch.as_tensor(pos, device=device)
+    ang = pos.to(torch.float32) / _sinusoidal_divisors(d_model, pos.device)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _sinusoidal_divisors(d_model: int, device) -> torch.Tensor:
+    """``10000 ** (2 i / d_model)`` for i < d_model / 2, float32, made once
+    per device and kept (a decode step reads it and does not rebuild it)."""
+    def make():
+        dim = torch.arange(d_model // 2, dtype=torch.float32, device=device)
+        return 10000 ** (2 * dim / d_model)
+    return kept(("sinusoidal", d_model), device, make)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Model assembly, dense / moe / ssm / hybrid families: init, prefill
-forward and cached decode.
+"""Model assembly, dense / moe / ssm / hybrid / audio families: init,
+prefill forward and cached decode.
 
 Port of those families of ``repro.models.model``.  Params and cache keep
 the JAX package's nesting: every layer-group tensor has a stacked leading
@@ -12,6 +12,8 @@ q_dim)``).  Groups:
                                                      (llama4-maverick)
   ssm    : [mamba]                                   x n_layers
   hybrid : [mamba x attn_every, shared attn+mlp]     x n_layers / attn_every
+  audio  : encoder [attn+mlp] x n_encoder_layers (non-causal), then
+           [self attn, cross attn, mlp]              x n_layers (whisper)
 
 The hybrid's shared block (zamba2) is ONE unstacked param set,
 ``params["shared_attn"]``, applied after every group; its cache
@@ -21,7 +23,17 @@ The hybrid's shared block (zamba2) is ONE unstacked param set,
 N)`` float32.  An attention block applies the config's sliding window
 (mixtral) in prefill and decode.  ``forward`` returns the MoE blocks'
 summed aux loss.  The JAX ``lax.scan`` over layer groups is a Python loop
-here.  The other families (VLM, audio) belong to later slices.
+here.
+
+Whisper (audio): ``params["encoder"]`` holds the stacked encoder blocks
+and their final norm, as in the JAX package; the caller passes the
+frame embeddings (the conv front end is a stub in both packages).  A
+decoder block's cache also holds ``cross_k`` / ``cross_v``, the encoder
+output's K and V, in ``cross_rows(encoder_seq)`` rows (1536 at 1500):
+rows past ``encoder_seq`` stay zero and are masked, so the paged kernel
+reads the cache in 64-token blocks.  The JAX cache has ``encoder_seq``
+rows; the rows that exist in both are equal.  The VLM family (paligemma)
+belongs to a later slice.
 """
 from __future__ import annotations
 
@@ -36,7 +48,16 @@ from . import attention as A
 from . import mlp as M
 from . import moe as X
 from . import ssm as S
-from .common import apply_norm, dense_init, dtype_of, init_norm
+from .common import (apply_norm, dense_init, dtype_of, init_norm, kept,
+                     sinusoidal_at, sinusoidal_positions)
+
+# the cross cache's rows are a multiple of this: the paged kernel's block
+CROSS_BLOCK = 64
+
+
+def cross_rows(encoder_seq: int) -> int:
+    """Rows of the port's cross cache for ``encoder_seq`` encoder frames."""
+    return -(-encoder_seq // CROSS_BLOCK) * CROSS_BLOCK
 
 
 def group_layout(cfg) -> Tuple[Tuple[str, ...], int]:
@@ -53,9 +74,11 @@ def group_layout(cfg) -> Tuple[Tuple[str, ...], int]:
     if cfg.family == "hybrid":
         return ("mamba",) * cfg.attn_every + ("shared_attn",), \
             cfg.n_layers // cfg.attn_every
+    if cfg.family == "audio":
+        return ("dec",), cfg.n_layers
     raise NotImplementedError(
-        f"the port runs the dense, moe, ssm and hybrid families; {cfg.family!r} "
-        "is not ported yet")
+        f"the port runs the dense, moe, ssm, hybrid and audio families; "
+        f"{cfg.family!r} is not ported yet")
 
 
 def _cache_key(i: int, kind: str) -> str:
@@ -68,8 +91,11 @@ def _init_block(cfg, kind: str, gen: torch.Generator, n_stack: int):
         return {"ln1": init_norm(cfg, lead, device=gen.device),
                 "mamba": S.init_mamba(cfg, gen, n_stack=n_stack)}
     block = {"ln1": init_norm(cfg, lead, device=gen.device),
-             "attn": A.init_attention(cfg, gen, n_stack=n_stack),
-             "ln2": init_norm(cfg, lead, device=gen.device)}
+             "attn": A.init_attention(cfg, gen, n_stack=n_stack)}
+    if kind == "dec":
+        block["lnx"] = init_norm(cfg, lead, device=gen.device)
+        block["cross"] = A.init_attention(cfg, gen, n_stack=n_stack)
+    block["ln2"] = init_norm(cfg, lead, device=gen.device)
     if kind == "moe":
         block["moe"] = X.init_moe(cfg, gen, n_stack=n_stack)
     else:
@@ -94,6 +120,10 @@ def init_params(cfg, gen: torch.Generator) -> Dict[str, Any]:
                         for i, kind in enumerate(kinds) if kind != "shared_attn"}
     if cfg.family == "hybrid":
         params["shared_attn"] = _init_block(cfg, "dense", gen, 0)
+    if cfg.is_encoder_decoder:
+        params["encoder"] = {
+            "layers": _init_block(cfg, "enc", gen, cfg.n_encoder_layers),
+            "final_norm": init_norm(cfg, device=gen.device)}
     return params
 
 
@@ -112,18 +142,70 @@ def _block_params(params, gp, i: int, kind: str):
     return params["shared_attn"] if kind == "shared_attn" else gp[f"b{i}_{kind}"]
 
 
-def forward(cfg, params, tokens, *, collect_cache: bool = False,
-            kv_max: int = 0):
+def encode(cfg, params, encoder_embeds):
+    """Whisper's encoder: frame embeddings (B, S_enc, d) cast to the
+    model's dtype, plus the sinusoidal positions, through the encoder
+    blocks (non-causal flash attention) and the final norm."""
+    e = encoder_embeds.to(dtype_of(cfg))
+    e = e + sinusoidal_positions(e.shape[1], cfg.d_model,
+                                 device=e.device).to(e.dtype)[None]
+    positions = torch.arange(e.shape[1], device=e.device)
+    enc = params["encoder"]
+    for g in range(cfg.n_encoder_layers):
+        e = _attn_block(cfg, _layer(enc["layers"], g), "enc", e, positions,
+                        causal=False)[0]
+    return apply_norm(cfg, enc["final_norm"], e)
+
+
+def _attn_block(cfg, p, kind: str, x, positions, *, causal: bool = True, enc=None):
+    """A pre-norm attention block: self-attention, a decoder block's
+    cross-attention over the encoder output ``enc``, then the MLP (or MoE).
+    Returns (x, the MoE aux loss or None, (k, v), the cross (k, v) or None)."""
+    attn_out, kv = A.attn_sublayer(cfg, p["attn"], apply_norm(cfg, p.get("ln1"), x),
+                                   positions=positions, causal=causal,
+                                   window=cfg.sliding_window)
+    x = x + attn_out
+    cross_kv = None
+    if kind == "dec":
+        y, cross_kv = A.cross_attn_sublayer(cfg, p["cross"],
+                                            apply_norm(cfg, p["lnx"], x), enc)
+        x = x + y
+    h = apply_norm(cfg, p["ln2"], x)
+    if kind == "moe":
+        y, aux = X.moe_sublayer(cfg, p["moe"], h)
+        return x + y, aux, kv, cross_kv
+    return x + M.mlp_sublayer(cfg, p["mlp"], h), None, kv, cross_kv
+
+
+def forward(cfg, params, tokens, *, encoder_embeds=None,
+            collect_cache: bool = False, kv_max: int = 0):
     """tokens: (B, S) int -> (logits (B, S, V), aux, cache | None); aux is
     the float32 sum of the MoE blocks' aux losses (0 without MoE).
+    ``encoder_embeds`` (B, S_enc, d): whisper's frame embeddings, which an
+    encoder-decoder needs and no other family takes.
 
     With ``collect_cache`` an attention block's cache holds the prompt's
-    K/V in rows [0, S) of a ``max(kv_max, S)``-row buffer, zeros after, and
-    a mamba block's cache its conv window and final SSM state."""
+    K/V in rows [0, S) of a ``max(kv_max, S)``-row buffer, zeros after, a
+    decoder block's also the encoder output's K/V in rows [0, S_enc) of
+    its cross cache (S_enc must be the config's ``encoder_seq``, the length
+    the decode step attends), and a mamba block's cache its conv window
+    and final SSM state."""
     kinds, n_groups = group_layout(cfg)
     B, Sq = tokens.shape
     x = F.embedding(tokens, params["embed"])
     positions = torch.arange(Sq, device=x.device)
+    enc = None
+    if cfg.is_encoder_decoder:
+        if encoder_embeds is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: pass encoder_embeds")
+        if collect_cache and encoder_embeds.shape[1] != cfg.encoder_seq:
+            raise ValueError(f"encoder_embeds has {encoder_embeds.shape[1]} frames; "
+                             f"the cache holds encoder_seq = {cfg.encoder_seq}")
+        enc = encode(cfg, params, encoder_embeds)
+        x = x + sinusoidal_positions(Sq, cfg.d_model,
+                                     device=x.device).to(x.dtype)[None]
+    elif encoder_embeds is not None:
+        raise ValueError(f"{cfg.name} takes no encoder_embeds")
     cache = (init_cache(cfg, B, max(kv_max, Sq), device=x.device)
              if collect_cache else None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -132,8 +214,8 @@ def forward(cfg, params, tokens, *, collect_cache: bool = False,
         for i, kind in enumerate(kinds):
             p = _block_params(params, gp, i, kind)
             c = cache[_cache_key(i, kind)] if collect_cache else None
-            h = apply_norm(cfg, p.get("ln1"), x)
             if kind == "mamba":
+                h = apply_norm(cfg, p.get("ln1"), x)
                 if collect_cache:
                     y, (conv_s, ssm_s) = S.mamba_sublayer(
                         cfg, p["mamba"], h, return_state=True)
@@ -142,20 +224,16 @@ def forward(cfg, params, tokens, *, collect_cache: bool = False,
                     y = S.mamba_sublayer(cfg, p["mamba"], h)
                 x = x + y
                 continue
-            attn_out, (k, v) = A.attn_sublayer(
-                cfg, p["attn"], h, positions=positions, causal=True,
-                window=cfg.sliding_window)
-            x = x + attn_out
+            x, a, (k, v), cross_kv = _attn_block(cfg, p, kind, x, positions, enc=enc)
+            if a is not None:
+                aux = aux + a
             if collect_cache:
                 c["k"][g, :, :Sq] = k
                 c["v"][g, :, :Sq] = v
-            h = apply_norm(cfg, p["ln2"], x)
-            if kind == "moe":
-                y, a = X.moe_sublayer(cfg, p["moe"], h)
-                aux = aux + a
-            else:
-                y = M.mlp_sublayer(cfg, p["mlp"], h)
-            x = x + y
+                if cross_kv is not None:
+                    ek, ev = cross_kv
+                    c["cross_k"][g, :, :ek.shape[1]] = ek
+                    c["cross_v"][g, :, :ev.shape[1]] = ev
     x = apply_norm(cfg, params["final_norm"], x)
     logits = x @ _head(cfg, params)
     return logits, aux, cache
@@ -163,8 +241,10 @@ def forward(cfg, params, tokens, *, collect_cache: bool = False,
 
 def init_cache(cfg, batch: int, max_len: int, *, device=None):
     """Zero cache: per attention block K and V of (n_groups, batch, max_len,
-    H_kv, D); per mamba block ``conv`` (n_groups, batch, W-1, conv_dim) and
-    ``ssm`` (n_groups, batch, H, P, N) float32."""
+    H_kv, D), a decoder block (whisper) also ``cross_k`` / ``cross_v`` of
+    (n_groups, batch, cross_rows(encoder_seq), H_kv, D); per mamba block
+    ``conv`` (n_groups, batch, W-1, conv_dim) and ``ssm`` (n_groups, batch,
+    H, P, N) float32."""
     kinds, n_groups = group_layout(cfg)
     dt = dtype_of(cfg)
     cache = {}
@@ -179,29 +259,27 @@ def init_cache(cfg, batch: int, max_len: int, *, device=None):
                                    dtype=torch.float32, device=device)}
         else:
             shape = (n_groups, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-            cache[_cache_key(i, kind)] = {
+            c = cache[_cache_key(i, kind)] = {
                 "k": torch.zeros(shape, dtype=dt, device=device),
                 "v": torch.zeros(shape, dtype=dt, device=device)}
+            if kind == "dec":
+                shape = (n_groups, batch, cross_rows(cfg.encoder_seq),
+                         cfg.n_kv_heads, cfg.head_dim)
+                c["cross_k"] = torch.zeros(shape, dtype=dt, device=device)
+                c["cross_v"] = torch.zeros(shape, dtype=dt, device=device)
     return cache
 
 
-_TABLES: Dict[Tuple[int, int, torch.device], torch.Tensor] = {}
-
-
 def _identity_table(batch: int, max_len: int, device) -> torch.Tensor:
-    """The identity block table of a contiguous (batch, max_len) cache,
-    made once per shape and device and kept, so every step reads the same
-    tensor.  One made while a CUDA graph is being captured lives in that
-    graph's memory pool and is not kept."""
-    key = (batch, max_len, torch.device(device))
-    table = _TABLES.get(key)
-    if table is None:
-        table = identity_block_table(batch, max_len,
-                                     contiguous_block_tokens(max_len),
-                                     device=device)
-        if not (key[2].type == "cuda" and torch.cuda.is_current_stream_capturing()):
-            _TABLES[key] = table
-    return table
+    """The identity block table of a contiguous (batch, max_len) cache."""
+    return kept(("table", batch, max_len), device, lambda: identity_block_table(
+        batch, max_len, contiguous_block_tokens(max_len), device=device))
+
+
+def _constant_lens(batch: int, n: int, device) -> torch.Tensor:
+    """``context_lens`` of ``n`` for every sequence (the cross cache's)."""
+    return kept(("lens", batch, n), device, lambda: torch.full(
+        (batch,), n, dtype=torch.int32, device=device))
 
 
 def decode_step(cfg, params, token, cache, cache_len):
@@ -210,10 +288,17 @@ def decode_step(cfg, params, token, cache, cache_len):
     takes a traced scalar).  With a tensor nothing is read on the host, so
     the step can be captured in a CUDA graph, and the caller checks that
     it lies in [1, max_len].  Writes this step's K/V and recurrent state
-    into ``cache`` in place and returns (logits (B, 1, V), cache)."""
+    into ``cache`` in place and returns (logits (B, 1, V), cache).  A
+    decoder block (whisper) adds the sinusoidal position ``cache_len - 1``
+    and attends over its cross cache's first ``encoder_seq`` rows."""
     kinds, n_groups = group_layout(cfg)
     x = F.embedding(token, params["embed"])
     B = token.shape[0]
+    if cfg.is_encoder_decoder:          # whisper: absolute sinusoidal positions
+        x = x + sinusoidal_at(cache_len - 1, cfg.d_model,
+                              device=x.device).to(x.dtype)[None, None]
+        cross_table = _identity_table(B, cross_rows(cfg.encoder_seq), x.device)
+        cross_lens = _constant_lens(B, cfg.encoder_seq, x.device)
     attn = [_cache_key(i, k) for i, k in enumerate(kinds) if k != "mamba"]
     if attn:
         # one block table and one context-length vector for every layer
@@ -240,6 +325,11 @@ def decode_step(cfg, params, token, cache, cache_len):
                 window=cfg.sliding_window, block_table=table,
                 context_lens=context_lens)
             x = x + attn_out
+            if kind == "dec":
+                x = x + A.cross_attn_decode_sublayer(
+                    cfg, p["cross"], apply_norm(cfg, p["lnx"], x),
+                    c["cross_k"][g], c["cross_v"][g], block_table=cross_table,
+                    context_lens=cross_lens)
             h = apply_norm(cfg, p["ln2"], x)
             if kind == "moe":
                 y, _ = X.moe_sublayer(cfg, p["moe"], h)

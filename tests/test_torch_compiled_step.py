@@ -29,7 +29,7 @@ from repro_torch.launch import serve as tserve
 from repro_torch.launch import steps as tsteps
 from repro_torch.params import from_jax
 
-ARCHS = ["llama3-8b", "mamba2-2.7b", "zamba2-2.7b", "mixtral-8x7b"]
+ARCHS = ["llama3-8b", "mamba2-2.7b", "zamba2-2.7b", "mixtral-8x7b", "whisper-large-v3"]
 # float32 on both sides, logits of order 1 through a few smoke layers: the
 # bar of tests/test_torch_models.py and tests/test_torch_ssm.py
 ATOL = 1e-4
@@ -48,6 +48,16 @@ def _setup(arch, seed=0):
     return jcfg, tcfg, jp, from_jax(jax.tree.map(np.asarray, jp), "cpu")
 
 
+def _batch(cfg, toks, seed=7):
+    """The prefill batch: the token ids, and an encoder-decoder's frame
+    embeddings (whisper's encoder_seq of them) from a numpy seed."""
+    batch = {"tokens": toks}
+    if cfg.is_encoder_decoder:
+        batch["encoder_embeds"] = np.random.default_rng(seed).standard_normal(
+            (toks.shape[0], cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return batch
+
+
 def _copy(cache):
     return {k: {n: t.clone() for n, t in e.items()} for k, e in cache.items()}
 
@@ -63,9 +73,10 @@ def test_serve_step_with_a_tensor_length_gives_the_jax_jitted_step(arch):
     jprefill = jax.jit(jsteps.make_prefill_step(jcfg, kv_max=max_len))
     jserve = jax.jit(jsteps.make_serve_step(jcfg))
     jdecode = jax.jit(lambda p, t, c, n: jmodels.decode_step(jcfg, p, t, c, n))
-    jtok, jc = jprefill(jp, {"tokens": jnp.asarray(toks)})
+    batch = _batch(jcfg, toks)
+    jtok, jc = jprefill(jp, {k: jnp.asarray(v) for k, v in batch.items()})
     ttok, tc = tsteps.make_prefill_step(tcfg, kv_max=max_len)(
-        tp, {"tokens": torch.from_numpy(toks)})
+        tp, {k: torch.from_numpy(v) for k, v in batch.items()})
     np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
     serve = tsteps.make_serve_step(tcfg)
     for i in range(steps):
@@ -84,8 +95,10 @@ def test_tensor_and_int_lengths_give_the_same_bits(arch):
     logits and caches, bit for bit."""
     _, tcfg, _, _ = _setup(arch)
     tp = tmodels.init_params(tcfg, torch.Generator().manual_seed(1))
-    toks = torch.from_numpy(np.random.default_rng(1).integers(0, tcfg.vocab_size, (3, 12)))
-    _, _, cache = tmodels.forward(tcfg, tp, toks[:, :9], collect_cache=True, kv_max=16)
+    toks = np.random.default_rng(1).integers(0, tcfg.vocab_size, (3, 12))
+    enc = {k: torch.from_numpy(v) for k, v in _batch(tcfg, toks).items() if k != "tokens"}
+    toks = torch.from_numpy(toks)
+    _, _, cache = tmodels.forward(tcfg, tp, toks[:, :9], collect_cache=True, kv_max=16, **enc)
     by_int, by_tensor = _copy(cache), _copy(cache)
     for i in range(9, 12):
         li, _ = tmodels.decode_step(tcfg, tp, toks[:, i:i + 1], by_int, i + 1)
@@ -141,9 +154,10 @@ def test_serve_step_with_a_tensor_length_reads_nothing_on_the_host(arch, monkeyp
     with guard:
         for n in (1, 2, 3):
             tok, cache = serve(tp, cache, tok, torch.tensor(n))
-    n_attn = sum(k != "mamba" for k in tmodels.group_layout(tcfg)[0]) \
-        * tmodels.group_layout(tcfg)[1]
-    assert guard.exempt_calls == 3 * n_attn
+    kinds, n_groups = tmodels.group_layout(tcfg)
+    # one paged call per attention block, two per decoder block (self, cross)
+    n_paged = sum({"mamba": 0, "dec": 2}.get(k, 1) for k in kinds) * n_groups
+    assert guard.exempt_calls == 3 * n_paged
     assert tok.shape == (2, 1)
 
 

@@ -674,7 +674,8 @@ def _serve(srv, prompts, rounds):
     return [s.generated for s in srv.slots[:len(prompts)]], srv.tokens[:, 0].tolist()
 
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-2.7b", "zamba2-2.7b", "mixtral-8x7b"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-2.7b", "zamba2-2.7b", "mixtral-8x7b",
+                                  "whisper-large-v3"])
 def test_server_graph_matches_an_eager_step_loop(cuda, arch):
     """The card's Server (a captured graph) against the same Server driven
     by the eager step, same seed and prompts; then new params: the graph is
@@ -696,3 +697,120 @@ def test_server_graph_matches_an_eager_step_loop(cuda, arch):
     fresh[1].params = new
     fresh[1].step_fn = make_serve_step(cfg)
     assert _serve(fresh[0], prompts, 6) == _serve(fresh[1], prompts, 6)
+
+
+# ---------------------------------------------------------------------------
+# Whisper: the encoder and cross-attention through flash and paged
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Skv", [(4, 1500), (1500, 1500), (1, 100), (130, 333),
+                                    (300, 64)])
+def test_flash_kernel_noncausal_cross_shapes_match_plain(cuda, Sq, Skv, dtype):
+    """Non-causal, MHA at whisper's D 64 and 20 heads: the encoder (1500
+    frames, ragged against the 128-key step), cross prefill (4 queries
+    against 1500 keys) and other Sq != Skv, both ways."""
+    B, H, D = 2, 20, 64
+    q = _randn((B, Sq, H, D), dtype, Sq, cuda)
+    k, v = (_randn((B, Skv, H, D), dtype, Skv + s, cuda) for s in (1, 2))
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=False)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    want = flash_attention_plain(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    err, ratio, rows_off, ok = flash_agreement(got, want)
+    assert ok, (err, ratio, rows_off)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,encoder_seq", [(4, 1500), (3, 100), (2, 64)])
+def test_paged_kernel_over_the_cross_layout_matches_plain(cuda, B, encoder_seq, dtype):
+    """Cross decode: one query per sequence against a cross cache of
+    models.model.cross_rows(encoder_seq) rows (1536 at 1500) read in
+    64-token blocks through the identity table, masked at encoder_seq.  The
+    rows past encoder_seq hold NaN here, which neither version may read."""
+    from repro_torch.models.model import cross_rows
+    H, D, bt = 20, 64, 64
+    rows = cross_rows(encoder_seq)
+    assert rows % bt == 0 and contiguous_block_tokens(rows) == bt
+    cache_k, cache_v = (_randn((B, rows, H, D), dtype, s, cuda) for s in (51, 52))
+    cache_k[:, encoder_seq:] = float("nan")
+    cache_v[:, encoder_seq:] = float("nan")
+    args = (_randn((B, H, D), dtype, 53, cuda), cache_k.view(-1, bt, H, D),
+            cache_v.view(-1, bt, H, D), identity_block_table(B, rows, bt, device=cuda),
+            torch.full((B,), encoder_seq, dtype=torch.int32, device=cuda))
+    got = ops.paged_attention(*args)
+    want = paged_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got.float()).all())
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    err, ratio, rows_off, ok = flash_agreement(got, want)
+    assert ok, (err, ratio, rows_off)
+
+
+def _frames(cfg, B, seed, device):
+    return _randn((B, cfg.encoder_seq, cfg.d_model), torch.float32, seed, device)
+
+
+def test_whisper_smoke_on_card_matches_cpu(cuda):
+    """Prefill and 4 decode steps of a float32 whisper smoke model with a
+    ragged encoder (100 frames): the card (kernels) against the CPU (plain
+    versions), same weights and frames."""
+    cfg = dataclasses.replace(get_smoke_config("whisper-large-v3"), dtype="float32",
+                              encoder_seq=100)
+    params = models.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 12)))
+    frames = _frames(cfg, 2, 3, "cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = _to(params, dev)
+        logits, _, cache = models.forward(cfg, p, toks[:, :8].to(dev),
+                                          encoder_embeds=frames.to(dev),
+                                          collect_cache=True, kv_max=16)
+        steps = [logits.cpu()]
+        for i in range(8, 12):
+            lg, cache = models.decode_step(cfg, p, toks[:, i:i + 1].to(dev), cache, i + 1)
+            steps.append(lg.cpu())
+        out[dev] = torch.cat(steps, 1)
+    torch.testing.assert_close(out["cuda"], out["cpu"], atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_whisper_compiled_step_matches_the_eager_step(cuda, dtype):
+    """whisper cut to 2 + 2 layers at its published widths (d_model 1280,
+    20 heads of 64, vocab 51866; 1500 frames, a cross cache of 1536 rows):
+    prefill, then 8 greedy steps eager and 8 through the captured graph
+    from copies of the prefill's cache: equal ids at every step and equal
+    caches after, bit for bit; each replay counts 2 paged launches a layer
+    (self, cross)."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("whisper-large-v3"), dtype=dtype, n_layers=2,
+                              n_encoder_layers=2)
+    params = models.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 4)))
+    batch = {"tokens": toks.to(cuda), "encoder_embeds": _frames(cfg, 4, 1, cuda)}
+    tok0, cache0 = make_prefill_step(cfg, kv_max=448)(params, batch)
+    assert cache0["b0_dec"]["cross_k"].shape[2] == 1536
+    eager_cache, graph_cache = _copy(cache0), _copy(cache0)
+    step = CompiledServeStep(cfg, params, graph_cache, 4)
+    assert step.max_len == 448
+    tok_e, tok_g = tok0, tok0.clone()
+    ops.reset_launch_counts()
+    for i in range(8):
+        n = 4 + i + 1
+        logits, _ = models.decode_step(cfg, params, tok_e, eager_cache, n)
+        tok_e = torch.argmax(logits[:, -1:], dim=-1)
+        nxt, _ = step(params, graph_cache, tok_g, n)
+        tok_g = nxt.clone()
+        assert torch.equal(tok_g, tok_e), f"step {i}"
+    for key, entry in graph_cache.items():
+        for name, t in entry.items():
+            assert torch.equal(t, eager_cache[key][name]), f"{key}/{name}"
+    assert torch.equal(graph_cache["b0_dec"]["cross_k"], cache0["b0_dec"]["cross_k"])
+    assert ops.LAUNCHES["paged_attention"] == 2 * 8 * 2 * cfg.n_layers
+    # the self (7 blocks of 64) and cross (24) caches counted apart, the
+    # graph's replays as the eager step's launches
+    by_shape = {k: n for k, n in ops.LAUNCHES_BY_SHAPE.items() if k[0] == "paged_attention"}
+    assert sorted(k[1].split()[5] for k in by_shape) == ["blocks24", "blocks7"]
+    assert list(by_shape.values()) == [2 * 8 * cfg.n_layers] * 2

@@ -114,8 +114,10 @@ def test_from_jax_keeps_bfloat16():
         np.asarray(jp["layers"]["b0_dense"]["attn"]["wq"], np.float32))
 
 
-def test_init_params_mirrors_the_jax_tree():
-    jcfg, tcfg = _cfgs("llama3-8b")
+def _mirrors_the_jax_tree(arch):
+    """The port's init_params of ``arch`` has the JAX tree's paths, shapes
+    and dtype; returns the port's config and params."""
+    jcfg, tcfg = _cfgs(arch)
     jp = jax.eval_shape(lambda: jmodels.init_params(jcfg, jax.random.PRNGKey(0)))
     tp = tmodels.init_params(tcfg, torch.Generator().manual_seed(0))
     jleaves = jax.tree_util.tree_leaves_with_path(jp)
@@ -132,6 +134,17 @@ def test_init_params_mirrors_the_jax_tree():
     for path, leaf in jleaves:
         t = tflat[tuple(p.key for p in path)]
         assert tuple(t.shape) == leaf.shape and t.dtype == torch.float32
+    return tcfg, tp
+
+
+def test_init_params_mirrors_the_jax_tree():
+    """llama3-8b, and whisper, whose ``encoder`` subtree (stacked encoder
+    blocks, final norm) and decoder blocks (``lnx``, ``cross``) nest as in
+    JAX, so that from_jax carries them as they are."""
+    tcfg, tp = _mirrors_the_jax_tree("whisper-large-v3")
+    assert tp["encoder"]["layers"]["attn"]["wq"].shape[0] == tcfg.n_encoder_layers
+    assert {"lnx", "cross"} <= tp["layers"]["b0_dec"].keys()
+    tcfg, tp = _mirrors_the_jax_tree("llama3-8b")
     # the JAX distributions: fan-in-scaled normals, 0.02 embedding, zero scales
     wq = tp["layers"]["b0_dense"]["attn"]["wq"]
     assert wq.shape[0] == tcfg.n_layers
@@ -178,25 +191,36 @@ def test_forward_and_decode_match_jax(arch):
 
 
 def test_init_cache_matches_jax_layout():
-    jcfg, tcfg = _cfgs("llama3-8b")
-    jc = jmodels.init_cache(jcfg, 3, 40)
-    tc = tmodels.init_cache(tcfg, 3, 40, device="cpu")
-    assert tc.keys() == jc.keys()
-    for key in jc:
-        for kv in ("k", "v"):
-            assert tuple(tc[key][kv].shape) == jc[key][kv].shape
-            assert not tc[key][kv].any()
+    """llama3-8b, and whisper at encoder_seq 64 and 100: the same entries,
+    self caches of the JAX shape; the port's cross cache has
+    cross_rows(encoder_seq) rows (a multiple of 64) where JAX's has
+    encoder_seq, and is otherwise of its shape."""
+    from repro_torch.models.model import cross_rows
+    for arch, kw in (("llama3-8b", {}), ("whisper-large-v3", {}),
+                     ("whisper-large-v3", {"encoder_seq": 100})):
+        jcfg, tcfg = _cfgs(arch, **kw)
+        jc = jmodels.init_cache(jcfg, 3, 40)
+        tc = tmodels.init_cache(tcfg, 3, 40, device="cpu")
+        assert tc.keys() == jc.keys()
+        for key in jc:
+            assert tc[key].keys() == jc[key].keys()
+            for name, want in jc[key].items():
+                shape = list(want.shape)
+                if name.startswith("cross"):
+                    shape[2] = cross_rows(jcfg.encoder_seq)
+                    assert shape[2] % 64 == 0 and shape[2] - 64 < want.shape[2]
+                assert list(tc[key][name].shape) == shape
+                assert not tc[key][name].any()
 
 
 def test_unported_families_and_variants_raise():
-    """What is still unported raises: the audio family (whisper's
-    encoder-decoder) and attention with a bidirectional prefix
-    (paligemma)."""
+    """What is still unported raises: the vlm family (paligemma) and
+    attention with a bidirectional prefix (its prefix-LM)."""
     from repro_torch.models import attention as tattn
-    cfg = jconfigs.get_smoke_config("whisper-large-v3")
+    cfg = jconfigs.get_smoke_config("paligemma-3b")
     tcfg = tconfigs.base.ModelConfig(**dataclasses.asdict(cfg))
-    assert tcfg.family == "audio"
-    with pytest.raises(NotImplementedError):
+    assert tcfg.family == "vlm"
+    with pytest.raises(NotImplementedError, match="vlm"):
         tmodels.init_params(tcfg, torch.Generator())
     _, dense = _cfgs("llama3-8b")
     p = tattn.init_attention(dense, torch.Generator().manual_seed(0))

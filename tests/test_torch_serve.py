@@ -138,7 +138,8 @@ def test_port_imports_with_jax_blocked():
     names = r.stdout.split()
     assert len(names) >= 15
     assert {"repro_torch.models.moe", "repro_torch.configs.mixtral_8x7b",
-            "repro_torch.configs.llama4_maverick"} <= set(names)
+            "repro_torch.configs.llama4_maverick",
+            "repro_torch.configs.whisper_large_v3"} <= set(names)
 
 
 def _imports(path: Path):

@@ -339,11 +339,14 @@ def test_decode_continues_the_prefill(arch):
     assert err / full[:, -1].abs().max().item() < 1e-3
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-2.7b", "zamba2-2.7b", "mixtral-8x7b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-2.7b", "zamba2-2.7b", "mixtral-8x7b",
+                                  "whisper-large-v3"])
 def test_server_matches_the_jax_server_loop(arch):
     """For an SSM every admission step also advances the recurrent state
     of every other slot, in both packages (ROADMAP hazard 6).  mixtral's
-    window is cut to 8 so that it binds within the loop's 29 rows."""
+    window is cut to 8 so that it binds within the loop's 29 rows.  Neither
+    Server runs whisper's encoder: both attend over a zero cross cache
+    (hazard 6), with the positions of the shared cur_len."""
     jcfg, tcfg = _cfgs(arch, **({"sliding_window": 8} if arch == "mixtral-8x7b" else {}))
     jp, tp = _params(jcfg, seed=3)
     rng = np.random.default_rng(5)
