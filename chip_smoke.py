@@ -22,7 +22,11 @@ Phases, each of which fails the run if it fails:
                 shapes: flash non-causal B4 S1500 H20 D64 (the encoder)
                 and Sq 4 against 1500 keys (cross prefill), paged at ctx
                 1500 over the 1536-row cross cache and at ctx 132 over the
-                448-row self cache; SSD scan: y and
+                448-row self cache; paligemma's shapes at D 256 (8 query
+                heads on one KV head): flash B4 S288 with the 256-row
+                bidirectional image prefix, bf16 and float32, and without
+                a prefix under PWL, paged at ctx 416 of 448 rows, bf16 with
+                7 splits, float32 and PWL; SSD scan: y and
                 final state, float32 and bfloat16, N 128 and 64, short and
                 long memory, S 2048 over 64 sub-chunks, and the CTAs
                 resident per SM; SCU softmax: its indexed PWL exp against
@@ -66,6 +70,13 @@ Phases, each of which fails the run if it fails:
                 launches a prefill (32 encoder, 32 decoder self, 32 cross),
                 64 paged a step (32 self, 32 cross over a 1536-row cross
                 cache); graph caches held bit-equal to the eager ones.
+  vlm_serve     the same for paligemma-3b (prefix-LM) at published widths
+                and full depth (18 layers, head_dim 256, MQA), 256 image
+                rows from a seed (the SigLIP stub's patch embeddings)
+                before a 32-token prompt: a prefill of B4 x 288 positions
+                with a bidirectional prefix of 256, 128 steps over a
+                448-row cache; 18 flash launches a prefill, 18 paged a
+                step; graph caches held bit-equal to the eager ones.
   cim_scu       one llama3-8b layer at full width in bf16 with its seven
                 projections on the RRAM crossbar (``ops.cim_matmul_quantized``,
                 weights quantised once) and its softmax on the SCU
@@ -85,14 +96,19 @@ Phases, each of which fails the run if it fails:
                 128 so that it binds at S 300, and on the card at window
                 4096 and S 4160 prefill(S-1) + decode(1) against forward(S).
   audio_parity  the same for whisper widths, 4 + 4 layers, 1500 frames.
+  vlm_parity    the same for paligemma widths, 2 layers, a 256-row image
+                prefix before 16 tokens (the float32 SIMT flash with the
+                prefix, float32 paged, both at D 256).
   server        requests through ``Server.admit`` / ``decode_round``, for
                 llama3-8b, mamba2-2.7b, zamba2-2.7b, mixtral-8x7b (16
-                layers) and whisper-large-v3 (no encoder run, as the JAX
+                layers), whisper-large-v3 (no encoder run, as the JAX
+                Server) and paligemma-3b (no image prefix, as the JAX
                 Server); on the card the Server replays its captured graph.
   profile       (only when named) device time by kernel under torch.profiler
                 for one full-width prefill and 8 decode steps (eager, and
-                through the graph) of each of the five served models
-                (whisper's prefill with its encoder), and for the cim_scu
+                through the graph) of each of the six served models
+                (whisper's prefill with its encoder, paligemma's with its
+                image prefix), and for the cim_scu
                 layer's prefill and decode step, and the device's busy
                 share of the host-clock window.
 
@@ -115,14 +131,15 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "serve", "ssm_serve", "hybrid_serve", "moe_serve", "audio_serve",
-          "cim_scu", "parity", "ssm_parity", "moe_parity", "audio_parity", "server")
+          "vlm_serve", "cim_scu", "parity", "ssm_parity", "moe_parity", "audio_parity",
+          "vlm_parity", "server")
 EXTRA_PHASES = ("profile",)          # run only when named in --phases
 SERVE_ARCH = {"serve": "llama3-8b", "ssm_serve": "mamba2-2.7b",
               "hybrid_serve": "zamba2-2.7b"}
 # the serve phase whose launch counts each kernel's JSON entry reports;
-# mixtral's window cases and whisper's shapes (in "kernels_other_shapes")
-# name their own "path": run 1 of moe_serve, or run 2, "moe_serve_run2",
-# or "audio_serve"
+# mixtral's window cases, whisper's and paligemma's shapes (in
+# "kernels_other_shapes") name their own "path": run 1 of moe_serve, or
+# run 2, "moe_serve_run2", "audio_serve" or "vlm_serve"
 MAIN_PATH_OF = {"flash_attention": "serve", "paged_attention": "serve",
                 "ssd_scan": "ssm_serve", "pwl_softmax": "cim_scu",
                 "cim_matmul": "cim_scu"}
@@ -195,6 +212,12 @@ MIX_LAYERS = 16                     # of 32: the bf16 weights of all 32 exceed 8
 WH, WD, W_FRAMES, W_CROSS = 20, 64, 1500, 1536
 W_SOT = (50258, 50259, 50360, 50364)
 W_NEW, W_MAX_LEN = 128, 448
+# paligemma-3b: 8 query heads on one KV head of 256 (MQA); 256 image rows
+# (the SigLIP stub's patch embeddings, n_prefix_tokens) before a 32-token
+# prompt, so the prefill runs 288 positions with a bidirectional prefix of
+# 256; then 128 steps over a 448-row cache (contexts up to 416)
+VH, VD, V_PREFIX, V_PROMPT = 8, 256, 256, 32
+V_NEW, V_MAX_LEN = 128, 448
 
 
 def log(*a):
@@ -601,6 +624,7 @@ def phase_kernels(torch, timer, results):
     torch.cuda.synchronize()
     paged_window_cases(torch, timer, randn, extra)
     audio_attention_cases(torch, timer, randn, extra)
+    vlm_attention_cases(torch, timer, randn, extra)
 
     # ---- SSD scan (mamba prefill) -------------------------------------
     def ssd_case(b, s, h, p, n, dt, memory):
@@ -920,6 +944,111 @@ def audio_attention_cases(torch, timer, randn, extra):
             "plain_ms": timer.ms(lambda: paged_attention_plain(*args), 3),
             "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
                 ql, kl, vl, attn_mask=mask), 50),
+            "bound_ms": bms, "bound_by": by,
+        })
+        del cache_k, cache_v, args, ql, kl, vl
+    torch.cuda.synchronize()
+
+
+def prefix_mask(torch, s, prefix_len):
+    """(s, s) bool: the keys a query sees with a bidirectional prefix (the
+    causal mask, and every key below prefix_len), the yardstick's mask for
+    scaled_dot_product_attention."""
+    qpos = torch.arange(s, device="cuda")[:, None]
+    kpos = torch.arange(s, device="cuda")[None, :]
+    return (qpos >= kpos) | (kpos < prefix_len)
+
+
+def vlm_attention_cases(torch, timer, randn, extra):
+    """paligemma-3b's attention shapes (8 query heads on one KV head of
+    256, B4), each held to its plain version and timed beside SDPA with its
+    bound: flash over the prefill's 288 positions with the 256-row image
+    prefix (bf16, the main path, and float32, vlm_parity's type; SDPA takes
+    the prefix-LM boolean mask), flash at D 256 without a prefix under PWL;
+    paged at the last of vlm_serve's steps, ctx 416 of 448 rows in 64-token
+    blocks (bf16 with split_plan's splits, float32, and bf16 under PWL, one
+    split; SDPA takes a length mask).  Each entry's launches are those of
+    its own shape (``launch_key``) in vlm_serve's run."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import flash_attention as fa, paged_attention as pa
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.paged_attention import (identity_block_table,
+                                                     paged_attention_plain, split_plan)
+
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    s = V_PREFIX + V_PROMPT
+    for dt, prefix, pwl in (("bfloat16", V_PREFIX, False), ("float32", V_PREFIX, False),
+                            ("bfloat16", 0, True)):
+        q = randn((B_MAIN, s, VH, VD), dt)
+        k, v = (randn((B_MAIN, s, 1, VD), dt) for _ in range(2))
+        kw = dict(prefix_len=prefix, use_pwl=pwl)
+        got = ops.flash_attention(q, k, v, **kw)
+        want = flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        shape = (f"paligemma prefill: B{B_MAIN} S{s} Hq{VH} Hkv1 D{VD} {dt} causal "
+                 f"prefix {prefix} pwl={pwl}")
+        err = _check_flash(torch, got, want, dt, shape, pwl)
+        del got, want
+        # the (query, key) pairs: query i sees max(i + 1, prefix) keys
+        pairs = sum(max(i + 1, prefix) for i in range(s))
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        bms, by = bound(nbytes, 4 * B_MAIN * VH * VD * pairs, dt)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        mask = prefix_mask(torch, s, prefix)
+        extra.append({
+            "name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:76",
+            "design": ("float32 SIMT" if dt == "float32" else
+                       "the mma.sync path's D 256 layout (Q in shared memory, one K and "
+                       "one V stage, staggered loads)")
+                      + (", bidirectional prefix" if prefix else ""),
+            "shape": shape, "max_abs_err": err, "path": "vlm_serve",
+            "launch_key": fa.launch_key(q, k, **kw),
+            "ms": timer.ms(lambda: ops.flash_attention(q, k, v, **kw), 20),
+            "plain_ms": timer.ms(lambda: flash_attention_plain(q, k, v, **kw), 3),
+            "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True), 20),
+            "bound_ms": bms, "bound_by": by,
+        })
+        del q, k, v, qt, kt, vt
+    bt, ctx = 64, V_PREFIX + V_PROMPT + V_NEW
+    for dt, pwl in (("bfloat16", False), ("float32", False), ("bfloat16", True)):
+        cache_k, cache_v = (randn((B_MAIN, V_MAX_LEN, 1, VD), dt) for _ in range(2))
+        args = (randn((B_MAIN, VH, VD), dt), cache_k.view(-1, bt, 1, VD),
+                cache_v.view(-1, bt, 1, VD),
+                identity_block_table(B_MAIN, V_MAX_LEN, bt, device="cuda"),
+                torch.full((B_MAIN,), ctx, dtype=torch.int32, device="cuda"))
+        n_splits, bps = split_plan(B_MAIN, V_MAX_LEN // bt, bt, n_sms, use_pwl=pwl)
+        if (n_splits == 1) != pwl:
+            raise AssertionError(f"split_plan gave {n_splits} splits at B{B_MAIN} pwl={pwl}")
+        got = ops.paged_attention(*args, use_pwl=pwl)
+        want = paged_attention_plain(*args, use_pwl=pwl)
+        torch.cuda.synchronize()
+        shape = (f"paligemma decode, last step: B{B_MAIN} H{VH} Hkv1 D{VD} ctx{ctx} of "
+                 f"{V_MAX_LEN} rows bt{bt} {dt} pwl={pwl} splits {n_splits} x {bps}")
+        err = _check_paged(torch, got, want, dt, shape, pwl)
+        del got, want
+        esize = args[0].element_size()
+        nbytes = (2 * args[0].numel() * esize + 2 * B_MAIN * ctx * VD * esize
+                  + args[3].numel() * 4 + B_MAIN * 4)
+        bms, by = bound(nbytes, 4 * B_MAIN * ctx * VH * VD, dt)
+        mask = (torch.arange(V_MAX_LEN, device="cuda") < ctx)[None, None, None, :]
+        ql, kl, vl = args[0][:, :, None], cache_k.transpose(1, 2), cache_v.transpose(1, 2)
+        extra.append({
+            "name": "paged_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention.py:86",
+            "design": "split-KV + combine at D 256 over the identity table of a contiguous "
+                      "cache" + (", one stage (float32)" if dt == "float32" else ""),
+            "n_splits": n_splits, "blocks_per_split": bps,
+            "shape": shape, "max_abs_err": err, "path": "vlm_serve",
+            "launch_key": pa.launch_key(args[0], args[1], args[3], use_pwl=pwl),
+            "ms": timer.ms(lambda: ops.paged_attention(*args, use_pwl=pwl), 50),
+            "plain_ms": timer.ms(lambda: paged_attention_plain(*args, use_pwl=pwl), 3),
+            "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
+                ql, kl, vl, attn_mask=mask, enable_gqa=True), 50),
             "bound_ms": bms, "bound_by": by,
         })
         del cache_k, cache_v, args, ql, kl, vl
@@ -1312,20 +1441,24 @@ def init_logged(torch, cfg, tag):
     return params
 
 
-def serve_run(torch, cfg, params, tag, prompt, new, max_len, encoder_embeds=None):
-    """Prefill the (batch, prompt_len) ``prompt`` (and an encoder-decoder's
-    ``encoder_embeds``), then ``new`` decode steps, eager and then under
-    the captured graph, from the same prompt; the main path (counted) is
-    the prefill and the graph's decode, as the card's Server runs it.  The
-    graph's ids and caches must equal the eager step's.  Returns (results,
-    launches of the main path, per kernel and per (kernel, launch_key))."""
+def serve_run(torch, cfg, params, tag, prompt, new, max_len, inputs=None):
+    """Prefill the (batch, prompt_len) ``prompt`` (with ``inputs``, the
+    prefill batch's other entries: an encoder-decoder's ``encoder_embeds``,
+    a prefix-LM's ``prefix_embeds``), then ``new`` decode steps, eager and
+    then under the captured graph, from the same prompt; the main path
+    (counted) is the prefill and the graph's decode, as the card's Server
+    runs it.  The graph's ids and caches must equal the eager step's.
+    Returns (results, launches of the main path, per kernel and per
+    (kernel, launch_key))."""
     from repro_torch import models
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import (CompiledServeStep, make_prefill_step,
                                           make_serve_step)
 
     batch, prompt_len = prompt.shape
-    enc = {} if encoder_embeds is None else {"encoder_embeds": encoder_embeds}
+    enc = dict(inputs or {})
+    # cache rows the prefill fills: a prefix's, then the prompt's
+    rows = prompt_len + (enc["prefix_embeds"].shape[1] if "prefix_embeds" in enc else 0)
     prefill = make_prefill_step(cfg, kv_max=max_len)
     serve = make_serve_step(cfg)
 
@@ -1347,7 +1480,7 @@ def serve_run(torch, cfg, params, tag, prompt, new, max_len, encoder_embeds=None
     # the eager step, outside the counted window: the yardstick
     tok, eager_cache = prefill(params, {"tokens": prompt, **enc})
     ops.reset_launch_counts()
-    ids_eager, t_eager = decode_loop(torch, serve, params, eager_cache, tok, prompt_len, new)
+    ids_eager, t_eager = decode_loop(torch, serve, params, eager_cache, tok, rows, new)
     want_eager = {**expected_launches(cfg, new), "flash_attention": 0, "ssd_scan": 0}
     if dict(ops.LAUNCHES) != want_eager:
         raise AssertionError(f"eager decode launches {ops.LAUNCHES}, expected {want_eager}")
@@ -1374,7 +1507,7 @@ def serve_run(torch, cfg, params, tag, prompt, new, max_len, encoder_embeds=None
         for name, t in entry.items():
             graph_cache[key][name].copy_(t)
     del cache
-    ids, t_decode = decode_loop(torch, compiled, params, graph_cache, tok, prompt_len, new)
+    ids, t_decode = decode_loop(torch, compiled, params, graph_cache, tok, rows, new)
     launches = dict(ops.LAUNCHES)
     by_shape = dict(ops.LAUNCHES_BY_SHAPE)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1402,16 +1535,17 @@ def serve_run(torch, cfg, params, tag, prompt, new, max_len, encoder_embeds=None
         for name, t in entry.items():
             cache_equal &= torch.equal(t, eager_cache[key][name])
             if name in ("k", "v"):
-                t = t[:, :, :prompt_len + new]
+                t = t[:, :, :rows + new]
             if not bool(torch.isfinite(t.float()).all()):
                 raise AssertionError(f"cache {key}/{name} is not finite")
     del eager_cache
     if not cache_equal:
         raise AssertionError("the graph's cache differs from the eager step's")
     res = {"arch": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype, "batch": batch,
-           "prompt": prompt_len, "new_tokens": new, "max_len": max_len,
+           "prompt": prompt_len, "prefix": rows - prompt_len, "new_tokens": new,
+           "max_len": max_len,
            "prefill_ms": prefill_ms, "prefill_cuda_mallocs": prefill_mallocs,
-           "prefill_tokens_per_s": batch * prompt_len / prefill_ms * 1e3,
+           "prefill_tokens_per_s": batch * rows / prefill_ms * 1e3,
            "prefill_repeats_ms": [ms for ms, _ in repeats],
            "prefill_repeats_cuda_mallocs": [n for _, n in repeats],
            "decode_ms_per_step": t_decode / new * 1e3,
@@ -1422,7 +1556,9 @@ def serve_run(torch, cfg, params, tag, prompt, new, max_len, encoder_embeds=None
            "graph_cache_bit_equal_to_eager": cache_equal, "aux_loss": aux.item(),
            "peak_mem_gib": peak, "launches": launches,
            "launches_by_shape": {f"{n} {key}": c for (n, key), c in sorted(by_shape.items())}}
-    log(f"{tag} B{batch} x {prompt_len}: prefill {res['prefill_ms']:.2f} ms "
+    log(f"{tag} B{batch} x " + (f"({rows - prompt_len} + {prompt_len})" if rows > prompt_len
+                                 else f"{prompt_len}")
+        + f": prefill {res['prefill_ms']:.2f} ms "
         f"({res['prefill_tokens_per_s']:.0f} tok/s); "
         f"decode eager {res['eager_decode_ms_per_step']:.3f} ms/step "
         f"({res['eager_decode_tokens_per_s']:.1f} tok/s), graph "
@@ -1548,7 +1684,7 @@ def phase_audio_serve(torch, results):
     del enc
     prompt = torch.tensor([W_SOT] * B_MAIN, device="cuda")
     res, launches = serve_run(torch, cfg, params, "[audio_serve]", prompt, W_NEW, W_MAX_LEN,
-                              encoder_embeds=frames)
+                              inputs={"encoder_embeds": frames})
     res.update(encoder_layers=cfg.n_encoder_layers, encoder_frames=cfg.encoder_seq,
                encoder_ms=t_enc * 1e3, encoder_launches=enc_launches)
     results["audio_serve"] = res
@@ -1563,6 +1699,44 @@ def phase_audio_parity(torch, results):
                               dtype="float32")
     results["audio_parity"] = _parity(torch, cfg, b=2, s=len(W_SOT), steps=8, max_len=64,
                                       seed=5)[2]
+
+
+def paligemma_prefix(torch, cfg, batch, seed, device="cuda"):
+    """(batch, n_prefix_tokens, d_model) float32 patch embeddings (the
+    SigLIP front end's output, a stub in both packages) from a seed."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn((batch, cfg.n_prefix_tokens, cfg.d_model), generator=gen,
+                       device=device)
+
+
+def phase_vlm_serve(torch, results):
+    """paligemma-3b at published widths and full depth (18 layers), bf16,
+    weights and the image prefix from a seed: ``serve_run`` over 256 image
+    rows and a 32-token prompt (a prefill of 288 positions, the prefix
+    seen bidirectionally), then 128 steps over a 448-row cache.  Returns
+    the launches of the main path."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("paligemma-3b")
+    if (cfg.n_prefix_tokens, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim) != (V_PREFIX, VH, 1, VD):
+        raise AssertionError(f"paligemma-3b's config is not the one this phase sizes: {cfg}")
+    params = init_logged(torch, cfg, "[vlm_serve]")
+    res, launches = serve_run(torch, cfg, params, "[vlm_serve]",
+                              random_prompt(torch, cfg, B_MAIN, V_PROMPT), V_NEW, V_MAX_LEN,
+                              inputs={"prefix_embeds": paligemma_prefix(torch, cfg, B_MAIN, 0)})
+    results["vlm_serve"] = res
+    return launches
+
+
+def phase_vlm_parity(torch, results):
+    """paligemma widths (d_model 2048, 8 heads of 256 on one KV head,
+    vocab 257216), 2 layers, float32, the published 256-row image prefix
+    before 16 tokens: the card (the SIMT flash kernel with the prefix at D
+    256, float32 paged at D 256) against the CPU (plain versions)."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("paligemma-3b"), n_layers=2, dtype="float32")
+    results["vlm_parity"] = _parity(torch, cfg, b=2, s=16, steps=8, max_len=V_PREFIX + 32,
+                                    seed=6)[2]
 
 
 def cim_scu_layer(torch, cfg, weights, x, pos0, cache=None, *, exact=False, calls=None):
@@ -1769,7 +1943,8 @@ def _tree_to(tree, device):
 def _parity(torch, cfg, *, b, s, steps, max_len, seed):
     """float32 weights from a seed on the card, copied to the CPU: prefill
     logits, ``steps`` decode-step logits and the greedy ids of both (an
-    encoder-decoder also takes frame embeddings from the seed)."""
+    encoder-decoder also takes frame embeddings from the seed, a prefix-LM
+    its image prefix)."""
     from repro_torch import models
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
@@ -1782,14 +1957,19 @@ def _parity(torch, cfg, *, b, s, steps, max_len, seed):
     params["cpu"] = _tree_to(params["cuda"], "cpu")
     rng = np.random.default_rng(seed)
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)))
-    frames = (torch.from_numpy(rng.standard_normal((b, cfg.encoder_seq, cfg.d_model),
-                                                   dtype=np.float32))
-              if cfg.is_encoder_decoder else None)
+    inputs = {}
+    if cfg.is_encoder_decoder:
+        inputs["encoder_embeds"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.encoder_seq, cfg.d_model), dtype=np.float32))
+    if cfg.n_prefix_tokens:
+        inputs["prefix_embeds"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.n_prefix_tokens, cfg.d_model), dtype=np.float32))
+    rows = s + cfg.n_prefix_tokens          # cache rows after the prefill
     out = {}
     for dev in ("cuda", "cpu"):
         ops.reset_launch_counts()
         t0 = time.time()
-        enc = {} if frames is None else {"encoder_embeds": frames.to(dev)}
+        enc = {k: t.to(dev) for k, t in inputs.items()}
         with torch.no_grad():
             logits, _, _ = models.forward(cfg, params[dev], prompt.to(dev), **enc)
         tok, cache = make_prefill_step(cfg, kv_max=max_len)(
@@ -1800,9 +1980,9 @@ def _parity(torch, cfg, *, b, s, steps, max_len, seed):
             with torch.no_grad():
                 lg, _ = models.decode_step(cfg, params[dev], tok,
                                            {k: {kk: vv.clone() for kk, vv in c.items()}
-                                            for k, c in cache.items()}, s + i + 1)
+                                            for k, c in cache.items()}, rows + i + 1)
             step_logits.append(lg.float().cpu())
-            tok, cache = serve(params[dev], cache, tok, s + i + 1)
+            tok, cache = serve(params[dev], cache, tok, rows + i + 1)
             ids.append(tok.cpu())
         if dev == "cuda":
             torch.cuda.synchronize()
@@ -1817,7 +1997,9 @@ def _parity(torch, cfg, *, b, s, steps, max_len, seed):
     err_prefill = (out["cuda"][0] - out["cpu"][0]).abs().max().item()
     err_decode = (out["cuda"][1] - out["cpu"][1]).abs().max().item()
     same_ids = torch.equal(out["cuda"][2], out["cpu"][2])
-    log(f"[parity] {cfg.name} widths x {cfg.n_layers} layers fp32, B{b} S{s} +{steps} "
+    log(f"[parity] {cfg.name} widths x {cfg.n_layers} layers fp32, B{b} S{s} "
+        + (f"after a {cfg.n_prefix_tokens}-row prefix " if cfg.n_prefix_tokens else "")
+        + f"+{steps} "
         f"steps: prefill logits max_abs_err={err_prefill:.3e}, decode logits "
         f"max_abs_err={err_decode:.3e} (tol {tol:.0e}), greedy ids equal: {same_ids}")
     if not (err_prefill <= tol and err_decode <= tol and same_ids):
@@ -1864,8 +2046,9 @@ def phase_ssm_parity(torch, results):
 
 def phase_server(torch, results):
     """Requests through the card's Server, whose decode step is a captured
-    CUDA graph, for the five served models (mixtral at MIX_LAYERS layers;
-    whisper without its encoder, as the JAX Server: a zero cross cache);
+    CUDA graph, for the six served models (mixtral at MIX_LAYERS layers;
+    whisper without its encoder, as the JAX Server: a zero cross cache;
+    paligemma without its image prefix, as the JAX Server);
     the launch counters, zeroed after the Server is built, count each
     replay's kernels exactly."""
     from repro_torch.configs import get_config
@@ -1875,7 +2058,7 @@ def phase_server(torch, results):
     import numpy as np
 
     out = {}
-    for arch in (*SERVE_ARCH.values(), "mixtral-8x7b", "whisper-large-v3"):
+    for arch in (*SERVE_ARCH.values(), "mixtral-8x7b", "whisper-large-v3", "paligemma-3b"):
         cfg = mixtral_cut() if arch == "mixtral-8x7b" else get_config(arch)
         t0 = time.time()
         srv = Server(cfg, max_batch=4, max_len=64, seed=0)
@@ -1940,7 +2123,9 @@ def profile_windows(torch, arch):
     """The (name, function) windows the profile phase traces for ``arch``,
     warmed up: a full-width prefill and 8 decode steps of a served model
     (mixtral at MIX_LAYERS layers; whisper's prefill with its encoder over
-    1500 frames, from its 4-token prompt into a 448-row cache),
+    1500 frames, from its 4-token prompt into a 448-row cache; paligemma's
+    over its 256-row image prefix and a 32-token prompt, into a 448-row
+    cache),
     eager and through the captured graph (on a copy of the cache), or the
     cim_scu phase's layer prefill (with the vocab softmax) and decode
     step."""
@@ -1972,10 +2157,14 @@ def profile_windows(torch, arch):
         prompt = torch.tensor([W_SOT] * B_MAIN, device="cuda")
         batch = {"tokens": prompt, "encoder_embeds": whisper_frames(torch, cfg, B_MAIN, 0)}
         max_len = W_MAX_LEN
+    elif cfg.n_prefix_tokens:
+        prompt = random_prompt(torch, cfg, B_MAIN, V_PROMPT)
+        batch = {"tokens": prompt, "prefix_embeds": paligemma_prefix(torch, cfg, B_MAIN, 0)}
+        max_len = V_MAX_LEN
     else:
         prompt = random_prompt(torch, cfg, B_MAIN, PROMPT)
         batch, max_len = {"tokens": prompt}, MAX_LEN
-    start = prompt.shape[1]
+    start = prompt.shape[1] + cfg.n_prefix_tokens         # cache rows after the prefill
     prefill = make_prefill_step(cfg, kv_max=max_len)
     serve = make_serve_step(cfg)
     tok, cache = prefill(params, batch)                         # warm-up
@@ -2084,6 +2273,8 @@ def main(argv=None) -> int:
             launches_of[phase], launches_of["moe_serve_run2"] = phase_moe_serve(torch, results)
         elif phase == "audio_serve":
             launches_of[phase] = phase_audio_serve(torch, results)
+        elif phase == "vlm_serve":
+            launches_of[phase] = phase_vlm_serve(torch, results)
         elif phase == "cim_scu":
             launches_of[phase] = phase_cim_scu(torch, results)
         elif phase == "parity":
@@ -2094,10 +2285,13 @@ def main(argv=None) -> int:
             phase_moe_parity(torch, results)
         elif phase == "audio_parity":
             phase_audio_parity(torch, results)
+        elif phase == "vlm_parity":
+            phase_vlm_parity(torch, results)
         elif phase == "server":
             phase_server(torch, results)
         elif phase == "profile":
-            for arch in (*SERVE_ARCH.values(), "mixtral-8x7b", "whisper-large-v3", "cim_scu"):
+            for arch in (*SERVE_ARCH.values(), "mixtral-8x7b", "whisper-large-v3",
+                         "paligemma-3b", "cim_scu"):
                 phase_profile(torch, results, arch)
                 torch.cuda.empty_cache()
         torch.cuda.synchronize()

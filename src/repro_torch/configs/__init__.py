@@ -1,7 +1,7 @@
 """Config registry of the port: ``get_config("<arch-id>")`` returns the full
 ModelConfig.  The registry holds the architectures of ``repro.configs``
-whose families the port runs (dense, moe, ssm, hybrid, audio), under the
-same arch ids; the VLM family (paligemma) is not ported yet.
+under the same arch ids: every one, of the dense, moe, ssm, hybrid, audio
+and vlm families.
 """
 from __future__ import annotations
 
@@ -23,6 +23,8 @@ _REGISTRY = {
     "zamba2-2.7b": "zamba2_2p7b",
     # encoder-decoder: whisper's encoder over precomputed frame embeddings
     "whisper-large-v3": "whisper_large_v3",
+    # vision-language: a bidirectional prefix of precomputed patch embeddings
+    "paligemma-3b": "paligemma_3b",
     # the paper's own evaluation models (Table II)
     "llama3.2-1b": "llama32_1b",
     "llama3-8b": "llama3_8b",

@@ -8,8 +8,12 @@
 // not multiplicative, so the step is part of the PWL result); a row skips a
 // step in which it sees no key; keys masked at their true length Skv (no
 // padding); the causal loop stops at the diagonal step; the KV head is
-// h / (Hq / Hkv) (no repeat in memory); D = 32, 64, 80 or 128 (80 is
-// zamba2's shared attention).
+// h / (Hq / Hkv) (no repeat in memory); D = 32, 64, 80, 128 or 256 (80 is
+// zamba2's shared attention, 256 paligemma's).
+// A bidirectional prefix (prefix_len > 0, causal only; the JAX model's
+// prefix-LM, which the Pallas kernel does not take) also makes keys below
+// prefix_len visible to every query: a causal tile's steps run on to the
+// prefix's last step, and a step wholly inside the prefix runs unmasked.
 // A sliding window (window > 0; the JAX model's, which the Pallas kernel
 // does not take) masks a key window or more positions before its query,
 // causal or not.  Steps stay aligned to absolute key positions, as the
@@ -45,6 +49,15 @@
 //   is 5 tiles (K and V twice, the next tile's Q): 174,080 bytes at D 128,
 //   so one CTA fits per SM, not two; the ~200-255 registers of a thread
 //   hold one CTA of 8 warps per SM anyway.
+// - D 256 (kBig) has a layout of its own: 5 tiles of 256 columns would be
+//   337,920 bytes, and Q's fragments (64 registers) beside O's (128) and
+//   the scores' (64) would pass the 255 registers of a thread.  So Q stays
+//   in shared memory for the whole tile and each k16 chunk's A-fragment is
+//   read by ldmatrix where it is used, and K and V have one stage each:
+//   3 tiles, 202,752 bytes.  The loads are staggered instead of doubled:
+//   V of step j is in flight while step j's scores are taken, K of step
+//   j + 1 (or the next tile's Q and first K) while step j's softmax and
+//   P V run; two barriers a step.  The epilogue stages O in the V tile.
 // - S = Q K^T by mma.sync m16n8k16 bf16 -> f32; the mask, the row max, p
 //   (ex2.approx, or common.cuh's pwl_exp) and the alpha rescale stay in
 //   registers.  Only a step that holds the causal diagonal, the window's
@@ -96,20 +109,26 @@ constexpr size_t flash_smem_bytes() {
 // The key steps [first, last) of a tile of q rows [q0, q1): from the step
 // that holds the first key inside the window of row q0 (later rows'
 // windows start later; 0 without a window) to the last step with a key
-// before Skv, or, causal, at or before row q1 - 1.  At least one step: a
-// tile whose rows see no key (non-causal, Skv far below the window) runs
-// its last step, fully masked, and gives zeros as the plain version does.
-__device__ __forceinline__ int2 step_range(int q0, int q1, int Skv, int causal, int window) {
+// before Skv, or, causal, at or before row q1 - 1 or below prefix_len.  At
+// least one step: a tile whose rows see no key (non-causal, Skv far below
+// the window) runs its last step, fully masked, and gives zeros as the
+// plain version does.
+__device__ __forceinline__ int2 step_range(int q0, int q1, int Skv, int causal, int window,
+                                           int prefix) {
   int last = (Skv + kBK - 1) / kBK;
-  if (causal) last = min(last, (q1 - 1) / kBK + 1);
+  if (causal) last = min(last, max((q1 - 1) / kBK + 1, (prefix + kBK - 1) / kBK));
   const int first = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
   return make_int2(min(first, last - 1), last);
 }
 
 // Whether key kpos is valid for query qpos: inside the sequence, not after
-// the query when causal, and fewer than window positions before it.
-__device__ __forceinline__ bool key_valid(int qpos, int kpos, int Skv, int causal, int window) {
-  return kpos < Skv && (!causal || qpos >= kpos) && (window <= 0 || qpos - kpos < window);
+// the query when causal unless it lies in the prefix, and fewer than window
+// positions before it.
+__device__ __forceinline__ bool key_valid(int qpos, int kpos, int Skv, int causal, int window,
+                                          int prefix) {
+  // kpos <= qpos or kpos < prefix, as one compare against a per-row bound
+  return kpos < Skv && (!causal || kpos <= max(qpos, prefix - 1)) &&
+         (window <= 0 || qpos - kpos < window);
 }
 
 template <typename T, int D>
@@ -127,7 +146,7 @@ template <typename T, int D, bool kPwl>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ out, int Sq, int Skv, int Hq, int Hkv, int causal,
-                 int window, float scale, PwlCoeffs pwl) {
+                 int window, int prefix, float scale, PwlCoeffs pwl) {
   constexpr int DP = D + 1, BKP = kBK + 1, CPT = D / 16;
   extern __shared__ float smem[];
   float* Qs = smem;                 // kBQ x DP, pre-scaled q
@@ -162,7 +181,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
     for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
 
-  const int2 steps = step_range(q0, min(q0 + kBQ, Sq), Skv, causal, window);
+  const int2 steps = step_range(q0, min(q0 + kBQ, Sq), Skv, causal, window, prefix);
   for (int step = steps.x; step < steps.y; ++step) {
     const int k0 = step * kBK;
     load_tile<T, D>(KVs, kb, k0, kBK, kv_stride, Skv);
@@ -192,7 +211,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int kpos = k0 + tx + 16 * j;
-        const bool ok = key_valid(qpos, kpos, Skv, causal, window);
+        const bool ok = key_valid(qpos, kpos, Skv, causal, window, prefix);
         Ps[(ty * 4 + i) * BKP + tx + 16 * j] = ok ? s[i][j] : kNegInf;
       }
     }
@@ -210,7 +229,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int kpos = k0 + lane + 32 * c;
-        ok[c] = key_valid(qpos, kpos, Skv, causal, window);
+        ok[c] = key_valid(qpos, kpos, Skv, causal, window, prefix);
         sv[c] = Ps[r * BKP + lane + 32 * c];
         if (ok[c]) mx = max_nan(mx, sv[c]);
       }
@@ -283,9 +302,13 @@ constexpr int kMmaThreads = 32 * kMmaWarps;
 template <int D>
 constexpr int kMmaStride = D + 8;  // bf16 per shared row: a 16-byte pad
 
+// D 256 holds Q in shared memory and K and V in one stage each (see above)
+template <int D>
+constexpr bool kMmaBig = D > 128;
+
 template <int D>
 constexpr size_t mma_smem_bytes() {
-  return 5 * size_t(kBK) * kMmaStride<D> * sizeof(__nv_bfloat16);
+  return (kMmaBig<D> ? 3 : 5) * size_t(kBK) * kMmaStride<D> * sizeof(__nv_bfloat16);
 }
 
 // rows [row0, row0 + 128) of a bf16 matrix with row_stride elements between
@@ -307,15 +330,18 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
                      int B, int Sq, int Skv, int Hq, int Hkv, int causal, int window,
-                     float scale, PwlCoeffs pwl) {
+                     int prefix, float scale, PwlCoeffs pwl) {
+  constexpr bool kBig = kMmaBig<D>;
   constexpr int kS = kMmaStride<D>;
   constexpr int kTile = kBK * kS;  // elements of one staged tile
   constexpr int kKC = D / 16;      // k16 chunks of Q K^T = pairs of n8 d-tiles of P V
   constexpr int kNT = kBK / 8;     // n8 key tiles of a step
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // Q of the next tile
-  __nv_bfloat16* Ks = Qs + kTile;                                   // 2 stages of K
-  __nv_bfloat16* Vs = Ks + 2 * kTile;                               // 2 stages of V
+  // Q of this tile (kBig) or of the next; kBig: one stage of K and of V,
+  // else two of each
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Ks = Qs + kTile;
+  __nv_bfloat16* Vs = Ks + (kBig ? 1 : 2) * kTile;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t4 = lane % 4;   // mma fragment row group, column pair
@@ -334,39 +360,55 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     return (int64_t(bh / Hq) * Skv * Hkv + (bh % Hq) / (Hq / Hkv)) * D;
   };
 
-  uint32_t qf[kKC][4];
+  uint32_t qf[kBig ? 1 : kKC][4];  // kBig reads Q's fragments from Qs at use
   float o[2 * kKC][4];
   float m_run[2], l_run[2];  // rows g and g + 8: unscaled max, this lane's share of l
   int row_w = 0;             // the warp's first q row in the tile
   const float scale_log2 = scale * kLog2e;
+  // this lane's ldmatrix address of the warp's Q rows in Qs
+  auto q_row = [&]() { return Qs + (warp * 16 + (mi & 1) * 8 + mr) * kS + (mi >> 1) * 8; };
 
   auto steps_of = [&](int t) {
-    return step_range(q0_of(t), min(q0_of(t) + kMmaBQ, Sq), Skv, causal, window);
+    return step_range(q0_of(t), min(q0_of(t) + kMmaBQ, Sq), Skv, causal, window, prefix);
   };
 
-  // One online-softmax step over keys [k0, k0 + 128) from stage st.
-  // kMasked: the step holds keys past Skv, past a row of this warp (the
-  // causal diagonal) or before a row's window; there the warp skips the
-  // 16-key tiles it cannot see, [k0, k0 + k_lo) and [k0 + n_keys, k0 +
-  // 128), and masks the rest; every other step runs without a branch.
-  auto run_step = [&](auto masked, int k0, int st) {
+  // A masked step holds keys past Skv, past a row of this warp outside the
+  // prefix (the causal diagonal) or before a row's window; there the warp
+  // skips the 16-key tiles it cannot see, [k0, k0 + k_lo) and [k0 + n_keys,
+  // k0 + 128), and masks the rest; every other step runs without a branch.
+  auto live_keys = [&](auto masked, int k0) {
     constexpr bool kMasked = decltype(masked)::value;
-    const int n_keys = kMasked && causal ? max(0, min(kBK, row_w + 16 - k0)) : kBK;
+    const int n_keys =
+        kMasked && causal ? max(0, min(kBK, max(row_w + 16, prefix) - k0)) : kBK;
     // keys before k0 + k_lo are outside the window of the warp's first row
     const int k_lo = kMasked && window > 0 ? min(kBK, max(0, row_w - window + 1 - k0)) : 0;
-    float s[kNT][4];
+    return make_int2(k_lo, n_keys);
+  };
+
+  // S = Q K^T of keys [k0, k0 + 128) from the K tile kt, masked
+  auto scores = [&](auto masked, int k0, const __nv_bfloat16* kt, float (&s)[kNT][4]) {
+    constexpr bool kMasked = decltype(masked)::value;
+    const int2 live = live_keys(masked, k0);
 #pragma unroll
     for (int nt = 0; nt < kNT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-    const __nv_bfloat16* krow = Ks + st * kTile + ((mi >> 1) * 8 + mr) * kS + (mi & 1) * 8;
+    const __nv_bfloat16* krow = kt + ((mi >> 1) * 8 + mr) * kS + (mi & 1) * 8;
+    const __nv_bfloat16* qrow = q_row();
 #pragma unroll
     for (int kc = 0; kc < kKC; ++kc) {
+      uint32_t a[4];
+      if constexpr (kBig) {
+        ldsm_x4(a, qrow + kc * 16);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = qf[kc][i];
+      }
 #pragma unroll
       for (int np = 0; np < kNT / 2; ++np) {
-        if (!kMasked || (16 * np < n_keys && 16 * np + 16 > k_lo)) {
+        if (!kMasked || (16 * np < live.y && 16 * np + 16 > live.x)) {
           uint32_t r[4];
           ldsm_x4(r, krow + np * 16 * kS + kc * 16);
-          mma_bf16(s[2 * np], qf[kc], r[0], r[1]);
-          mma_bf16(s[2 * np + 1], qf[kc], r[2], r[3]);
+          mma_bf16(s[2 * np], a, r[0], r[1]);
+          mma_bf16(s[2 * np + 1], a, r[2], r[3]);
         }
       }
     }
@@ -377,16 +419,21 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
         for (int e = 0; e < 4; ++e) {
           const int row = row_w + g + (e >> 1) * 8;
           const int key = k0 + nt * 8 + 2 * t4 + (e & 1);
-          if (!key_valid(row, key, Skv, causal, window)) s[nt][e] = -INFINITY;
+          if (!key_valid(row, key, Skv, causal, window, prefix)) s[nt][e] = -INFINITY;
         }
     }
+  };
 
-    // online softmax of rows g and g + 8, in registers; the max keeps a
-    // NaN score, and whether a row sees a key of the step comes from the
-    // mask (some key of the step is valid for it: the step's keys [k0,
-    // k0 + 128) meet the row's [row - window + 1, row] or [0, Skv)), not
-    // from the max; under a window the step's first key may be too old for
-    // a row that sees later keys of the step
+  // The online-softmax step of rows g and g + 8 over the scores s, then
+  // O += P V with the V tile vt
+  auto softmax_pv = [&](auto masked, int k0, const __nv_bfloat16* vt, float (&s)[kNT][4]) {
+    constexpr bool kMasked = decltype(masked)::value;
+    const int2 live = live_keys(masked, k0);
+    // the max keeps a NaN score, and whether a row sees a key of the step
+    // comes from the mask (some key of the step is valid for it: the
+    // step's keys [k0, k0 + 128) meet the row's [row - window + 1, row],
+    // [0, prefix) or [0, Skv)), not from the max; under a window the step's
+    // first key may be too old for a row that sees later keys of the step
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int nt = 0; nt < kNT; ++nt) {
@@ -402,7 +449,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
       if constexpr (kMasked) {
         const int row = row_w + g + 8 * r;
         const int lo = window > 0 ? max(k0, row - window + 1) : k0;
-        const int hi = min(min(k0 + kBK, Skv), causal ? row + 1 : Skv);
+        const int hi = min(min(k0 + kBK, Skv), causal ? max(row + 1, prefix) : Skv);
         seen = lo < hi;
       }
       const float m_new = seen ? max_nan(m_run[r], mx[r]) : m_run[r];
@@ -443,10 +490,10 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     }
 
     // O += P V, P as hi + lo bf16 A-fragments straight from the score registers
-    const __nv_bfloat16* vrow = Vs + st * kTile + ((mi & 1) * 8 + mr) * kS + (mi >> 1) * 8;
+    const __nv_bfloat16* vrow = vt + ((mi & 1) * 8 + mr) * kS + (mi >> 1) * 8;
 #pragma unroll
     for (int kc = 0; kc < kBK / 16; ++kc) {
-      if (!kMasked || (16 * kc < n_keys && 16 * kc + 16 > k_lo)) {
+      if (!kMasked || (16 * kc < live.y && 16 * kc + 16 > live.x)) {
         uint32_t a_hi[4], a_lo[4];
         a_hi[0] = split_bf16x2(s[2 * kc][0], s[2 * kc][1], a_lo[0]);
         a_hi[1] = split_bf16x2(s[2 * kc][2], s[2 * kc][3], a_lo[1]);
@@ -469,7 +516,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   if (t >= n_tiles) return;
   load_tile_async<D>(Qs, q + q_off(t), q0_of(t), q_stride, Sq);
   load_tile_async<D>(Ks, k + kv_off(t), steps_of(t).x * kBK, kv_stride, Skv);
-  load_tile_async<D>(Vs, v + kv_off(t), steps_of(t).x * kBK, kv_stride, Skv);
+  if constexpr (!kBig) load_tile_async<D>(Vs, v + kv_off(t), steps_of(t).x * kBK, kv_stride, Skv);
   cp_async_commit();
   int gs = 0;  // steps taken by the CTA: their stage alternates
   for (; t < n_tiles; t += gridDim.x) {
@@ -478,10 +525,10 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     const int2 steps = steps_of(t);
     const int step0 = steps.x, n_steps = steps.y;
     row_w = q0 + warp * 16;
-    cp_async_wait<0>();  // Q and step 0's K and V of this tile
-    __syncthreads();
-    {
-      const __nv_bfloat16* qrow = Qs + (warp * 16 + (mi & 1) * 8 + mr) * kS + (mi >> 1) * 8;
+    if constexpr (!kBig) {
+      cp_async_wait<0>();  // Q and step 0's K and V of this tile
+      __syncthreads();
+      const __nv_bfloat16* qrow = q_row();
 #pragma unroll
       for (int kc = 0; kc < kKC; ++kc) ldsm_x4(qf[kc], qrow + kc * 16);
     }
@@ -490,35 +537,68 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     m_run[0] = m_run[1] = -INFINITY;
     l_run[0] = l_run[1] = 0.f;
 
-    // One barrier a step: it publishes the step's K and V to every warp
-    // and frees the other stage (read by the step before) for the copies
-    // of the next step, or of the next tile's Q and first step after the
-    // last, which run while this step computes.
     for (int step = step0; step < n_steps; ++step) {
-      const int k0 = step * kBK, st = gs & 1;
-      if (step > step0) cp_async_wait<0>();
-      __syncthreads();  // the first step: every warp holds its Q fragments, Qs is free
-      if (step + 1 < n_steps) {
-        load_tile_async<D>(Ks + (st ^ 1) * kTile, k + kvo, k0 + kBK, kv_stride, Skv);
-        load_tile_async<D>(Vs + (st ^ 1) * kTile, v + kvo, k0 + kBK, kv_stride, Skv);
-      } else if (t_next < n_tiles) {
-        load_tile_async<D>(Qs, q + q_off(t_next), q0_of(t_next), q_stride, Sq);
-        const int k0_next = steps_of(t_next).x * kBK;
-        load_tile_async<D>(Ks + (st ^ 1) * kTile, k + kv_off(t_next), k0_next, kv_stride, Skv);
-        load_tile_async<D>(Vs + (st ^ 1) * kTile, v + kv_off(t_next), k0_next, kv_stride, Skv);
-      }
-      cp_async_commit();
-      if (k0 + kBK > Skv || (causal && k0 + kBK - 1 > row_w) ||
-          (window > 0 && k0 < row_w + 16 - window)) {
-        run_step(std::true_type{}, k0, st);
+      const int k0 = step * kBK, st = kBig ? 0 : gs & 1;
+      const bool masked = k0 + kBK > Skv ||
+                          (causal && k0 + kBK - 1 > row_w && k0 + kBK > prefix) ||
+                          (window > 0 && k0 < row_w + 16 - window);
+      float s[kNT][4];
+      if constexpr (kBig) {
+        // Two barriers a step.  The first publishes this step's K (and, on
+        // a tile's first step, its Q) and frees the V tile (read by the
+        // step before, or the staging of the tile before's output) for
+        // this step's V, which loads while the scores are taken.  The
+        // second publishes V and frees K (and, on the last step, Q) for
+        // the next step's K, or the next tile's Q and first K, which load
+        // while the softmax and P V run.
+        cp_async_wait<0>();
+        __syncthreads();
+        load_tile_async<D>(Vs, v + kvo, k0, kv_stride, Skv);
+        cp_async_commit();
+        if (masked) scores(std::true_type{}, k0, Ks, s);
+        else scores(std::false_type{}, k0, Ks, s);
+        cp_async_wait<0>();
+        __syncthreads();
+        if (step + 1 < n_steps) {
+          load_tile_async<D>(Ks, k + kvo, k0 + kBK, kv_stride, Skv);
+        } else if (t_next < n_tiles) {
+          load_tile_async<D>(Qs, q + q_off(t_next), q0_of(t_next), q_stride, Sq);
+          load_tile_async<D>(Ks, k + kv_off(t_next), steps_of(t_next).x * kBK, kv_stride, Skv);
+        }
+        cp_async_commit();
+        if (masked) softmax_pv(std::true_type{}, k0, Vs, s);
+        else softmax_pv(std::false_type{}, k0, Vs, s);
       } else {
-        run_step(std::false_type{}, k0, st);
+        // One barrier a step: it publishes the step's K and V to every
+        // warp and frees the other stage (read by the step before) for the
+        // copies of the next step, or of the next tile's Q and first step
+        // after the last, which run while this step computes.
+        if (step > step0) cp_async_wait<0>();
+        __syncthreads();  // the first step: every warp holds its Q fragments, Qs is free
+        if (step + 1 < n_steps) {
+          load_tile_async<D>(Ks + (st ^ 1) * kTile, k + kvo, k0 + kBK, kv_stride, Skv);
+          load_tile_async<D>(Vs + (st ^ 1) * kTile, v + kvo, k0 + kBK, kv_stride, Skv);
+        } else if (t_next < n_tiles) {
+          load_tile_async<D>(Qs, q + q_off(t_next), q0_of(t_next), q_stride, Sq);
+          const int k0_next = steps_of(t_next).x * kBK;
+          load_tile_async<D>(Ks + (st ^ 1) * kTile, k + kv_off(t_next), k0_next, kv_stride, Skv);
+          load_tile_async<D>(Vs + (st ^ 1) * kTile, v + kv_off(t_next), k0_next, kv_stride, Skv);
+        }
+        cp_async_commit();
+        if (masked) {
+          scores(std::true_type{}, k0, Ks + st * kTile, s);
+          softmax_pv(std::true_type{}, k0, Vs + st * kTile, s);
+        } else {
+          scores(std::false_type{}, k0, Ks + st * kTile, s);
+          softmax_pv(std::false_type{}, k0, Vs + st * kTile, s);
+        }
       }
       ++gs;
     }
 
-    // O * (1 / max(l, 1e-30)) -> bf16, staged in the warp's 16 rows of the
-    // K tile the last step read (no copy is headed there) for 16-byte stores
+    // O * (1 / max(l, 1e-30)) -> bf16, staged in the warp's 16 rows of a
+    // tile no copy is headed to (the K tile the last step read; kBig: the V
+    // tile) for 16-byte stores
     float inv[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -526,8 +606,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
       l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
       inv[r] = __frcp_rn(max_nan(l_run[r], 1e-30f));
     }
-    __syncthreads();  // every warp is done with that K tile
-    __nv_bfloat16* os = Ks + ((gs - 1) & 1) * kTile + warp * 16 * kS;
+    __syncthreads();  // every warp is done with that tile
+    __nv_bfloat16* os = (kBig ? Vs : Ks + ((gs - 1) & 1) * kTile) + warp * 16 * kS;
 #pragma unroll
     for (int dt = 0; dt < 2 * kKC; ++dt) {
       const int col = dt * 8 + 2 * t4;
@@ -551,8 +631,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 
 template <int D, bool kPwl>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-                       int Skv, int Hq, int Hkv, int causal, int window, const PwlCoeffs& pwl,
-                       cudaStream_t stream) {
+                       int Skv, int Hq, int Hkv, int causal, int window, int prefix,
+                       const PwlCoeffs& pwl, cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<D>();
   auto kernel = flash_fwd_mma_kernel<D, kPwl>;
   cudaError_t err =
@@ -567,17 +647,18 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, i
   using bf16 = __nv_bfloat16;
   kernel<<<n_tiles < n_sm ? n_tiles : n_sm, kMmaThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), B, Sq, Skv, Hq, Hkv, causal, window, float(pow(double(D), -0.5)),
-      pwl);
+      static_cast<bf16*>(out), B, Sq, Skv, Hq, Hkv, causal, window, prefix,
+      float(pow(double(D), -0.5)), pwl);
   return cudaGetLastError();
 }
 
 template <typename T, int D, bool kPwl>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-                   int Skv, int Hq, int Hkv, int causal, int window, const PwlCoeffs& pwl,
-                   cudaStream_t stream) {
+                   int Skv, int Hq, int Hkv, int causal, int window, int prefix,
+                   const PwlCoeffs& pwl, cudaStream_t stream) {
   if constexpr (!std::is_same_v<T, float>) {
-    return launch_mma<D, kPwl>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, window, pwl, stream);
+    return launch_mma<D, kPwl>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, window, prefix, pwl,
+                               stream);
   } else {
     constexpr size_t smem = flash_smem_bytes<D>();
     auto kernel = flash_fwd_kernel<T, D, kPwl>;
@@ -587,21 +668,32 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
     const dim3 grid(B * Hq, (Sq + kBQ - 1) / kBQ);
     kernel<<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(out), Sq, Skv, Hq, Hkv, causal, window, float(pow(double(D), -0.5)), pwl);
+        static_cast<T*>(out), Sq, Skv, Hq, Hkv, causal, window, prefix,
+        float(pow(double(D), -0.5)), pwl);
     return cudaGetLastError();
   }
 }
 
 template <typename T, bool kPwl>
 cudaError_t dispatch_dim(int D, const void* q, const void* k, const void* v, void* out, int B,
-                         int Sq, int Skv, int Hq, int Hkv, int causal, int window,
+                         int Sq, int Skv, int Hq, int Hkv, int causal, int window, int prefix,
                          const PwlCoeffs& pwl, cudaStream_t s) {
   switch (D) {
-    case 32: return launch<T, 32, kPwl>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, window, pwl, s);
-    case 64: return launch<T, 64, kPwl>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, window, pwl, s);
-    case 80: return launch<T, 80, kPwl>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, window, pwl, s);
+    case 32:
+      return launch<T, 32, kPwl>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, window, prefix, pwl,
+                                s);
+    case 64:
+      return launch<T, 64, kPwl>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, window, prefix, pwl,
+                                s);
+    case 80:
+      return launch<T, 80, kPwl>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, window, prefix, pwl,
+                                s);
     case 128:
-      return launch<T, 128, kPwl>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, window, pwl, s);
+      return launch<T, 128, kPwl>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, window, prefix, pwl,
+                                s);
+    case 256:
+      return launch<T, 256, kPwl>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, window, prefix, pwl,
+                                s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -611,26 +703,32 @@ cudaError_t dispatch_dim(int D, const void* q, const void* k, const void* v, voi
 
 // q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D); out: (B, Sq, Hq, D), all
 // contiguous.  dtype 0 = float32, 1 = bfloat16.  window > 0 masks keys
-// window or more positions before the query; 0 is no window.  Returns
-// cudaGetLastError() after the launch.
+// window or more positions before the query; 0 is no window.  prefix_len
+// > 0 makes keys below it visible to every query (causal only, and with
+// neither a window nor PWL exp: refused).  Returns cudaGetLastError()
+// after the launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out, int B,
                                    int Sq, int Skv, int Hq, int Hkv, int D, int dtype, int causal,
-                                   int window, int use_pwl, const void* pwl_host, void* stream) {
+                                   int window, int prefix_len, int use_pwl, const void* pwl_host,
+                                   void* stream) {
   using namespace repro_torch;
-  if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0 || window < 0)
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0 || window < 0 ||
+      prefix_len < 0 || (prefix_len > 0 && (!causal || window > 0 || use_pwl)))
     return cudaErrorInvalidValue;
   const PwlCoeffs pwl = read_pwl(pwl_host);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int w = window;
+  const int w = window, p = prefix_len;
   if (dtype == 0) {
-    return use_pwl ? dispatch_dim<float, true>(D, q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, w, pwl, s)
-                   : dispatch_dim<float, false>(D, q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, w, pwl, s);
+    return use_pwl
+               ? dispatch_dim<float, true>(D, q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, w, p, pwl, s)
+               : dispatch_dim<float, false>(D, q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, w, p, pwl,
+                                            s);
   }
   if (dtype == 1) {
-    return use_pwl ? dispatch_dim<__nv_bfloat16, true>(D, q, k, v, out, B, Sq, Skv, Hq, Hkv, causal,
-                                                       w, pwl, s)
+    return use_pwl ? dispatch_dim<__nv_bfloat16, true>(D, q, k, v, out, B, Sq, Skv, Hq, Hkv,
+                                                       causal, w, p, pwl, s)
                    : dispatch_dim<__nv_bfloat16, false>(D, q, k, v, out, B, Sq, Skv, Hq, Hkv,
-                                                        causal, w, pwl, s);
+                                                        causal, w, p, pwl, s);
   }
   return cudaErrorInvalidValue;
 }

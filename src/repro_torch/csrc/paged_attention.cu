@@ -3,8 +3,8 @@
 // Replaces the Pallas TPU kernel repro/kernels/paged_attention.py
 // (paged_attention -> _paged_kernel).  Same function: one query token per
 // (sequence, head); K/V read through the block table; masked at the
-// context length; a context of 0 gives zeros; GQA; D = 32, 64, 80 or 128;
-// any block_tokens from 1 to 128.
+// context length; a context of 0 gives zeros; GQA; D = 32, 64, 80, 128 or
+// 256 (paligemma's); any block_tokens from 1 to 128.
 // A sliding window (window > 0; the JAX model's, which the Pallas kernel
 // does not take) keeps the keys [max(ctx - window, 0), ctx) of a sequence
 // of context ctx: a CTA starts at the block that holds the first of them
@@ -35,7 +35,8 @@
 //   shared memory with 16-byte cp.async copies (8 bf16 or 4 float32) and
 //   stay in the input dtype; two stages where a split has several blocks,
 //   so block i + 1 is in flight while block i is used (one where two would
-//   not fit in shared memory: float32 with 128-token blocks).  Rows are
+//   not fit in shared memory: float32 with 128-token blocks, or with
+//   64-token blocks at D 256).  Rows are
 //   padded by 16 bytes against bank conflicts.  Values go to float32 in
 //   registers, at use.  CTAs of 128 threads and ~40 KB at the main shape
 //   (one 64-token stage), so the 288 CTAs of Llama-3-8B's decode are all
@@ -312,6 +313,7 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool, const 
   if (smem > kMaxSmem) {
     stages = 1;
     smem = paged_smem_bytes<T, D>(G, bt, stages);
+    if (smem > kMaxSmem) return cudaErrorInvalidValue;  // kernels.paged_attention refuses it
   }
   auto kernel = paged_fwd_kernel<T, D, kPwl>;
   cudaError_t err =
@@ -343,6 +345,9 @@ cudaError_t dispatch_dim(int D, const void* q, const void* kp, const void* vp, c
       return launch<T, 80, kPwl>(q, kp, vp, tb, cl, out, scratch, B, H, Hkv, bt, mb, ns, bps, w, pwl, s);
     case 128:
       return launch<T, 128, kPwl>(q, kp, vp, tb, cl, out, scratch, B, H, Hkv, bt, mb, ns, bps, w, pwl,
+                                  s);
+    case 256:
+      return launch<T, 256, kPwl>(q, kp, vp, tb, cl, out, scratch, B, H, Hkv, bt, mb, ns, bps, w, pwl,
                                   s);
     default:
       return cudaErrorInvalidValue;

@@ -25,6 +25,20 @@ not take) also masks a key ``window`` or more positions before its query
 (``qpos - kpos >= window``), as ``repro.models.attention`` does; ``None``
 is no window.
 
+``prefix_len`` (the JAX model's prefix-LM, paligemma's image prefix, which
+the Pallas kernel does not take either) makes the keys below it visible to
+every query of a causal call: key ``kpos`` is valid for query ``qpos`` when
+``kpos <= qpos or kpos < prefix_len``, as
+``repro.models.attention.full_attention`` and its blockwise
+``flash_attention`` mask it.  Both versions refuse a prefix without the
+causal mask (where it means nothing), with a window (no config has both)
+and with PWL exp (the JAX model never uses PWL in attention, so nothing
+defines it over a prefix).
+
+Head dims 32, 64, 80, 128 and 256.  At D 256 the bf16 kernel keeps Q in
+shared memory and K and V in one stage each (``csrc/flash_attention.cu``);
+it stays on the tensor cores, and float32 on the SIMT path, at every D.
+
 In PWL mode the result depends on how the keys are cut into online-softmax
 steps (PWL exp is not multiplicative), so both versions step over keys
 ``[0, 128), [128, 256), ...`` as the Pallas kernel does, also under a
@@ -43,7 +57,7 @@ from .pwl import PWL_COEFFS, pwl_exp
 
 NEG_INF = -1e30
 KV_STEP = 128
-HEAD_DIMS = (32, 64, 80, 128)
+HEAD_DIMS = (32, 64, 80, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # How far the kernel's output may lie from the plain version's on the same
@@ -79,11 +93,26 @@ def window_arg(window) -> int:
     return int(window)
 
 
+def prefix_arg(prefix_len, *, causal: bool, window: int, use_pwl: bool) -> int:
+    """The kernels' prefix argument, a non-negative int; raises
+    ``ValueError`` for a prefix that is not defined: without the causal
+    mask, with a window or with PWL exp."""
+    prefix_len = int(prefix_len)
+    if prefix_len < 0:
+        raise ValueError(f"prefix_len must be >= 0, got {prefix_len}")
+    if prefix_len and (not causal or window or use_pwl):
+        raise ValueError("a bidirectional prefix (prefix_len > 0) is taken only with "
+                         "the causal mask, no window and exact exp")
+    return prefix_len
+
+
 def flash_attention_plain(q, k, v, *, causal: bool = True,
-                          use_pwl: bool = False, window=None) -> torch.Tensor:
+                          use_pwl: bool = False, window=None,
+                          prefix_len: int = 0) -> torch.Tensor:
     """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D), Hq % Hkv == 0.
     Returns (B, Sq, Hq, D) in q.dtype, computed in float32."""
     window = window_arg(window)
+    prefix_len = prefix_arg(prefix_len, causal=causal, window=window, use_pwl=use_pwl)
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
     G = Hq // Hkv
@@ -102,6 +131,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
         kpos = torch.arange(k0, k0 + kb.shape[2], device=q.device)
         if causal:
             valid = qpos[:, None] >= kpos[None, :]          # (Sq, bk)
+            valid |= (kpos < prefix_len)[None, :]
         else:
             valid = torch.ones((Sq, kb.shape[2]), dtype=torch.bool,
                                device=q.device)
@@ -149,19 +179,21 @@ def agreement(got: torch.Tensor, want: torch.Tensor, *, pwl: bool = False):
 
 
 def launch_key(q, k, *, causal: bool = True, use_pwl: bool = False,
-               window=None) -> str:
+               window=None, prefix_len: int = 0) -> str:
     """The shape under which ``flash_attention_cuda`` counts a launch in
     ``_build.LAUNCHES_BY_SHAPE``."""
     B, Sq, Hq, D = q.shape
     return (f"B{B} Sq{Sq} Skv{k.shape[1]} Hq{Hq} Hkv{k.shape[2]} D{D} "
             f"{str(q.dtype).removeprefix('torch.')} causal={int(causal)} "
-            f"window={window or 0} pwl={int(use_pwl)}")
+            f"window={window or 0} prefix={prefix_len} pwl={int(use_pwl)}")
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True,
-                         use_pwl: bool = False, window=None) -> torch.Tensor:
+                         use_pwl: bool = False, window=None,
+                         prefix_len: int = 0) -> torch.Tensor:
     """Launch ``csrc/flash_attention.cu`` on PyTorch's current stream."""
     window = window_arg(window)
+    prefix_len = prefix_arg(prefix_len, causal=causal, window=window, use_pwl=use_pwl)
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, Dk = k.shape
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
@@ -182,7 +214,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     _build.check(lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, Sq, Skv, Hq, Hkv, D, _DTYPE_CODES[q.dtype], int(causal), window,
-        int(use_pwl), ctypes.addressof(PWL_COEFFS),
+        prefix_len, int(use_pwl), ctypes.addressof(PWL_COEFFS),
         torch.cuda.current_stream(q.device).cuda_stream), "flash_attention",
-        launch_key(q, k, causal=causal, use_pwl=use_pwl, window=window))
+        launch_key(q, k, causal=causal, use_pwl=use_pwl, window=window,
+                   prefix_len=prefix_len))
     return out

@@ -31,10 +31,11 @@ def _route(t) -> str:
 
 
 def flash_attention(q, k, v, *, causal: bool = True, use_pwl: bool = False,
-                    window=None):
+                    window=None, prefix_len: int = 0):
     """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D).  Returns (B, Sq, Hq, D).
-    ``window``: mask keys ``window`` or more positions before the query."""
-    kw = dict(causal=causal, use_pwl=use_pwl, window=window)
+    ``window``: mask keys ``window`` or more positions before the query.
+    ``prefix_len``: keys below it are visible to every query (causal)."""
+    kw = dict(causal=causal, use_pwl=use_pwl, window=window, prefix_len=prefix_len)
     if _route(q) == "cpu":
         return _fa.flash_attention_plain(q, k, v, **kw)
     return _fa.flash_attention_cuda(q, k, v, **kw)

@@ -25,6 +25,11 @@ lies (on the card, in the kernel), and blocks wholly below it are skipped.
 Blocks stay aligned to absolute positions, so the PWL result composes as
 without a window.
 
+Head dims 32, 64, 80, 128 and 256.  Where two stages of a split's pool
+blocks do not fit in shared memory (float32 at D 256, or 128-token
+blocks) the kernel runs one; a shape whose one stage does not fit either
+is refused by the C entry.
+
 A contiguous cache ``(B, max_len, H_kv, D)`` is the pool
 ``(B * max_len / bt, bt, H_kv, D)`` under the identity table
 (``identity_block_table``): a view, no copy.
@@ -41,7 +46,7 @@ from .flash_attention import window_arg
 from .pwl import PWL_COEFFS, pwl_exp
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 80, 128)
+HEAD_DIMS = (32, 64, 80, 128, 256)
 MAX_BLOCK_TOKENS = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # split-KV: about WAVES CTAs per SM, and at least MIN_SPLIT_TOKENS context

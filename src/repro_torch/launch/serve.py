@@ -8,10 +8,11 @@ quirks included: one shared ``cur_len`` for all slots; admission sets
 ``cur_len = max(cur_len + 1, len(prompt))``, so a prompt's first token
 attends over zero cache rows; every admission step is a full-batch decode
 that writes K/V into every slot, and advances every slot's recurrent state
-for an SSM; only slot ``i``'s next token is taken during admission; and an
+for an SSM; only slot ``i``'s next token is taken during admission; an
 encoder-decoder (whisper) is served without its encoder, so every step
-attends over a cross cache of zeros (the JAX ``Server`` runs no encoder
-either; ROADMAP hazard 6).
+attends over a cross cache of zeros, and a prefix-LM (paligemma) without
+its image prefix, its prompts admitted through the decode step as text
+alone (the JAX ``Server`` runs neither; ROADMAP hazard 6).
 
 On a CUDA device the server runs its decode step as one CUDA graph,
 captured once over its params and cache (``CompiledServeStep``), as the
@@ -23,6 +24,8 @@ JAX ``Server`` runs one jitted step with the cache donated; reassigning
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
       --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-large-v3 \\
+      --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch paligemma-3b \\
       --smoke --device cpu
 """
 from __future__ import annotations

@@ -14,15 +14,14 @@ from repro_torch.kernels._build import LAUNCHES, LAUNCHES_BY_SHAPE
 
 
 def make_prefill_step(cfg, *, kv_max: int):
-    """``batch``: ``tokens`` (B, S), and ``encoder_embeds`` (B, S_enc, d)
-    for an encoder-decoder (whisper).  A ``prefix_embeds`` (paligemma's
-    prefix) is not ported yet and raises."""
+    """``batch``: ``tokens`` (B, S), ``prefix_embeds`` (B, P, d) for a
+    prefix-LM (paligemma's patch embeddings; the cache then holds P + S
+    rows) and ``encoder_embeds`` (B, S_enc, d) for an encoder-decoder
+    (whisper)."""
     @torch.no_grad()
     def prefill_step(params, batch):
-        if batch.get("prefix_embeds") is not None:
-            raise NotImplementedError("the port's prefill takes no "
-                                      "prefix_embeds (VLM) yet")
         logits, _, cache = models.forward(cfg, params, batch["tokens"],
+                                          prefix_embeds=batch.get("prefix_embeds"),
                                           encoder_embeds=batch.get("encoder_embeds"),
                                           collect_cache=True, kv_max=kv_max)
         next_tok = torch.argmax(logits[:, -1:], dim=-1)

@@ -7,12 +7,12 @@ Prefill attention, causal or not (whisper's encoder and cross-attention),
 goes to ``kernels.ops.flash_attention`` and decode attention to
 ``kernels.ops.paged_attention`` over the identity block table of the
 contiguous cache: the Hopper kernels on a CUDA tensor, their plain
-versions on a CPU tensor; both take the sliding window (mixtral), which
-the kernels apply in place of the JAX package's mask.  ``full_attention``
-is the exact quadratic reference, for tests.  The sequence-parallel and
-PICNIC distributed-scratchpad paths, and prefill with a bidirectional
-prefix (``prefix_len`` raises ``NotImplementedError``; paligemma's) or a
-query offset, belong to later slices of the port.
+versions on a CPU tensor; both take the sliding window (mixtral) and the
+bidirectional prefix (paligemma's prefix-LM), which the kernels apply in
+place of the JAX package's mask.  ``full_attention`` is the exact
+quadratic reference, for tests.  The sequence-parallel and PICNIC
+distributed-scratchpad paths, and prefill with a query offset, belong to
+later slices of the port.
 """
 from __future__ import annotations
 
@@ -81,18 +81,17 @@ def full_attention(q, k, v, *, causal=True, window=None, q_offset=0,
 def attn_sublayer(cfg, p, x, *, positions, causal=True, window=None,
                   prefix_len=0):
     """Returns (out (B, S, d), (k, v)).  The JAX package picks between two
-    exact paths by sequence length (``impl``); both are the flash kernel
-    here.  ``window``: keys ``window`` or more positions before a query
-    are masked.  A bidirectional prefix (``prefix_len > 0``, paligemma) is
-    not ported yet."""
-    if prefix_len:
-        raise NotImplementedError("the port's attention takes no "
-                                  "bidirectional prefix yet")
+    exact paths by sequence length and prefix (``impl``); both are the
+    flash kernel here.  ``window``: keys ``window`` or more positions
+    before a query are masked.  ``prefix_len``: the first ``prefix_len``
+    keys are visible to every query (paligemma's image prefix; causal,
+    without a window)."""
     q, k, v = qkv_project(cfg, p, x)
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              prefix_len=prefix_len)
     B, S = x.shape[:2]
     out = out.reshape(B, S, cfg.q_dim)
     return out @ p["wo"], (k, v)

@@ -1,5 +1,5 @@
-"""Model assembly, dense / moe / ssm / hybrid / audio families: init,
-prefill forward and cached decode.
+"""Model assembly, dense / moe / ssm / hybrid / audio / vlm families:
+init, prefill forward and cached decode.
 
 Port of those families of ``repro.models.model``.  Params and cache keep
 the JAX package's nesting: every layer-group tensor has a stacked leading
@@ -14,6 +14,7 @@ q_dim)``).  Groups:
   hybrid : [mamba x attn_every, shared attn+mlp]     x n_layers / attn_every
   audio  : encoder [attn+mlp] x n_encoder_layers (non-causal), then
            [self attn, cross attn, mlp]              x n_layers (whisper)
+  vlm    : [attn+mlp]                                x n_layers (paligemma)
 
 The hybrid's shared block (zamba2) is ONE unstacked param set,
 ``params["shared_attn"]``, applied after every group; its cache
@@ -32,8 +33,14 @@ decoder block's cache also holds ``cross_k`` / ``cross_v``, the encoder
 output's K and V, in ``cross_rows(encoder_seq)`` rows (1536 at 1500):
 rows past ``encoder_seq`` stay zero and are masked, so the paged kernel
 reads the cache in 64-token blocks.  The JAX cache has ``encoder_seq``
-rows; the rows that exist in both are equal.  The VLM family (paligemma)
-belongs to a later slice.
+rows; the rows that exist in both are equal.
+
+PaliGemma (vlm) is the dense stack; ``forward(..., prefix_embeds=(B, P,
+d))`` puts the patch embeddings (the SigLIP front end is a stub in both
+packages) before the token embeddings, attends over them bidirectionally
+(``prefix_len = P``: every query sees the prefix) and returns logits of
+the text positions only.  Decode needs nothing more: every cached row is
+visible to the new token.
 """
 from __future__ import annotations
 
@@ -62,7 +69,7 @@ def cross_rows(encoder_seq: int) -> int:
 
 def group_layout(cfg) -> Tuple[Tuple[str, ...], int]:
     """Returns (block kinds within a group, number of groups)."""
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         return ("dense",), cfg.n_layers
     if cfg.family == "moe":
         if cfg.moe_every == 1:
@@ -76,9 +83,7 @@ def group_layout(cfg) -> Tuple[Tuple[str, ...], int]:
             cfg.n_layers // cfg.attn_every
     if cfg.family == "audio":
         return ("dec",), cfg.n_layers
-    raise NotImplementedError(
-        f"the port runs the dense, moe, ssm, hybrid and audio families; "
-        f"{cfg.family!r} is not ported yet")
+    raise ValueError(f"unknown family {cfg.family!r}")
 
 
 def _cache_key(i: int, kind: str) -> str:
@@ -157,13 +162,15 @@ def encode(cfg, params, encoder_embeds):
     return apply_norm(cfg, enc["final_norm"], e)
 
 
-def _attn_block(cfg, p, kind: str, x, positions, *, causal: bool = True, enc=None):
-    """A pre-norm attention block: self-attention, a decoder block's
-    cross-attention over the encoder output ``enc``, then the MLP (or MoE).
-    Returns (x, the MoE aux loss or None, (k, v), the cross (k, v) or None)."""
+def _attn_block(cfg, p, kind: str, x, positions, *, causal: bool = True, enc=None,
+                prefix_len: int = 0):
+    """A pre-norm attention block: self-attention (the first ``prefix_len``
+    positions seen by every query), a decoder block's cross-attention over
+    the encoder output ``enc``, then the MLP (or MoE).  Returns (x, the MoE
+    aux loss or None, (k, v), the cross (k, v) or None)."""
     attn_out, kv = A.attn_sublayer(cfg, p["attn"], apply_norm(cfg, p.get("ln1"), x),
                                    positions=positions, causal=causal,
-                                   window=cfg.sliding_window)
+                                   window=cfg.sliding_window, prefix_len=prefix_len)
     x = x + attn_out
     cross_kv = None
     if kind == "dec":
@@ -177,22 +184,34 @@ def _attn_block(cfg, p, kind: str, x, positions, *, causal: bool = True, enc=Non
     return x + M.mlp_sublayer(cfg, p["mlp"], h), None, kv, cross_kv
 
 
-def forward(cfg, params, tokens, *, encoder_embeds=None,
+def forward(cfg, params, tokens, *, prefix_embeds=None, encoder_embeds=None,
             collect_cache: bool = False, kv_max: int = 0):
     """tokens: (B, S) int -> (logits (B, S, V), aux, cache | None); aux is
     the float32 sum of the MoE blocks' aux losses (0 without MoE).
-    ``encoder_embeds`` (B, S_enc, d): whisper's frame embeddings, which an
-    encoder-decoder needs and no other family takes.
+    ``prefix_embeds`` (B, P, d): paligemma's patch embeddings, cast to the
+    embedding's dtype and put before the tokens' embeddings, a prefix that
+    every position attends to; the logits are those of the S text
+    positions.  ``encoder_embeds`` (B, S_enc, d): whisper's frame
+    embeddings, which an encoder-decoder needs and no other family takes.
 
-    With ``collect_cache`` an attention block's cache holds the prompt's
-    K/V in rows [0, S) of a ``max(kv_max, S)``-row buffer, zeros after, a
-    decoder block's also the encoder output's K/V in rows [0, S_enc) of
-    its cross cache (S_enc must be the config's ``encoder_seq``, the length
-    the decode step attends), and a mamba block's cache its conv window
-    and final SSM state."""
+    With ``collect_cache`` an attention block's cache holds the K/V of the
+    P + S positions in rows [0, P + S) of a ``max(kv_max, P + S)``-row
+    buffer, zeros after, a decoder block's also the encoder output's K/V in
+    rows [0, S_enc) of its cross cache (S_enc must be the config's
+    ``encoder_seq``, the length the decode step attends), and a mamba
+    block's cache its conv window and final SSM state."""
     kinds, n_groups = group_layout(cfg)
-    B, Sq = tokens.shape
+    B = tokens.shape[0]
     x = F.embedding(tokens, params["embed"])
+    prefix_len = 0
+    if prefix_embeds is not None:
+        if prefix_embeds.dim() != 3 or prefix_embeds.shape[0] != B \
+                or prefix_embeds.shape[2] != cfg.d_model:
+            raise ValueError(f"prefix_embeds must be (B={B}, P, d_model={cfg.d_model}), "
+                             f"got {tuple(prefix_embeds.shape)}")
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+        prefix_len = prefix_embeds.shape[1]
+    Sq = x.shape[1]
     positions = torch.arange(Sq, device=x.device)
     enc = None
     if cfg.is_encoder_decoder:
@@ -224,7 +243,8 @@ def forward(cfg, params, tokens, *, encoder_embeds=None,
                     y = S.mamba_sublayer(cfg, p["mamba"], h)
                 x = x + y
                 continue
-            x, a, (k, v), cross_kv = _attn_block(cfg, p, kind, x, positions, enc=enc)
+            x, a, (k, v), cross_kv = _attn_block(cfg, p, kind, x, positions, enc=enc,
+                                                 prefix_len=prefix_len)
             if a is not None:
                 aux = aux + a
             if collect_cache:
@@ -234,7 +254,9 @@ def forward(cfg, params, tokens, *, encoder_embeds=None,
                     ek, ev = cross_kv
                     c["cross_k"][g, :, :ek.shape[1]] = ek
                     c["cross_v"][g, :, :ev.shape[1]] = ev
-    x = apply_norm(cfg, params["final_norm"], x)
+    # the JAX package cuts the logits at prefix_len; the rows of x are cut
+    # before the head instead, the same numbers without the prefix's logits
+    x = apply_norm(cfg, params["final_norm"], x[:, prefix_len:])
     logits = x @ _head(cfg, params)
     return logits, aux, cache
 

@@ -260,7 +260,7 @@ def test_decode_continues_the_prefill():
 
 def test_encoder_inputs_are_checked():
     """An encoder-decoder needs its frames, a cache needs encoder_seq of
-    them, no other family takes them, and a VLM prefix still raises."""
+    them, no other family takes them, and a prefix must be (B, P, d_model)."""
     _, tcfg = _cfgs()
     tp = tmodels.init_params(tcfg, torch.Generator().manual_seed(0))
     toks = torch.zeros((1, 3), dtype=torch.long)
@@ -275,9 +275,9 @@ def test_encoder_inputs_are_checked():
     dp = tmodels.init_params(dense, torch.Generator().manual_seed(0))
     with pytest.raises(ValueError, match="no encoder_embeds"):
         tmodels.forward(dense, dp, toks, encoder_embeds=short)
-    with pytest.raises(NotImplementedError, match="prefix_embeds"):
+    with pytest.raises(ValueError, match="prefix_embeds"):
         tsteps.make_prefill_step(dense, kv_max=8)(
-            dp, {"tokens": toks, "prefix_embeds": torch.zeros((1, 2, dense.d_model))})
+            dp, {"tokens": toks, "prefix_embeds": torch.zeros((1, 2, dense.d_model + 1))})
 
 
 def test_launch_keys_tell_whispers_attention_shapes_apart():

@@ -29,7 +29,8 @@ from repro_torch.launch import serve as tserve
 from repro_torch.launch import steps as tsteps
 from repro_torch.params import from_jax
 
-ARCHS = ["llama3-8b", "mamba2-2.7b", "zamba2-2.7b", "mixtral-8x7b", "whisper-large-v3"]
+ARCHS = ["llama3-8b", "mamba2-2.7b", "zamba2-2.7b", "mixtral-8x7b", "whisper-large-v3",
+         "paligemma-3b"]
 # float32 on both sides, logits of order 1 through a few smoke layers: the
 # bar of tests/test_torch_models.py and tests/test_torch_ssm.py
 ATOL = 1e-4
@@ -50,11 +51,15 @@ def _setup(arch, seed=0):
 
 def _batch(cfg, toks, seed=7):
     """The prefill batch: the token ids, and an encoder-decoder's frame
-    embeddings (whisper's encoder_seq of them) from a numpy seed."""
+    embeddings (whisper's encoder_seq of them) or a prefix-LM's patch
+    embeddings (paligemma's n_prefix_tokens of them) from a numpy seed."""
     batch = {"tokens": toks}
-    if cfg.is_encoder_decoder:
-        batch["encoder_embeds"] = np.random.default_rng(seed).standard_normal(
-            (toks.shape[0], cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    rows = {"encoder_embeds": cfg.encoder_seq if cfg.is_encoder_decoder else 0,
+            "prefix_embeds": cfg.n_prefix_tokens}
+    for name, n in rows.items():
+        if n:
+            batch[name] = np.random.default_rng(seed).standard_normal(
+                (toks.shape[0], n, cfg.d_model)).astype(np.float32)
     return batch
 
 
@@ -68,8 +73,10 @@ def test_serve_step_with_a_tensor_length_gives_the_jax_jitted_step(arch):
     as a 0-dim tensor against the JAX serve step jitted with a traced
     int32: the same ids at every step, logits within ATOL."""
     jcfg, tcfg, jp, tp = _setup(arch)
-    B, S, steps, max_len = 2, 29, 6, 40
-    toks = np.random.default_rng(4).integers(0, jcfg.vocab_size, (B, S))
+    B, steps = 2, 6
+    S = 29 + jcfg.n_prefix_tokens           # cache rows after the prefill
+    max_len = S + 11
+    toks = np.random.default_rng(4).integers(0, jcfg.vocab_size, (B, 29))
     jprefill = jax.jit(jsteps.make_prefill_step(jcfg, kv_max=max_len))
     jserve = jax.jit(jsteps.make_serve_step(jcfg))
     jdecode = jax.jit(lambda p, t, c, n: jmodels.decode_step(jcfg, p, t, c, n))
@@ -98,12 +105,14 @@ def test_tensor_and_int_lengths_give_the_same_bits(arch):
     toks = np.random.default_rng(1).integers(0, tcfg.vocab_size, (3, 12))
     enc = {k: torch.from_numpy(v) for k, v in _batch(tcfg, toks).items() if k != "tokens"}
     toks = torch.from_numpy(toks)
-    _, _, cache = tmodels.forward(tcfg, tp, toks[:, :9], collect_cache=True, kv_max=16, **enc)
+    P = tcfg.n_prefix_tokens
+    _, _, cache = tmodels.forward(tcfg, tp, toks[:, :9], collect_cache=True, kv_max=16 + P,
+                                  **enc)
     by_int, by_tensor = _copy(cache), _copy(cache)
     for i in range(9, 12):
-        li, _ = tmodels.decode_step(tcfg, tp, toks[:, i:i + 1], by_int, i + 1)
+        li, _ = tmodels.decode_step(tcfg, tp, toks[:, i:i + 1], by_int, P + i + 1)
         lt, _ = tmodels.decode_step(tcfg, tp, toks[:, i:i + 1], by_tensor,
-                                    torch.tensor(i + 1, dtype=torch.int32))
+                                    torch.tensor(P + i + 1, dtype=torch.int32))
         assert torch.equal(li, lt)
     for key, entry in by_int.items():
         for name, t in entry.items():

@@ -77,7 +77,7 @@ def _randn(shape, dtype, seed, device):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("use_pwl", [False, True])
-@pytest.mark.parametrize("D", [32, 64, 80, 128])
+@pytest.mark.parametrize("D", [32, 64, 80, 128, 256])
 def test_flash_kernel_matches_plain(cuda, D, use_pwl, dtype):
     q, k, v = (_randn((2, 200, h, D), dtype, D + h, cuda) for h in (8, 2, 2))
     for causal in (True, False):
@@ -159,7 +159,8 @@ def test_paged_kernel_window_matches_plain(cuda, repeat, use_pwl, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("use_pwl", [False, True])
 @pytest.mark.parametrize("bt,H,Hkv,D", [(8, 4, 2, 32), (16, 32, 8, 128),
-                                        (64, 8, 8, 64), (32, 32, 32, 80)])
+                                        (64, 8, 8, 64), (32, 32, 32, 80),
+                                        (64, 8, 1, 256)])
 def test_paged_kernel_matches_plain_on_scattered_tables(cuda, bt, H, Hkv, D,
                                                        use_pwl, dtype):
     ctx = [0, 1, bt - 1, 3 * bt + 5, 200]
@@ -511,7 +512,7 @@ def _binding(cfg):
 
 
 @pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-2.7b", "zamba2-2.7b", "mixtral-8x7b",
-                                  "llama4-maverick-400b-a17b"])
+                                  "llama4-maverick-400b-a17b", "paligemma-3b"])
 def test_smoke_model_on_card_matches_cpu(cuda, arch):
     """Prefill and 4 decode steps of a float32 smoke model: the card
     (kernels) against the CPU (plain versions), same weights."""
@@ -615,7 +616,7 @@ def _n_attn(cfg):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-2.7b", "zamba2-2.7b", "mixtral-8x7b",
-                                  "llama4-maverick-400b-a17b"])
+                                  "llama4-maverick-400b-a17b", "paligemma-3b"])
 def test_compiled_step_matches_the_eager_step(cuda, arch, dtype):
     """Prefill, then 8 greedy steps eager and 8 through the captured graph
     from copies of the prefill's cache: equal ids at every step and equal
@@ -675,7 +676,7 @@ def _serve(srv, prompts, rounds):
 
 
 @pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-2.7b", "zamba2-2.7b", "mixtral-8x7b",
-                                  "whisper-large-v3"])
+                                  "whisper-large-v3", "paligemma-3b"])
 def test_server_graph_matches_an_eager_step_loop(cuda, arch):
     """The card's Server (a captured graph) against the same Server driven
     by the eager step, same seed and prompts; then new params: the graph is
@@ -814,3 +815,131 @@ def test_whisper_compiled_step_matches_the_eager_step(cuda, dtype):
     by_shape = {k: n for k, n in ops.LAUNCHES_BY_SHAPE.items() if k[0] == "paged_attention"}
     assert sorted(k[1].split()[5] for k in by_shape) == ["blocks24", "blocks7"]
     assert list(by_shape.values()) == [2 * 8 * cfg.n_layers] * 2
+
+
+# ---------------------------------------------------------------------------
+# PaliGemma: the bidirectional prefix in flash, head_dim 256 in both kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 256])
+@pytest.mark.parametrize("S,prefix_len", [(288, 256), (300, 16), (300, 130), (100, 256)])
+def test_flash_kernel_prefix_matches_plain(cuda, S, prefix_len, D, dtype):
+    """Causal with a bidirectional prefix, MQA (8 query heads on one KV
+    head): paligemma's prefill (256 image rows + 32 text rows), a prefix
+    inside the first 128-key step, one whose edge lies in the second step
+    past the rows of the first, and one longer than the sequence."""
+    q = _randn((2, S, 8, D), dtype, S + prefix_len, cuda)
+    k, v = (_randn((2, S, 1, D), dtype, S + s, cuda) for s in (1, 2))
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, prefix_len=prefix_len)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    want = flash_attention_plain(q, k, v, prefix_len=prefix_len)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    err, ratio, rows_off, ok = flash_agreement(got, want)
+    assert ok, (err, ratio, rows_off)
+
+
+def test_flash_kernel_refuses_a_prefix_with_no_meaning(cuda):
+    """The wrapper raises ValueError, and the C entry refuses, a prefix
+    without the causal mask, with a window or with PWL exp."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    x = _randn((1, 64, 2, 64), torch.bfloat16, 0, cuda)
+    for kw in ({"causal": False}, {"window": 8}, {"use_pwl": True}):
+        with pytest.raises(ValueError, match="prefix"):
+            flash_attention_cuda(x, x, x, prefix_len=16, **kw)
+    lib = _build.library("flash_attention")
+    out = torch.empty_like(x)
+    for causal, window, use_pwl in ((0, 0, 0), (1, 8, 0), (1, 0, 1)):
+        assert lib.flash_attention_fwd(
+            x.data_ptr(), x.data_ptr(), x.data_ptr(), out.data_ptr(), 1, 64, 64, 2, 2, 64, 1,
+            causal, window, 16, use_pwl, ctypes.addressof(PWL_COEFFS),
+            torch.cuda.current_stream(cuda).cuda_stream) != 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,use_pwl", [(4, False), (264, False), (4, True)])
+def test_paged_kernel_d256_matches_plain(cuda, batch, use_pwl, dtype):
+    """paligemma's decode: 8 query heads on one KV head of 256, a 448-row
+    cache in 64-token blocks, contexts up to 416; at batch 4 split_plan
+    gives one block a split (7 splits, combined), at batch 264 (2 CTAs an
+    SM) and under PWL one split; float32 then runs one stage (two do not
+    fit in shared memory at D 256)."""
+    H, Hkv, D, bt, max_len = 8, 1, 256, 64, 448
+    ctx = ([416, 289, 64, 0] * (batch // 4))[:batch]
+    cache_k, cache_v = (_randn((batch, max_len, Hkv, D), dtype, s, cuda) for s in (61, 62))
+    args = (_randn((batch, H, D), dtype, 63, cuda), cache_k.view(-1, bt, Hkv, D),
+            cache_v.view(-1, bt, Hkv, D), identity_block_table(batch, max_len, bt, device=cuda),
+            torch.tensor(ctx, dtype=torch.int32, device=cuda))
+    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    n_splits, _ = split_plan(batch * Hkv, max_len // bt, bt, n_sms, use_pwl=use_pwl)
+    assert (n_splits > 1) == (batch == 4 and not use_pwl)
+    got = ops.paged_attention(*args, use_pwl=use_pwl)
+    want = paged_attention_plain(*args, use_pwl=use_pwl)
+    torch.cuda.synchronize()
+    assert not got[3].any()                                  # context 0 -> 0
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    err, ratio, rows_off, ok = flash_agreement(got, want, pwl=use_pwl)
+    assert ok, (err, ratio, rows_off)
+
+
+@pytest.mark.parametrize("kw", [{}, {"n_layers": 1, "head_dim": 256}],
+                         ids=["smoke", "one_layer_d256"])
+def test_paligemma_prefix_on_card_matches_cpu(cuda, kw):
+    """Prefill with a 16-row image prefix and 4 decode steps of a float32
+    smoke paligemma (and one layer at head_dim 256): the card (kernels)
+    against the CPU (plain versions), same weights and prefix."""
+    cfg = dataclasses.replace(get_smoke_config("paligemma-3b"), dtype="float32", **kw)
+    params = models.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 14)))
+    prefix = _randn((2, cfg.n_prefix_tokens, cfg.d_model), torch.float32, 4, "cpu")
+    P = cfg.n_prefix_tokens
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = _to(params, dev)
+        logits, _, cache = models.forward(cfg, p, toks[:, :10].to(dev),
+                                          prefix_embeds=prefix.to(dev),
+                                          collect_cache=True, kv_max=P + 16)
+        steps = [logits.cpu()]
+        for i in range(10, 14):
+            lg, cache = models.decode_step(cfg, p, toks[:, i:i + 1].to(dev), cache, P + i + 1)
+            steps.append(lg.cpu())
+        out[dev] = torch.cat(steps, 1)
+    torch.testing.assert_close(out["cuda"], out["cpu"], atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paligemma_compiled_step_after_a_prefix_matches_the_eager_step(cuda, dtype):
+    """paligemma cut to 2 layers at its published widths (d_model 2048, 8
+    heads of 256 on one KV head, vocab 257216): a prefill of 256 image rows
+    and a 32-token prompt, then 8 greedy steps eager and 8 through the
+    captured graph: equal ids and caches, bit for bit; a prefill launches
+    one flash a layer (its prefix shape), a step one paged a layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    cfg = dataclasses.replace(get_config("paligemma-3b"), dtype=dtype, n_layers=2)
+    params = models.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 32)))
+    prefix = _randn((4, 256, cfg.d_model), getattr(torch, dtype), 5, cuda)
+    ops.reset_launch_counts()
+    tok0, cache0 = make_prefill_step(cfg, kv_max=448)(
+        params, {"tokens": toks.to(cuda), "prefix_embeds": prefix})
+    q = torch.empty((4, 288, 8, 256), dtype=getattr(torch, dtype))
+    assert ops.LAUNCHES_BY_SHAPE == {
+        ("flash_attention", fa.launch_key(q, q[:, :, :1], prefix_len=256)): cfg.n_layers}
+    eager_cache, graph_cache = _copy(cache0), _copy(cache0)
+    step = CompiledServeStep(cfg, params, graph_cache, 4)
+    tok_e, tok_g = tok0, tok0.clone()
+    ops.reset_launch_counts()
+    for i in range(8):
+        n = 288 + i + 1
+        logits, _ = models.decode_step(cfg, params, tok_e, eager_cache, n)
+        tok_e = torch.argmax(logits[:, -1:], dim=-1)
+        nxt, _ = step(params, graph_cache, tok_g, n)
+        tok_g = nxt.clone()
+        assert torch.equal(tok_g, tok_e), f"step {i}"
+    for key, entry in graph_cache.items():
+        for name, t in entry.items():
+            assert torch.equal(t, eager_cache[key][name]), f"{key}/{name}"
+    assert ops.LAUNCHES["paged_attention"] == 2 * 8 * cfg.n_layers

@@ -214,16 +214,22 @@ def test_init_cache_matches_jax_layout():
 
 
 def test_unported_families_and_variants_raise():
-    """What is still unported raises: the vlm family (paligemma) and
-    attention with a bidirectional prefix (its prefix-LM)."""
+    """The vlm family (paligemma) initialises as the dense stack, with the
+    JAX tree's paths and shapes, and attention takes a bidirectional
+    prefix; what is still unported raises: a prefix with a window, with
+    PWL exp or without the causal mask, which nothing in the reference
+    defines."""
     from repro_torch.models import attention as tattn
-    cfg = jconfigs.get_smoke_config("paligemma-3b")
-    tcfg = tconfigs.base.ModelConfig(**dataclasses.asdict(cfg))
-    assert tcfg.family == "vlm"
-    with pytest.raises(NotImplementedError, match="vlm"):
-        tmodels.init_params(tcfg, torch.Generator())
+    tcfg, tp = _mirrors_the_jax_tree("paligemma-3b")
+    assert tcfg.family == "vlm" and tcfg.tie_embeddings and "lm_head" not in tp
+    assert tmodels.group_layout(tcfg) == (("dense",), tcfg.n_layers)
     _, dense = _cfgs("llama3-8b")
     p = tattn.init_attention(dense, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="prefix"):
-        tattn.attn_sublayer(dense, p, torch.zeros((1, 20, dense.d_model)),
-                            positions=torch.arange(20), prefix_len=16)
+    x = torch.randn((1, 20, dense.d_model), generator=torch.Generator().manual_seed(1))
+    out, _ = tattn.attn_sublayer(dense, p, x, positions=torch.arange(20), prefix_len=16)
+    causal, _ = tattn.attn_sublayer(dense, p, x, positions=torch.arange(20))
+    assert torch.equal(out[:, 16:], causal[:, 16:])
+    assert not torch.allclose(out[:, :15], causal[:, :15])
+    for kw in ({"window": 8}, {"causal": False}):
+        with pytest.raises(ValueError, match="prefix"):
+            tattn.attn_sublayer(dense, p, x, positions=torch.arange(20), prefix_len=16, **kw)

@@ -264,7 +264,8 @@ def _flat(tree, path=()):
             yield path + (k,), v
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["mixtral-8x7b", "llama4-maverick-400b-a17b"])
+@pytest.mark.parametrize("arch", ARCHS + ["mixtral-8x7b", "llama4-maverick-400b-a17b",
+                                          "paligemma-3b"])
 def test_init_params_and_cache_mirror_the_jax_trees(arch):
     jcfg, tcfg = _cfgs(arch)
     jp = jax.eval_shape(lambda: jmodels.init_params(jcfg, jax.random.PRNGKey(0)))
@@ -288,10 +289,11 @@ def test_init_params_and_cache_mirror_the_jax_trees(arch):
         assert not got[k].any()
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["paligemma-3b"])
 def test_forward_and_decode_match_jax(arch):
     """Prefill logits and cache, then 4 greedy decode steps: logits, every
-    cache entry and the greedy ids."""
+    cache entry and the greedy ids (paligemma without an image prefix:
+    the dense stack with its MQA, GeGLU and tied head)."""
     jcfg, tcfg = _cfgs(arch)
     jp, tp = _params(jcfg)
     rng = np.random.default_rng(1)
@@ -340,13 +342,14 @@ def test_decode_continues_the_prefill(arch):
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-2.7b", "zamba2-2.7b", "mixtral-8x7b",
-                                  "whisper-large-v3"])
+                                  "whisper-large-v3", "paligemma-3b"])
 def test_server_matches_the_jax_server_loop(arch):
     """For an SSM every admission step also advances the recurrent state
     of every other slot, in both packages (ROADMAP hazard 6).  mixtral's
     window is cut to 8 so that it binds within the loop's 29 rows.  Neither
     Server runs whisper's encoder: both attend over a zero cross cache
-    (hazard 6), with the positions of the shared cur_len."""
+    (hazard 6), with the positions of the shared cur_len; neither gives
+    paligemma an image prefix: both admit its prompts as text."""
     jcfg, tcfg = _cfgs(arch, **({"sliding_window": 8} if arch == "mixtral-8x7b" else {}))
     jp, tp = _params(jcfg, seed=3)
     rng = np.random.default_rng(5)

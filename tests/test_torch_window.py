@@ -218,5 +218,7 @@ def test_attention_sublayers_pass_the_window_and_refuse_a_prefix():
     full, _ = tattn.attn_sublayer(cfg, p, x, positions=pos)
     assert torch.equal(out[:, :cfg.sliding_window], full[:, :cfg.sliding_window])
     assert not torch.allclose(out[:, cfg.sliding_window:], full[:, cfg.sliding_window:])
-    with pytest.raises(NotImplementedError, match="prefix"):
-        tattn.attn_sublayer(cfg, p, x, positions=pos, prefix_len=16)
+    # a prefix and a window together (no config has both) are refused
+    with pytest.raises(ValueError, match="prefix"):
+        tattn.attn_sublayer(cfg, p, x, positions=pos, window=cfg.sliding_window,
+                            prefix_len=16)
