@@ -41,8 +41,12 @@ Phases, each of which fails the run if it fails:
                 16 x 26 to unblocked, adc_bits 6 to 16, each of its three routes
                 with the route and the CTAs resident per SM logged, every
                 route that takes a case's shape held and timed beside the
-                route taken, the weight pre-laid or transposed per call);
-                time kernel, plain
+                route taken, the weight pre-laid or transposed per call;
+                the flash backward against its plain version on dQ, dK, dV
+                at llama3.2-1b's train shape, D 128, the smoke D 32, ragged
+                S, float32 and a NaN in dout and in k, bit-equal across two
+                runs, the forward with its lse output bit-equal to the
+                forward without it); time kernel, plain
                 version and one PyTorch library call where there is one,
                 with CUDA events.
   serve         llama3-8b at full width and depth in bf16, random weights
@@ -104,13 +108,26 @@ Phases, each of which fails the run if it fails:
                 layers), whisper-large-v3 (no encoder run, as the JAX
                 Server) and paligemma-3b (no image prefix, as the JAX
                 Server); on the card the Server replays its captured graph.
+  train         llama3.2-1b at full width and depth (16 layers) in bf16
+                under remat, random weights from a seed: 20 AdamW steps of
+                B8 x S1024 from the port's PackedStream through
+                ``launch.steps.make_train_step``; the loss must fall, every
+                leaf's first gradient be finite and non-zero, and each step
+                launch 32 flash forwards and 16 backwards; ms a step,
+                tokens/s, peak memory and the flash kernels' device time.
+  train_parity  llama3.2-1b widths, 2 layers, float32: 3 AdamW steps on the
+                card (remat on, then off) against the CPU from the same
+                weights and batches: metrics, first gradients, updates.
+  train_driver  ``launch.train.main`` at smoke size: a checkpoint at step
+                10, a failure injected at step 15, the restart from the
+                checkpoint, the loss down.
   profile       (only when named) device time by kernel under torch.profiler
                 for one full-width prefill and 8 decode steps (eager, and
                 through the graph) of each of the six served models
                 (whisper's prefill with its encoder, paligemma's with its
-                image prefix), and for the cim_scu
-                layer's prefill and decode step, and the device's busy
-                share of the host-clock window.
+                image prefix), for the cim_scu layer's prefill and decode
+                step and for one llama3.2-1b train step, and the device's
+                busy share of the host-clock window.
 
 The line before the last two is a JSON object ``{"kernels": [...]}``, then
 the card's name and power limit as nvidia-smi reports them, and the last
@@ -132,7 +149,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "serve", "ssm_serve", "hybrid_serve", "moe_serve", "audio_serve",
           "vlm_serve", "cim_scu", "parity", "ssm_parity", "moe_parity", "audio_parity",
-          "vlm_parity", "server")
+          "vlm_parity", "server", "train", "train_parity", "train_driver")
 EXTRA_PHASES = ("profile",)          # run only when named in --phases
 SERVE_ARCH = {"serve": "llama3-8b", "ssm_serve": "mamba2-2.7b",
               "hybrid_serve": "zamba2-2.7b"}
@@ -142,7 +159,7 @@ SERVE_ARCH = {"serve": "llama3-8b", "ssm_serve": "mamba2-2.7b",
 # run 2, "moe_serve_run2", "audio_serve" or "vlm_serve"
 MAIN_PATH_OF = {"flash_attention": "serve", "paged_attention": "serve",
                 "ssd_scan": "ssm_serve", "pwl_softmax": "cim_scu",
-                "cim_matmul": "cim_scu"}
+                "cim_matmul": "cim_scu", "flash_attention_bwd": "train"}
 
 # H100 SXM data-sheet peaks (dense): memory, bf16 and int8 tensor cores,
 # float32 SIMT
@@ -218,6 +235,25 @@ W_NEW, W_MAX_LEN = 128, 448
 # 256; then 128 steps over a 448-row cache (contexts up to 416)
 VH, VD, V_PREFIX, V_PROMPT = 8, 256, 256, 32
 V_NEW, V_MAX_LEN = 128, 448
+# training (llama3.2-1b, 16 layers of 32 query heads on 8 KV heads of 64,
+# vocab 128256, tied embeddings, remat): B8 x S1024 batches from the
+# port's PackedStream(seed=0), 20 AdamW steps at lr 3e-4, warmup 10, as
+# launch/train.py sets them
+TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "llama3.2-1b", 8, 1024, 20
+TRAIN_HQ, TRAIN_HKV, TRAIN_D = 32, 8, 64
+# train_parity: the card against the CPU, llama3.2-1b widths x 2 layers,
+# float32, B2 x S256, 3 AdamW steps.  The loss, ce and LR of a step and
+# its gradient norm are float32 sums in another order on the two devices
+# (~1e-7 relative); each leaf's gradient of the first batch within
+# TRAIN_GRAD_REL in relative L2 norm (sums over 512 tokens and 128256
+# logits, the embedding's backward adding rows in another order on the
+# card); each leaf's update within TRAIN_UPDATE_REL: AdamW's first steps
+# move an element by lr * m / (sqrt(v) + eps), about lr * sign(g), so a
+# gradient element within rounding of 0 may move the other way on the
+# other device, 2 lr on that element (a share f of them gives 2 sqrt(f)).
+TRAIN_METRIC_REL = 1e-5
+TRAIN_GRAD_REL = 1e-4
+TRAIN_UPDATE_REL = 1e-2
 
 
 def log(*a):
@@ -702,7 +738,9 @@ def phase_kernels(torch, timer, results):
     softmax = phase_kernels_softmax(torch, timer, randn, extra)
     cim = phase_kernels_cim(torch, timer, randn, extra)
 
-    results["kernels"] = [flash, paged, ssd, softmax, cim]
+    flash_bwd = flash_bwd_cases(torch, timer, randn, extra)
+
+    results["kernels"] = [flash, paged, ssd, softmax, cim, flash_bwd]
     results["kernels_other_shapes"] = extra
     for kern in results["kernels"] + extra:
         lib = kern["library_ms"]
@@ -710,6 +748,148 @@ def phase_kernels(torch, timer, results):
             f"plain {kern['plain_ms']:.4f} ms, library "
             + ("none" if lib is None else f"{lib:.4f} ms")
             + f", bound {kern['bound_ms']:.5f} ms ({kern['bound_by']})")
+
+
+def bwd_work(b, s, hq, hkv, d, esize):
+    """Bytes (q, k, v, out, dout and the float32 lse read once; dq, dk,
+    dv written once) and FLOPs of causal attention's backward: five
+    products of 2 * D per (query, key) pair the mask keeps (S, dP, dV, dK,
+    dQ), s (s + 1) / 2 pairs a head."""
+    pairs = s * (s + 1) // 2
+    nbytes = (4 * b * s * hq * d + 4 * b * s * hkv * d) * esize + b * hq * s * 4
+    return nbytes, 5 * 2 * b * hq * d * pairs
+
+
+def flash_bwd_cases(torch, timer, randn, extra):
+    """The flash backward kernel (``flash_attention_bwd_cuda``) against its
+    plain version (``flash_attention_bwd_plain``, explicit P) on dQ, dK and
+    dV by ``flash_attention.bwd_agreement``: llama3.2-1b's train shape (the
+    main path), llama3-8b's B4 S512 D128, the smoke D 32, ragged S 1, 129
+    and 1000, float32 at train_parity's shape, a NaN in dout and in k
+    (non-finite in the same places).  Each case also holds the forward with the lse output
+    bit-equal to the forward without it, and the lse to the plain
+    version's.  The main shape runs twice, bit-equal (no atomics).  Timed
+    with the plain version and SDPA's backward (fwd + bwd through
+    ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
+    minus its forward, a yardstick).  Returns the main entry."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    cases = [  # B, S, Hq, Hkv, D, dtype, the input that holds a NaN
+        (TRAIN_B, TRAIN_S, TRAIN_HQ, TRAIN_HKV, TRAIN_D, "bfloat16", None),  # main path
+        (B_MAIN, PROMPT, HQ, HKV, D, "bfloat16", None),                  # llama3-8b
+        (2, 256, TRAIN_HQ, TRAIN_HKV, TRAIN_D, "float32", None),         # train_parity
+        (2, 64, 4, 2, 32, "bfloat16", None),                             # smoke
+        (2, 64, 4, 2, 32, "float32", None),
+        (2, 1, 8, 2, 64, "float32", None),                               # ragged S
+        (2, 1, 4, 1, 128, "bfloat16", None),
+        (1, 129, 8, 2, 64, "bfloat16", None),
+        (1, 129, 4, 4, 128, "float32", None),
+        (2, 1000, 8, 2, 64, "bfloat16", None),
+        (1, 1000, 4, 1, 32, "float32", None),
+        (1, 300, 4, 1, 64, "float32", "dout"),                           # NaN in dout
+        (1, 300, 8, 2, 128, "bfloat16", "dout"),
+        (1, 300, 8, 2, 64, "bfloat16", "k"),                             # NaN in k
+    ]
+    main = None
+    for i, (b, s, hq, hkv, d, dt, nan) in enumerate(cases):
+        q = randn((b, s, hq, d), dt)
+        k, v = (randn((b, s, hkv, d), dt) for _ in range(2))
+        if nan == "k":
+            k[0, s // 3, 0, 3] = float("nan")
+        kw = dict(causal=True, use_pwl=False, window=0, prefix_len=0)
+        out0, _ = fa._flash_fwd(q, k, v, with_lse=False, **kw)
+        out, lse = fa._flash_fwd(q, k, v, with_lse=True, **kw)
+        _, lse_plain = fa.flash_attention_plain(q, k, v, return_lse=True)
+        g = randn((b, s, hq, d), dt)
+        if nan == "dout":
+            g[0, s // 2, hq - 1, 5] = float("nan")
+        got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, g)
+        want = fa.flash_attention_bwd_plain(q, k, v, out, lse, g)
+        torch.cuda.synchronize()
+        shape = f"B{b} S{s} Hq{hq} Hkv{hkv} D{d} {dt} causal" + (f" NaN in {nan}" if nan else "")
+        if not torch.equal(out0.nan_to_num(), out.nan_to_num()) or \
+                not torch.equal(out0.isnan(), out.isnan()):
+            raise AssertionError(f"flash_attention {shape}: the forward with lse is not "
+                                 "bit-equal to the forward without it")
+        lse_err = (lse - lse_plain).nan_to_num().abs().max().item()
+        if not (lse_err <= 1e-5 and torch.equal(lse.isnan(), lse_plain.isnan())):
+            raise AssertionError(f"flash_attention {shape}: lse off by {lse_err}")
+        errs = []
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            err, ratio, ok = fa.bwd_agreement(a, w)
+            nonfinite = int((~torch.isfinite(w.float())).sum())
+            log(f"[kernels] flash_attention_bwd {shape} {name}: max_abs_err={err:.3e} "
+                f"({ratio:.3f} of the bound), {nonfinite} non-finite"
+                + (" in the same places" if ok or nonfinite == 0 else ""))
+            if not ok:
+                raise AssertionError(f"flash_attention_bwd {shape} {name} disagrees with "
+                                     f"its plain version ({err:.3e}, {ratio:.3f} of the bound)")
+            if nan and nonfinite == 0:
+                raise AssertionError(f"flash_attention_bwd {shape}: the NaN was dropped")
+            errs.append(err)
+        if i == 0:
+            again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, g)
+            if not all(torch.equal(a, c) for a, c in zip(got, again)):
+                raise AssertionError("flash_attention_bwd: two runs differ")
+            log(f"[kernels] flash_attention_bwd {shape}: two runs bit-equal")
+        del got, want
+        if i > 2:
+            continue
+        nbytes, flops = bwd_work(b, s, hq, hkv, d, q.element_size())
+        bms, by = bound(nbytes, flops, dt)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+        gt = g.transpose(1, 2)
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), gt)
+
+        entry = {
+            "name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/models/attention.py:153",
+            "design": ("no Pallas kernel (the reference differentiates "
+                       "full_attention / flash_attention with XLA's autodiff); Delta + "
+                       "dK/dV (a CTA per 64 keys over the group's query heads) + dQ (a CTA "
+                       "per 64 query rows), no atomics; "
+                       + ("bf16 mma.sync m16n8k16, P and dS as hi + lo bf16, the diagonal "
+                          "16 x 16 blocks pair by pair" if dt == "bfloat16" else
+                          "float32 SIMT")),
+            "shape": shape, "max_abs_err": max(errs),
+            "launch_key": fa.launch_key(q, k),
+            "ms": timer.ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, out, lse, g), 10),
+            "plain_ms": timer.ms(lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, g), 3),
+            "library_ms": max(timer.ms(sdpa_fwd_bwd, 10) - timer.ms(sdpa_fwd, 10), 0.0),
+            "bound_ms": bms, "bound_by": by,
+        }
+        if i == 0:
+            main = entry
+            # the forward at the train shape, launched twice a layer and step
+            ferr = _check_flash(torch, out, fa.flash_attention_plain(q, k, v), dt,
+                                f"llama3.2-1b train forward {shape}", False)
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+            fbms, fby = bound(nbytes, 4 * b * hq * d * s * (s + 1) / 2, dt)
+            extra.append({
+                "name": "flash_attention", "route": "cuda",
+                "source": "src/repro_torch/csrc/flash_attention.cu",
+                "replaces": "src/repro/kernels/flash_attention.py:76",
+                "design": "the mma.sync path with the lse output (training)",
+                "shape": f"llama3.2-1b train: {shape}, lse out", "max_abs_err": ferr,
+                "path": "train", "launch_key": fa.launch_key(q, k),
+                "ms": timer.ms(lambda: fa._flash_fwd(q, k, v, with_lse=True, **kw), 20),
+                "plain_ms": timer.ms(lambda: fa.flash_attention_plain(q, k, v), 3),
+                "library_ms": timer.ms(sdpa_fwd, 20),
+                "bound_ms": fbms, "bound_by": fby,
+            })
+        else:
+            entry["path"] = "train_parity" if dt == "float32" else "train"
+            extra.append(entry)
+        del q, k, v, out, lse, g, qt, kt, vt, gt
+    torch.cuda.synchronize()
+    return main
 
 
 def window_mask(torch, sq, skv, window, causal=True):
@@ -1389,8 +1569,9 @@ def expected_launches(cfg, new: int):
     n_mamba = kinds.count("mamba") * n_groups
     n_attn = sum({"mamba": 0, "dec": 2}.get(k, 1) for k in kinds) * n_groups
     n_enc = cfg.n_encoder_layers if cfg.is_encoder_decoder else 0
-    return {"flash_attention": n_attn + n_enc, "paged_attention": n_attn * new,
-            "ssd_scan": n_mamba, "pwl_softmax": 0, "cim_matmul": 0}
+    return {"flash_attention": n_attn + n_enc, "flash_attention_bwd": 0,
+            "paged_attention": n_attn * new, "ssd_scan": n_mamba, "pwl_softmax": 0,
+            "cim_matmul": 0}
 
 
 def decode_loop(torch, step, params, cache, tok, start: int, new: int):
@@ -2100,7 +2281,241 @@ def phase_server(torch, results):
     results["server"] = out
 
 
+def train_batches(torch, cfg, batch, seq, n, seed=0, device="cuda"):
+    """``n`` batches of the port's PackedStream(seed) on ``device``, token
+    ids as int64."""
+    from repro_torch.data import PackedStream
+    stream = PackedStream(cfg.vocab_size, seq, seed=seed)
+    out = []
+    for _ in range(n):
+        b = stream.next_batch(batch)
+        out.append({"tokens": torch.from_numpy(b["tokens"]).long().to(device),
+                    "labels": torch.from_numpy(b["labels"]).long().to(device),
+                    "mask": torch.from_numpy(b["mask"]).to(device)})
+    return out
+
+
+def first_grads(torch, cfg, params, batch):
+    """Each leaf's gradient of the loss on ``batch`` (the first step's),
+    by path."""
+    from repro_torch.launch.steps import make_loss_fn
+    from repro_torch.tree import tree_paths
+    paths = list(tree_paths(params))
+    loss, _ = make_loss_fn(cfg)(params, batch)
+    grads = torch.autograd.grad(loss, [p for _, p in paths])
+    return {path: g for (path, _), g in zip(paths, grads)}
+
+
+def phase_train(torch, results):
+    """llama3.2-1b at full width and depth (16 layers, remat as the config
+    has it) in bf16, random weights from seed 0: 20 AdamW steps of B8 x
+    S1024 through ``launch.steps.make_train_step`` (lr 3e-4, warmup 10,
+    total 20).  The main path is the 20 steps: each launches the flash
+    forward twice a layer (the forward, then remat's recompute) and its
+    backward once.  Fails unless the last loss is below the first, every
+    leaf's gradient at the first step (taken apart, before the counted
+    steps) is finite and non-zero, and the launch counts are exact.
+    Prints ms a step (median of steps 3-20), tokens/s, peak GiB, and the
+    flash kernels' device time in one more step under torch.profiler."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import init_train_state, make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    if not cfg.remat or cfg.n_layers != 16:
+        raise AssertionError(f"{cfg.name}: expected 16 layers under remat")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params, opt_state = init_train_state(cfg, torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(t.numel() for t in _leaves(params))
+    batches = train_batches(torch, cfg, TRAIN_B, TRAIN_S, TRAIN_STEPS + 1)
+    torch.cuda.synchronize()
+    log(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{n_params / 1e9:.3f} B params in {cfg.dtype}, remat {cfg.remat}, "
+        f"optimizer {cfg.optimizer}; init {time.time() - t0:.1f}s")
+    grads = first_grads(torch, cfg, params, batches[0])
+    bad = [path for path, g in grads.items()
+           if not bool(torch.isfinite(g.float()).all()) or not bool(g.any())]
+    if bad:
+        raise AssertionError(f"train: leaves without a finite non-zero gradient: {bad}")
+    log(f"[train] first step's gradient finite and non-zero on all {len(grads)} leaves")
+    del grads
+    step = make_train_step(cfg, base_lr=3e-4, warmup=10, total_steps=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    times, losses = [], []
+    for i in range(TRAIN_STEPS):
+        t = time.time()
+        params, opt_state, m = step(params, opt_state, batches[i])
+        losses.append(float(m["loss"]))          # reads the loss: the step is done
+        times.append(time.time() - t)
+    launches, by_shape = dict(ops.LAUNCHES), dict(ops.LAUNCHES_BY_SHAPE)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {**dict.fromkeys(launches, 0), "flash_attention": 2 * cfg.n_layers * TRAIN_STEPS,
+            "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS}
+    log(f"[train] launches on the main path ({TRAIN_STEPS} steps): {launches} "
+        f"(expected {want})")
+    if launches != want:
+        raise AssertionError(f"train launches {launches}, expected {want}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train: the loss did not fall: {losses}")
+    med = sorted(times[2:])[len(times[2:]) // 2]
+    log(f"[train] loss {losses[0]:.4f} -> {losses[-1]:.4f} over {TRAIN_STEPS} steps; "
+        f"{med * 1e3:.2f} ms a step (median of steps 3-{TRAIN_STEPS}; first two "
+        f"{times[0] * 1e3:.1f} / {times[1] * 1e3:.1f} ms), "
+        f"{TRAIN_B * TRAIN_S / med:.0f} tokens/s, peak {peak:.2f} GiB")
+    prof = trace(torch, lambda: step(params, opt_state, batches[-1]))
+    for us, n, key in [t for t in prof.pop("top") if "flash" in t[2]]:
+        log(f"[train]   {us / 1e3:9.3f} ms  x{n:<5d} {key}")
+    log(f"[train] one more step under torch.profiler: wall {prof['wall_ms']:.2f} ms, "
+        f"device busy {prof['device_busy_ms']:.2f} ms ({100 * prof['busy_share']:.1f}%), "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(prof["device_ms_by_class"].items())))
+    results["train"] = {
+        "arch": cfg.name, "batch": TRAIN_B, "seq": TRAIN_S, "steps": TRAIN_STEPS,
+        "losses": losses, "step_ms": [t * 1e3 for t in times], "median_step_ms": med * 1e3,
+        "tokens_per_s": TRAIN_B * TRAIN_S / med, "peak_gib": peak,
+        "profiled_step": prof}
+    return {**launches, **by_shape}
+
+
+def phase_train_parity(torch, results):
+    """llama3.2-1b widths (d_model 2048, 32 / 8 heads of 64, d_ff 8192,
+    vocab 128256, tied), 2 layers, float32, B2 x S256 from PackedStream(1):
+    3 AdamW steps (lr 3e-4, warmup 10, total 20) on the card (kernels) and
+    on the CPU (plain versions) from the same weights and batches, the card
+    once with remat on and once off.  Compares each step's loss, ce, grad
+    norm and LR, each leaf's gradient of the first batch and each leaf's
+    update per step (TRAIN_* bounds above).  The CPU runs once, without
+    remat: remat moves no number on the CPU (tests/test_torch_train.py)."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_map, tree_paths
+
+    base = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=2, dtype="float32")
+    b, s, n_steps = 2, 256, 3
+    params0 = models.init_params(base, torch.Generator(device="cuda").manual_seed(1))
+
+    def run(dev, remat):
+        cfg = dataclasses.replace(base, remat=remat)
+        p = tree_map(lambda t: t.detach().to(dev, copy=True).requires_grad_(True), params0)
+        batches = train_batches(torch, cfg, b, s, n_steps, seed=1, device=dev)
+        t0 = time.time()
+        grads = {k: g.cpu() for k, g in first_grads(torch, cfg, p, batches[0]).items()}
+        ops.reset_launch_counts()
+        state = adamw_init(p)
+        step = make_train_step(cfg, base_lr=3e-4, warmup=10, total_steps=20)
+        metrics, updates = [], []
+        for batch in batches:
+            before = {k: t.detach().cpu() for k, t in tree_paths(p)}
+            p, state, m = step(p, state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+            updates.append({k: t.detach().cpu() - before[k] for k, t in tree_paths(p)})
+        launches = {**ops.LAUNCHES, **ops.LAUNCHES_BY_SHAPE}
+        log(f"[train_parity] {dev} remat={remat}: {time.time() - t0:.1f}s, launches "
+            f"{dict(ops.LAUNCHES)}")
+        return grads, metrics, updates, launches
+
+    cpu = run("cpu", False)
+    if any(v for k, v in cpu[3].items() if isinstance(k, str)):
+        raise AssertionError(f"the CPU run launched kernels: {cpu[3]}")
+    out, card_launches = {}, {}
+    for remat in (True, False):
+        card = run("cuda", remat)
+        per_step = base.n_layers * (2 if remat else 1)
+        want = {**dict.fromkeys(ops.LAUNCHES, 0), "flash_attention": per_step * n_steps,
+                "flash_attention_bwd": base.n_layers * n_steps}
+        got = {k: v for k, v in card[3].items() if isinstance(k, str)}
+        if got != want:
+            raise AssertionError(f"train_parity remat={remat}: launches {got}, expected {want}")
+        if remat:
+            card_launches = card[3]
+        grad_rel = max(float((card[0][k] - cpu[0][k]).norm() / cpu[0][k].norm().clamp_min(1e-30))
+                       for k in cpu[0])
+        metric_rel = max(abs(cm[k] - pm[k]) / max(abs(pm[k]), 1e-30)
+                         for cm, pm in zip(card[1], cpu[1]) for k in ("loss", "ce", "grad_norm", "lr"))
+        upd_rel = [max(float((cu[k] - pu[k]).norm() / pu[k].norm().clamp_min(1e-30))
+                       if pu[k].any() else float(cu[k].abs().max()) for k in pu)
+                   for cu, pu in zip(card[2], cpu[2])]
+        log(f"[train_parity] remat={remat}: metrics max rel {metric_rel:.3e} (bound "
+            f"{TRAIN_METRIC_REL:.0e}), first gradient max rel L2 {grad_rel:.3e} (bound "
+            f"{TRAIN_GRAD_REL:.0e}), updates max rel L2 per step "
+            + ", ".join(f"{u:.3e}" for u in upd_rel) + f" (bound {TRAIN_UPDATE_REL:.0e}); "
+            f"losses card {[round(m['loss'], 6) for m in card[1]]} cpu "
+            f"{[round(m['loss'], 6) for m in cpu[1]]}")
+        if not (metric_rel <= TRAIN_METRIC_REL and grad_rel <= TRAIN_GRAD_REL
+                and all(u <= TRAIN_UPDATE_REL for u in upd_rel)):
+            raise AssertionError(f"train_parity remat={remat}: card and CPU disagree")
+        out[f"remat_{remat}"] = {"metric_max_rel": metric_rel, "grad_max_rel_l2": grad_rel,
+                                 "update_max_rel_l2": upd_rel}
+    results["train_parity"] = out
+    return card_launches
+
+
+def phase_train_driver(torch, results):
+    """``repro_torch.launch.train.main`` on the card at llama3.2-1b's smoke
+    size (bf16, head_dim 32) in a temporary directory: run 1 trains 10
+    steps and saves at 10; run 2 (--steps 30 --save-every 10
+    --simulate-failures 1) restores step 10, fails at step 15, restarts
+    from the step-10 checkpoint and ends with the loss down.  The
+    full-width state would be 12.4 GB a checkpoint, so the card saves only
+    at smoke size."""
+    import contextlib
+    import io
+    import tempfile
+    from repro_torch.launch import train
+
+    with tempfile.TemporaryDirectory() as d:
+        base = ["--arch", TRAIN_ARCH, "--smoke", "--ckpt-dir", d]
+        buf = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf):
+            first = train.main(base + ["--steps", "10", "--save-every", "10"])
+            second = train.main(base + ["--steps", "30", "--save-every", "10",
+                                        "--simulate-failures", "1"])
+        text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"[train_driver] {line}")
+    for want in ("restored from checkpoint at step 10", "[ft] restarted from step 10"):
+        if want not in text:
+            raise AssertionError(f"train_driver: no '{want}' in the driver's output")
+    if not second[-1] < second[0]:
+        raise AssertionError(f"train_driver: the loss did not fall: {second}")
+    results["train_driver"] = {"run1_losses": first, "run2_losses": second,
+                               "seconds": time.time() - t0}
+
+
+def trace(torch, fn):
+    """``fn()`` under torch.profiler: host wall, device busy time and its
+    share, device ms by kernel class, and the kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.time() - t0) * 1e6
+    by_class, top = {}, []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.self_device_time_total
+        by_class[_kernel_class(e.key)] = by_class.get(_kernel_class(e.key), 0.0) + us
+        top.append((us, e.count, e.key[:90]))
+    busy = sum(by_class.values())
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+            "busy_share": busy / wall_us,
+            "device_ms_by_class": {k: v / 1e3 for k, v in by_class.items()},
+            "top": sorted(top, reverse=True)}
+
+
 def _kernel_class(name: str) -> str:
+    if "flash_bwd_" in name:
+        return "flash_attention_bwd"
     if "flash_fwd_" in name:
         return "flash_attention"
     if "paged_fwd_kernel" in name or "paged_combine_kernel" in name:
@@ -2135,6 +2550,22 @@ def profile_windows(torch, arch):
     from repro_torch.launch.steps import (CompiledServeStep, make_prefill_step,
                                           make_serve_step)
     from repro_torch.models.common import rmsnorm
+
+    if arch == "train":
+        from repro_torch.configs import get_config
+        from repro_torch.launch.steps import init_train_state, make_train_step
+        cfg = get_config(TRAIN_ARCH)
+        params, opt_state = init_train_state(cfg, torch.Generator(device="cuda").manual_seed(0))
+        batch = train_batches(torch, cfg, TRAIN_B, TRAIN_S, 1)[0]
+        step = make_train_step(cfg, base_lr=3e-4, warmup=10, total_steps=TRAIN_STEPS)
+        state = {"p": params, "o": opt_state}
+
+        def train_step():
+            state["p"], state["o"], m = step(state["p"], state["o"], batch)
+            float(m["loss"])
+
+        train_step()                                            # warm-up
+        return [("train_step", train_step)]
 
     if arch == "cim_scu":
         cfg, weights, head, x, x_new = cim_scu_setup(torch)
@@ -2193,33 +2624,15 @@ def profile_windows(torch, arch):
 
 
 def phase_profile(torch, results, arch):
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     out = {}
     for what, fn in profile_windows(torch, arch):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.time()
-            fn()
-            torch.cuda.synchronize()
-            wall_us = (time.time() - t0) * 1e6
-        by_class, top = {}, []
-        for e in prof.key_averages():
-            if e.device_type != DeviceType.CUDA:
-                continue
-            us = e.self_device_time_total
-            by_class[_kernel_class(e.key)] = by_class.get(_kernel_class(e.key), 0.0) + us
-            top.append((us, e.count, e.key[:90]))
-        busy = sum(by_class.values())
-        out[what] = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
-                     "busy_share": busy / wall_us,
-                     "device_ms_by_class": {k: v / 1e3 for k, v in by_class.items()}}
-        log(f"[profile] {arch} {what}: wall {wall_us / 1e3:.2f} ms, device busy "
-            f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%), by class "
-            + ", ".join(f"{k} {v / 1e3:.2f} ms" for k, v in sorted(by_class.items())))
+        t = trace(torch, fn)
+        top = t.pop("top")
+        out[what] = t
+        log(f"[profile] {arch} {what}: wall {t['wall_ms']:.2f} ms, device busy "
+            f"{t['device_busy_ms']:.2f} ms ({100 * t['busy_share']:.1f}%), by class "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(t["device_ms_by_class"].items())))
         # the 8 largest, and every kernel of the port's sources below them
-        top = sorted(top, reverse=True)
         for us, n, key in top[:8] + [t for t in top[8:] if "repro_torch" in t[2]]:
             log(f"[profile]   {us / 1e3:9.3f} ms  x{n:<5d} {key}")
     results.setdefault("profile", {})[arch] = out
@@ -2289,9 +2702,15 @@ def main(argv=None) -> int:
             phase_vlm_parity(torch, results)
         elif phase == "server":
             phase_server(torch, results)
+        elif phase == "train":
+            launches_of[phase] = phase_train(torch, results)
+        elif phase == "train_parity":
+            launches_of[phase] = phase_train_parity(torch, results)
+        elif phase == "train_driver":
+            phase_train_driver(torch, results)
         elif phase == "profile":
             for arch in (*SERVE_ARCH.values(), "mixtral-8x7b", "whisper-large-v3",
-                         "paligemma-3b", "cim_scu"):
+                         "paligemma-3b", "cim_scu", "train"):
                 phase_profile(torch, results, arch)
                 torch.cuda.empty_cache()
         torch.cuda.synchronize()

@@ -21,6 +21,9 @@
 // version's step for step: a tile starts at the step that holds the first
 // key inside the window of its first row, and the steps before it, which
 // no row of the tile sees, contribute nothing.
+// An optional lse output (B, Hq, Sq) float32 takes each row's m + log l,
+// the log-sum-exp of its scaled scores, for the backward
+// (flash_attention_bwd.cu); where its pointer is null nothing else changes.
 // A NaN score goes through as in the Pallas kernel and the plain version:
 // the row max keeps it (max.NaN), the PWL exp's clip keeps it, and a
 // row's "sees a key" test comes from the mask, so the (query, head) rows
@@ -131,6 +134,13 @@ __device__ __forceinline__ bool key_valid(int qpos, int kpos, int Skv, int causa
          (window <= 0 || qpos - kpos < window);
 }
 
+// A row's log-sum-exp of its scaled scores, m + log l (m: the scaled row
+// max), the backward's input: +inf for a row that saw no key (l = 0), so
+// that its probabilities exp(s - lse) are 0; a NaN stays NaN.
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l == 0.f ? INFINITY : m + logf(l);
+}
+
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(float* dst, const T* src, int row0, int n_rows,
                                           int64_t row_stride, int n_valid) {
@@ -145,7 +155,7 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int row0, in
 template <typename T, int D, bool kPwl>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ out, int Sq, int Skv, int Hq, int Hkv, int causal,
+                 T* __restrict__ out, float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv, int causal,
                  int window, int prefix, float scale, PwlCoeffs pwl) {
   constexpr int DP = D + 1, BKP = kBK + 1, CPT = D / 16;
   extern __shared__ float smem[];
@@ -282,6 +292,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     __syncthreads();
   }
 
+  if (lse != nullptr && tid < kBQ && q0 + tid < Sq) {
+    lse[int64_t(blockIdx.x) * Sq + q0 + tid] = row_lse(m_s[tid], l_s[tid]);
+  }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty * 4 + i;
@@ -329,7 +342,7 @@ template <int D, bool kPwl>
 __global__ void __launch_bounds__(kMmaThreads, 1)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                     int B, int Sq, int Skv, int Hq, int Hkv, int causal, int window,
+                     float* __restrict__ lse, int B, int Sq, int Skv, int Hq, int Hkv, int causal, int window,
                      int prefix, float scale, PwlCoeffs pwl) {
   constexpr bool kBig = kMmaBig<D>;
   constexpr int kS = kMmaStride<D>;
@@ -606,6 +619,13 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
       l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
       inv[r] = __frcp_rn(max_nan(l_run[r], 1e-30f));
     }
+    if (lse != nullptr && t4 == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row_w + g + 8 * r;
+        if (row < Sq) lse[int64_t(t % n_bh) * Sq + row] = row_lse(m_run[r] * scale, l_run[r]);
+      }
+    }
     __syncthreads();  // every warp is done with that tile
     __nv_bfloat16* os = (kBig ? Vs : Ks + ((gs - 1) & 1) * kTile) + warp * 16 * kS;
 #pragma unroll
@@ -630,7 +650,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 }
 
 template <int D, bool kPwl>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, int B, int Sq,
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq,
                        int Skv, int Hq, int Hkv, int causal, int window, int prefix,
                        const PwlCoeffs& pwl, cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<D>();
@@ -647,17 +667,17 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, i
   using bf16 = __nv_bfloat16;
   kernel<<<n_tiles < n_sm ? n_tiles : n_sm, kMmaThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), B, Sq, Skv, Hq, Hkv, causal, window, prefix,
+      static_cast<bf16*>(out), lse, B, Sq, Skv, Hq, Hkv, causal, window, prefix,
       float(pow(double(D), -0.5)), pwl);
   return cudaGetLastError();
 }
 
 template <typename T, int D, bool kPwl>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int Sq,
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq,
                    int Skv, int Hq, int Hkv, int causal, int window, int prefix,
                    const PwlCoeffs& pwl, cudaStream_t stream) {
   if constexpr (!std::is_same_v<T, float>) {
-    return launch_mma<D, kPwl>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, window, prefix, pwl,
+    return launch_mma<D, kPwl>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, window, prefix, pwl,
                                stream);
   } else {
     constexpr size_t smem = flash_smem_bytes<D>();
@@ -668,31 +688,32 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
     const dim3 grid(B * Hq, (Sq + kBQ - 1) / kBQ);
     kernel<<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(out), Sq, Skv, Hq, Hkv, causal, window, prefix,
+        static_cast<T*>(out), lse, Sq, Skv, Hq, Hkv, causal, window, prefix,
         float(pow(double(D), -0.5)), pwl);
     return cudaGetLastError();
   }
 }
 
 template <typename T, bool kPwl>
-cudaError_t dispatch_dim(int D, const void* q, const void* k, const void* v, void* out, int B,
+cudaError_t dispatch_dim(int D, const void* q, const void* k, const void* v, void* out, float* lse,
+                         int B,
                          int Sq, int Skv, int Hq, int Hkv, int causal, int window, int prefix,
                          const PwlCoeffs& pwl, cudaStream_t s) {
   switch (D) {
     case 32:
-      return launch<T, 32, kPwl>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, window, prefix, pwl,
+      return launch<T, 32, kPwl>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, window, prefix, pwl,
                                 s);
     case 64:
-      return launch<T, 64, kPwl>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, window, prefix, pwl,
+      return launch<T, 64, kPwl>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, window, prefix, pwl,
                                 s);
     case 80:
-      return launch<T, 80, kPwl>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, window, prefix, pwl,
+      return launch<T, 80, kPwl>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, window, prefix, pwl,
                                 s);
     case 128:
-      return launch<T, 128, kPwl>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, window, prefix, pwl,
+      return launch<T, 128, kPwl>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, window, prefix, pwl,
                                 s);
     case 256:
-      return launch<T, 256, kPwl>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, window, prefix, pwl,
+      return launch<T, 256, kPwl>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, window, prefix, pwl,
                                 s);
     default: return cudaErrorInvalidValue;
   }
@@ -702,12 +723,15 @@ cudaError_t dispatch_dim(int D, const void* q, const void* k, const void* v, voi
 }  // namespace repro_torch
 
 // q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D); out: (B, Sq, Hq, D), all
-// contiguous.  dtype 0 = float32, 1 = bfloat16.  window > 0 masks keys
+// contiguous; lse: null, or (B, Hq, Sq) float32 that receives each row's
+// log-sum-exp of its scaled scores (the backward's input; +inf for a row
+// that sees no key).  dtype 0 = float32, 1 = bfloat16.  window > 0 masks keys
 // window or more positions before the query; 0 is no window.  prefix_len
 // > 0 makes keys below it visible to every query (causal only, and with
 // neither a window nor PWL exp: refused).  Returns cudaGetLastError()
 // after the launch.
-extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out, int B,
+extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
+                                   void* lse_out, int B,
                                    int Sq, int Skv, int Hq, int Hkv, int D, int dtype, int causal,
                                    int window, int prefix_len, int use_pwl, const void* pwl_host,
                                    void* stream) {
@@ -718,16 +742,17 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   const PwlCoeffs pwl = read_pwl(pwl_host);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int w = window, p = prefix_len;
+  float* lse = static_cast<float*>(lse_out);
   if (dtype == 0) {
     return use_pwl
-               ? dispatch_dim<float, true>(D, q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, w, p, pwl, s)
-               : dispatch_dim<float, false>(D, q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, w, p, pwl,
+               ? dispatch_dim<float, true>(D, q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, w, p, pwl, s)
+               : dispatch_dim<float, false>(D, q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, w, p, pwl,
                                             s);
   }
   if (dtype == 1) {
-    return use_pwl ? dispatch_dim<__nv_bfloat16, true>(D, q, k, v, out, B, Sq, Skv, Hq, Hkv,
+    return use_pwl ? dispatch_dim<__nv_bfloat16, true>(D, q, k, v, out, lse, B, Sq, Skv, Hq, Hkv,
                                                        causal, w, p, pwl, s)
-                   : dispatch_dim<__nv_bfloat16, false>(D, q, k, v, out, B, Sq, Skv, Hq, Hkv,
+                   : dispatch_dim<__nv_bfloat16, false>(D, q, k, v, out, lse, B, Sq, Skv, Hq, Hkv,
                                                         causal, w, p, pwl, s);
   }
   return cudaErrorInvalidValue;

@@ -17,6 +17,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Tuple
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -26,7 +28,8 @@ _VOID_P, _INT = ctypes.c_void_p, ctypes.c_int
 # C entry point of each source: (name, argtypes); each returns cudaError_t
 SIGNATURES = {
     "flash_attention": ("flash_attention_fwd",
-                        [_VOID_P] * 4 + [_INT] * 11 + [_VOID_P, _VOID_P]),
+                        [_VOID_P] * 5 + [_INT] * 11 + [_VOID_P, _VOID_P]),
+    "flash_attention_bwd": ("flash_attention_bwd", [_VOID_P] * 10 + [_INT] * 11 + [_VOID_P]),
     "paged_attention": ("paged_attention_fwd",
                         [_VOID_P] * 7 + [_INT] * 11 + [_VOID_P, _VOID_P]),
     "ssd_scan": ("ssd_scan_fwd", [_VOID_P] * 7 + [_INT] * 8 + [_VOID_P]),
@@ -110,6 +113,16 @@ def aligned(t):
     copy rows 16 bytes at a time (a fresh allocation is aligned)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def refuse_grad(name: str, missing: str, *tensors) -> None:
+    """Raise ``NotImplementedError`` where autograd would need the backward
+    of kernel ``name`` (grad enabled, an input that requires grad) and the
+    port has none: the kernel's output would carry no gradient.
+    ``missing`` names the ROADMAP item that would add it."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(f"{name} has no backward kernel for this call "
+                                  f"({missing}); its output would carry no gradient")
 
 
 def check(err: int, name: str, shape: str = "") -> None:

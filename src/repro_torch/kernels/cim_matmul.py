@@ -181,6 +181,8 @@ def cim_matmul_cuda(x, wq, wscale, *, wqt=None, block_m: int = 128, block_n: int
     shape and device are checked, so it must be made from this wq.
     Without it the kernel transposes wq first.  ``way``: a route that
     ``takes`` the shape, to compare routes; default ``route``."""
+    _build.refuse_grad("cim_matmul", "ROADMAP §B4: the CIM product is on no model or "
+                       "training path", x, wscale)
     if not 2 <= act_bits <= 8:
         raise ValueError(f"the kernel's integer dot is exact only for "
                          f"act_bits <= 8 (int8 x int8 -> int32), got {act_bits}")

@@ -39,6 +39,15 @@ Head dims 32, 64, 80, 128 and 256.  At D 256 the bf16 kernel keeps Q in
 shared memory and K and V in one stage each (``csrc/flash_attention.cu``);
 it stays on the tensor cores, and float32 on the SIMT path, at every D.
 
+Training: ``FlashAttentionFn`` (which ``flash_attention_cuda`` takes under
+grad) launches the forward with its optional lse output, each row's
+log-sum-exp ``m + log l`` of its scaled scores, and differentiates it by
+``csrc/flash_attention_bwd.cu`` (causal, exact exp, no window or prefix, D
+32 / 64 / 128; ``flash_attention_bwd_plain`` is its plain version, held by
+``bwd_agreement``).  The reference has no backward kernel: XLA
+differentiates its model's attention.  In any other mode the wrapper
+raises under grad rather than return an output without a gradient.
+
 In PWL mode the result depends on how the keys are cut into online-softmax
 steps (PWL exp is not multiplicative), so both versions step over keys
 ``[0, 128), [128, 256), ...`` as the Pallas kernel does, also under a
@@ -58,6 +67,7 @@ from .pwl import PWL_COEFFS, pwl_exp
 NEG_INF = -1e30
 KV_STEP = 128
 HEAD_DIMS = (32, 64, 80, 128, 256)
+BWD_HEAD_DIMS = (32, 64, 128)         # the backward kernel's
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # How far the kernel's output may lie from the plain version's on the same
@@ -108,9 +118,12 @@ def prefix_arg(prefix_len, *, causal: bool, window: int, use_pwl: bool) -> int:
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
                           use_pwl: bool = False, window=None,
-                          prefix_len: int = 0) -> torch.Tensor:
+                          prefix_len: int = 0, return_lse: bool = False):
     """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D), Hq % Hkv == 0.
-    Returns (B, Sq, Hq, D) in q.dtype, computed in float32."""
+    Returns (B, Sq, Hq, D) in q.dtype, computed in float32; with
+    ``return_lse`` also each row's log-sum-exp of its scaled scores, (B,
+    Hq, Sq) float32, ``m + log l`` (+inf for a row that sees no key), what
+    the kernel hands its backward."""
     window = window_arg(window)
     prefix_len = prefix_arg(prefix_len, causal=causal, window=window, use_pwl=use_pwl)
     B, Sq, Hq, D = q.shape
@@ -148,7 +161,11 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
         acc = acc * alpha[..., None] + torch.einsum("bhgqk,bhkd->bhgqd", p, vb)
         m = m_new
     out = acc / l.clamp_min(1e-30)[..., None]               # (B,Hkv,G,Sq,D)
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D).to(q.dtype)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(l == 0, torch.full_like(l, float("inf")), m + torch.log(l))
+    return out, lse.reshape(B, Hq, Sq)
 
 
 def agreement(got: torch.Tensor, want: torch.Tensor, *, pwl: bool = False):
@@ -188,34 +205,231 @@ def launch_key(q, k, *, causal: bool = True, use_pwl: bool = False,
             f"window={window or 0} prefix={prefix_len} pwl={int(use_pwl)}")
 
 
-def flash_attention_cuda(q, k, v, *, causal: bool = True,
-                         use_pwl: bool = False, window=None,
-                         prefix_len: int = 0) -> torch.Tensor:
-    """Launch ``csrc/flash_attention.cu`` on PyTorch's current stream."""
-    window = window_arg(window)
-    prefix_len = prefix_arg(prefix_len, causal=causal, window=window, use_pwl=use_pwl)
+def backward_refusal(q, *, causal: bool, use_pwl: bool, window: int,
+                     prefix_len: int):
+    """Why ``csrc/flash_attention_bwd.cu`` cannot differentiate this call,
+    naming the ROADMAP item that would add it, or None where it can."""
+    if window:
+        return "a sliding window: ROADMAP §A5, the window in the flash backward (mixtral)"
+    if prefix_len:
+        return "a bidirectional prefix: ROADMAP §A5, the prefix in the flash backward (paligemma)"
+    if not causal:
+        return ("no causal mask: ROADMAP §A5, non-causal flash backward "
+                "(whisper's encoder and cross-attention)")
+    if use_pwl:
+        return "PWL exp: ROADMAP §B1, no PWL backward (the JAX model trains with exact exp)"
+    if q.shape[-1] not in BWD_HEAD_DIMS:
+        return (f"head dim {q.shape[-1]}: ROADMAP §B1, flash_attention_bwd takes D in "
+                f"{BWD_HEAD_DIMS}")
+    return None
+
+
+def _check_inputs(name, q, k, v):
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, Dk = k.shape
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError("flash_attention_cuda takes CUDA tensors on one device")
+        raise ValueError(f"{name} takes CUDA tensors on one device")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention_cuda takes float32 or bfloat16 "
+        raise TypeError(f"{name} takes float32 or bfloat16 "
                         f"q/k/v of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
     if D not in HEAD_DIMS or Dk != D or v.shape != k.shape or k.shape[0] != B:
         raise ValueError(f"unsupported shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
     if Hq % Hkv:
         raise ValueError("GQA requires Hq % Hkv == 0")
+
+
+def _flash_fwd(q, k, v, *, causal: bool, use_pwl: bool, window: int,
+               prefix_len: int, with_lse: bool):
+    """One launch of ``csrc/flash_attention.cu`` on PyTorch's current
+    stream: (out, the (B, Hq, Sq) float32 lse or None)."""
+    _check_inputs("flash_attention_cuda", q, k, v)
+    B, Sq, Hq, D = q.shape
+    _, Skv, Hkv, _ = k.shape
     q, k, v = (_build.aligned(t) for t in (q, k, v))
+    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if q.numel() == 0 or Skv == 0:          # nothing to attend: no launch
-        return torch.zeros_like(q)
+        if lse is not None:
+            lse.fill_(float("inf"))
+        return torch.zeros_like(q), lse
     out = torch.empty_like(q)
     lib = _build.library("flash_attention")
     _build.check(lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if lse is not None else None,
         B, Sq, Skv, Hq, Hkv, D, _DTYPE_CODES[q.dtype], int(causal), window,
         prefix_len, int(use_pwl), ctypes.addressof(PWL_COEFFS),
         torch.cuda.current_stream(q.device).cuda_stream), "flash_attention",
         launch_key(q, k, causal=causal, use_pwl=use_pwl, window=window,
                    prefix_len=prefix_len))
-    return out
+    return out, lse
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool = True,
+                         use_pwl: bool = False, window=None,
+                         prefix_len: int = 0) -> torch.Tensor:
+    """Launch ``csrc/flash_attention.cu`` on PyTorch's current stream.
+    Where autograd needs the gradient (grad enabled, an input that
+    requires grad) the call goes through ``FlashAttentionFn``, whose
+    backward is ``csrc/flash_attention_bwd.cu``, or raises
+    ``NotImplementedError`` in a mode that backward lacks; it never returns
+    an output without a gradient."""
+    window = window_arg(window)
+    prefix_len = prefix_arg(prefix_len, causal=causal, window=window, use_pwl=use_pwl)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        why = backward_refusal(q, causal=causal, use_pwl=use_pwl, window=window,
+                               prefix_len=prefix_len)
+        if why is not None:
+            raise NotImplementedError(f"flash_attention has no backward kernel for {why}; "
+                                      "its output would carry no gradient")
+        return FlashAttentionFn.apply(q, k, v)
+    return _flash_fwd(q, k, v, causal=causal, use_pwl=use_pwl, window=window,
+                      prefix_len=prefix_len, with_lse=False)[0]
+
+
+def flash_attention_bwd_cuda(q, k, v, out, lse, dout):
+    """dQ, dK, dV of causal ``flash_attention`` (exact exp, no window or
+    prefix) by ``csrc/flash_attention_bwd.cu``, from the forward's inputs,
+    output and lse and the output's gradient; in q's dtype.  Its three
+    launches (Delta, dK/dV, dQ) count as one."""
+    _check_inputs("flash_attention_bwd_cuda", q, k, v)
+    why = backward_refusal(q, causal=True, use_pwl=False, window=0, prefix_len=0)
+    if why is not None:
+        raise ValueError(f"flash_attention_bwd_cuda: {why}")
+    B, Sq, Hq, D = q.shape
+    _, Skv, Hkv, _ = k.shape
+    if out.shape != q.shape or dout.shape != q.shape or out.dtype != q.dtype \
+            or dout.dtype != q.dtype or lse.shape != (B, Hq, Sq) \
+            or lse.dtype != torch.float32:
+        raise ValueError(f"out / dout must be q's shape and dtype and lse (B, Hq, Sq) "
+                         f"float32, got out{tuple(out.shape)} dout{tuple(dout.shape)} "
+                         f"lse{tuple(lse.shape)} {lse.dtype}")
+    q, k, v, out, dout, lse = (_build.aligned(t) for t in (q, k, v, out, dout, lse))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0 or Skv == 0:          # nothing attended: no launch
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    lib = _build.library("flash_attention_bwd")
+    _build.check(lib.flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+        B, Sq, Skv, Hq, Hkv, D, _DTYPE_CODES[q.dtype], 1, 0, 0, 0,
+        torch.cuda.current_stream(q.device).cuda_stream), "flash_attention_bwd",
+        launch_key(q, k))
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Causal flash attention (exact exp, no window or prefix) with its
+    gradient: the forward launches ``csrc/flash_attention.cu`` with the lse
+    output and keeps q, k, v, out and lse; the backward launches
+    ``csrc/flash_attention_bwd.cu``.  ``FlashAttentionFn.apply(q, k, v)``
+    on CUDA tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        q, k, v = (_build.aligned(t) for t in (q, k, v))
+        out, lse = _flash_fwd(q, k, v, causal=True, use_pwl=False, window=0,
+                              prefix_len=0, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        return flash_attention_bwd_cuda(q, k, v, out, lse, dout)
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal: bool = True):
+    """The backward of exact flash attention in plain PyTorch, with P made
+    explicit: dQ, dK, dV (q's, k's and v's shapes, in q's dtype, computed in
+    float32) from the forward's inputs, output ``out`` and ``lse`` (B, Hq,
+    Sq) and the output's gradient ``dout``.  P = exp(scale Q K^T - lse) and
+    dS = P (dO V^T - rowsum(dO O)) on the valid (query, key) pairs, 0
+    elsewhere; dV = P^T dO, dK = scale dS^T Q, dQ = scale dS K.  A gradient
+    depends on the valid pairs only: a masked pair's term is left out, so
+    a non-finite element of dO, Q or K makes NaN only the gradients of the
+    pairs that see it (a dense product would spread it over the masked
+    ones too, as 0 * NaN)."""
+    B, Sq, Hq, D = q.shape
+    _, Skv, Hkv, _ = k.shape
+    G = Hq // Hkv
+    scale = D ** -0.5
+
+    def heads(t, n):                                     # (B, Hkv, G, n, D)
+        return t.float().reshape(B, n, Hkv, G, D).permute(0, 2, 3, 1, 4)
+    qf, of, gf = heads(q, Sq), heads(out, Sq), heads(dout, Sq)
+    kf = k.float().permute(0, 2, 1, 3)                   # (B, Hkv, Skv, D)
+    vf = v.float().permute(0, 2, 1, 3)
+    qpos = torch.arange(Sq, device=q.device)
+    kpos = torch.arange(Skv, device=q.device)
+    valid = (qpos[:, None] >= kpos[None, :]) if causal else \
+        torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kf) * scale
+    lse_f = lse.reshape(B, Hkv, G, Sq)[..., None]
+    p = torch.where(valid, torch.exp(s - lse_f), torch.zeros_like(s))
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", gf, vf)
+    delta = (gf * of).sum(-1, keepdim=True)
+    ds = torch.where(valid, p * (dp - delta), torch.zeros_like(s))
+    validf = valid.float()
+    dv = _masked_contract("bhgqk,bhgqd->bhkd", "qk,bhgqd->bhkd", p, gf, validf)
+    dk = _masked_contract("bhgqk,bhgqd->bhkd", "qk,bhgqd->bhkd", ds, qf, validf) * scale
+    dq = _masked_contract("bhgqk,bhkd->bhgqd", "qk,bhkd->bhqd", ds, kf, validf,
+                          lambda hit: hit[:, :, None]) * scale
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D)
+    return (dq.to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
+
+
+def _masked_contract(eq, eq_mask, w, y, validf, to_out=lambda hit: hit):
+    """``einsum(eq, w, y)`` for w zero on the masked pairs, leaving a
+    masked pair's term out also where y is not finite: NaN wherever a valid
+    pair meets a non-finite element of y (``eq_mask`` contracts the valid
+    mask with y's non-finite elements the same way; ``to_out`` shapes the
+    result to broadcast against the product's)."""
+    bad = ~torch.isfinite(y)
+    if not bad.any():
+        return torch.einsum(eq, w, y)
+    out = torch.einsum(eq, w, torch.where(bad, torch.zeros_like(y), y))
+    hit = to_out(torch.einsum(eq_mask, validf, bad.float()) > 0)
+    return torch.where(hit, torch.full_like(out, float("nan")), out)
+
+
+# How far the backward kernel's gradients may lie from the plain version's
+# on the same inputs, each gradient against the largest |value| of its
+# plain version, at least 1 (inputs of order 1: a gradient that cancels to
+# 0, as dQ and dK do at S 1, where P = 1 and dS = dP - Delta = 0, keeps
+# the float32 rounding of its terms of order 1).  float32: both sum in
+# float32 in another order (dS K over up to Skv keys, dS^T Q and P^T dO
+# over up to Sq rows of Hq / Hkv heads, dP - Delta cancelling), within
+# BWD_F32_REL of the largest value.  bfloat16: both round a float32 result
+# to bf16 once (the kernel's P and dS are hi + lo bf16 terms, ~2^-17 of
+# their value), so each element within BF16_REL * |want| (two steps) +
+# BWD_BF16_FLOOR * max |want| (the float32 sums near 0 by cancellation,
+# in another order).
+BWD_F32_REL = 1e-4
+BWD_BF16_FLOOR = 2.0 ** -12
+
+
+def bwd_agreement(got: torch.Tensor, want: torch.Tensor):
+    """``(max |got - want|, max of |got - want| / its bound, ok)`` for one
+    gradient of the backward under the rule above; non-finite elements
+    must be non-finite in both, and only finite ones are compared."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise ValueError(f"compare like with like: {got.dtype}{tuple(got.shape)} "
+                         f"against {want.dtype}{tuple(want.shape)}")
+    g, w = got.float(), want.float()
+    fin = torch.isfinite(w)
+    same = bool((torch.isfinite(g) == fin).all())
+    g, w = g[fin], w[fin]
+    if w.numel() == 0:
+        return 0.0, 0.0, same
+    diff = (g - w).abs()
+    top = max(w.abs().max().item(), 1.0)
+    if got.dtype == torch.bfloat16:
+        bound = BF16_REL * w.abs() + BWD_BF16_FLOOR * top
+    else:
+        bound = torch.full_like(w, BWD_F32_REL * top)
+    ratio = (diff / bound).max().item()
+    return diff.max().item(), ratio, same and ratio <= 1.0

@@ -143,6 +143,8 @@ def launch_key(q, k_cache, block_tables, *, use_pwl: bool = False,
 def paged_attention_cuda(q, k_cache, v_cache, block_tables, context_lens, *,
                          use_pwl: bool = False, window=None) -> torch.Tensor:
     """Launch ``csrc/paged_attention.cu`` on PyTorch's current stream."""
+    _build.refuse_grad("paged_attention", "ROADMAP §B2: decode attention, no training "
+                       "path and no backward", q, k_cache, v_cache)
     window = window_arg(window)
     B, H, D = q.shape
     n_blocks, bt, Hkv, Dk = k_cache.shape

@@ -190,6 +190,8 @@ def pwl_softmax_cuda(x: torch.Tensor, plan=None) -> torch.Tensor:
     """Launch ``csrc/pwl_softmax.cu`` on PyTorch's current stream (one
     launch, one count).  ``plan``: ``(route, cs)`` that ``takes`` the shape,
     to hold every route to the plain version; default ``route``."""
+    _build.refuse_grad("pwl_softmax", "ROADMAP §B3: the SCU softmax is on no model "
+                       "or training path", x)
     if not x.is_cuda:
         raise ValueError("pwl_softmax_cuda takes a CUDA tensor")
     _esize(x.dtype)

@@ -122,6 +122,8 @@ def ssd_scan_cuda(x, dt, a_neg, B, C):
     """Launch ``csrc/ssd_scan.cu`` on PyTorch's current stream.  It takes
     no chunk length: the kernel steps over sub-chunks of its own, and the
     result does not depend on it."""
+    _build.refuse_grad("ssd_scan", "ROADMAP §A5: SSM / hybrid training with an ssd_scan "
+                       "backward kernel", x, dt, a_neg, B, C)
     b, S, H, P = x.shape
     N = B.shape[-1]
     dev = x.device

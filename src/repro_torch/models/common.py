@@ -10,6 +10,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.tree import tree_leaves, tree_map
+
 Params = Dict[str, Any]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -192,3 +194,20 @@ def dense_init(gen: torch.Generator, shape, dtype, scale: Optional[float] = None
     for i in range(n_stack):
         out[i] = torch.randn(shape, generator=gen, device=gen.device) * s
     return out
+
+
+# ---------------------------------------------------------------------------
+# Param trees (nested dicts of tensors)
+# ---------------------------------------------------------------------------
+
+def count_params(params) -> int:
+    return sum(p.numel() for p in tree_leaves(params))
+
+
+def tree_bytes(params) -> int:
+    return sum(p.numel() * p.element_size() for p in tree_leaves(params))
+
+
+def cast_tree(tree, dtype):
+    """Floating leaves cast to ``dtype``; other leaves as they are."""
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x, tree)

@@ -48,9 +48,11 @@ from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.paged_attention import (contiguous_block_tokens,
                                                  identity_block_table)
+from repro_torch.tree import tree_map
 from . import attention as A
 from . import mlp as M
 from . import moe as X
@@ -139,6 +141,16 @@ def _layer(tree, g: int):
     return tree[g]
 
 
+def _groups(tree):
+    """A stacked param tree for ``_layer``.  Under grad each stacked leaf
+    is unbound once: the backward of an unbind stacks the groups'
+    gradients once, where indexing group by group would give each group a
+    zero-filled gradient of the whole stack to add."""
+    if not torch.is_grad_enabled():
+        return tree
+    return tree_map(lambda t: t.unbind(0), tree)
+
+
 def _head(cfg, params):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
@@ -156,8 +168,9 @@ def encode(cfg, params, encoder_embeds):
                                  device=e.device).to(e.dtype)[None]
     positions = torch.arange(e.shape[1], device=e.device)
     enc = params["encoder"]
+    layers = _groups(enc["layers"])
     for g in range(cfg.n_encoder_layers):
-        e = _attn_block(cfg, _layer(enc["layers"], g), "enc", e, positions,
+        e = _attn_block(cfg, _layer(layers, g), "enc", e, positions,
                         causal=False)[0]
     return apply_norm(cfg, enc["final_norm"], e)
 
@@ -228,8 +241,12 @@ def forward(cfg, params, tokens, *, prefix_embeds=None, encoder_embeds=None,
     cache = (init_cache(cfg, B, max(kv_max, Sq), device=x.device)
              if collect_cache else None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for g in range(n_groups):
-        gp = _layer(params["layers"], g)
+    layers = _groups(params["layers"])
+
+    def group(x, g):
+        """Layer group ``g`` on x: (x, the group's MoE aux loss or None)."""
+        gp = _layer(layers, g)
+        aux = None
         for i, kind in enumerate(kinds):
             p = _block_params(params, gp, i, kind)
             c = cache[_cache_key(i, kind)] if collect_cache else None
@@ -246,7 +263,7 @@ def forward(cfg, params, tokens, *, prefix_embeds=None, encoder_embeds=None,
             x, a, (k, v), cross_kv = _attn_block(cfg, p, kind, x, positions, enc=enc,
                                                  prefix_len=prefix_len)
             if a is not None:
-                aux = aux + a
+                aux = a if aux is None else aux + a
             if collect_cache:
                 c["k"][g, :, :Sq] = k
                 c["v"][g, :, :Sq] = v
@@ -254,6 +271,20 @@ def forward(cfg, params, tokens, *, prefix_embeds=None, encoder_embeds=None,
                     ek, ev = cross_kv
                     c["cross_k"][g, :, :ek.shape[1]] = ek
                     c["cross_v"][g, :, :ev.shape[1]] = ev
+        return x, aux
+
+    # remat (the reference's jax.checkpoint(group_body)): under grad each
+    # group keeps only its input and recomputes its activations in the
+    # backward; without grad (prefill, serve, the captured step) nothing
+    # changes
+    remat = cfg.remat and torch.is_grad_enabled() and not collect_cache
+    for g in range(n_groups):
+        if remat:
+            x, a = checkpoint(group, x, g, use_reentrant=False)
+        else:
+            x, a = group(x, g)
+        if a is not None:
+            aux = aux + a
     # the JAX package cuts the logits at prefix_len; the rows of x are cut
     # before the head instead, the same numbers without the prefix's logits
     x = apply_norm(cfg, params["final_norm"], x[:, prefix_len:])

@@ -1,0 +1,196 @@
+"""The backward of flash attention: the port's plain version
+(``flash_attention_bwd_plain``, the reference for the Hopper kernel
+``csrc/flash_attention_bwd.cu``) against ``jax.vjp`` of the JAX model's
+attention (``repro.models.attention.flash_attention`` and
+``full_attention``) and against autograd of the port's plain forward; the
+forward's lse; and the refusal of every CUDA wrapper to hand autograd an
+output without a gradient.  CPU, float32.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models.attention import flash_attention as jflash
+from repro.models.attention import full_attention as jfull
+from repro_torch.kernels import ops
+from repro_torch.kernels.cim_matmul import cim_matmul_cuda, quantize_weights
+from repro_torch.kernels.flash_attention import (FlashAttentionFn, bwd_agreement,
+                                                 flash_attention_bwd_plain,
+                                                 flash_attention_cuda, flash_attention_plain)
+from repro_torch.kernels.paged_attention import identity_block_table, paged_attention_cuda
+from repro_torch.kernels.pwl_softmax import pwl_softmax_cuda
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+
+# float32 on both sides: the same gradients summed in another order over
+# at most 300 keys / rows of terms of order 1 (~1e-6 apart)
+ATOL = 1e-5
+CASES = [(s, d) for d in (32, 64) for s in (1, 37, 129, 300)]
+
+
+def _inputs(s, d, seed=0, hq=8, hkv=2, b=2):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, s, hq, d)).astype(np.float32)
+    k = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+    g = rng.standard_normal((b, s, hq, d)).astype(np.float32)
+    return q, k, v, g
+
+
+def _plain_grads(q, k, v, g):
+    tq, tk, tv, tg = map(torch.from_numpy, (q, k, v, g))
+    out, lse = flash_attention_plain(tq, tk, tv, return_lse=True)
+    return out, lse, flash_attention_bwd_plain(tq, tk, tv, out, lse, tg)
+
+
+@pytest.mark.parametrize("jfn", ["flash", "full"])
+@pytest.mark.parametrize("s,d", CASES)
+def test_plain_backward_matches_jax_vjp(s, d, jfn):
+    """GQA 4:1, causal: dQ, dK, dV of the plain backward against jax.vjp
+    of the JAX model's blockwise flash_attention (chunks of 64, so S 129 and
+    300 cross blocks) and of its full_attention."""
+    q, k, v, g = _inputs(s, d)
+    if jfn == "flash":
+        fn = lambda q, k, v: jflash(q, k, v, causal=True, q_chunk=64, kv_chunk=64)
+    else:
+        fn = lambda q, k, v: jfull(q, k, v, causal=True)
+    out_j, vjp = jax.vjp(fn, q, k, v)
+    want = vjp(jnp.asarray(g))
+    out, _, got = _plain_grads(q, k, v, g)
+    np.testing.assert_allclose(out.numpy(), np.asarray(out_j), atol=ATOL)
+    for name, a, b in zip("qkv", got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize("s,d", CASES)
+def test_plain_backward_matches_autograd_of_the_plain_forward(s, d):
+    q, k, v, g = _inputs(s, d, seed=1)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = ops.flash_attention(tq, tk, tv)            # CPU: the plain forward
+    want = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(g))
+    _, _, got = _plain_grads(q, k, v, g)
+    for name, a, b in zip("qkv", got, want):
+        torch.testing.assert_close(a, b, atol=ATOL, rtol=0, msg=name)
+        assert bwd_agreement(a, b)[2], name
+
+
+@pytest.mark.parametrize("s,d", [(1, 32), (37, 64), (300, 32)])
+def test_lse_is_the_rows_logsumexp(s, d):
+    q, k, v, _ = _inputs(s, d, seed=2)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    _, lse = flash_attention_plain(tq, tk, tv, return_lse=True)
+    G = q.shape[2] // k.shape[2]
+    scores = torch.einsum("bqhd,bkhd->bhqk", tq, tk.repeat_interleave(G, 2)) * d ** -0.5
+    scores = scores.masked_fill(torch.ones(s, s, dtype=torch.bool).triu(1), -float("inf"))
+    torch.testing.assert_close(lse, torch.logsumexp(scores, -1), atol=1e-5, rtol=0)
+    # a row that sees no key (non-causal against no key is not a shape;
+    # causal rows always see key 0): +inf, so exp(s - lse) = 0
+    out, lse = flash_attention_plain(tq, tk[:, :0], tv[:, :0], causal=False, return_lse=True)
+    assert torch.isinf(lse).all() and (lse > 0).all() and not out.any()
+
+
+def test_plain_backward_leaves_masked_pairs_out_of_a_nan():
+    """A NaN in dO at (b, q*, h, d*) makes NaN dQ's row q*, dK's keys <= q*
+    and dV's keys <= q* in column d* of the KV head, nothing else: the
+    keys after q* do not see that row."""
+    q, k, v, g = _inputs(70, 32, seed=3, hq=2, hkv=1, b=1)
+    g[0, 40, 1, 5] = np.nan
+    _, _, (dq, dk, dv) = _plain_grads(q, k, v, g)
+    assert torch.isnan(dq).any(-1)[0, :, 1].nonzero().flatten().tolist() == [40]
+    assert not torch.isnan(dq[:, :, 0]).any()
+    assert torch.isnan(dk[0, :, 0]).any(-1).nonzero().flatten().tolist() == list(range(41))
+    assert torch.isnan(dv[0, :, 0]).nonzero().tolist() == [[i, 5] for i in range(41)]
+    assert bwd_agreement(dv, dv.clone())[2]
+    fake = dv.clone()
+    fake[0, 50, 0, 5] = float("nan")
+    assert not bwd_agreement(fake, dv)[2]
+
+
+def _pairwise_grads(q, k, v, out, lse, g):
+    """dQ, dK, dV pair by pair in float64 over the kept pairs only (kpos
+    <= qpos), GQA by h // G: the rule the plain version and the kernel
+    keep, written out as loops (small shapes only)."""
+    B, S, Hq, D = q.shape
+    G = Hq // k.shape[2]
+    scale = D ** -0.5
+    q, k, v, out, g = (np.asarray(a, np.float64) for a in (q, k, v, out, g))
+    lse = np.asarray(lse, np.float64)
+    dq, dk, dv = np.zeros(q.shape), np.zeros(k.shape), np.zeros(v.shape)
+    for b in range(B):
+        for h in range(Hq):
+            hk = h // G
+            for i in range(S):
+                delta = float(np.dot(g[b, i, h], out[b, i, h]))
+                for j in range(i + 1):
+                    p = np.exp(scale * np.dot(q[b, i, h], k[b, j, hk]) - lse[b, h, i])
+                    ds = p * (np.dot(g[b, i, h], v[b, j, hk]) - delta)
+                    dv[b, j, hk] += p * g[b, i, h]
+                    dk[b, j, hk] += scale * ds * q[b, i, h]
+                    dq[b, i, h] += scale * ds * k[b, j, hk]
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("where", ["none", "dout", "q", "k", "v"])
+def test_plain_backward_nan_rule_matches_pair_by_pair_sums(where):
+    """A NaN in dout, q, k or v: the plain backward is non-finite exactly
+    where the pair-by-pair sums over the kept pairs are, and equal to them
+    elsewhere."""
+    q, k, v, g = _inputs(12, 8, seed=4, hq=4, hkv=2, b=1)
+    if where in ("q", "k", "v"):
+        {"q": q, "k": k, "v": v}[where][0, 5, 1, 2] = np.nan
+    if where == "dout":
+        g[0, 5, 3, 2] = np.nan
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    out, lse = flash_attention_plain(tq, tk, tv, return_lse=True)
+    got = flash_attention_bwd_plain(tq, tk, tv, out, lse, torch.from_numpy(g))
+    want = _pairwise_grads(q, k, v, out.numpy(), lse.numpy(), g)
+    for name, a, w in zip("qkv", got, want):
+        a = a.numpy()
+        np.testing.assert_array_equal(np.isfinite(a), np.isfinite(w), err_msg=name)
+        fin = np.isfinite(w)
+        np.testing.assert_allclose(a[fin], w[fin], atol=ATOL, err_msg=name)
+    # the NaN reaches some gradient, and never all of one (the masked pairs)
+    n_bad = [int((~np.isfinite(w)).sum()) for w in want]
+    assert (sum(n_bad) > 0) == (where != "none")
+    assert all(n < w.size for n, w in zip(n_bad, want)), n_bad
+
+
+def test_cuda_wrappers_refuse_grad_without_a_backward():
+    """Under grad, an input that requires grad: the wrapper raises
+    NotImplementedError naming the ROADMAP item before it looks at the
+    device, so none can return an output without a gradient."""
+    q = torch.zeros((1, 4, 2, 32), requires_grad=True)
+    k = torch.zeros((1, 4, 2, 32))
+    for kw, item in ((dict(window=2), "window"), (dict(prefix_len=1), "prefix"),
+                     (dict(causal=False), "non-causal"), (dict(use_pwl=True), "PWL")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            flash_attention_cuda(q, k, k, **kw)
+    q80 = torch.zeros((1, 4, 2, 80), requires_grad=True)
+    with pytest.raises(NotImplementedError, match="head dim 80"):
+        flash_attention_cuda(q80, q80.detach(), q80.detach())
+    with pytest.raises(NotImplementedError, match="ROADMAP §B2"):
+        paged_attention_cuda(torch.zeros((1, 2, 32), requires_grad=True),
+                             torch.zeros((1, 4, 2, 32)), torch.zeros((1, 4, 2, 32)),
+                             identity_block_table(1, 4, 4), torch.tensor([4]))
+    x = torch.zeros((1, 8, 2, 32), requires_grad=True)
+    with pytest.raises(NotImplementedError, match="ssd_scan backward"):
+        ssd_scan_cuda(x, torch.zeros((1, 8, 2)), torch.zeros(2), torch.zeros((1, 8, 16)),
+                      torch.zeros((1, 8, 16)))
+    with pytest.raises(NotImplementedError, match="ROADMAP §B3"):
+        pwl_softmax_cuda(torch.zeros((2, 8), requires_grad=True))
+    w = torch.zeros((256, 64))
+    wq, ws = quantize_weights(w)
+    with pytest.raises(NotImplementedError, match="ROADMAP §B4"):
+        cim_matmul_cuda(torch.zeros((4, 256), requires_grad=True), wq, ws)
+    # a supported mode goes through FlashAttentionFn, which takes CUDA tensors
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(q, k, k)
+    with pytest.raises(ValueError, match="CUDA"):
+        FlashAttentionFn.apply(q, k, k)
+    # without grad (or with no input that requires grad) the refusal is off:
+    # the device check is reached
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(q, k, k, window=2)
+    with pytest.raises(ValueError, match="CUDA"):
+        pwl_softmax_cuda(torch.zeros((2, 8)))

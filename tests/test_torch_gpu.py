@@ -853,7 +853,7 @@ def test_flash_kernel_refuses_a_prefix_with_no_meaning(cuda):
     out = torch.empty_like(x)
     for causal, window, use_pwl in ((0, 0, 0), (1, 8, 0), (1, 0, 1)):
         assert lib.flash_attention_fwd(
-            x.data_ptr(), x.data_ptr(), x.data_ptr(), out.data_ptr(), 1, 64, 64, 2, 2, 64, 1,
+            x.data_ptr(), x.data_ptr(), x.data_ptr(), out.data_ptr(), None, 1, 64, 64, 2, 2, 64, 1,
             causal, window, 16, use_pwl, ctypes.addressof(PWL_COEFFS),
             torch.cuda.current_stream(cuda).cuda_stream) != 0
 
@@ -943,3 +943,188 @@ def test_paligemma_compiled_step_after_a_prefix_matches_the_eager_step(cuda, dty
         for name, t in entry.items():
             assert torch.equal(t, eager_cache[key][name]), f"{key}/{name}"
     assert ops.LAUNCHES["paged_attention"] == 2 * 8 * cfg.n_layers
+
+
+# ---- flash attention backward (training) --------------------------------
+# held by repro_torch.kernels.flash_attention.bwd_agreement: float32 within
+# 1e-4 of max(|want|, 1) (sums of up to S keys / rows in another order);
+# bf16 each element within 2**-7 |want| + 2**-12 max(|want|, 1)
+
+def _bwd_case(shape_q, hkv, dtype, seed, device):
+    from repro_torch.kernels import flash_attention as fa
+    b, s, hq, d = shape_q
+    q = _randn(shape_q, dtype, seed, device)
+    k, v = (_randn((b, s, hkv, d), dtype, seed + i + 1, device) for i in range(2))
+    out, lse = fa._flash_fwd(q, k, v, causal=True, use_pwl=False, window=0, prefix_len=0,
+                             with_lse=True)
+    g = _randn(shape_q, dtype, seed + 3, device)
+    return q, k, v, out, lse, g
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("S", [1, 129, 300])
+def test_flash_bwd_kernel_matches_plain(cuda, S, D, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, out, lse, g = _bwd_case((2, S, 8, D), 2, dtype, S + D, cuda)
+    _, lse_plain = fa.flash_attention_plain(q, k, v, return_lse=True)
+    assert (lse - lse_plain).abs().max().item() <= 1e-5
+    before = ops.LAUNCHES["flash_attention_bwd"]
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, g)
+    assert ops.LAUNCHES["flash_attention_bwd"] == before + 1     # three launches count once
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, g)
+    torch.cuda.synchronize()
+    for name, a, w in zip("qkv", got, want):
+        assert a.dtype == dtype and a.shape == w.shape
+        err, ratio, ok = fa.bwd_agreement(a, w)
+        assert ok, (name, err, ratio)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernel_is_deterministic_and_lse_leaves_the_forward_as_it_was(cuda, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, out, lse, g = _bwd_case((2, 1000, 8, 64), 2, dtype, 7, cuda)
+    first = fa.flash_attention_bwd_cuda(q, k, v, out, lse, g)
+    for _ in range(2):
+        again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, g)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert torch.equal(out, ops.flash_attention(q, k, v))
+
+
+@pytest.mark.parametrize("where", ["dout", "q", "k", "v"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernel_keeps_a_nan_where_plain(cuda, dtype, where):
+    """Non-finite exactly where the plain version is: a masked pair's 0
+    times a NaN row adds nothing (the mma path's diagonal blocks too)."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, out, lse, g = _bwd_case((1, 300, 4, 64), 1, dtype, 11, cuda)
+    if where == "dout":
+        g[0, 140, 3, 5] = float("nan")
+    else:
+        t = {"q": q, "k": k, "v": v}[where]
+        t[0, 140, 0, 5] = float("nan")
+        out, lse = fa._flash_fwd(q, k, v, causal=True, use_pwl=False, window=0, prefix_len=0,
+                                 with_lse=True)
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, g)
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, g)
+    assert not all(bool(torch.isfinite(w.float()).all()) for w in want)
+    for a, w in zip(got, want):
+        assert fa.bwd_agreement(a, w)[2]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_fn_matches_autograd_of_the_plain_version(cuda, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, _, _, g = _bwd_case((2, 200, 8, 64), 2, dtype, 5, cuda)
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    before = dict(ops.LAUNCHES)
+    out = ops.flash_attention(q, k, v)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, (q, k, v), g)
+    assert ops.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert ops.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    want = torch.autograd.grad(fa.flash_attention_plain(q, k, v), (q, k, v), g)
+    out_, lse = fa._flash_fwd(q.detach(), k.detach(), v.detach(), causal=True, use_pwl=False,
+                              window=0, prefix_len=0, with_lse=True)
+    plain = fa.flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(), out_, lse, g)
+    for name, a, w, p in zip("qkv", got, want, plain):
+        assert fa.bwd_agreement(a, p)[2], name
+        if dtype == torch.float32:
+            assert fa.bwd_agreement(a, w)[2], name
+        else:
+            # autograd of the plain forward differentiates its float32
+            # output; the backward reads the bf16 output the forward
+            # returned (Delta = rowsum(dO O)), ~2**-9 of a term apart
+            assert float((a.float() - w.float()).norm()) <= 2 ** -6 * float(w.float().norm())
+    with pytest.raises(NotImplementedError, match="window"):
+        ops.flash_attention(q, k, v, window=64)
+    with torch.no_grad():                          # no grad: the forward alone
+        assert ops.flash_attention(q, k, v).grad_fn is None
+
+
+def test_flash_bwd_entry_refuses_what_it_does_not_implement(cuda):
+    from repro_torch.kernels import _build
+    q, k, v, out, lse, g = _bwd_case((1, 64, 4, 64), 2, torch.float32, 3, cuda)
+    lib = _build.library("flash_attention_bwd")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((1, 4, 64), device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [t.data_ptr() for t in (q, k, v, out, lse, g, dq, dk, dv, delta)]
+    for D, causal, window, prefix, pwl in ((64, 0, 0, 0, 0), (64, 1, 16, 0, 0),
+                                           (64, 1, 0, 8, 0), (64, 1, 0, 0, 1), (80, 1, 0, 0, 0)):
+        err = lib.flash_attention_bwd(*ptrs, 1, 64, 64, 4, 2, D, 0, causal, window, prefix,
+                                      pwl, stream)
+        assert err != 0, (D, causal, window, prefix, pwl)
+    assert lib.flash_attention_bwd(*ptrs, 1, 64, 64, 4, 2, 64, 0, 1, 0, 0, 0, stream) == 0
+
+
+def _train_run(cfg, device, steps=3, seed=0):
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_map, tree_paths
+    from repro_torch.data import PackedStream
+    params = models.init_params(cfg, torch.Generator().manual_seed(seed))
+    p = tree_map(lambda t: t.to(device).requires_grad_(True), params)
+    state = adamw_init(p)
+    step = make_train_step(cfg, warmup=1, total_steps=10)
+    stream = PackedStream(cfg.vocab_size, 64, seed=seed)
+    metrics, updates = [], []
+    for _ in range(steps):
+        b = stream.next_batch(2)
+        batch = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+        batch["tokens"], batch["labels"] = batch["tokens"].long(), batch["labels"].long()
+        before = {k: t.detach().cpu() for k, t in tree_paths(p)}
+        p, state, m = step(p, state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+        updates.append({k: t.detach().cpu() - before[k] for k, t in tree_paths(p)})
+    return metrics, updates
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_train_step_on_the_card_matches_the_cpu(cuda, remat):
+    """Smoke llama3.2-1b, float32, 3 AdamW steps: metrics within 1e-5
+    relative, each leaf's update within 1e-2 in relative L2 norm (AdamW's
+    first steps move by about lr * sign(g); see chip_smoke.py
+    TRAIN_UPDATE_REL); launches: 2 forward (remat) or 1, and 1 backward,
+    a layer and step."""
+    cfg = dataclasses.replace(get_smoke_config("llama3.2-1b"), dtype="float32", remat=remat)
+    cpu = _train_run(cfg, "cpu")
+    before = dict(ops.LAUNCHES)
+    card = _train_run(cfg, cuda)
+    fwd = ops.LAUNCHES["flash_attention"] - before["flash_attention"]
+    bwd = ops.LAUNCHES["flash_attention_bwd"] - before["flash_attention_bwd"]
+    assert (fwd, bwd) == ((2 if remat else 1) * cfg.n_layers * 3, cfg.n_layers * 3)
+    for cm, pm in zip(card[0], cpu[0]):
+        for k in ("loss", "ce", "grad_norm", "lr"):
+            assert abs(cm[k] - pm[k]) <= 1e-5 * max(abs(pm[k]), 1e-30), (k, cm[k], pm[k])
+    for cu, pu in zip(card[1], cpu[1]):
+        for k in pu:
+            scale = max(float(pu[k].norm()), 1e-30)
+            assert float((cu[k] - pu[k]).norm()) <= 1e-2 * scale or not pu[k].any(), k
+
+
+def test_train_step_bf16_on_the_card_lowers_the_loss(cuda):
+    cfg = get_smoke_config("llama3.2-1b")
+    metrics, updates = _train_run(cfg, cuda, steps=12)
+    assert metrics[-1]["loss"] < metrics[0]["loss"]
+    assert all(np.isfinite(m["grad_norm"]) and m["grad_norm"] > 0 for m in metrics)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "whisper-large-v3", "paligemma-3b",
+                                  "mamba2-2.7b"])
+def test_training_a_family_without_backward_kernels_fails_loudly(cuda, arch):
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw_init
+    cfg = get_smoke_config(arch)
+    params = models.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    params = {k: v for k, v in params.items()}
+    from repro_torch.tree import tree_map
+    params = tree_map(lambda t: t.requires_grad_(True), params)
+    tokens = torch.zeros((1, 16), dtype=torch.long, device=cuda)
+    batch = {"tokens": tokens, "labels": tokens}
+    if cfg.n_prefix_tokens:
+        batch["prefix_embeds"] = torch.zeros((1, cfg.n_prefix_tokens, cfg.d_model), device=cuda)
+    if cfg.is_encoder_decoder:
+        batch["encoder_embeds"] = torch.zeros((1, cfg.encoder_seq, cfg.d_model), device=cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_train_step(cfg)(params, adamw_init(params), batch)

@@ -139,7 +139,12 @@ def test_port_imports_with_jax_blocked():
     assert len(names) >= 15
     assert {"repro_torch.models.moe", "repro_torch.configs.mixtral_8x7b",
             "repro_torch.configs.llama4_maverick",
-            "repro_torch.configs.whisper_large_v3"} <= set(names)
+            "repro_torch.configs.whisper_large_v3",
+            "repro_torch.optim.adamw", "repro_torch.optim.adafactor",
+            "repro_torch.optim.clip", "repro_torch.optim.schedule",
+            "repro_torch.checkpoint.ckpt", "repro_torch.data.pipeline",
+            "repro_torch.runtime.fault_tolerance", "repro_torch.runtime.straggler",
+            "repro_torch.launch.train"} <= set(names)
 
 
 def _imports(path: Path):
@@ -154,6 +159,10 @@ def test_no_port_file_imports_jax_or_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
+    rel = {str(f.relative_to(ROOT / "src" / "repro_torch")) for f in files[:-1]}
+    assert {"optim/adamw.py", "optim/adafactor.py", "optim/clip.py", "optim/schedule.py",
+            "checkpoint/ckpt.py", "data/pipeline.py", "runtime/fault_tolerance.py",
+            "runtime/straggler.py", "launch/train.py"} <= rel
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
