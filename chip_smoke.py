@@ -46,7 +46,18 @@ Phases, each of which fails the run if it fails:
                 at llama3.2-1b's train shape, D 128, the smoke D 32, ragged
                 S, float32 and a NaN in dout and in k, bit-equal across two
                 runs, the forward with its lse output bit-equal to the
-                forward without it); time kernel, plain
+                forward without it; without the causal mask at whisper's
+                train shapes (the encoder B8 S1500 H20 D64, bf16 and
+                float32; the cross-attention, 448 rows over 1500 frames),
+                ragged GQA with Sq != Skv and a NaN in dout and in k); the
+                SSD backward against its plain version (fed the forward
+                kernel's y and state) on dx, ddt, da_neg, dB and dC, da_neg
+                also against the float64 plain version: mamba2's train
+                shape b8 S1024 H80 P64 N128 on the mamba layer's strided
+                bf16 views (bit-equal to contiguous copies) and float32,
+                zamba2's N 64, ragged S, long memory at S 2048, the smoke
+                widths, with and without the final state's gradient,
+                bit-equal across two runs; time kernel, plain
                 version and one PyTorch library call where there is one,
                 with CUDA events.
   serve         llama3-8b at full width and depth in bf16, random weights
@@ -121,6 +132,21 @@ Phases, each of which fails the run if it fails:
   train_driver  ``launch.train.main`` at smoke size: a checkpoint at step
                 10, a failure injected at step 15, the restart from the
                 checkpoint, the loss down.
+  audio_train   whisper-large-v3 at published widths and full depth (32 +
+                32 layers) in bf16 under remat (each encoder layer and each
+                decoder layer checkpointed): 10 AdamW steps of B8 x S448
+                text over 1500 random frame embeddings a sequence, as
+                ``train`` (and its profiled step); each step launches 192
+                flash forwards (64 encoder non-causal S1500, 64 decoder
+                causal S448, 64 cross non-causal 448 x 1500) and 96
+                backwards, counted per shape.
+  audio_train_parity  whisper widths, 2 + 2 layers over 1500 frames,
+                float32, B2 x S256: as ``train_parity``.
+  ssm_train     mamba2-2.7b at full width and depth (64 layers) in bf16
+                under remat: 10 AdamW steps of B8 x S1024, as ``train``;
+                each step launches 128 SSD scans and 64 SSD backwards.
+  ssm_train_parity  mamba2 widths, 2 layers, float32, B2 x S512: as
+                ``train_parity``.
   profile       (only when named) device time by kernel under torch.profiler
                 for one full-width prefill and 8 decode steps (eager, and
                 through the graph) of each of the six served models
@@ -149,7 +175,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "serve", "ssm_serve", "hybrid_serve", "moe_serve", "audio_serve",
           "vlm_serve", "cim_scu", "parity", "ssm_parity", "moe_parity", "audio_parity",
-          "vlm_parity", "server", "train", "train_parity", "train_driver")
+          "vlm_parity", "server", "train", "train_parity", "train_driver", "audio_train",
+          "audio_train_parity", "ssm_train", "ssm_train_parity")
 EXTRA_PHASES = ("profile",)          # run only when named in --phases
 SERVE_ARCH = {"serve": "llama3-8b", "ssm_serve": "mamba2-2.7b",
               "hybrid_serve": "zamba2-2.7b"}
@@ -159,7 +186,8 @@ SERVE_ARCH = {"serve": "llama3-8b", "ssm_serve": "mamba2-2.7b",
 # run 2, "moe_serve_run2", "audio_serve" or "vlm_serve"
 MAIN_PATH_OF = {"flash_attention": "serve", "paged_attention": "serve",
                 "ssd_scan": "ssm_serve", "pwl_softmax": "cim_scu",
-                "cim_matmul": "cim_scu", "flash_attention_bwd": "train"}
+                "cim_matmul": "cim_scu", "flash_attention_bwd": "train",
+                "ssd_scan_bwd": "ssm_train"}
 
 # H100 SXM data-sheet peaks (dense): memory, bf16 and int8 tensor cores,
 # float32 SIMT
@@ -254,6 +282,20 @@ TRAIN_HQ, TRAIN_HKV, TRAIN_D = 32, 8, 64
 TRAIN_METRIC_REL = 1e-5
 TRAIN_GRAD_REL = 1e-4
 TRAIN_UPDATE_REL = 1e-2
+# mamba2's a_log and dt_bias (ssm_train_parity): one value a head, whose
+# gradient sums a term over every (b, s) row of the batch (dt_bias's
+# ddt_s, a_log's dt_s da_s A, da_s a suffix sum of dcs_t = dy_t . y_t -
+# u_t . du_t, two terms that cancel), so float32 rounding in another
+# order on the two devices moves it by far more than a leaf of
+# independent elements: the SSD backward's da_neg lies 1.46e-3 of its size
+# from float64 in the plain float32 version and 4.8e-4 in the kernel at
+# b8 S1024 (kernels phase).  Every other leaf stays at TRAIN_GRAD_REL.
+SSM_SCALAR_GRAD_REL = 2e-3
+# training of the other families: whisper-large-v3 (32 + 32 layers) at
+# B8 x S448 text (its max_target_positions) over 1500 frames, and
+# mamba2-2.7b (64 layers) at B8 x S1024, 10 AdamW steps each (warmup 5)
+AUDIO_TRAIN_ARCH, AUDIO_TRAIN_B, AUDIO_TRAIN_S, AUDIO_TRAIN_STEPS = "whisper-large-v3", 8, 448, 10
+SSM_TRAIN_ARCH, SSM_TRAIN_B, SSM_TRAIN_S, SSM_TRAIN_STEPS = "mamba2-2.7b", 8, 1024, 10
 
 
 def log(*a):
@@ -739,8 +781,9 @@ def phase_kernels(torch, timer, results):
     cim = phase_kernels_cim(torch, timer, randn, extra)
 
     flash_bwd = flash_bwd_cases(torch, timer, randn, extra)
+    ssd_bwd = ssd_bwd_cases(torch, timer, randn, extra)
 
-    results["kernels"] = [flash, paged, ssd, softmax, cim, flash_bwd]
+    results["kernels"] = [flash, paged, ssd, softmax, cim, flash_bwd, ssd_bwd]
     results["kernels_other_shapes"] = extra
     for kern in results["kernels"] + extra:
         lib = kern["library_ms"]
@@ -750,13 +793,13 @@ def phase_kernels(torch, timer, results):
             + f", bound {kern['bound_ms']:.5f} ms ({kern['bound_by']})")
 
 
-def bwd_work(b, s, hq, hkv, d, esize):
+def bwd_work(b, sq, skv, hq, hkv, d, esize, causal=True):
     """Bytes (q, k, v, out, dout and the float32 lse read once; dq, dk,
-    dv written once) and FLOPs of causal attention's backward: five
-    products of 2 * D per (query, key) pair the mask keeps (S, dP, dV, dK,
-    dQ), s (s + 1) / 2 pairs a head."""
-    pairs = s * (s + 1) // 2
-    nbytes = (4 * b * s * hq * d + 4 * b * s * hkv * d) * esize + b * hq * s * 4
+    dv written once) and FLOPs of attention's backward: five products of
+    2 * D per (query, key) pair the mask keeps (S, dP, dV, dK, dQ): causal,
+    the pairs with kpos <= qpos; else sq * skv a head."""
+    pairs = sum(min(i + 1, skv) for i in range(sq)) if causal else sq * skv
+    nbytes = (4 * b * sq * hq * d + 4 * b * skv * hkv * d) * esize + b * hq * sq * 4
     return nbytes, 5 * 2 * b * hq * d * pairs
 
 
@@ -766,48 +809,64 @@ def flash_bwd_cases(torch, timer, randn, extra):
     dV by ``flash_attention.bwd_agreement``: llama3.2-1b's train shape (the
     main path), llama3-8b's B4 S512 D128, the smoke D 32, ragged S 1, 129
     and 1000, float32 at train_parity's shape, a NaN in dout and in k
-    (non-finite in the same places).  Each case also holds the forward with the lse output
-    bit-equal to the forward without it, and the lse to the plain
-    version's.  The main shape runs twice, bit-equal (no atomics).  Timed
-    with the plain version and SDPA's backward (fwd + bwd through
-    ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
-    minus its forward, a yardstick).  Returns the main entry."""
+    (non-finite in the same places); without the causal mask whisper's
+    train shapes (the encoder B8 S1500 H20 D64, bf16 and float32, and the
+    cross-attention of 448 text rows over 1500 frames), ragged GQA with Sq
+    != Skv, and a NaN in dout and in k.  Each case also holds the forward
+    with the lse output bit-equal to the forward without it, and the lse
+    to the plain version's.  The main shape and whisper's encoder run
+    twice, bit-equal (no atomics).  Timed with the plain version and SDPA's
+    backward (fwd + bwd through ``scaled_dot_product_attention(is_causal=
+    causal, enable_gqa=True)`` minus its forward, a yardstick).  Returns
+    the main entry."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
 
-    cases = [  # B, S, Hq, Hkv, D, dtype, the input that holds a NaN
-        (TRAIN_B, TRAIN_S, TRAIN_HQ, TRAIN_HKV, TRAIN_D, "bfloat16", None),  # main path
-        (B_MAIN, PROMPT, HQ, HKV, D, "bfloat16", None),                  # llama3-8b
-        (2, 256, TRAIN_HQ, TRAIN_HKV, TRAIN_D, "float32", None),         # train_parity
-        (2, 64, 4, 2, 32, "bfloat16", None),                             # smoke
-        (2, 64, 4, 2, 32, "float32", None),
-        (2, 1, 8, 2, 64, "float32", None),                               # ragged S
-        (2, 1, 4, 1, 128, "bfloat16", None),
-        (1, 129, 8, 2, 64, "bfloat16", None),
-        (1, 129, 4, 4, 128, "float32", None),
-        (2, 1000, 8, 2, 64, "bfloat16", None),
-        (1, 1000, 4, 1, 32, "float32", None),
-        (1, 300, 4, 1, 64, "float32", "dout"),                           # NaN in dout
-        (1, 300, 8, 2, 128, "bfloat16", "dout"),
-        (1, 300, 8, 2, 64, "bfloat16", "k"),                             # NaN in k
+    WB, WS = AUDIO_TRAIN_B, AUDIO_TRAIN_S
+    cases = [  # B, Sq, Skv, Hq, Hkv, D, dtype, causal, the input that holds a NaN, path
+        (TRAIN_B, TRAIN_S, TRAIN_S, TRAIN_HQ, TRAIN_HKV, TRAIN_D, "bfloat16", True, None,
+         "train"),                                                               # main path
+        (B_MAIN, PROMPT, PROMPT, HQ, HKV, D, "bfloat16", True, None, "train"),   # llama3-8b
+        (2, 256, 256, TRAIN_HQ, TRAIN_HKV, TRAIN_D, "float32", True, None, "train_parity"),
+        (WB, W_FRAMES, W_FRAMES, WH, WH, WD, "bfloat16", False, None,
+         "audio_train"),                                                         # whisper encoder
+        (WB, WS, W_FRAMES, WH, WH, WD, "bfloat16", False, None, "audio_train"),  # cross
+        (WB, W_FRAMES, W_FRAMES, WH, WH, WD, "float32", False, None, None),
+        (2, 64, 64, 4, 2, 32, "bfloat16", True, None, None),                     # smoke
+        (2, 64, 64, 4, 2, 32, "float32", True, None, None),
+        (2, 1, 1, 8, 2, 64, "float32", True, None, None),                        # ragged S
+        (2, 1, 1, 4, 1, 128, "bfloat16", True, None, None),
+        (1, 129, 129, 8, 2, 64, "bfloat16", True, None, None),
+        (1, 129, 129, 4, 4, 128, "float32", True, None, None),
+        (2, 1000, 1000, 8, 2, 64, "bfloat16", True, None, None),
+        (1, 1000, 1000, 4, 1, 32, "float32", True, None, None),
+        (1, 130, 333, 8, 2, 128, "bfloat16", False, None, None),                 # ragged GQA
+        (2, 77, 200, 4, 1, 32, "float32", False, None, None),
+        (2, 333, 1, 8, 2, 64, "bfloat16", False, None, None),
+        (1, 300, 300, 4, 1, 64, "float32", True, "dout", None),                  # NaN in dout
+        (1, 300, 300, 8, 2, 128, "bfloat16", True, "dout", None),
+        (1, 300, 300, 8, 2, 64, "bfloat16", True, "k", None),                    # NaN in k
+        (1, 200, 300, 8, 2, 64, "bfloat16", False, "dout", None),
+        (1, 300, 200, 4, 1, 64, "float32", False, "k", None),
     ]
     main = None
-    for i, (b, s, hq, hkv, d, dt, nan) in enumerate(cases):
-        q = randn((b, s, hq, d), dt)
-        k, v = (randn((b, s, hkv, d), dt) for _ in range(2))
+    for i, (b, sq, skv, hq, hkv, d, dt, causal, nan, path) in enumerate(cases):
+        q = randn((b, sq, hq, d), dt)
+        k, v = (randn((b, skv, hkv, d), dt) for _ in range(2))
         if nan == "k":
-            k[0, s // 3, 0, 3] = float("nan")
-        kw = dict(causal=True, use_pwl=False, window=0, prefix_len=0)
+            k[0, skv // 3, 0, 3] = float("nan")
+        kw = dict(causal=causal, use_pwl=False, window=0, prefix_len=0)
         out0, _ = fa._flash_fwd(q, k, v, with_lse=False, **kw)
         out, lse = fa._flash_fwd(q, k, v, with_lse=True, **kw)
-        _, lse_plain = fa.flash_attention_plain(q, k, v, return_lse=True)
-        g = randn((b, s, hq, d), dt)
+        _, lse_plain = fa.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+        g = randn((b, sq, hq, d), dt)
         if nan == "dout":
-            g[0, s // 2, hq - 1, 5] = float("nan")
-        got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, g)
-        want = fa.flash_attention_bwd_plain(q, k, v, out, lse, g)
+            g[0, sq // 2, hq - 1, 5] = float("nan")
+        got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, g, causal=causal)
+        want = fa.flash_attention_bwd_plain(q, k, v, out, lse, g, causal=causal)
         torch.cuda.synchronize()
-        shape = f"B{b} S{s} Hq{hq} Hkv{hkv} D{d} {dt} causal" + (f" NaN in {nan}" if nan else "")
+        shape = (f"B{b} Sq{sq} Skv{skv} Hq{hq} Hkv{hkv} D{d} {dt} "
+                 + ("causal" if causal else "non-causal") + (f" NaN in {nan}" if nan else ""))
         if not torch.equal(out0.nan_to_num(), out.nan_to_num()) or \
                 not torch.equal(out0.isnan(), out.isnan()):
             raise AssertionError(f"flash_attention {shape}: the forward with lse is not "
@@ -828,21 +887,22 @@ def flash_bwd_cases(torch, timer, randn, extra):
             if nan and nonfinite == 0:
                 raise AssertionError(f"flash_attention_bwd {shape}: the NaN was dropped")
             errs.append(err)
-        if i == 0:
-            again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, g)
+        if i in (0, 3):
+            again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, g, causal=causal)
             if not all(torch.equal(a, c) for a, c in zip(got, again)):
-                raise AssertionError("flash_attention_bwd: two runs differ")
+                raise AssertionError(f"flash_attention_bwd {shape}: two runs differ")
             log(f"[kernels] flash_attention_bwd {shape}: two runs bit-equal")
         del got, want
-        if i > 2:
+        if i > 5:
             continue
-        nbytes, flops = bwd_work(b, s, hq, hkv, d, q.element_size())
+        nbytes, flops = bwd_work(b, sq, skv, hq, hkv, d, q.element_size(), causal)
         bms, by = bound(nbytes, flops, dt)
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
         gt = g.transpose(1, 2)
 
         def sdpa_fwd():
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                  enable_gqa=True)
 
         def sdpa_fwd_bwd():
             torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), gt)
@@ -857,11 +917,14 @@ def flash_bwd_cases(torch, timer, randn, extra):
                        "per 64 query rows), no atomics; "
                        + ("bf16 mma.sync m16n8k16, P and dS as hi + lo bf16, the diagonal "
                           "16 x 16 blocks pair by pair" if dt == "bfloat16" else
-                          "float32 SIMT")),
+                          "float32 SIMT")
+                       + ("" if causal else "; no causal mask, Sq != Skv")),
             "shape": shape, "max_abs_err": max(errs),
-            "launch_key": fa.launch_key(q, k),
-            "ms": timer.ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, out, lse, g), 10),
-            "plain_ms": timer.ms(lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, g), 3),
+            "launch_key": fa.launch_key(q, k, causal=causal),
+            "ms": timer.ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, out, lse, g,
+                                                               causal=causal), 10),
+            "plain_ms": timer.ms(lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, g,
+                                                                      causal=causal), 3),
             "library_ms": max(timer.ms(sdpa_fwd_bwd, 10) - timer.ms(sdpa_fwd, 10), 0.0),
             "bound_ms": bms, "bound_by": by,
         }
@@ -871,7 +934,7 @@ def flash_bwd_cases(torch, timer, randn, extra):
             ferr = _check_flash(torch, out, fa.flash_attention_plain(q, k, v), dt,
                                 f"llama3.2-1b train forward {shape}", False)
             nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-            fbms, fby = bound(nbytes, 4 * b * hq * d * s * (s + 1) / 2, dt)
+            fbms, fby = bound(nbytes, 4 * b * hq * d * sq * (sq + 1) / 2, dt)
             extra.append({
                 "name": "flash_attention", "route": "cuda",
                 "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -885,9 +948,145 @@ def flash_bwd_cases(torch, timer, randn, extra):
                 "bound_ms": fbms, "bound_by": fby,
             })
         else:
-            entry["path"] = "train_parity" if dt == "float32" else "train"
+            if path is not None:
+                entry["path"] = path
             extra.append(entry)
+        if path == "audio_train":
+            # the forward of the same shape, launched twice a layer and step
+            ferr = _check_flash(torch, out, fa.flash_attention_plain(q, k, v, causal=False), dt,
+                                f"whisper train forward {shape}", False)
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+            fbms, fby = bound(nbytes, 4 * b * hq * d * sq * skv, dt)
+            extra.append({
+                "name": "flash_attention", "route": "cuda",
+                "source": "src/repro_torch/csrc/flash_attention.cu",
+                "replaces": "src/repro/kernels/flash_attention.py:76",
+                "design": "the mma.sync path with the lse output (training), non-causal",
+                "shape": f"whisper train: {shape}, lse out", "max_abs_err": ferr,
+                "path": path, "launch_key": fa.launch_key(q, k, causal=False),
+                "ms": timer.ms(lambda: fa._flash_fwd(q, k, v, with_lse=True, **kw), 10),
+                "plain_ms": timer.ms(lambda: fa.flash_attention_plain(q, k, v, causal=False), 3),
+                "library_ms": timer.ms(sdpa_fwd, 10),
+                "bound_ms": fbms, "bound_by": fby,
+            })
         del q, k, v, out, lse, g, qt, kt, vt, gt
+    torch.cuda.synchronize()
+    return main
+
+
+def ssd_bwd_work(b, s, h, p, n, esize, with_dstate):
+    """Bytes (x, dt, A, B, C, y, dy, and the final state and its gradient
+    where one is given, read once; dx, ddt, dA, dB, dC written once) and
+    FLOPs of the SSD backward's recurrent form, the least the function
+    needs whatever its chunking: per row and head the carried gradient g
+    (its decay and the rank-1 dy ⊗ C, 3·P·N), du = g·B (2·P·N), gᵀ·u into
+    dB (2·P·N), the state again (3·P·N) and hᵀ·dy into dC (2·P·N)."""
+    flops = 12 * b * s * h * p * n
+    nbytes = (2 * (b * s * h * p + 2 * b * s * n) * esize + 2 * (b * s * h + h) * 4
+              + 2 * b * s * h * p * 4 + (2 * b * h * p * n * 4 if with_dstate else 0))
+    return nbytes, flops
+
+
+def ssd_bwd_cases(torch, timer, randn, extra):
+    """The SSD backward kernel (``ssd_scan_bwd_cuda``) against its plain
+    version (``ssd_scan_bwd_plain``, fed the forward kernel's y and state as
+    the kernel is) on dx, ddt, da_neg, dB and dC by
+    ``ssd_scan.bwd_agreement``: mamba2's train shape b8 S1024 H80 P64 N128
+    with x, B and C the strided bf16 views the mamba layer passes (the main
+    path) and as float32, zamba2's N 64, ragged S, long memory (dt ~ 0.01)
+    at S 2048, the smoke widths, with and without a gradient of the final
+    state; every case twice, bit-equal (no atomics), and the strided views
+    bit-equal to contiguous copies.  Timed with the plain version; no
+    PyTorch call computes it.  Returns the main entry."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ssd_scan as ss
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    cases = [  # b, S, H, P, N, dtype, memory, dstate given, strided views
+        (SSM_TRAIN_B, SSM_TRAIN_S, SSM_H, SSM_P, 128, "bfloat16", "short", False, True),
+        (SSM_TRAIN_B, SSM_TRAIN_S, SSM_H, SSM_P, 128, "float32", "short", True, False),
+        (SSM_TRAIN_B, SSM_TRAIN_S, SSM_H, SSM_P, 64, "bfloat16", "short", True, True),  # zamba2
+        (2, 300, 16, SSM_P, 64, "bfloat16", "long", True, False),                       # ragged S
+        (1, 100, 8, SSM_P, 128, "float32", "short", False, False),
+        (1, 2048, 8, SSM_P, 128, "bfloat16", "long", False, False),                     # long memory
+        (1, 2048, 8, SSM_P, 128, "float32", "long", True, False),
+        (2, 77, 8, 32, 16, "float32", "short", True, False),                            # smoke
+        (3, 130, 4, 32, 32, "bfloat16", "long", False, True),
+    ]
+    main = None
+    for i, (b, s, h, p, n, dt, memory, with_dstate, strided) in enumerate(cases):
+        if strided:         # as the mamba layer slices its conv output
+            conv = randn((b, s, h * p + 2 * n), "float32")
+            conv[..., h * p:] *= 0.3
+            conv = conv.to(getattr(torch, dt))
+            x = conv[..., :h * p].reshape(b, s, h, p)
+            Bm, Cm = conv[..., h * p:h * p + n], conv[..., h * p + n:]
+        else:
+            x, Bm, Cm = randn((b, s, h, p), dt), randn((b, s, n), dt, 0.3), randn((b, s, n), dt, 0.3)
+        shift = {"short": 0.0, "long": -5.0}[memory]
+        delta = F.softplus(torch.randn((b, s, h), generator=gen, device="cuda") + shift)
+        a_neg = -torch.exp(0.2 * torch.randn((h,), generator=gen, device="cuda"))
+        args = (x, delta, a_neg, Bm, Cm)
+        y, state = ss.ssd_scan_cuda(*args)
+        dy = torch.randn((b, s, h, p), generator=gen, device="cuda")
+        dstate = (torch.randn((b, h, p, n), generator=gen, device="cuda")
+                  if with_dstate else None)
+        got = ss.ssd_scan_bwd_cuda(*args, y, state, dy, dstate)
+        again = ss.ssd_scan_bwd_cuda(*args, y, state, dy, dstate)
+        want = ss.ssd_scan_bwd_plain(*args, dy, dstate, SSM_CHUNK, y=y, state=state)
+        f64 = [t.double() if t is not None else None for t in (*args, dy, dstate, y, state)]
+        exact = ss.ssd_scan_bwd_plain(*f64[:7], SSM_CHUNK, y=f64[7], state=f64[8])
+        torch.cuda.synchronize()
+        shape = (f"b{b} S{s} H{h} P{p} N{n} {dt} {memory} memory, dstate "
+                 + ("given" if with_dstate else "absent") + (", strided x/B/C" if strided else ""))
+        errs = []
+        for name, a, w, x64 in zip(ss.BWD_NAMES, got, want, exact):
+            err, ratio, ok = ss.bwd_agreement(a, w, name, exact=x64)
+            top = x64.abs().max().item()
+            log(f"[kernels] ssd_scan_bwd {shape} {name}: max_abs_err={err:.3e} "
+                f"({ratio:.3f} of the bound); from float64, relative to its max: kernel "
+                f"{(a.double() - x64).abs().max().item() / top:.2e}, plain "
+                f"{(w.double() - x64).abs().max().item() / top:.2e}")
+            if not ok:
+                raise AssertionError(f"ssd_scan_bwd {shape} {name} disagrees with its plain "
+                                     f"version ({err:.3e}, {ratio:.3f} of the bound)")
+            errs.append(err)
+        if not all(torch.equal(a, c) for a, c in zip(got, again)):
+            raise AssertionError(f"ssd_scan_bwd {shape}: two runs differ")
+        if strided:
+            flat = (x.contiguous(), delta, a_neg, Bm.contiguous(), Cm.contiguous())
+            if not all(torch.equal(a, c) for a, c in
+                       zip(got, ss.ssd_scan_bwd_cuda(*flat, y, state, dy, dstate))):
+                raise AssertionError(f"ssd_scan_bwd {shape}: the views and contiguous "
+                                     "copies give different gradients")
+        log(f"[kernels] ssd_scan_bwd {shape}: two runs bit-equal"
+            + (", views = contiguous copies" if strided else ""))
+        del got, again, want, exact, f64
+        if i > 2:
+            continue
+        nbytes, flops = ssd_bwd_work(b, s, h, p, n, x.element_size(), with_dstate)
+        bms, by = bound(nbytes, flops, dt)
+        entry = {
+            "name": "ssd_scan_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_scan_bwd.cu",
+            "replaces": "src/repro/models/ssm.py:76",
+            "design": ("no Pallas kernel (the reference differentiates ssd_chunked "
+                       "with XLA's autodiff); a CTA per (batch, head) for each of two walks "
+                       "over 32-row sub-chunks (in order: h0 and dC; in reverse: G, dx, ddt, "
+                       "dB, da), float32 SIMT, register-tiled products over shared memory, "
+                       "per-head shares of dB / dC / da_neg summed in a fixed order"),
+            "shape": shape, "max_abs_err": max(errs),
+            "launch_key": ss.launch_key(x, Bm),
+            "ms": timer.ms(lambda: ss.ssd_scan_bwd_cuda(*args, y, state, dy, dstate), 10),
+            "plain_ms": timer.ms(lambda: ss.ssd_scan_bwd_plain(*args, dy, dstate, SSM_CHUNK,
+                                                               y=y, state=state), 3),
+            "library_ms": None,       # no single PyTorch call computes it
+            "bound_ms": bms, "bound_by": by,
+        }
+        if i == 0:
+            main = entry
+        else:
+            extra.append(entry)
     torch.cuda.synchronize()
     return main
 
@@ -1570,8 +1769,8 @@ def expected_launches(cfg, new: int):
     n_attn = sum({"mamba": 0, "dec": 2}.get(k, 1) for k in kinds) * n_groups
     n_enc = cfg.n_encoder_layers if cfg.is_encoder_decoder else 0
     return {"flash_attention": n_attn + n_enc, "flash_attention_bwd": 0,
-            "paged_attention": n_attn * new, "ssd_scan": n_mamba, "pwl_softmax": 0,
-            "cim_matmul": 0}
+            "paged_attention": n_attn * new, "ssd_scan": n_mamba, "ssd_scan_bwd": 0,
+            "pwl_softmax": 0, "cim_matmul": 0}
 
 
 def decode_loop(torch, step, params, cache, tok, start: int, new: int):
@@ -2306,102 +2505,195 @@ def first_grads(torch, cfg, params, batch):
     return {path: g for (path, _), g in zip(paths, grads)}
 
 
-def phase_train(torch, results):
-    """llama3.2-1b at full width and depth (16 layers, remat as the config
-    has it) in bf16, random weights from seed 0: 20 AdamW steps of B8 x
-    S1024 through ``launch.steps.make_train_step`` (lr 3e-4, warmup 10,
-    total 20).  The main path is the 20 steps: each launches the flash
-    forward twice a layer (the forward, then remat's recompute) and its
-    backward once.  Fails unless the last loss is below the first, every
-    leaf's gradient at the first step (taken apart, before the counted
-    steps) is finite and non-zero, and the launch counts are exact.
-    Prints ms a step (median of steps 3-20), tokens/s, peak GiB, and the
-    flash kernels' device time in one more step under torch.profiler."""
-    from repro_torch.configs import get_config
+def run_train(torch, results, phase, cfg, batches, *, steps, warmup, want, want_by_shape=None):
+    """``steps`` AdamW steps of ``cfg`` (bf16, random weights from seed 0)
+    over ``batches`` (one more than ``steps``: the first also gives the
+    first gradients, the last the profiled step) through
+    ``launch.steps.make_train_step`` (lr 3e-4, the given warmup, total
+    ``steps``).  The main path is the ``steps`` steps: the launch counters
+    are zeroed just before and read just after, and must equal ``want``
+    (every kernel not named there 0) and, per shape, ``want_by_shape``.
+    Fails unless the last loss is below the first and every leaf's gradient
+    at the first step (taken apart, before the counted steps) is finite and
+    non-zero.  Prints ms a step (median of steps 3 on), tokens/s (the
+    batches' token ids), peak GiB, and the port's kernels' device time in
+    one more step under torch.profiler."""
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import init_train_state, make_train_step
 
-    cfg = get_config(TRAIN_ARCH)
-    if not cfg.remat or cfg.n_layers != 16:
-        raise AssertionError(f"{cfg.name}: expected 16 layers under remat")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     params, opt_state = init_train_state(cfg, torch.Generator(device="cuda").manual_seed(0))
     n_params = sum(t.numel() for t in _leaves(params))
-    batches = train_batches(torch, cfg, TRAIN_B, TRAIN_S, TRAIN_STEPS + 1)
     torch.cuda.synchronize()
-    log(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{n_params / 1e9:.3f} B params in {cfg.dtype}, remat {cfg.remat}, "
-        f"optimizer {cfg.optimizer}; init {time.time() - t0:.1f}s")
+    tokens = batches[0]["tokens"].numel()
+    log(f"[{phase}] {cfg.name}: {cfg.n_layers} layers"
+        + (f" + {cfg.n_encoder_layers} encoder layers" if cfg.is_encoder_decoder else "")
+        + f", d_model {cfg.d_model}, {n_params / 1e9:.3f} B params in {cfg.dtype}, remat "
+        f"{cfg.remat}, optimizer {cfg.optimizer}; batch {tuple(batches[0]['tokens'].shape)}"
+        + (f" + {tuple(batches[0]['encoder_embeds'].shape)} frames"
+           if "encoder_embeds" in batches[0] else "")
+        + f"; init {time.time() - t0:.1f}s")
     grads = first_grads(torch, cfg, params, batches[0])
     bad = [path for path, g in grads.items()
            if not bool(torch.isfinite(g.float()).all()) or not bool(g.any())]
     if bad:
-        raise AssertionError(f"train: leaves without a finite non-zero gradient: {bad}")
-    log(f"[train] first step's gradient finite and non-zero on all {len(grads)} leaves")
+        raise AssertionError(f"{phase}: leaves without a finite non-zero gradient: {bad}")
+    log(f"[{phase}] first step's gradient finite and non-zero on all {len(grads)} leaves")
     del grads
-    step = make_train_step(cfg, base_lr=3e-4, warmup=10, total_steps=TRAIN_STEPS)
+    step = make_train_step(cfg, base_lr=3e-4, warmup=warmup, total_steps=steps)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     times, losses = [], []
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         t = time.time()
         params, opt_state, m = step(params, opt_state, batches[i])
         losses.append(float(m["loss"]))          # reads the loss: the step is done
         times.append(time.time() - t)
     launches, by_shape = dict(ops.LAUNCHES), dict(ops.LAUNCHES_BY_SHAPE)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    want = {**dict.fromkeys(launches, 0), "flash_attention": 2 * cfg.n_layers * TRAIN_STEPS,
-            "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS}
-    log(f"[train] launches on the main path ({TRAIN_STEPS} steps): {launches} "
-        f"(expected {want})")
+    want = {**dict.fromkeys(launches, 0), **want}
+    log(f"[{phase}] launches on the main path ({steps} steps): {launches} (expected {want})")
     if launches != want:
-        raise AssertionError(f"train launches {launches}, expected {want}")
+        raise AssertionError(f"{phase} launches {launches}, expected {want}")
+    for key, n in (want_by_shape or {}).items():
+        log(f"[{phase}]   {key[0]} at {key[1]}: {by_shape.get(key, 0)} (expected {n})")
+        if by_shape.get(key, 0) != n:
+            raise AssertionError(f"{phase}: {by_shape.get(key, 0)} launches of {key}, "
+                                 f"expected {n}")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
-        raise AssertionError(f"train: the loss did not fall: {losses}")
+        raise AssertionError(f"{phase}: the loss did not fall: {losses}")
     med = sorted(times[2:])[len(times[2:]) // 2]
-    log(f"[train] loss {losses[0]:.4f} -> {losses[-1]:.4f} over {TRAIN_STEPS} steps; "
-        f"{med * 1e3:.2f} ms a step (median of steps 3-{TRAIN_STEPS}; first two "
+    log(f"[{phase}] loss {losses[0]:.4f} -> {losses[-1]:.4f} over {steps} steps; "
+        f"{med * 1e3:.2f} ms a step (median of steps 3-{steps}; first two "
         f"{times[0] * 1e3:.1f} / {times[1] * 1e3:.1f} ms), "
-        f"{TRAIN_B * TRAIN_S / med:.0f} tokens/s, peak {peak:.2f} GiB")
+        f"{tokens / med:.0f} tokens/s, peak {peak:.2f} GiB")
     prof = trace(torch, lambda: step(params, opt_state, batches[-1]))
-    for us, n, key in [t for t in prof.pop("top") if "flash" in t[2]]:
-        log(f"[train]   {us / 1e3:9.3f} ms  x{n:<5d} {key}")
-    log(f"[train] one more step under torch.profiler: wall {prof['wall_ms']:.2f} ms, "
+    for us, n, key in [t for t in prof.pop("top") if "repro_torch" in t[2]]:
+        log(f"[{phase}]   {us / 1e3:9.3f} ms  x{n:<5d} {key}")
+    log(f"[{phase}] one more step under torch.profiler: wall {prof['wall_ms']:.2f} ms, "
         f"device busy {prof['device_busy_ms']:.2f} ms ({100 * prof['busy_share']:.1f}%), "
         + ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(prof["device_ms_by_class"].items())))
-    results["train"] = {
-        "arch": cfg.name, "batch": TRAIN_B, "seq": TRAIN_S, "steps": TRAIN_STEPS,
+    results[phase] = {
+        "arch": cfg.name, "batch": list(batches[0]["tokens"].shape), "steps": steps,
         "losses": losses, "step_ms": [t * 1e3 for t in times], "median_step_ms": med * 1e3,
-        "tokens_per_s": TRAIN_B * TRAIN_S / med, "peak_gib": peak,
-        "profiled_step": prof}
+        "tokens_per_s": tokens / med, "peak_gib": peak, "profiled_step": prof}
     return {**launches, **by_shape}
 
 
-def phase_train_parity(torch, results):
-    """llama3.2-1b widths (d_model 2048, 32 / 8 heads of 64, d_ff 8192,
-    vocab 128256, tied), 2 layers, float32, B2 x S256 from PackedStream(1):
-    3 AdamW steps (lr 3e-4, warmup 10, total 20) on the card (kernels) and
-    on the CPU (plain versions) from the same weights and batches, the card
-    once with remat on and once off.  Compares each step's loss, ce, grad
-    norm and LR, each leaf's gradient of the first batch and each leaf's
-    update per step (TRAIN_* bounds above).  The CPU runs once, without
-    remat: remat moves no number on the CPU (tests/test_torch_train.py)."""
-    from repro_torch import models
+def phase_train(torch, results):
+    """llama3.2-1b at full width and depth (16 layers, remat as the config
+    has it) in bf16: 20 steps of B8 x S1024 from the port's
+    PackedStream(seed=0), warmup 10 (``run_train``).  Each step launches
+    the flash forward twice a layer (the forward, then remat's recompute)
+    and its backward once."""
     from repro_torch.configs import get_config
+
+    cfg = get_config(TRAIN_ARCH)
+    if not cfg.remat or cfg.n_layers != 16:
+        raise AssertionError(f"{cfg.name}: expected 16 layers under remat")
+    batches = train_batches(torch, cfg, TRAIN_B, TRAIN_S, TRAIN_STEPS + 1)
+    return run_train(torch, results, "train", cfg, batches, steps=TRAIN_STEPS, warmup=10,
+                     want={"flash_attention": 2 * cfg.n_layers * TRAIN_STEPS,
+                           "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS})
+
+
+def audio_batches(torch, cfg, batch, seq, n, seed=0, device="cuda"):
+    """``n`` batches of text from the port's PackedStream(seed) with the
+    random frame embeddings (``cfg.encoder_seq`` of them, N(0, 0.02²),
+    float32) that the train driver, as the reference's, gives an
+    encoder-decoder (``launch.train._batch``, seeded by the step)."""
+    from repro_torch.data import PackedStream
+    from repro_torch.launch.train import _batch
+    stream = PackedStream(cfg.vocab_size, seq, seed=seed)
+    return [_batch(cfg, stream, batch, i, device) for i in range(n)]
+
+
+def phase_audio_train(torch, results):
+    """whisper-large-v3 at published widths and full depth (32 encoder + 32
+    decoder layers, 1.601 B params) in bf16 under remat: 10 steps of B8 x
+    S448 text (whisper's max_target_positions) over 1500 frames a sequence,
+    warmup 5 (``run_train``).  Remat checkpoints each encoder layer and
+    each decoder layer, so a step launches the flash forward twice for each
+    of the 32 encoder self-attentions (non-causal, S1500), 32 decoder
+    self-attentions (causal, S448) and 32 cross-attentions (non-causal, 448
+    rows over 1500 frames), and its backward once for each: 192 + 96."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import launch_key
+
+    cfg = get_config(AUDIO_TRAIN_ARCH)
+    if not cfg.remat or (cfg.n_layers, cfg.n_encoder_layers, cfg.encoder_seq) != (32, 32,
+                                                                                  W_FRAMES):
+        raise AssertionError(f"{cfg.name}: expected 32 + 32 layers over {W_FRAMES} frames "
+                             "under remat")
+    batches = audio_batches(torch, cfg, AUDIO_TRAIN_B, AUDIO_TRAIN_S, AUDIO_TRAIN_STEPS + 1)
+    n, n_enc, steps = cfg.n_layers, cfg.n_encoder_layers, AUDIO_TRAIN_STEPS
+
+    def key(sq, skv, causal):
+        q, k = (torch.empty((AUDIO_TRAIN_B, n, WH, WD), dtype=torch.bfloat16, device="meta")
+                for n in (sq, skv))
+        return launch_key(q, k, causal=causal)
+
+    per_layer = {key(W_FRAMES, W_FRAMES, False): n_enc,                     # encoder
+                 key(AUDIO_TRAIN_S, AUDIO_TRAIN_S, True): n,                # decoder self
+                 key(AUDIO_TRAIN_S, W_FRAMES, False): n}                    # cross
+    by_shape = {}
+    for k, layers in per_layer.items():
+        by_shape[("flash_attention", k)] = 2 * layers * steps
+        by_shape[("flash_attention_bwd", k)] = layers * steps
+    return run_train(torch, results, "audio_train", cfg, batches, steps=steps, warmup=5,
+                     want={"flash_attention": 2 * (n_enc + 2 * n) * steps,
+                           "flash_attention_bwd": (n_enc + 2 * n) * steps},
+                     want_by_shape=by_shape)
+
+
+def phase_ssm_train(torch, results):
+    """mamba2-2.7b at full width and depth (64 mamba layers, 2.830 B
+    params) in bf16 under remat: 10 steps of B8 x S1024 from the port's
+    PackedStream(seed=0), warmup 5 (``run_train``).  A step launches the
+    SSD scan twice a layer (the forward, then remat's recompute) and its
+    backward once: 128 + 64."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import launch_key
+
+    cfg = get_config(SSM_TRAIN_ARCH)
+    if not cfg.remat or cfg.n_layers != 64:
+        raise AssertionError(f"{cfg.name}: expected 64 layers under remat")
+    batches = train_batches(torch, cfg, SSM_TRAIN_B, SSM_TRAIN_S, SSM_TRAIN_STEPS + 1)
+    steps = SSM_TRAIN_STEPS
+    x = torch.empty((SSM_TRAIN_B, SSM_TRAIN_S, SSM_H, SSM_P), dtype=torch.bfloat16,
+                    device="meta")
+    bm = torch.empty((SSM_TRAIN_B, SSM_TRAIN_S, cfg.ssm.d_state), device="meta")
+    return run_train(torch, results, "ssm_train", cfg, batches, steps=steps, warmup=5,
+                     want={"ssd_scan": 2 * cfg.n_layers * steps,
+                           "ssd_scan_bwd": cfg.n_layers * steps},
+                     want_by_shape={("ssd_scan_bwd", launch_key(x, bm)): cfg.n_layers * steps})
+
+
+def run_train_parity(torch, results, phase, base, *, batches_fn, want_of, grad_rel=None):
+    """``base`` (float32, cut in depth): 3 AdamW steps (lr 3e-4, warmup
+    10, total 20) on the card (kernels) and on the CPU (plain versions)
+    from the same weights (seed 1) and batches (``batches_fn(cfg, device)``),
+    the card once with remat on and once off.  Compares each step's loss,
+    ce, grad norm and LR, each leaf's gradient of the first batch (within
+    ``grad_rel`` of the leaf's last key where it names one, else
+    TRAIN_GRAD_REL) and each leaf's update per step (TRAIN_* bounds above);
+    the card's launches must equal ``want_of(remat)``.  The CPU runs once,
+    without remat: remat moves no number on the CPU
+    (tests/test_torch_train.py)."""
+    from repro_torch import models
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import make_train_step
     from repro_torch.optim import adamw_init
     from repro_torch.tree import tree_map, tree_paths
 
-    base = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=2, dtype="float32")
-    b, s, n_steps = 2, 256, 3
+    n_steps = 3
     params0 = models.init_params(base, torch.Generator(device="cuda").manual_seed(1))
 
     def run(dev, remat):
         cfg = dataclasses.replace(base, remat=remat)
         p = tree_map(lambda t: t.detach().to(dev, copy=True).requires_grad_(True), params0)
-        batches = train_batches(torch, cfg, b, s, n_steps, seed=1, device=dev)
+        batches = batches_fn(cfg, dev)
         t0 = time.time()
         grads = {k: g.cpu() for k, g in first_grads(torch, cfg, p, batches[0]).items()}
         ops.reset_launch_counts()
@@ -2414,7 +2706,7 @@ def phase_train_parity(torch, results):
             metrics.append({k: float(v) for k, v in m.items()})
             updates.append({k: t.detach().cpu() - before[k] for k, t in tree_paths(p)})
         launches = {**ops.LAUNCHES, **ops.LAUNCHES_BY_SHAPE}
-        log(f"[train_parity] {dev} remat={remat}: {time.time() - t0:.1f}s, launches "
+        log(f"[{phase}] {dev} remat={remat}: {time.time() - t0:.1f}s, launches "
             f"{dict(ops.LAUNCHES)}")
         return grads, metrics, updates, launches
 
@@ -2424,34 +2716,85 @@ def phase_train_parity(torch, results):
     out, card_launches = {}, {}
     for remat in (True, False):
         card = run("cuda", remat)
-        per_step = base.n_layers * (2 if remat else 1)
-        want = {**dict.fromkeys(ops.LAUNCHES, 0), "flash_attention": per_step * n_steps,
-                "flash_attention_bwd": base.n_layers * n_steps}
+        want = {**dict.fromkeys(ops.LAUNCHES, 0), **want_of(remat, n_steps)}
         got = {k: v for k, v in card[3].items() if isinstance(k, str)}
         if got != want:
-            raise AssertionError(f"train_parity remat={remat}: launches {got}, expected {want}")
+            raise AssertionError(f"{phase} remat={remat}: launches {got}, expected {want}")
         if remat:
             card_launches = card[3]
-        grad_rel = max(float((card[0][k] - cpu[0][k]).norm() / cpu[0][k].norm().clamp_min(1e-30))
-                       for k in cpu[0])
+        rel = {k: float((card[0][k] - cpu[0][k]).norm() / cpu[0][k].norm().clamp_min(1e-30))
+               for k in cpu[0]}
+        bound = {k: (grad_rel or {}).get(k[-1], TRAIN_GRAD_REL) for k in rel}
+        worst = max(rel, key=lambda k: rel[k] / bound[k])
+        top = sorted(rel, key=rel.get, reverse=True)[:3]
         metric_rel = max(abs(cm[k] - pm[k]) / max(abs(pm[k]), 1e-30)
                          for cm, pm in zip(card[1], cpu[1]) for k in ("loss", "ce", "grad_norm", "lr"))
         upd_rel = [max(float((cu[k] - pu[k]).norm() / pu[k].norm().clamp_min(1e-30))
                        if pu[k].any() else float(cu[k].abs().max()) for k in pu)
                    for cu, pu in zip(card[2], cpu[2])]
-        log(f"[train_parity] remat={remat}: metrics max rel {metric_rel:.3e} (bound "
-            f"{TRAIN_METRIC_REL:.0e}), first gradient max rel L2 {grad_rel:.3e} (bound "
-            f"{TRAIN_GRAD_REL:.0e}), updates max rel L2 per step "
+        log(f"[{phase}] remat={remat}: metrics max rel {metric_rel:.3e} (bound "
+            f"{TRAIN_METRIC_REL:.0e}), first gradient rel L2 nearest its bound {rel[worst]:.3e}"
+            f" at {'/'.join(worst)} (bound {bound[worst]:.0e}; largest "
+            + ", ".join(f"{'/'.join(k)} {rel[k]:.3e}" for k in top) + "), updates max rel L2 per step "
             + ", ".join(f"{u:.3e}" for u in upd_rel) + f" (bound {TRAIN_UPDATE_REL:.0e}); "
             f"losses card {[round(m['loss'], 6) for m in card[1]]} cpu "
             f"{[round(m['loss'], 6) for m in cpu[1]]}")
-        if not (metric_rel <= TRAIN_METRIC_REL and grad_rel <= TRAIN_GRAD_REL
+        if not (metric_rel <= TRAIN_METRIC_REL and rel[worst] <= bound[worst]
                 and all(u <= TRAIN_UPDATE_REL for u in upd_rel)):
-            raise AssertionError(f"train_parity remat={remat}: card and CPU disagree")
-        out[f"remat_{remat}"] = {"metric_max_rel": metric_rel, "grad_max_rel_l2": grad_rel,
+            raise AssertionError(f"{phase} remat={remat}: card and CPU disagree")
+        out[f"remat_{remat}"] = {"metric_max_rel": metric_rel,
+                                 "grad_max_rel_l2": rel[top[0]],
+                                 "grad_max_rel_l2_leaf": "/".join(top[0]),
                                  "update_max_rel_l2": upd_rel}
-    results["train_parity"] = out
+    results[phase] = out
     return card_launches
+
+
+def phase_train_parity(torch, results):
+    """llama3.2-1b widths (d_model 2048, 32 / 8 heads of 64, d_ff 8192,
+    vocab 128256, tied), 2 layers, float32, B2 x S256 from PackedStream(1)
+    (``run_train_parity``)."""
+    from repro_torch.configs import get_config
+
+    base = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=2, dtype="float32")
+    return run_train_parity(
+        torch, results, "train_parity", base,
+        batches_fn=lambda cfg, dev: train_batches(torch, cfg, 2, 256, 3, seed=1, device=dev),
+        want_of=lambda remat, n: {"flash_attention": base.n_layers * (2 if remat else 1) * n,
+                                  "flash_attention_bwd": base.n_layers * n})
+
+
+def phase_audio_train_parity(torch, results):
+    """whisper-large-v3 widths (d_model 1280, 20 heads of 64, d_ff 5120,
+    vocab 51866), 2 encoder + 2 decoder layers over 1500 frames, float32,
+    B2 x S256 text (``run_train_parity``): the non-causal backward over the
+    encoder and the cross-attention, and encode's remat."""
+    from repro_torch.configs import get_config
+
+    base = dataclasses.replace(get_config(AUDIO_TRAIN_ARCH), n_layers=2, n_encoder_layers=2,
+                               dtype="float32")
+    per_step = base.n_encoder_layers + 2 * base.n_layers
+    return run_train_parity(
+        torch, results, "audio_train_parity", base,
+        batches_fn=lambda cfg, dev: audio_batches(torch, cfg, 2, 256, 3, seed=1, device=dev),
+        want_of=lambda remat, n: {"flash_attention": per_step * (2 if remat else 1) * n,
+                                  "flash_attention_bwd": per_step * n})
+
+
+def phase_ssm_train_parity(torch, results):
+    """mamba2-2.7b widths (d_model 2560, 80 SSD heads of 64, d_state 128,
+    vocab 50280), 2 layers, float32, B2 x S512 (``run_train_parity``): the
+    float32 SSD backward through the model; a_log and dt_bias held within
+    SSM_SCALAR_GRAD_REL."""
+    from repro_torch.configs import get_config
+
+    base = dataclasses.replace(get_config(SSM_TRAIN_ARCH), n_layers=2, dtype="float32")
+    return run_train_parity(
+        torch, results, "ssm_train_parity", base,
+        batches_fn=lambda cfg, dev: train_batches(torch, cfg, 2, 512, 3, seed=1, device=dev),
+        want_of=lambda remat, n: {"ssd_scan": base.n_layers * (2 if remat else 1) * n,
+                                  "ssd_scan_bwd": base.n_layers * n},
+        grad_rel={"a_log": SSM_SCALAR_GRAD_REL, "dt_bias": SSM_SCALAR_GRAD_REL})
 
 
 def phase_train_driver(torch, results):
@@ -2514,6 +2857,8 @@ def trace(torch, fn):
 
 
 def _kernel_class(name: str) -> str:
+    if "ssd_bwd_" in name:
+        return "ssd_scan_bwd"
     if "flash_bwd_" in name:
         return "flash_attention_bwd"
     if "flash_fwd_" in name:
@@ -2708,6 +3053,14 @@ def main(argv=None) -> int:
             launches_of[phase] = phase_train_parity(torch, results)
         elif phase == "train_driver":
             phase_train_driver(torch, results)
+        elif phase == "audio_train":
+            launches_of[phase] = phase_audio_train(torch, results)
+        elif phase == "audio_train_parity":
+            launches_of[phase] = phase_audio_train_parity(torch, results)
+        elif phase == "ssm_train":
+            launches_of[phase] = phase_ssm_train(torch, results)
+        elif phase == "ssm_train_parity":
+            launches_of[phase] = phase_ssm_train_parity(torch, results)
         elif phase == "profile":
             for arch in (*SERVE_ARCH.values(), "mixtral-8x7b", "whisper-large-v3",
                          "paligemma-3b", "cim_scu", "train"):

@@ -1,13 +1,14 @@
 // Flash attention backward for Hopper (sm_90a): dQ, dK and dV of exact
-// causal attention with GQA, float32 (SIMT) and bfloat16 (tensor cores),
-// D = 32, 64 or 128.
+// attention with GQA, causal or not (Sq may differ from Skv), float32
+// (SIMT) and bfloat16 (tensor cores), D = 32, 64 or 128.
 //
 // The reference has no backward kernel: its training step differentiates
 // repro.models.attention.full_attention / flash_attention with XLA's
 // autodiff.  This is the counterpart of that autodiff for the port's
 // forward kernel (flash_attention.cu), which hands over each row's
 // log-sum-exp lse = m + log l of its scaled scores.  With scale = D^-0.5,
-// S = scale Q K^T and a key valid for a query when kpos <= qpos:
+// S = scale Q K^T and a key valid for a query when kpos < Skv, qpos < Sq
+// and, under the causal mask, kpos <= qpos:
 //   P  = exp(S - lse) on valid pairs, 0 elsewhere (the forward's softmax)
 //   dV = P^T dO
 //   dP = dO V^T,  Delta_i = sum_d dO_id O_id
@@ -20,11 +21,16 @@
 // - dK/dV: one CTA per (b, KV head, 64-key tile), longest first.  It keeps
 //   K and V of its keys in shared memory and walks the group's query heads
 //   and, for each, the 64-row query tiles at or after its first key (the
-//   causal mask leaves the earlier ones out); a tile recomputes P and dS
-//   and adds P^T dO and dS^T Q to dV and dK, held in registers to the end.
+//   causal mask leaves the earlier ones out; without it, every tile); a
+//   tile recomputes P and dS and adds P^T dO and dS^T Q to dV and dK, held
+//   in registers to the end.
 // - dQ: one CTA per (b, query head, 64-row query tile), longest first,
-//   over the key tiles at or before its last row; it recomputes P and dS
-//   and adds dS K to dQ in registers.
+//   over the key tiles at or before its last row (without the causal
+//   mask, every key tile); it recomputes P and dS and adds dS K to dQ in
+//   registers.
+// Without the causal mask every CTA walks the same number of tiles, so
+// the longest-first order means nothing there, and no tile is diagonal:
+// the only masked pairs are those past Sq or Skv.
 // Every sum is taken in one CTA in a fixed order, so the result does not
 // depend on scheduling: no atomics, two runs agree bit for bit.  P and dS
 // are recomputed in both kernels (7 products of 2 Sq Skv D per head,
@@ -54,10 +60,14 @@
 // in a product would be NaN).  So a NaN in dO, Q, K or V reaches the
 // gradients of the pairs that see it and no other.  A NaN lse (a row that
 // saw a NaN score) makes that row's P NaN on its kept keys.  A row that
-// sees no key has lse = +inf: P = 0.
+// sees no key has lse = +inf: P = 0.  Rows past Sq and keys past Skv are
+// staged as zeros and their P and dS selected to 0, so they add nothing
+// to a real row's or key's gradient, NaN or not (0 times a staged 0); a
+// padded key's or row's own gradient, where a real NaN may reach it, is
+// never stored.
 //
-// Refused (cudaErrorNotSupported): causal = 0, a sliding window, a
-// bidirectional prefix, PWL exp, and D outside 32 / 64 / 128.
+// Refused (cudaErrorNotSupported): a sliding window, a bidirectional
+// prefix, PWL exp, and D outside 32 / 64 / 128.
 #include <cmath>
 #include <cstdint>
 #include <type_traits>
@@ -102,7 +112,7 @@ __device__ __forceinline__ void probs_and_dscores(const float* Qs, const float* 
                                                   const float* dOs, const float* Vs,
                                                   const float* lse_s, const float* delta_s,
                                                   float* Ps, float* dSs, int q0, int k0, int Sq,
-                                                  int Skv, float scale) {
+                                                  int Skv, bool causal, float scale) {
   constexpr int DP = D + 1;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   float s[4][4], dp[4][4];
@@ -137,7 +147,7 @@ __device__ __forceinline__ void probs_and_dscores(const float* Qs, const float* 
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int c = tx + 16 * j, kpos = k0 + c;
-      const bool ok = qpos < Sq && kpos < Skv && kpos <= qpos;
+      const bool ok = qpos < Sq && kpos < Skv && (!causal || kpos <= qpos);
       const float p = ok ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
       Ps[r * kTP + c] = p;
       dSs[r * kTP + c] = ok ? p * (dp[i][j] - delta_s[r]) : 0.f;
@@ -169,7 +179,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                       const T* __restrict__ dout, const float* __restrict__ lse,
                       const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                      int B, int Sq, int Skv, int Hq, int Hkv, float scale) {
+                      int B, int Sq, int Skv, int Hq, int Hkv, bool causal, float scale) {
   constexpr int DP = D + 1, CPT = D / 16;
   extern __shared__ float smem[];
   float* Ks = smem;
@@ -204,7 +214,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
     const int h = hk * G + g;
     const int64_t q_off = (int64_t(b) * Sq * Hq + h) * D;
     const int64_t row_off = (int64_t(b) * Hq + h) * Sq;
-    for (int qt = kt; qt < n_qt; ++qt) {  // query tiles at or after the first key
+    // causal: the query tiles at or after the first key; else every one
+    for (int qt = causal ? kt : 0; qt < n_qt; ++qt) {
       const int q0 = qt * kT;
       __syncthreads();  // the tile before is consumed
       stage<T, D>(Qs, q + q_off, q0, q_stride, Sq);
@@ -212,12 +223,13 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
       stage_row(lse_s, lse + row_off, q0, Sq, INFINITY);
       stage_row(delta_s, delta + row_off, q0, Sq, 0.f);
       __syncthreads();
-      probs_and_dscores<D>(Qs, Ks, dOs, Vs, lse_s, delta_s, Ps, dSs, q0, k0, Sq, Skv, scale);
+      probs_and_dscores<D>(Qs, Ks, dOs, Vs, lse_s, delta_s, Ps, dSs, q0, k0, Sq, Skv, causal,
+                           scale);
       __syncthreads();
       // dV += P^T dO, dK += dS^T Q over the tile's rows; on the diagonal
       // tile a masked pair adds nothing (a select, so a NaN of its row
       // stays out)
-      const bool diagonal = q0 < k0 + kT - 1;
+      const bool diagonal = causal && q0 < k0 + kT - 1;
 #pragma unroll 2
       for (int r = 0; r < kT; ++r) {
         float p[4], ds[4], ov[CPT], qv[CPT];
@@ -264,7 +276,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq, int B, int Sq, int Skv,
-                    int Hq, int Hkv, float scale) {
+                    int Hq, int Hkv, bool causal, float scale) {
   constexpr int DP = D + 1, CPT = D / 16;
   extern __shared__ float smem[];
   float* Qs = smem;
@@ -298,19 +310,21 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
     for (int j = 0; j < CPT; ++j) dq_acc[i][j] = 0.f;
 
-  // key tiles at or before the tile's last row
-  const int n_kt = min((Skv + kT - 1) / kT, (min(q0 + kT, Sq) - 1) / kT + 1);
+  // causal: the key tiles at or before the tile's last row; else every one
+  const int n_kt = causal ? min((Skv + kT - 1) / kT, (min(q0 + kT, Sq) - 1) / kT + 1)
+                          : (Skv + kT - 1) / kT;
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kT;
     __syncthreads();  // the tile before is consumed
     stage<T, D>(Ks, k + kv_off, k0, kv_stride, Skv);
     stage<T, D>(Vs, v + kv_off, k0, kv_stride, Skv);
     __syncthreads();
-    probs_and_dscores<D>(Qs, Ks, dOs, Vs, lse_s, delta_s, Ps, dSs, q0, k0, Sq, Skv, scale);
+    probs_and_dscores<D>(Qs, Ks, dOs, Vs, lse_s, delta_s, Ps, dSs, q0, k0, Sq, Skv, causal,
+                         scale);
     __syncthreads();
     // dQ += dS K over the tile's keys; on the diagonal tile a masked pair
     // adds nothing (a select)
-    const bool diagonal = k0 + kT - 1 > q0;
+    const bool diagonal = causal && k0 + kT - 1 > q0;
 #pragma unroll 2
     for (int c = 0; c < kT; ++c) {
       float ds[4], kv[CPT];
@@ -475,7 +489,7 @@ flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
                           const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
                           const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
                           __nv_bfloat16* __restrict__ dv, int B, int Sq, int Skv, int Hq, int Hkv,
-                          float scale) {
+                          bool causal, float scale) {
   constexpr int kS = kStride<D>, kTile = kT * kS, kDT = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -509,7 +523,8 @@ flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
     const int h = hk * G + gq;
     const int64_t q_off = (int64_t(b) * Sq * Hq + h) * D;
     const int64_t row_off = (int64_t(b) * Hq + h) * Sq;
-    for (int qt = kt; qt < n_qt; ++qt) {  // query tiles at or after the first key
+    // causal: the query tiles at or after the first key; else every one
+    for (int qt = causal ? kt : 0; qt < n_qt; ++qt) {
       const int q0 = qt * kT;
       __syncthreads();  // the tile before is consumed
       stage_async<D>(Qs, q + q_off, q0, q_stride, Sq);
@@ -522,8 +537,10 @@ flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
       }
       cp_async_wait<0>();
       __syncthreads();
-      // on the diagonal tile (q0 == k0) the warp's keys see query chunks >= warp
-      const int lo = q0 == k0 ? warp : 0;
+      // on the causal diagonal tile (q0 == k0) the warp's keys see query
+      // chunks >= warp; without the mask no tile is diagonal
+      const bool diag = causal && q0 == k0;
+      const int lo = diag ? warp : 0;
       float s[8][4], dp[8][4];
       mma_abt<D>(s, Ks + warp * 16 * kS, Qs, lo, 4);
       mma_abt<D>(dp, Vs + warp * 16 * kS, dOs, lo, 4);
@@ -533,19 +550,19 @@ flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
         for (int e = 0; e < 4; ++e) {
           const int key = k0 + warp * 16 + g + 8 * (e >> 1);
           const int ql = nt * 8 + 2 * t4 + (e & 1), qpos = q0 + ql;
-          const bool ok = qpos < Sq && key < Skv && key <= qpos;
+          const bool ok = qpos < Sq && key < Skv && (!causal || key <= qpos);
           const float p = ok ? ex2_approx(fmaf(s[nt][e], scale_log2, -lse_s[ql])) : 0.f;
           dp[nt][e] = ok ? p * (dp[nt][e] - delta_s[ql]) : 0.f;
           s[nt][e] = p;
         }
-      if (q0 == k0) {
+      if (diag) {
         // keys 16 warp + row see queries 16 warp + j with j >= row
         auto keep = [](int row, int j) { return j >= row; };
         add_diagonal_block<D>(dv_acc, s, dOs, warp, keep);
         add_diagonal_block<D>(dk_acc, dp, Qs, warp, keep);
       }
-      mma_pb<D>(dv_acc, s, dOs, q0 == k0 ? warp + 1 : 0, 4);
-      mma_pb<D>(dk_acc, dp, Qs, q0 == k0 ? warp + 1 : 0, 4);
+      mma_pb<D>(dv_acc, s, dOs, diag ? warp + 1 : 0, 4);
+      mma_pb<D>(dk_acc, dp, Qs, diag ? warp + 1 : 0, 4);
     }
   }
 
@@ -574,7 +591,7 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
                         const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         __nv_bfloat16* __restrict__ dq, int B, int Sq, int Skv, int Hq, int Hkv,
-                        float scale) {
+                        bool causal, float scale) {
   constexpr int kS = kStride<D>, kTile = kT * kS, kDT = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -607,8 +624,9 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
 #pragma unroll
   for (int dt = 0; dt < kDT; ++dt) dq_acc[dt][0] = dq_acc[dt][1] = dq_acc[dt][2] = dq_acc[dt][3] = 0.f;
 
-  // key tiles at or before the tile's last row
-  const int n_kt = min((Skv + kT - 1) / kT, (min(q0 + kT, Sq) - 1) / kT + 1);
+  // causal: the key tiles at or before the tile's last row; else every one
+  const int n_kt = causal ? min((Skv + kT - 1) / kT, (min(q0 + kT, Sq) - 1) / kT + 1)
+                          : (Skv + kT - 1) / kT;
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kT;
     __syncthreads();  // the tile before is consumed
@@ -617,8 +635,10 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
-    // on the diagonal tile (k0 == q0) the warp's rows see key chunks <= warp
-    const int hi = k0 == q0 ? warp + 1 : 4;
+    // on the causal diagonal tile (k0 == q0) the warp's rows see key
+    // chunks <= warp; without the mask no tile is diagonal
+    const bool diag = causal && k0 == q0;
+    const int hi = diag ? warp + 1 : 4;
     float s[8][4], dp[8][4];
     mma_abt<D>(s, Qs + warp * 16 * kS, Ks, 0, hi);
     mma_abt<D>(dp, dOs + warp * 16 * kS, Vs, 0, hi);
@@ -628,11 +648,11 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
       for (int e = 0; e < 4; ++e) {
         const int row = q0 + warp * 16 + g + 8 * (e >> 1);
         const int key = k0 + nt * 8 + 2 * t4 + (e & 1);
-        const bool ok = row < Sq && key < Skv && key <= row;
+        const bool ok = row < Sq && key < Skv && (!causal || key <= row);
         const float p = ok ? ex2_approx(fmaf(s[nt][e], scale_log2, -lse2[e >> 1])) : 0.f;
         s[nt][e] = ok ? p * (dp[nt][e] - dlt[e >> 1]) : 0.f;  // dS
       }
-    if (k0 == q0) {
+    if (diag) {
       // rows 16 warp + row see keys 16 warp + j with j <= row
       add_diagonal_block<D>(dq_acc, s, Ks, warp, [](int row, int j) { return j <= row; });
       mma_pb<D>(dq_acc, s, Ks, 0, warp);
@@ -656,7 +676,7 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
                    const void* lse, const void* dout, void* dq, void* dk, void* dv, void* delta,
-                   int B, int Sq, int Skv, int Hq, int Hkv, cudaStream_t stream) {
+                   int B, int Sq, int Skv, int Hq, int Hkv, bool causal, cudaStream_t stream) {
   constexpr bool kMma = std::is_same_v<T, __nv_bfloat16>;
   constexpr size_t smem = kMma ? mma_smem_bytes<D>() : bwd_smem_bytes<D>();
   constexpr int threads = kMma ? kMmaThreads : kThreads;
@@ -686,23 +706,27 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
   const int n_kt = (Skv + kT - 1) / kT, n_qt = (Sq + kT - 1) / kT;
   dkdv<<<n_kt * B * Hkv, threads, smem, stream>>>(qt, kt, vt, gt, lt, dt, static_cast<T*>(dk),
                                                   static_cast<T*>(dv), B, Sq, Skv, Hq, Hkv,
-                                                  scale);
+                                                  causal, scale);
   dqk<<<n_qt * B * Hq, threads, smem, stream>>>(qt, kt, vt, gt, lt, dt, static_cast<T*>(dq), B,
-                                                Sq, Skv, Hq, Hkv, scale);
+                                                Sq, Skv, Hq, Hkv, causal, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_dim(int D, const void* q, const void* k, const void* v, const void* out,
                          const void* lse, const void* dout, void* dq, void* dk, void* dv,
-                         void* delta, int B, int Sq, int Skv, int Hq, int Hkv, cudaStream_t s) {
+                         void* delta, int B, int Sq, int Skv, int Hq, int Hkv, bool causal,
+                         cudaStream_t s) {
   switch (D) {
     case 32:
-      return launch<T, 32>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Skv, Hq, Hkv, s);
+      return launch<T, 32>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Skv, Hq, Hkv, causal,
+                           s);
     case 64:
-      return launch<T, 64>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Skv, Hq, Hkv, s);
+      return launch<T, 64>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Skv, Hq, Hkv, causal,
+                           s);
     case 128:
-      return launch<T, 128>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Skv, Hq, Hkv, s);
+      return launch<T, 128>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Skv, Hq, Hkv,
+                            causal, s);
     default: return cudaErrorNotSupported;
   }
 }
@@ -713,10 +737,11 @@ cudaError_t dispatch_dim(int D, const void* q, const void* k, const void* v, con
 // q, out, dout, dq: (B, Sq, Hq, D); k, v, dk, dv: (B, Skv, Hkv, D), all
 // contiguous, of one dtype (0 = float32, 1 = bfloat16); lse: (B, Hq, Sq)
 // float32 from the forward; delta: a (B, Hq, Sq) float32 workspace.
-// window, prefix_len and use_pwl name the forward's mode; only the exact
-// causal mask without a window or prefix has a backward here, and any other
-// mode, or D outside 32 / 64 / 128, returns cudaErrorNotSupported without a
-// launch.  Returns cudaGetLastError() after the three launches.
+// causal, window, prefix_len and use_pwl name the forward's mode; exact
+// attention with or without the causal mask, and no window or prefix, has
+// a backward here, and any other mode, or D outside 32 / 64 / 128, returns
+// cudaErrorNotSupported without a launch.  Returns cudaGetLastError()
+// after the three launches.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* out,
                                    const void* lse, const void* dout, void* dq, void* dk,
                                    void* dv, void* delta, int B, int Sq, int Skv, int Hq,
@@ -724,15 +749,15 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
                                    int prefix_len, int use_pwl, void* stream) {
   using namespace repro_torch;
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0) return cudaErrorInvalidValue;
-  if (!causal || window != 0 || prefix_len != 0 || use_pwl) return cudaErrorNotSupported;
+  if (window != 0 || prefix_len != 0 || use_pwl) return cudaErrorNotSupported;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     return dispatch_dim<float>(D, q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Skv, Hq,
-                               Hkv, s);
+                               Hkv, causal != 0, s);
   }
   if (dtype == 1) {
     return dispatch_dim<__nv_bfloat16>(D, q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Skv,
-                                       Hq, Hkv, s);
+                                       Hq, Hkv, causal != 0, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -42,8 +42,9 @@ it stays on the tensor cores, and float32 on the SIMT path, at every D.
 Training: ``FlashAttentionFn`` (which ``flash_attention_cuda`` takes under
 grad) launches the forward with its optional lse output, each row's
 log-sum-exp ``m + log l`` of its scaled scores, and differentiates it by
-``csrc/flash_attention_bwd.cu`` (causal, exact exp, no window or prefix, D
-32 / 64 / 128; ``flash_attention_bwd_plain`` is its plain version, held by
+``csrc/flash_attention_bwd.cu`` (causal or not, Sq may differ from Skv,
+exact exp, no window or prefix, D 32 / 64 / 128;
+``flash_attention_bwd_plain`` is its plain version, held by
 ``bwd_agreement``).  The reference has no backward kernel: XLA
 differentiates its model's attention.  In any other mode the wrapper
 raises under grad rather than return an output without a gradient.
@@ -205,17 +206,13 @@ def launch_key(q, k, *, causal: bool = True, use_pwl: bool = False,
             f"window={window or 0} prefix={prefix_len} pwl={int(use_pwl)}")
 
 
-def backward_refusal(q, *, causal: bool, use_pwl: bool, window: int,
-                     prefix_len: int):
+def backward_refusal(q, *, use_pwl: bool, window: int, prefix_len: int):
     """Why ``csrc/flash_attention_bwd.cu`` cannot differentiate this call,
     naming the ROADMAP item that would add it, or None where it can."""
     if window:
         return "a sliding window: ROADMAP §A5, the window in the flash backward (mixtral)"
     if prefix_len:
         return "a bidirectional prefix: ROADMAP §A5, the prefix in the flash backward (paligemma)"
-    if not causal:
-        return ("no causal mask: ROADMAP §A5, non-causal flash backward "
-                "(whisper's encoder and cross-attention)")
     if use_pwl:
         return "PWL exp: ROADMAP §B1, no PWL backward (the JAX model trains with exact exp)"
     if q.shape[-1] not in BWD_HEAD_DIMS:
@@ -278,23 +275,23 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     window = window_arg(window)
     prefix_len = prefix_arg(prefix_len, causal=causal, window=window, use_pwl=use_pwl)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        why = backward_refusal(q, causal=causal, use_pwl=use_pwl, window=window,
+        why = backward_refusal(q, use_pwl=use_pwl, window=window,
                                prefix_len=prefix_len)
         if why is not None:
             raise NotImplementedError(f"flash_attention has no backward kernel for {why}; "
                                       "its output would carry no gradient")
-        return FlashAttentionFn.apply(q, k, v)
+        return FlashAttentionFn.apply(q, k, v, causal)
     return _flash_fwd(q, k, v, causal=causal, use_pwl=use_pwl, window=window,
                       prefix_len=prefix_len, with_lse=False)[0]
 
 
-def flash_attention_bwd_cuda(q, k, v, out, lse, dout):
-    """dQ, dK, dV of causal ``flash_attention`` (exact exp, no window or
-    prefix) by ``csrc/flash_attention_bwd.cu``, from the forward's inputs,
-    output and lse and the output's gradient; in q's dtype.  Its three
-    launches (Delta, dK/dV, dQ) count as one."""
+def flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal: bool = True):
+    """dQ, dK, dV of ``flash_attention`` (exact exp, no window or prefix;
+    causal or not) by ``csrc/flash_attention_bwd.cu``, from the forward's
+    inputs, output and lse and the output's gradient; in q's dtype.  Its
+    three launches (Delta, dK/dV, dQ) count as one."""
     _check_inputs("flash_attention_bwd_cuda", q, k, v)
-    why = backward_refusal(q, causal=True, use_pwl=False, window=0, prefix_len=0)
+    why = backward_refusal(q, use_pwl=False, window=0, prefix_len=0)
     if why is not None:
         raise ValueError(f"flash_attention_bwd_cuda: {why}")
     B, Sq, Hq, D = q.shape
@@ -314,31 +311,32 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout):
     _build.check(lib.flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-        B, Sq, Skv, Hq, Hkv, D, _DTYPE_CODES[q.dtype], 1, 0, 0, 0,
+        B, Sq, Skv, Hq, Hkv, D, _DTYPE_CODES[q.dtype], int(causal), 0, 0, 0,
         torch.cuda.current_stream(q.device).cuda_stream), "flash_attention_bwd",
-        launch_key(q, k))
+        launch_key(q, k, causal=causal))
     return dq, dk, dv
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """Causal flash attention (exact exp, no window or prefix) with its
-    gradient: the forward launches ``csrc/flash_attention.cu`` with the lse
-    output and keeps q, k, v, out and lse; the backward launches
-    ``csrc/flash_attention_bwd.cu``.  ``FlashAttentionFn.apply(q, k, v)``
-    on CUDA tensors."""
+    """Flash attention, causal or not (exact exp, no window or prefix),
+    with its gradient: the forward launches ``csrc/flash_attention.cu``
+    with the lse output and keeps q, k, v, out and lse; the backward
+    launches ``csrc/flash_attention_bwd.cu``.
+    ``FlashAttentionFn.apply(q, k, v, causal)`` on CUDA tensors."""
 
     @staticmethod
-    def forward(ctx, q, k, v):
+    def forward(ctx, q, k, v, causal=True):
         q, k, v = (_build.aligned(t) for t in (q, k, v))
-        out, lse = _flash_fwd(q, k, v, causal=True, use_pwl=False, window=0,
+        out, lse = _flash_fwd(q, k, v, causal=bool(causal), use_pwl=False, window=0,
                               prefix_len=0, with_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = bool(causal)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        return flash_attention_bwd_cuda(q, k, v, out, lse, dout)
+        return (*flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal=ctx.causal), None)
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal: bool = True):

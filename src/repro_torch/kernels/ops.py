@@ -6,7 +6,7 @@ fallback from one to the other.  ``LAUNCHES`` counts the kernel launches
 of each wrapper, so a run can show that its path went through the
 kernels; each kernel module adds one where it launches, and the plain
 versions are not counted.  ``LAUNCHES_BY_SHAPE`` counts the attention
-kernels' launches apart by (kernel, ``launch_key``).
+kernels' and the SSD backward's launches apart by (kernel, ``launch_key``).
 """
 from __future__ import annotations
 
@@ -56,7 +56,8 @@ def paged_attention(q, k_cache, v_cache, block_tables, context_lens, *,
 def ssd_scan(x, dt, a_neg, B, C, *, chunk: int):
     """x: (b, S, H, P); dt: (b, S, H); a_neg: (H,); B, C: (b, S, N).
     Returns y (b, S, H, P) and the final state (b, H, P, N), float32.
-    ``chunk`` is the plain version's step; the kernel takes its own."""
+    ``chunk`` is the plain version's step; the kernel takes its own.  Under
+    grad on the card the call goes through ``ssd_scan.SSDScanFn``."""
     if _route(x) == "cpu":
         return _ssd.ssd_scan_plain(x, dt, a_neg, B, C, chunk)
     return _ssd.ssd_scan_cuda(x, dt, a_neg, B, C)

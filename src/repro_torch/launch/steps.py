@@ -84,12 +84,14 @@ def make_train_step(cfg, *, base_lr=3e-4, warmup=100, total_steps=10000,
                     max_grad_norm=1.0, weight_noise_std: float = 0.0):
     """``train_step(params, opt_state, batch, noise=None)`` -> (params,
     opt_state, metrics): the loss and its gradient by autograd (through
-    ``kernels.flash_attention.FlashAttentionFn`` on the card), global-norm
-    clipping, the warmup-cosine LR of the state's step and the config's
-    optimizer.  Params are leaves that require grad; the new ones are too.
-    The update runs under ``torch.no_grad()``; metrics (``loss``, ``ce``,
-    ``aux``, ``grad_norm``, ``lr``) are 0-dim tensors, read by nobody
-    here.  ``noise``: the RRAM noise factors for this step (see
+    ``kernels.flash_attention.FlashAttentionFn`` and
+    ``kernels.ssd_scan.SSDScanFn`` on the card), global-norm clipping, the
+    warmup-cosine LR of the state's step and the config's optimizer.
+    Params are leaves that require grad; the new ones are too.  The
+    optimizer may update its state in place (AdamW's moments).  The update
+    runs under ``torch.no_grad()``; metrics (``loss``, ``ce``, ``aux``,
+    ``grad_norm``, ``lr``) are 0-dim tensors, read by nobody here.
+    ``noise``: the RRAM noise factors for this step (see
     ``make_loss_fn``); by default drawn for the state's step."""
     loss_fn = make_loss_fn(cfg, weight_noise_std=weight_noise_std)
     _, opt_update = make_optimizer(cfg.optimizer)

@@ -162,16 +162,23 @@ def _block_params(params, gp, i: int, kind: str):
 def encode(cfg, params, encoder_embeds):
     """Whisper's encoder: frame embeddings (B, S_enc, d) cast to the
     model's dtype, plus the sinusoidal positions, through the encoder
-    blocks (non-causal flash attention) and the final norm."""
+    blocks (non-causal flash attention) and the final norm.  Under grad
+    with ``cfg.remat`` each block keeps only its input and recomputes its
+    activations in the backward (the reference's
+    ``jax.checkpoint(enc_body)``); without grad nothing changes."""
     e = encoder_embeds.to(dtype_of(cfg))
     e = e + sinusoidal_positions(e.shape[1], cfg.d_model,
                                  device=e.device).to(e.dtype)[None]
     positions = torch.arange(e.shape[1], device=e.device)
     enc = params["encoder"]
     layers = _groups(enc["layers"])
+
+    def block(e, g):
+        return _attn_block(cfg, _layer(layers, g), "enc", e, positions, causal=False)[0]
+
+    remat = cfg.remat and torch.is_grad_enabled()
     for g in range(cfg.n_encoder_layers):
-        e = _attn_block(cfg, _layer(layers, g), "enc", e, positions,
-                        causal=False)[0]
+        e = checkpoint(block, e, g, use_reentrant=False) if remat else block(e, g)
     return apply_norm(cfg, enc["final_norm"], e)
 
 

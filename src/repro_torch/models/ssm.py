@@ -2,8 +2,9 @@
 and the O(1) recurrent decode update.
 
 Port of ``repro.models.ssm``.  The prefill's SSD goes to
-``kernels.ops.ssd_scan``: the Hopper kernel on a CUDA tensor, its plain
-version (a transcription of ``ssd_chunked``) on a CPU tensor.  The causal
+``kernels.ops.ssd_scan``: the Hopper kernel on a CUDA tensor (under grad
+with its backward kernel), its plain version (a transcription of
+``ssd_chunked``) on a CPU tensor.  The causal
 convolution stays the shifted adds of the JAX package, not ``F.conv1d``,
 whose float32 path on the card runs in TF32 by default.
 """

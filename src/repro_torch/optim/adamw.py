@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.tree import tree_leaves, tree_map, tree_pick
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def adamw_init(params):
@@ -17,25 +17,50 @@ def adamw_init(params):
     }
 
 
+# elements of a leaf updated at once: a stacked leaf (mamba2-2.7b's in_proj,
+# 64 x 2560 x 10576) is updated a slice of its leading dim at a time, so
+# its float32 temporaries stay ~1 GB instead of several of its size
+SLICE_ELEMENTS = 1 << 26
+
+
+def _slices(p):
+    """Indices of ``p`` covering it: slices of its leading dim of at most
+    ~SLICE_ELEMENTS elements each, or the whole (``...``) of a small
+    leaf."""
+    if p.dim() == 0 or p.numel() <= SLICE_ELEMENTS:
+        return [...]
+    step = max(1, SLICE_ELEMENTS // max(1, p[0].numel()))
+    return [slice(i, i + step) for i in range(0, p.shape[0], step)]
+
+
 @torch.no_grad()
 def adamw_update(params, grads, state, *, lr, b1=0.9, b2=0.95, eps=1e-8,
                  weight_decay=0.1):
     """One step: returns (new params, new state).  ``lr`` is a float or a
     0-dim float32 tensor; the math runs in float32 and each result is cast
-    to its param's dtype."""
+    to its param's dtype.  The moments ``m`` and ``v`` are updated IN PLACE
+    and returned in the new state (the reference's driver donates its
+    state, ``donate_argnums=(0, 1)``, to the same end: at mamba2-2.7b's 2.83
+    B params a second copy of the float32 moments would not fit the card);
+    the params are new tensors.  The arithmetic is the reference's,
+    element by element."""
     step = state["step"] + 1
     t = step.to(torch.float32)
     bc1 = 1.0 - torch.pow(b1, t)
     bc2 = 1.0 - torch.pow(b2, t)
 
     def upd(p, g, m, v):
-        g32 = g.to(torch.float32)
-        m = b1 * m + (1 - b1) * g32
-        v = b2 * v + (1 - b2) * torch.square(g32)
-        mh = m / bc1
-        vh = v / bc2
-        delta = mh / (torch.sqrt(vh) + eps) + weight_decay * p.to(torch.float32)
-        return (p.to(torch.float32) - lr * delta).to(p.dtype), m, v
+        out = torch.empty_like(p)
+        for sl in _slices(p):
+            g32 = g[sl].to(torch.float32)
+            m[sl] = b1 * m[sl] + (1 - b1) * g32
+            v[sl] = b2 * v[sl] + (1 - b2) * torch.square(g32)
+            mh = m[sl] / bc1
+            vh = v[sl] / bc2
+            p32 = p[sl].to(torch.float32)
+            delta = mh / (torch.sqrt(vh) + eps) + weight_decay * p32
+            out[sl] = (p32 - lr * delta).to(p.dtype)
+        return out
 
-    out = tree_map(upd, params, grads, state["m"], state["v"])
-    return tree_pick(out, 0), {"m": tree_pick(out, 1), "v": tree_pick(out, 2), "step": step}
+    return (tree_map(upd, params, grads, state["m"], state["v"]),
+            {"m": state["m"], "v": state["v"], "step": step})

@@ -21,7 +21,7 @@ from repro_torch.kernels.flash_attention import (FlashAttentionFn, bwd_agreement
                                                  flash_attention_cuda, flash_attention_plain)
 from repro_torch.kernels.paged_attention import identity_block_table, paged_attention_cuda
 from repro_torch.kernels.pwl_softmax import pwl_softmax_cuda
-from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+from repro_torch.kernels.ssd_scan import SSDScanFn, ssd_scan_cuda
 
 # float32 on both sides: the same gradients summed in another order over
 # at most 300 keys / rows of terms of order 1 (~1e-6 apart)
@@ -107,11 +107,13 @@ def test_plain_backward_leaves_masked_pairs_out_of_a_nan():
     assert not bwd_agreement(fake, dv)[2]
 
 
-def _pairwise_grads(q, k, v, out, lse, g):
-    """dQ, dK, dV pair by pair in float64 over the kept pairs only (kpos
-    <= qpos), GQA by h // G: the rule the plain version and the kernel
-    keep, written out as loops (small shapes only)."""
+def _pairwise_grads(q, k, v, out, lse, g, causal=True):
+    """dQ, dK, dV pair by pair in float64 over the kept pairs only (every
+    key below Skv, and under the causal mask kpos <= qpos), GQA by h // G:
+    the rule the plain version and the kernel keep, written out as loops
+    (small shapes only)."""
     B, S, Hq, D = q.shape
+    Skv = k.shape[1]
     G = Hq // k.shape[2]
     scale = D ** -0.5
     q, k, v, out, g = (np.asarray(a, np.float64) for a in (q, k, v, out, g))
@@ -122,7 +124,7 @@ def _pairwise_grads(q, k, v, out, lse, g):
             hk = h // G
             for i in range(S):
                 delta = float(np.dot(g[b, i, h], out[b, i, h]))
-                for j in range(i + 1):
+                for j in range(min(i + 1, Skv) if causal else Skv):
                     p = np.exp(scale * np.dot(q[b, i, h], k[b, j, hk]) - lse[b, h, i])
                     ds = p * (np.dot(g[b, i, h], v[b, j, hk]) - delta)
                     dv[b, j, hk] += p * g[b, i, h]
@@ -156,14 +158,78 @@ def test_plain_backward_nan_rule_matches_pair_by_pair_sums(where):
     assert all(n < w.size for n, w in zip(n_bad, want)), n_bad
 
 
+NONCAUSAL_CASES = [(1, 300, 32), (37, 129, 64), (200, 64, 32), (129, 129, 64)]
+
+
+@pytest.mark.parametrize("jfn", ["flash", "full"])
+@pytest.mark.parametrize("sq,skv,d", NONCAUSAL_CASES)
+def test_noncausal_plain_backward_matches_jax_vjp(sq, skv, d, jfn):
+    """Without the causal mask, Sq != Skv (whisper's cross-attention; Sq ==
+    Skv its encoder), GQA 4:1: dQ, dK, dV of the plain backward against
+    jax.vjp of the JAX model's blockwise flash_attention (chunks of 64, so
+    129 and 300 rows or keys cross blocks and end ragged) and of its
+    full_attention, both causal=False."""
+    rng = np.random.default_rng(sq + skv + d)
+    q = rng.standard_normal((2, sq, 8, d)).astype(np.float32)
+    k, v = (rng.standard_normal((2, skv, 2, d)).astype(np.float32) for _ in range(2))
+    g = rng.standard_normal((2, sq, 8, d)).astype(np.float32)
+    if jfn == "flash":
+        fn = lambda q, k, v: jflash(q, k, v, causal=False, q_chunk=64, kv_chunk=64)
+    else:
+        fn = lambda q, k, v: jfull(q, k, v, causal=False)
+    out_j, vjp = jax.vjp(fn, q, k, v)
+    want = vjp(jnp.asarray(g))
+    tq, tk, tv, tg = map(torch.from_numpy, (q, k, v, g))
+    out, lse = flash_attention_plain(tq, tk, tv, causal=False, return_lse=True)
+    got = flash_attention_bwd_plain(tq, tk, tv, out, lse, tg, causal=False)
+    np.testing.assert_allclose(out.numpy(), np.asarray(out_j), atol=ATOL)
+    for name, a, b in zip("qkv", got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL, err_msg=name)
+    # and autograd of the plain forward on the same inputs
+    tq, tk, tv = (t.clone().requires_grad_() for t in (tq, tk, tv))
+    auto = torch.autograd.grad(ops.flash_attention(tq, tk, tv, causal=False), (tq, tk, tv), tg)
+    for name, a, b in zip("qkv", got, auto):
+        assert bwd_agreement(a, b)[2], name
+
+
+@pytest.mark.parametrize("where", ["none", "dout", "q", "k", "v"])
+def test_noncausal_plain_backward_nan_rule_matches_pair_by_pair_sums(where):
+    """Without the causal mask, Sq 12 against Skv 17: a NaN in dout, q, k
+    or v makes the plain backward non-finite exactly where the pair-by-pair
+    float64 sums over every pair are, and equal to them elsewhere; then a
+    NaN reaches the gradient of every pair that sees it."""
+    rng = np.random.default_rng(5)
+    q = rng.standard_normal((1, 12, 4, 8)).astype(np.float32)
+    k, v = (rng.standard_normal((1, 17, 2, 8)).astype(np.float32) for _ in range(2))
+    g = rng.standard_normal((1, 12, 4, 8)).astype(np.float32)
+    if where in ("q", "k", "v"):
+        {"q": q, "k": k, "v": v}[where][0, 5, 1, 2] = np.nan
+    if where == "dout":
+        g[0, 5, 3, 2] = np.nan
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    out, lse = flash_attention_plain(tq, tk, tv, causal=False, return_lse=True)
+    got = flash_attention_bwd_plain(tq, tk, tv, out, lse, torch.from_numpy(g), causal=False)
+    want = _pairwise_grads(q, k, v, out.numpy(), lse.numpy(), g, causal=False)
+    for name, a, w in zip("qkv", got, want):
+        a = a.numpy()
+        np.testing.assert_array_equal(np.isfinite(a), np.isfinite(w), err_msg=name)
+        fin = np.isfinite(w)
+        np.testing.assert_allclose(a[fin], w[fin], atol=ATOL, err_msg=name)
+    n_bad = [int((~np.isfinite(w)).sum()) for w in want]
+    assert (sum(n_bad) > 0) == (where != "none")
+
+
 def test_cuda_wrappers_refuse_grad_without_a_backward():
     """Under grad, an input that requires grad: the wrapper raises
     NotImplementedError naming the ROADMAP item before it looks at the
-    device, so none can return an output without a gradient."""
+    device, so none can return an output without a gradient.  A mode that
+    has a backward kernel (flash with or without the causal mask; the SSD
+    scan) goes through its autograd Function, which reaches the device
+    check."""
     q = torch.zeros((1, 4, 2, 32), requires_grad=True)
     k = torch.zeros((1, 4, 2, 32))
     for kw, item in ((dict(window=2), "window"), (dict(prefix_len=1), "prefix"),
-                     (dict(causal=False), "non-causal"), (dict(use_pwl=True), "PWL")):
+                     (dict(use_pwl=True), "PWL")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             flash_attention_cuda(q, k, k, **kw)
     q80 = torch.zeros((1, 4, 2, 80), requires_grad=True)
@@ -174,9 +240,12 @@ def test_cuda_wrappers_refuse_grad_without_a_backward():
                              torch.zeros((1, 4, 2, 32)), torch.zeros((1, 4, 2, 32)),
                              identity_block_table(1, 4, 4), torch.tensor([4]))
     x = torch.zeros((1, 8, 2, 32), requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ssd_scan backward"):
+    with pytest.raises(ValueError, match="CUDA"):
         ssd_scan_cuda(x, torch.zeros((1, 8, 2)), torch.zeros(2), torch.zeros((1, 8, 16)),
                       torch.zeros((1, 8, 16)))
+    with pytest.raises(ValueError, match="CUDA"):
+        SSDScanFn.apply(x, torch.zeros((1, 8, 2)), torch.zeros(2), torch.zeros((1, 8, 16)),
+                        torch.zeros((1, 8, 16)))
     with pytest.raises(NotImplementedError, match="ROADMAP §B3"):
         pwl_softmax_cuda(torch.zeros((2, 8), requires_grad=True))
     w = torch.zeros((256, 64))
@@ -186,6 +255,8 @@ def test_cuda_wrappers_refuse_grad_without_a_backward():
     # a supported mode goes through FlashAttentionFn, which takes CUDA tensors
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_cuda(q, k, k)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(q, k[:, :3], k[:, :3], causal=False)
     with pytest.raises(ValueError, match="CUDA"):
         FlashAttentionFn.apply(q, k, k)
     # without grad (or with no input that requires grad) the refusal is off:

@@ -335,8 +335,8 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
         paged_attention_plain(q[:, -1], pool_k, pool_v, table, ctx),
         atol=0, rtol=0)
     assert ops.LAUNCHES == {"flash_attention": 0, "flash_attention_bwd": 0,
-                            "paged_attention": 0, "ssd_scan": 0, "pwl_softmax": 0,
-                            "cim_matmul": 0}
+                            "paged_attention": 0, "ssd_scan": 0, "ssd_scan_bwd": 0,
+                            "pwl_softmax": 0, "cim_matmul": 0}
 
 
 def test_other_devices_raise():

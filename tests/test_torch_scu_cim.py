@@ -519,8 +519,8 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     assert torch.equal(ops.cim_matmul_quantized(x, wq, ws, adc_bits=8),
                        cim_matmul_plain(x, wq, ws, adc_bits=8))
     assert ops.LAUNCHES == {"flash_attention": 0, "flash_attention_bwd": 0,
-                            "paged_attention": 0, "ssd_scan": 0, "pwl_softmax": 0,
-                            "cim_matmul": 0}
+                            "paged_attention": 0, "ssd_scan": 0, "ssd_scan_bwd": 0,
+                            "pwl_softmax": 0, "cim_matmul": 0}
 
 
 def test_other_devices_and_unsupported_kernel_args_raise():

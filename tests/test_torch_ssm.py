@@ -140,8 +140,8 @@ def test_ssd_dispatch_and_cuda_wrapper_checks():
     torch.testing.assert_close(y, want[0], atol=0, rtol=0)
     torch.testing.assert_close(state, want[1], atol=0, rtol=0)
     assert ops.LAUNCHES == {"flash_attention": 0, "flash_attention_bwd": 0,
-                            "paged_attention": 0, "ssd_scan": 0, "pwl_softmax": 0,
-                            "cim_matmul": 0}
+                            "paged_attention": 0, "ssd_scan": 0, "ssd_scan_bwd": 0,
+                            "pwl_softmax": 0, "cim_matmul": 0}
     with pytest.raises(ValueError):                   # CPU tensors
         ssd_scan_cuda(*args)
     meta = [t.to("meta") for t in args]

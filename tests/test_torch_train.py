@@ -25,7 +25,7 @@ import repro_torch.configs as tconfigs
 from repro_torch.launch import steps as tsteps
 from repro_torch.models import common as tcommon
 from repro_torch import optim as toptim
-from repro_torch.tree import tree_paths
+from repro_torch.tree import tree_from_paths, tree_paths
 from repro_torch.data import PackedStream
 from repro_torch.params import from_jax
 
@@ -171,6 +171,77 @@ def test_remat_gives_the_same_gradients():
         grads.append([g.numpy() for g in torch.autograd.grad(loss, leaves)])
     for a, b in zip(*grads):
         np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-9)
+
+
+# the families whose training the card runs besides the dense one
+FAMILIES = ["whisper-large-v3", "mamba2-2.7b"]
+# each leaf's gradient against JAX's at the same params and batch,
+# relative L2 norm: float32 sums in another order through a smoke model
+# (whisper's encoder and cross-attention, mamba2's chunked scan)
+GRAD_RTOL = 1e-4
+
+
+def _family_batches(cfg, n):
+    """``n`` numpy batches of B x S tokens, with the random frame embeddings
+    (N(0, 0.02^2), seeded by the step) that the reference's driver gives an
+    encoder-decoder."""
+    out = []
+    for i, b in enumerate(_batches(cfg, n)):
+        if cfg.is_encoder_decoder:
+            b["encoder_embeds"] = np.random.default_rng(i).normal(
+                size=(B, cfg.encoder_seq, cfg.d_model)).astype(np.float32) * 0.02
+        out.append(b)
+    return out
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_train_step_matches_jax(arch, remat):
+    """whisper (the non-causal encoder, the cross-attention, encode's remat)
+    and mamba2 (the SSD scan's gradient): 3 AdamW steps of the port's
+    train step against ``jax.jit(make_train_step)`` without a sharding
+    context, from the same weights and batches.  Before each step both
+    take the loss's gradient at the same params: every leaf's within
+    GRAD_RTOL; then each step's metrics and each leaf's update."""
+    jcfg = dataclasses.replace(jconfigs.get_smoke_config(arch), dtype="float32", remat=remat)
+    tcfg = dataclasses.replace(tconfigs.get_smoke_config(arch), dtype="float32", remat=remat)
+    jp = jax.jit(lambda k: jmodels.init_params(jcfg, k))(jax.random.PRNGKey(0))
+    jstate = joptim.make_optimizer("adamw")[0](jp)
+    tp = from_jax(_np_tree(jp), "cpu")
+    tstate = toptim.adamw_init(tp)
+    jloss = jsteps.make_loss_fn(jcfg)
+    jstep_fn = jsteps.make_train_step(jcfg, warmup=1, total_steps=10)
+    jboth = jax.jit(lambda p, st, b: (jax.grad(lambda q: jloss(q, b)[0])(p), jstep_fn(p, st, b)))
+    tloss = tsteps.make_loss_fn(tcfg)
+    tstep = tsteps.make_train_step(tcfg, warmup=1, total_steps=10)
+    for step, b in enumerate(_family_batches(tcfg, STEPS)):
+        jb = {k: jnp.asarray(v) for k, v in b.items()}
+        tb = _torch_batch(b)
+        if "encoder_embeds" in b:
+            tb["encoder_embeds"] = torch.from_numpy(b["encoder_embeds"])
+        jgrads, (jp_next, jstate, jm) = jboth(jp, jstate, jb)
+        paths, leaves = zip(*tree_paths(tp))
+        leaves = [t.detach().requires_grad_(True) for t in leaves]
+        params = tree_from_paths(zip(paths, leaves))
+        tgrads = torch.autograd.grad(tloss(params, tb)[0], leaves)
+        jflat = _flat(jgrads)
+        assert set(jflat) == set(paths)
+        for path, g in zip(paths, tgrads):
+            assert _rel(g.numpy(), jflat[path]) <= GRAD_RTOL, (step, path,
+                                                               _rel(g.numpy(), jflat[path]))
+        before_j, before_t = _flat(jp), _flat(tp)
+        tp, tstate, tm = tstep(tp, tstate, tb)
+        jp = jp_next
+        for k in ("loss", "ce", "aux", "grad_norm", "lr"):
+            np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=METRIC_RTOL, atol=1e-12,
+                                       err_msg=f"step {step} {k}")
+        after_j, after_t = _flat(jp), _flat(tp)
+        for path in after_j:
+            du_j, du_t = after_j[path] - before_j[path], after_t[path] - before_t[path]
+            if step == 0:                     # lr is exactly 0 at step 0
+                assert not du_j.any() and not du_t.any(), path
+            else:
+                assert _rel(du_t, du_j) <= UPDATE_RTOL, (step, path, _rel(du_t, du_j))
 
 
 def test_cross_entropy_matches_jax():
