@@ -28,7 +28,9 @@ Phases, each of which fails the run if it fails:
                 a prefix under PWL, paged at ctx 416 of 448 rows, bf16 with
                 7 splits, float32 and PWL; SSD scan: y and
                 final state, float32 and bfloat16, N 128 and 64, short and
-                long memory, S 2048 over 64 sub-chunks, and the CTAs
+                long memory, S 2048 over 64 sub-chunks, mamba2's and
+                zamba2's train shapes b8 S1024 on the mamba layer's strided
+                x / B / C (bit-equal to contiguous copies), and the CTAs
                 resident per SM; SCU softmax: its indexed PWL exp against
                 the select chain on all 2**32 float32 inputs, float32 and
                 bfloat16 on each of its four routes (warp, row, cluster,
@@ -49,7 +51,14 @@ Phases, each of which fails the run if it fails:
                 forward without it; without the causal mask at whisper's
                 train shapes (the encoder B8 S1500 H20 D64, bf16 and
                 float32; the cross-attention, 448 rows over 1500 frames),
-                ragged GQA with Sq != Skv and a NaN in dout and in k); the
+                ragged GQA with Sq != Skv and a NaN in dout and in k; at
+                D 80 zamba2's train shape B8 S1024 H32, bf16 and float32;
+                under a sliding window mixtral's train shape B2 S4160
+                Hq32 Hkv8 D128 with window 4096, bf16, and
+                moe_train_parity's B2 S384 window 128, float32, windows 1,
+                100 and 130 at B4 S512, ragged S under a window, a NaN in
+                dout and in k under windows 100 and 130; every case twice,
+                bit-equal); the
                 SSD backward against its plain version (fed the forward
                 kernel's y and state) on dx, ddt, da_neg, dB and dC, da_neg
                 also against the float64 plain version: mamba2's train
@@ -147,13 +156,34 @@ Phases, each of which fails the run if it fails:
                 each step launches 128 SSD scans and 64 SSD backwards.
   ssm_train_parity  mamba2 widths, 2 layers, float32, B2 x S512: as
                 ``train_parity``.
+  hybrid_train  zamba2-2.7b at full width and depth (54 mamba layers, the
+                shared attention block of 32 heads of 80 applied 9 times)
+                in bf16 under remat: 10 AdamW steps of B8 x S1024, as
+                ``train``; each step launches 108 SSD scans, 54 SSD
+                backwards, 18 flash forwards and 9 flash backwards at D 80,
+                counted per shape.
+  hybrid_train_parity  zamba2 widths, two groups (12 mamba layers, 2
+                applications of the shared block), float32, B2 x S512: as
+                ``train_parity``, each card step from the CPU's params and
+                AdamW moments, and a run that pins nothing held beside.
+  moe_train     mixtral-8x7b at published widths, depth cut to 2 of 32
+                layers (the state of 32 is 521.9 GiB, of 2 35.4 GiB) in bf16
+                under remat: 10 AdamW steps of B2 x S4160 (the window of
+                4096 binds on the last 64 rows), as ``train``; each step
+                launches 4 windowed flash forwards and 2 backwards.
+  moe_train_parity  mixtral's attention widths, 8 experts of width 2048
+                (cut from 14336), 1 layer, the window cut to 128, float32,
+                B2 x S384 (the MoE dispatch and its drops): as
+                ``train_parity``.
   profile       (only when named) device time by kernel under torch.profiler
                 for one full-width prefill and 8 decode steps (eager, and
                 through the graph) of each of the six served models
                 (whisper's prefill with its encoder, paligemma's with its
                 image prefix), for the cim_scu layer's prefill and decode
-                step and for one llama3.2-1b train step, and the device's
-                busy share of the host-clock window.
+                step and for one train step each of llama3.2-1b,
+                zamba2-2.7b and mixtral-8x7b (2 layers) at their train
+                phases' shapes, and the device's busy share of the
+                host-clock window.
 
 The line before the last two is a JSON object ``{"kernels": [...]}``, then
 the card's name and power limit as nvidia-smi reports them, and the last
@@ -176,7 +206,8 @@ ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "serve", "ssm_serve", "hybrid_serve", "moe_serve", "audio_serve",
           "vlm_serve", "cim_scu", "parity", "ssm_parity", "moe_parity", "audio_parity",
           "vlm_parity", "server", "train", "train_parity", "train_driver", "audio_train",
-          "audio_train_parity", "ssm_train", "ssm_train_parity")
+          "audio_train_parity", "ssm_train", "ssm_train_parity", "hybrid_train",
+          "hybrid_train_parity", "moe_train", "moe_train_parity")
 EXTRA_PHASES = ("profile",)          # run only when named in --phases
 SERVE_ARCH = {"serve": "llama3-8b", "ssm_serve": "mamba2-2.7b",
               "hybrid_serve": "zamba2-2.7b"}
@@ -296,6 +327,44 @@ SSM_SCALAR_GRAD_REL = 2e-3
 # mamba2-2.7b (64 layers) at B8 x S1024, 10 AdamW steps each (warmup 5)
 AUDIO_TRAIN_ARCH, AUDIO_TRAIN_B, AUDIO_TRAIN_S, AUDIO_TRAIN_STEPS = "whisper-large-v3", 8, 448, 10
 SSM_TRAIN_ARCH, SSM_TRAIN_B, SSM_TRAIN_S, SSM_TRAIN_STEPS = "mamba2-2.7b", 8, 1024, 10
+# zamba2-2.7b at full width and depth (54 mamba layers, the shared block
+# of 32 heads of 80 applied 9 times) at B8 x S1024; mixtral-8x7b at its
+# published widths, cut to MOE_TRAIN_LAYERS of 32 layers (the state of 32
+# is 521.9 GiB at 12 bytes a parameter), at B2 x S4160: the window of 4096
+# binds on each sequence's last 64 rows, as in moe_serve's run 2.  10
+# AdamW steps each, warmup 5
+HYBRID_TRAIN_ARCH, HYBRID_TRAIN_B, HYBRID_TRAIN_S, HYBRID_TRAIN_STEPS = "zamba2-2.7b", 8, 1024, 10
+MOE_TRAIN_ARCH, MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_STEPS = "mixtral-8x7b", 2, MIX_LONG, 10
+MOE_TRAIN_LAYERS = 2
+# moe_train_parity: mixtral's attention widths (d_model 4096, 32 / 8 heads
+# of 128), 8 experts top-2, 1 layer, the window cut to 128 so that it binds
+# at S 384 (as moe_parity cuts it), B2 x S384 = 768 tokens, past
+# models/moe.py's DENSE_TOKEN_THRESHOLD: the dispatch path and its drops.
+# The expert width is cut from 14336 to 2048 so that the host holds the
+# CPU run and the kept per-step updates of the three runs
+MOE_PARITY_WINDOW, MOE_PARITY_S, MOE_PARITY_FF = 128, 384, 2048
+# hybrid_train_parity: the CPU's plain SSD scan over chunks of 64 rows, the
+# card kernel's own sub-chunk, instead of zamba2's 256: the same function,
+# its decays' exponents summed over the same 64-row spans on both devices
+# (over 256 rows the float32 sum of dt * A grows ~4x, and its rounding with
+# it).  The phase logs the CPU's first gradient at chunk 256 against the
+# reference's and the card's.
+HYBRID_PARITY_CHUNK = 64
+# hybrid_train_parity's run that pins nothing: its gradient norm from step
+# 2 on, after the first update (step 0's LR is 0), held within
+# TRAIN_GRAD_REL.  AdamW moves an element by about lr * sign(g), so the
+# float32 rounding of near-zero gradient elements makes step 1's updates
+# differ (ROADMAP hazard 10: zamba2's embed 3.0e-3, its a_log 1.1e-3), and
+# through zamba2's 12 mamba layers those params move the next gradient's
+# norm: 3.19e-5 apart, on an NVIDIA H100 80GB HBM3 at 700 W.  The cause is
+# the params, not the step: started from the CPU's params and moments, the
+# card's step 2 gives the norm within 1.7e-6 (the pinned runs, held within
+# TRAIN_METRIC_REL); pinning a_log and dt_bias alone leaves 3.13e-5,
+# embed alone 2.43e-5
+FREE_RUN_GRAD_NORM_REL = TRAIN_GRAD_REL
+# the train phases whose flash forward the kernels phase times at their shape
+TRAIN_MODEL_OF = {"train": "llama3.2-1b", "audio_train": "whisper", "hybrid_train": "zamba2",
+                  "moe_train": "mixtral"}
 
 
 def log(*a):
@@ -705,14 +774,22 @@ def phase_kernels(torch, timer, results):
     vlm_attention_cases(torch, timer, randn, extra)
 
     # ---- SSD scan (mamba prefill) -------------------------------------
-    def ssd_case(b, s, h, p, n, dt, memory):
-        x = randn((b, s, h, p), dt)
+    def ssd_case(b, s, h, p, n, dt, memory, strided=False):
+        if strided:         # as the mamba layer slices its conv output
+            conv = randn((b, s, h * p + 2 * n), "float32")
+            conv[..., h * p:] *= 0.3
+            conv = conv.to(getattr(torch, dt))
+            x = conv[..., :h * p].reshape(b, s, h, p)
+            Bm, Cm = conv[..., h * p:h * p + n], conv[..., h * p + n:]
+        else:
+            x, Bm, Cm = randn((b, s, h, p), dt), randn((b, s, n), dt, 0.3), randn((b, s, n), dt, 0.3)
         shift = {"short": 0.0, "long": -5.0}[memory]
         delta = F.softplus(torch.randn((b, s, h), generator=gen, device="cuda") + shift)
         a_neg = -torch.exp(0.2 * torch.randn((h,), generator=gen, device="cuda"))
-        return x, delta, a_neg, randn((b, s, n), dt, 0.3), randn((b, s, n), dt, 0.3)
+        return x, delta, a_neg, Bm, Cm
 
-    def ssd_entry(args, err, dt):
+    def ssd_entry(args, err, dt, path=None):
+        from repro_torch.kernels.ssd_scan import launch_key
         x, _, _, Bm, _ = args
         b, s, h, p = x.shape
         n = Bm.shape[-1]
@@ -725,8 +802,10 @@ def phase_kernels(torch, timer, results):
             "design": "bf16 mma.sync m16n8k16, Att / x*w / state as hi + lo bf16 "
                       "terms, state in registers, cp.async double-buffered 32-row "
                       "sub-chunks, 3 CTAs per SM at N 128",
-            "shape": f"b{b} S{s} H{h} P{p} N{n} {dt} chunk{SSM_CHUNK}",
+            "shape": f"b{b} S{s} H{h} P{p} N{n} {dt} chunk{SSM_CHUNK}"
+                     + (", strided x/B/C" if path else ""),
             "max_abs_err": err,
+            **({"path": path, "launch_key": launch_key(x, Bm)} if path else {}),
             "ms": timer.ms(lambda: ops.ssd_scan(*args, chunk=SSM_CHUNK), 20),
             "plain_ms": timer.ms(lambda: ssd_scan_plain(*args, SSM_CHUNK), 5),
             "library_ms": None,       # no single PyTorch call computes it
@@ -755,26 +834,40 @@ def phase_kernels(torch, timer, results):
         (1, 2048, 8, SSM_P, 128, "bfloat16", "short"),             # 64 sub-chunks
         (1, 2048, 8, SSM_P, 128, "bfloat16", "long"),
     ]
+    # the train shapes, x / B / C the strided views the mamba layer passes:
+    # mamba2's (ssm_train) and zamba2's (hybrid_train)
+    strided_cases = {(SSM_TRAIN_B, SSM_TRAIN_S, SSM_H, SSM_P, 128, "bfloat16", "short"): "ssm_train",
+                     (HYBRID_TRAIN_B, HYBRID_TRAIN_S, SSM_H, SSM_P, 64, "bfloat16", "short"):
+                         "hybrid_train"}
+    scases += list(strided_cases)
     for n in (128, 64):
         for dt in ("bfloat16", "float32"):
             log(f"[kernels] ssd_scan P{SSM_P} N{n} {dt}: "
                 f"{resident_ctas(SSM_P, n, getattr(torch, dt))} CTAs resident per SM")
     ssd = None
-    for i, (b, s, h, p, n, dt, memory) in enumerate(scases):
-        args = ssd_case(b, s, h, p, n, dt, memory)
+    for i, case in enumerate(scases):
+        b, s, h, p, n, dt, memory = case
+        path = strided_cases.get(case) if i >= len(scases) - len(strided_cases) else None
+        args = ssd_case(b, s, h, p, n, dt, memory, strided=path is not None)
         y, state = ops.ssd_scan(*args, chunk=SSM_CHUNK)
         want_y, want_state = ssd_scan_plain(*args, SSM_CHUNK)
         torch.cuda.synchronize()
-        what = f"b{b} S{s} H{h} P{p} N{n} {dt} {memory} memory"
+        what = (f"b{b} S{s} H{h} P{p} N{n} {dt} {memory} memory"
+                + (f", strided x/B/C ({path})" if path else ""))
         errs = []
         for name, got, want in (("y", y, want_y), ("state", state, want_state)):
             tol = (TOL_SSD if memory == "short"
                    else TOL_SSD_REL * want.abs().max().item())
             errs.append(_check(torch, "ssd_scan", got, want, dt, f"{what} {name}", tol))
+        if path:
+            flat = (args[0].contiguous(), *args[1:3], args[3].contiguous(), args[4].contiguous())
+            again = ops.ssd_scan(*flat, chunk=SSM_CHUNK)
+            if not all(torch.equal(a, c) for a, c in zip((y, state), again)):
+                raise AssertionError(f"ssd_scan {what}: the views and contiguous copies differ")
         if i == 0:
             ssd = ssd_entry(args, max(errs), dt)
-        elif i == 2:
-            extra.append(ssd_entry(args, max(errs), dt))
+        elif i == 2 or path:
+            extra.append(ssd_entry(args, max(errs), dt, path))
     torch.cuda.synchronize()
 
     softmax = phase_kernels_softmax(torch, timer, randn, extra)
@@ -793,12 +886,25 @@ def phase_kernels(torch, timer, results):
             + f", bound {kern['bound_ms']:.5f} ms ({kern['bound_by']})")
 
 
-def bwd_work(b, sq, skv, hq, hkv, d, esize, causal=True):
+def kept_pairs(sq, skv, causal=True, window=None):
+    """The (query, key) pairs a head keeps: under the causal mask the keys
+    at or before the query, under a window (an int or None) those fewer
+    than ``window`` positions before it, of ``skv`` keys."""
+    total = 0
+    for i in range(sq):
+        hi = min(i + 1, skv) if causal else skv
+        lo = max(0, i - window + 1) if window else 0
+        total += max(0, hi - lo)
+    return total
+
+
+def bwd_work(b, sq, skv, hq, hkv, d, esize, causal=True, window=None):
     """Bytes (q, k, v, out, dout and the float32 lse read once; dq, dk,
     dv written once) and FLOPs of attention's backward: five products of
     2 * D per (query, key) pair the mask keeps (S, dP, dV, dK, dQ): causal,
-    the pairs with kpos <= qpos; else sq * skv a head."""
-    pairs = sum(min(i + 1, skv) for i in range(sq)) if causal else sq * skv
+    the pairs with kpos <= qpos, else sq * skv a head; a window keeps only
+    the pairs with qpos - kpos < window (``kept_pairs``)."""
+    pairs = kept_pairs(sq, skv, causal, window)
     nbytes = (4 * b * sq * hq * d + 4 * b * skv * hkv * d) * esize + b * hq * sq * 4
     return nbytes, 5 * 2 * b * hq * d * pairs
 
@@ -812,61 +918,91 @@ def flash_bwd_cases(torch, timer, randn, extra):
     (non-finite in the same places); without the causal mask whisper's
     train shapes (the encoder B8 S1500 H20 D64, bf16 and float32, and the
     cross-attention of 448 text rows over 1500 frames), ragged GQA with Sq
-    != Skv, and a NaN in dout and in k.  Each case also holds the forward
-    with the lse output bit-equal to the forward without it, and the lse
-    to the plain version's.  The main shape and whisper's encoder run
-    twice, bit-equal (no atomics).  Timed with the plain version and SDPA's
-    backward (fwd + bwd through ``scaled_dot_product_attention(is_causal=
-    causal, enable_gqa=True)`` minus its forward, a yardstick).  Returns
-    the main entry."""
+    != Skv, and a NaN in dout and in k; at D 80 zamba2's train shape (B8
+    S1024 H32, MHA), bf16 and float32; under a sliding window mixtral's
+    train shape (B2 S4160 Hq32 Hkv8 D128, window 4096), bf16, and
+    moe_train_parity's (B2 S384, window 128), float32, windows 1, 100 and
+    130 at B4 S512, ragged S under a window, and a NaN in dout and in k
+    under windows 100 and 130.  Each case also holds the forward with the
+    lse output bit-equal to the forward without it (under its window), the
+    lse to the plain version's, and two runs of the backward bit-equal (no
+    atomics).  The timed cases are timed with the plain version and SDPA's
+    backward (fwd + bwd through ``scaled_dot_product_attention(enable_gqa=
+    True)`` with ``is_causal`` or, under a window, the same boolean mask,
+    minus its forward, a yardstick).  Returns the main entry."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
 
     WB, WS = AUDIO_TRAIN_B, AUDIO_TRAIN_S
-    cases = [  # B, Sq, Skv, Hq, Hkv, D, dtype, causal, the input that holds a NaN, path
-        (TRAIN_B, TRAIN_S, TRAIN_S, TRAIN_HQ, TRAIN_HKV, TRAIN_D, "bfloat16", True, None,
-         "train"),                                                               # main path
-        (B_MAIN, PROMPT, PROMPT, HQ, HKV, D, "bfloat16", True, None, "train"),   # llama3-8b
-        (2, 256, 256, TRAIN_HQ, TRAIN_HKV, TRAIN_D, "float32", True, None, "train_parity"),
-        (WB, W_FRAMES, W_FRAMES, WH, WH, WD, "bfloat16", False, None,
-         "audio_train"),                                                         # whisper encoder
-        (WB, WS, W_FRAMES, WH, WH, WD, "bfloat16", False, None, "audio_train"),  # cross
-        (WB, W_FRAMES, W_FRAMES, WH, WH, WD, "float32", False, None, None),
-        (2, 64, 64, 4, 2, 32, "bfloat16", True, None, None),                     # smoke
-        (2, 64, 64, 4, 2, 32, "float32", True, None, None),
-        (2, 1, 1, 8, 2, 64, "float32", True, None, None),                        # ragged S
-        (2, 1, 1, 4, 1, 128, "bfloat16", True, None, None),
-        (1, 129, 129, 8, 2, 64, "bfloat16", True, None, None),
-        (1, 129, 129, 4, 4, 128, "float32", True, None, None),
-        (2, 1000, 1000, 8, 2, 64, "bfloat16", True, None, None),
-        (1, 1000, 1000, 4, 1, 32, "float32", True, None, None),
-        (1, 130, 333, 8, 2, 128, "bfloat16", False, None, None),                 # ragged GQA
-        (2, 77, 200, 4, 1, 32, "float32", False, None, None),
-        (2, 333, 1, 8, 2, 64, "bfloat16", False, None, None),
-        (1, 300, 300, 4, 1, 64, "float32", True, "dout", None),                  # NaN in dout
-        (1, 300, 300, 8, 2, 128, "bfloat16", True, "dout", None),
-        (1, 300, 300, 8, 2, 64, "bfloat16", True, "k", None),                    # NaN in k
-        (1, 200, 300, 8, 2, 64, "bfloat16", False, "dout", None),
-        (1, 300, 200, 4, 1, 64, "float32", False, "k", None),
+    ZB, ZS = HYBRID_TRAIN_B, HYBRID_TRAIN_S
+    MB, MS = MOE_TRAIN_B, MOE_TRAIN_S
+    cases = [  # B, Sq, Skv, Hq, Hkv, D, dtype, causal, window, NaN in, path, timed
+        (TRAIN_B, TRAIN_S, TRAIN_S, TRAIN_HQ, TRAIN_HKV, TRAIN_D, "bfloat16", True, None, None,
+         "train", True),                                                         # main path
+        (B_MAIN, PROMPT, PROMPT, HQ, HKV, D, "bfloat16", True, None, None, "train",
+         True),                                                                  # llama3-8b
+        (2, 256, 256, TRAIN_HQ, TRAIN_HKV, TRAIN_D, "float32", True, None, None, "train_parity",
+         True),
+        (WB, W_FRAMES, W_FRAMES, WH, WH, WD, "bfloat16", False, None, None, "audio_train",
+         True),                                                                  # whisper encoder
+        (WB, WS, W_FRAMES, WH, WH, WD, "bfloat16", False, None, None, "audio_train",
+         True),                                                                  # cross
+        (WB, W_FRAMES, W_FRAMES, WH, WH, WD, "float32", False, None, None, None, True),
+        (ZB, ZS, ZS, ZH, ZH, ZD, "bfloat16", True, None, None, "hybrid_train",
+         True),                                                                  # zamba2, D 80
+        (ZB, ZS, ZS, ZH, ZH, ZD, "float32", True, None, None, None, True),
+        (MB, MS, MS, HQ, HKV, D, "bfloat16", True, MIX_WINDOW, None, "moe_train",
+         True),                                                                  # mixtral, window
+        (2, MOE_PARITY_S, MOE_PARITY_S, HQ, HKV, D, "float32", True, MOE_PARITY_WINDOW, None,
+         "moe_train_parity", True),
+        (B_MAIN, PROMPT, PROMPT, HQ, HKV, D, "bfloat16", True, 1, None, None, True),
+        (B_MAIN, PROMPT, PROMPT, HQ, HKV, D, "bfloat16", True, 100, None, None, True),
+        (B_MAIN, PROMPT, PROMPT, HQ, HKV, D, "bfloat16", True, 130, None, None, True),
+        (B_MAIN, PROMPT, PROMPT, HQ, HKV, D, "float32", True, 130, None, None, False),
+        (2, 64, 64, 4, 2, 32, "bfloat16", True, None, None, None, False),        # smoke
+        (2, 64, 64, 4, 2, 32, "float32", True, None, None, None, False),
+        (2, 1, 1, 8, 2, 64, "float32", True, None, None, None, False),           # ragged S
+        (2, 1, 1, 4, 1, 128, "bfloat16", True, None, None, None, False),
+        (1, 129, 129, 8, 2, 64, "bfloat16", True, None, None, None, False),
+        (1, 129, 129, 4, 4, 128, "float32", True, None, None, None, False),
+        (2, 1000, 1000, 8, 2, 64, "bfloat16", True, None, None, None, False),
+        (1, 1000, 1000, 4, 1, 32, "float32", True, None, None, None, False),
+        (1, 1000, 1000, 8, 2, 80, "bfloat16", True, 130, None, None, False),     # ragged, window
+        (2, 77, 77, 4, 1, 80, "float32", True, 17, None, None, False),
+        (1, 130, 333, 8, 2, 128, "bfloat16", False, None, None, None, False),    # ragged GQA
+        (2, 77, 200, 4, 1, 32, "float32", False, None, None, None, False),
+        (2, 333, 1, 8, 2, 64, "bfloat16", False, None, None, None, False),
+        (1, 300, 300, 4, 1, 64, "float32", True, None, "dout", None, False),     # NaN in dout
+        (1, 300, 300, 8, 2, 128, "bfloat16", True, None, "dout", None, False),
+        (1, 300, 300, 8, 2, 64, "bfloat16", True, None, "k", None, False),       # NaN in k
+        (1, 200, 300, 8, 2, 64, "bfloat16", False, None, "dout", None, False),
+        (1, 300, 200, 4, 1, 64, "float32", False, None, "k", None, False),
+        (1, 512, 512, 8, 2, 128, "bfloat16", True, 100, "dout", None, False),    # windowed NaN
+        (1, 512, 512, 8, 2, 128, "bfloat16", True, 130, "k", None, False),
+        (1, 512, 512, 4, 1, 80, "float32", True, 130, "dout", None, False),
+        (1, 512, 512, 4, 1, 64, "float32", True, 100, "k", None, False),
     ]
     main = None
-    for i, (b, sq, skv, hq, hkv, d, dt, causal, nan, path) in enumerate(cases):
+    for i, (b, sq, skv, hq, hkv, d, dt, causal, window, nan, path, timed) in enumerate(cases):
         q = randn((b, sq, hq, d), dt)
         k, v = (randn((b, skv, hkv, d), dt) for _ in range(2))
         if nan == "k":
             k[0, skv // 3, 0, 3] = float("nan")
-        kw = dict(causal=causal, use_pwl=False, window=0, prefix_len=0)
+        kw = dict(causal=causal, use_pwl=False, window=window or 0, prefix_len=0)
         out0, _ = fa._flash_fwd(q, k, v, with_lse=False, **kw)
         out, lse = fa._flash_fwd(q, k, v, with_lse=True, **kw)
-        _, lse_plain = fa.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+        _, lse_plain = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                                return_lse=True)
         g = randn((b, sq, hq, d), dt)
         if nan == "dout":
             g[0, sq // 2, hq - 1, 5] = float("nan")
-        got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, g, causal=causal)
-        want = fa.flash_attention_bwd_plain(q, k, v, out, lse, g, causal=causal)
+        bkw = dict(causal=causal, window=window)
+        got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, g, **bkw)
+        want = fa.flash_attention_bwd_plain(q, k, v, out, lse, g, **bkw)
         torch.cuda.synchronize()
         shape = (f"B{b} Sq{sq} Skv{skv} Hq{hq} Hkv{hkv} D{d} {dt} "
-                 + ("causal" if causal else "non-causal") + (f" NaN in {nan}" if nan else ""))
+                 + ("causal" if causal else "non-causal")
+                 + (f" window {window}" if window else "") + (f" NaN in {nan}" if nan else ""))
         if not torch.equal(out0.nan_to_num(), out.nan_to_num()) or \
                 not torch.equal(out0.isnan(), out.isnan()):
             raise AssertionError(f"flash_attention {shape}: the forward with lse is not "
@@ -887,20 +1023,24 @@ def flash_bwd_cases(torch, timer, randn, extra):
             if nan and nonfinite == 0:
                 raise AssertionError(f"flash_attention_bwd {shape}: the NaN was dropped")
             errs.append(err)
-        if i in (0, 3):
-            again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, g, causal=causal)
-            if not all(torch.equal(a, c) for a, c in zip(got, again)):
-                raise AssertionError(f"flash_attention_bwd {shape}: two runs differ")
-            log(f"[kernels] flash_attention_bwd {shape}: two runs bit-equal")
-        del got, want
-        if i > 5:
+        again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, g, **bkw)
+        if not all(torch.equal(a.nan_to_num(), c.nan_to_num()) and
+                   torch.equal(a.isnan(), c.isnan()) for a, c in zip(got, again)):
+            raise AssertionError(f"flash_attention_bwd {shape}: two runs differ")
+        log(f"[kernels] flash_attention_bwd {shape}: two runs bit-equal")
+        del got, want, again
+        if not timed:
             continue
-        nbytes, flops = bwd_work(b, sq, skv, hq, hkv, d, q.element_size(), causal)
+        nbytes, flops = bwd_work(b, sq, skv, hq, hkv, d, q.element_size(), causal, window)
         bms, by = bound(nbytes, flops, dt)
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
         gt = g.transpose(1, 2)
+        mask = window_mask(torch, sq, skv, window, causal) if window else None
 
         def sdpa_fwd():
+            if mask is not None:
+                return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                      enable_gqa=True)
             return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                   enable_gqa=True)
 
@@ -915,61 +1055,50 @@ def flash_bwd_cases(torch, timer, randn, extra):
                        "full_attention / flash_attention with XLA's autodiff); Delta + "
                        "dK/dV (a CTA per 64 keys over the group's query heads) + dQ (a CTA "
                        "per 64 query rows), no atomics; "
-                       + ("bf16 mma.sync m16n8k16, P and dS as hi + lo bf16, the diagonal "
-                          "16 x 16 blocks pair by pair" if dt == "bfloat16" else
+                       + ("bf16 mma.sync m16n8k16, P and dS as hi + lo bf16, the 16 x 16 "
+                          "blocks the mask cuts pair by pair" if dt == "bfloat16" else
                           "float32 SIMT")
-                       + ("" if causal else "; no causal mask, Sq != Skv")),
+                       + ("" if causal else "; no causal mask, Sq != Skv")
+                       + (f"; sliding window {window} (the tiles of the window only)"
+                          if window else "")),
             "shape": shape, "max_abs_err": max(errs),
-            "launch_key": fa.launch_key(q, k, causal=causal),
-            "ms": timer.ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, out, lse, g,
-                                                               causal=causal), 10),
+            "launch_key": fa.launch_key(q, k, causal=causal, window=window),
+            "ms": timer.ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, out, lse, g, **bkw), 10),
             "plain_ms": timer.ms(lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, g,
-                                                                      causal=causal), 3),
+                                                                      **bkw), 3),
             "library_ms": max(timer.ms(sdpa_fwd_bwd, 10) - timer.ms(sdpa_fwd, 10), 0.0),
             "bound_ms": bms, "bound_by": by,
         }
         if i == 0:
             main = entry
-            # the forward at the train shape, launched twice a layer and step
-            ferr = _check_flash(torch, out, fa.flash_attention_plain(q, k, v), dt,
-                                f"llama3.2-1b train forward {shape}", False)
-            nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-            fbms, fby = bound(nbytes, 4 * b * hq * d * sq * (sq + 1) / 2, dt)
-            extra.append({
-                "name": "flash_attention", "route": "cuda",
-                "source": "src/repro_torch/csrc/flash_attention.cu",
-                "replaces": "src/repro/kernels/flash_attention.py:76",
-                "design": "the mma.sync path with the lse output (training)",
-                "shape": f"llama3.2-1b train: {shape}, lse out", "max_abs_err": ferr,
-                "path": "train", "launch_key": fa.launch_key(q, k),
-                "ms": timer.ms(lambda: fa._flash_fwd(q, k, v, with_lse=True, **kw), 20),
-                "plain_ms": timer.ms(lambda: fa.flash_attention_plain(q, k, v), 3),
-                "library_ms": timer.ms(sdpa_fwd, 20),
-                "bound_ms": fbms, "bound_by": fby,
-            })
         else:
             if path is not None:
                 entry["path"] = path
             extra.append(entry)
-        if path == "audio_train":
+        if path in TRAIN_MODEL_OF and (i == 0 or path != "train"):
             # the forward of the same shape, launched twice a layer and step
-            ferr = _check_flash(torch, out, fa.flash_attention_plain(q, k, v, causal=False), dt,
-                                f"whisper train forward {shape}", False)
+            ferr = _check_flash(torch, out, fa.flash_attention_plain(q, k, v, causal=causal,
+                                                                     window=window), dt,
+                                f"{TRAIN_MODEL_OF[path]} train forward {shape}", False)
             nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-            fbms, fby = bound(nbytes, 4 * b * hq * d * sq * skv, dt)
+            fbms, fby = bound(nbytes, 4 * b * hq * d * kept_pairs(sq, skv, causal, window), dt)
             extra.append({
                 "name": "flash_attention", "route": "cuda",
                 "source": "src/repro_torch/csrc/flash_attention.cu",
                 "replaces": "src/repro/kernels/flash_attention.py:76",
-                "design": "the mma.sync path with the lse output (training), non-causal",
-                "shape": f"whisper train: {shape}, lse out", "max_abs_err": ferr,
-                "path": path, "launch_key": fa.launch_key(q, k, causal=False),
+                "design": "the mma.sync path with the lse output (training)"
+                          + ("" if causal else ", non-causal")
+                          + (f", window {window}" if window else ""),
+                "shape": f"{TRAIN_MODEL_OF[path]} train: {shape}, lse out",
+                "max_abs_err": ferr,
+                "path": path, "launch_key": fa.launch_key(q, k, causal=causal, window=window),
                 "ms": timer.ms(lambda: fa._flash_fwd(q, k, v, with_lse=True, **kw), 10),
-                "plain_ms": timer.ms(lambda: fa.flash_attention_plain(q, k, v, causal=False), 3),
+                "plain_ms": timer.ms(lambda: fa.flash_attention_plain(
+                    q, k, v, causal=causal, window=window), 3),
                 "library_ms": timer.ms(sdpa_fwd, 10),
                 "bound_ms": fbms, "bound_by": fby,
             })
-        del q, k, v, out, lse, g, qt, kt, vt, gt
+        del q, k, v, out, lse, g, qt, kt, vt, gt, mask
     torch.cuda.synchronize()
     return main
 
@@ -1134,9 +1263,8 @@ def flash_window_cases(torch, timer, randn, extra):
         if not timed:
             continue
         # the (query, key) pairs of the window, each 4 d FLOPs a head
-        pairs = sum(min(i + 1, window) for i in range(s))
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        bms, by = bound(nbytes, 4 * b * hq * d * pairs, dt)
+        bms, by = bound(nbytes, 4 * b * hq * d * kept_pairs(s, s, True, window), dt)
         mask = window_mask(torch, s, s, window)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         extra.append({
@@ -2667,20 +2795,105 @@ def phase_ssm_train(torch, results):
     return run_train(torch, results, "ssm_train", cfg, batches, steps=steps, warmup=5,
                      want={"ssd_scan": 2 * cfg.n_layers * steps,
                            "ssd_scan_bwd": cfg.n_layers * steps},
-                     want_by_shape={("ssd_scan_bwd", launch_key(x, bm)): cfg.n_layers * steps})
+                     want_by_shape={("ssd_scan", launch_key(x, bm)): 2 * cfg.n_layers * steps,
+                                    ("ssd_scan_bwd", launch_key(x, bm)): cfg.n_layers * steps})
 
 
-def run_train_parity(torch, results, phase, base, *, batches_fn, want_of, grad_rel=None):
+def phase_hybrid_train(torch, results):
+    """zamba2-2.7b at full width and depth (54 mamba layers in 9 groups,
+    each closed by the shared attention block of 32 heads of 80; 2.422 B
+    params) in bf16 under remat: 10 steps of B8 x S1024 from the port's
+    PackedStream(seed=0), warmup 5 (``run_train``).  Remat checkpoints
+    each group (models/model.py's forward), so a step launches the SSD
+    scan twice a mamba layer and its backward once (108 + 54), and the
+    flash forward twice an application of the shared block and its
+    backward, at D 80, once (18 + 9)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa, ssd_scan as ss
+
+    cfg = get_config(HYBRID_TRAIN_ARCH)
+    if not cfg.remat or (cfg.n_layers, cfg.attn_every, cfg.head_dim) != (54, 6, ZD):
+        raise AssertionError(f"{cfg.name}: expected 54 mamba layers in groups of 6 and a "
+                             f"shared block of head dim {ZD} under remat")
+    b, s, steps = HYBRID_TRAIN_B, HYBRID_TRAIN_S, HYBRID_TRAIN_STEPS
+    batches = train_batches(torch, cfg, b, s, steps + 1)
+    n, n_groups = cfg.n_layers, cfg.n_layers // cfg.attn_every
+    x = torch.empty((b, s, SSM_H, SSM_P), dtype=torch.bfloat16, device="meta")
+    bm = torch.empty((b, s, cfg.ssm.d_state), device="meta")
+    q = torch.empty((b, s, ZH, ZD), dtype=torch.bfloat16, device="meta")
+    fkey = fa.launch_key(q, q)
+    return run_train(torch, results, "hybrid_train", cfg, batches, steps=steps, warmup=5,
+                     want={"ssd_scan": 2 * n * steps, "ssd_scan_bwd": n * steps,
+                           "flash_attention": 2 * n_groups * steps,
+                           "flash_attention_bwd": n_groups * steps},
+                     want_by_shape={("ssd_scan", ss.launch_key(x, bm)): 2 * n * steps,
+                                    ("ssd_scan_bwd", ss.launch_key(x, bm)): n * steps,
+                                    ("flash_attention", fkey): 2 * n_groups * steps,
+                                    ("flash_attention_bwd", fkey): n_groups * steps})
+
+
+def mixtral_train_cut():
+    """mixtral-8x7b at its published widths, cut to MOE_TRAIN_LAYERS layers."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(MOE_TRAIN_ARCH), n_layers=MOE_TRAIN_LAYERS)
+
+
+def phase_moe_train(torch, results):
+    """mixtral-8x7b at its published widths (d_model 4096, 32 / 8 heads of
+    128, 8 experts of 14336, top-2, window 4096) cut to MOE_TRAIN_LAYERS of
+    32 layers, in bf16 under remat: 10 steps of B2 x S4160 from the port's
+    PackedStream(seed=0), warmup 5 (``run_train``).  The window binds on
+    each sequence's last 64 rows; 8320 tokens take the MoE dispatch path.
+    A step launches the windowed flash forward twice a layer and its
+    backward once."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import launch_key
+
+    full, cfg = get_config(MOE_TRAIN_ARCH), mixtral_train_cut()
+    if not cfg.remat or cfg.sliding_window != MIX_WINDOW:
+        raise AssertionError(f"{cfg.name}: expected the window {MIX_WINDOW} under remat")
+    per_layer = full.n_params(include_embeddings=False) / full.n_layers
+    embed = full.n_params() - full.n_params(include_embeddings=False)
+    gib = 12 / 2 ** 30              # bf16 weights and gradients, float32 AdamW moments
+    log(f"[moe_train] depth cut to {cfg.n_layers} of {full.n_layers} layers: the state of "
+        f"{full.n_layers} is {full.n_params() * gib:.1f} GiB at 12 bytes a parameter; a layer "
+        f"is {per_layer / 1e9:.3f} B params ({per_layer * gib:.1f} GiB), the untied embedding "
+        f"and head {embed / 1e9:.3f} B ({embed * gib:.1f} GiB), so {cfg.n_layers} layers are "
+        f"{(cfg.n_layers * per_layer + embed) * gib:.1f} GiB")
+    batches = train_batches(torch, cfg, MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_STEPS + 1)
+    steps, n = MOE_TRAIN_STEPS, cfg.n_layers
+    q = torch.empty((MOE_TRAIN_B, MOE_TRAIN_S, HQ, D), dtype=torch.bfloat16, device="meta")
+    k = torch.empty((MOE_TRAIN_B, MOE_TRAIN_S, HKV, D), dtype=torch.bfloat16, device="meta")
+    key = launch_key(q, k, window=MIX_WINDOW)
+    return run_train(torch, results, "moe_train", cfg, batches, steps=steps, warmup=5,
+                     want={"flash_attention": 2 * n * steps, "flash_attention_bwd": n * steps},
+                     want_by_shape={("flash_attention", key): 2 * n * steps,
+                                    ("flash_attention_bwd", key): n * steps})
+
+
+def run_train_parity(torch, results, phase, base, *, batches_fn, want_of, grad_rel=None,
+                     pin_state=False, witness=None):
     """``base`` (float32, cut in depth): 3 AdamW steps (lr 3e-4, warmup
     10, total 20) on the card (kernels) and on the CPU (plain versions)
     from the same weights (seed 1) and batches (``batches_fn(cfg, device)``),
     the card once with remat on and once off.  Compares each step's loss,
-    ce, grad norm and LR, each leaf's gradient of the first batch (within
-    ``grad_rel`` of the leaf's last key where it names one, else
-    TRAIN_GRAD_REL) and each leaf's update per step (TRAIN_* bounds above);
-    the card's launches must equal ``want_of(remat)``.  The CPU runs once,
-    without remat: remat moves no number on the CPU
-    (tests/test_torch_train.py)."""
+    ce, grad norm and LR (TRAIN_METRIC_REL), each leaf's gradient of the
+    first batch (within ``grad_rel`` of the leaf's last key where it names
+    one, else TRAIN_GRAD_REL) and each leaf's update per step
+    (TRAIN_UPDATE_REL); the card's launches must equal ``want_of(remat)``.
+    The CPU runs once, without remat: remat moves no number on the CPU
+    (tests/test_torch_train.py).
+
+    ``pin_state``: the card's two runs take every leaf's params and AdamW
+    moments from the CPU's after each step, once that step's update is
+    compared, so that each step starts from the CPU's state and is held to
+    every bound above on equal inputs.  A third card run (remat on) pins
+    nothing, as the other phases run: its loss, ce and LR are held within
+    TRAIN_METRIC_REL, its updates within TRAIN_UPDATE_REL and its gradient
+    norm within FREE_RUN_GRAD_NORM_REL, the drift of a step after the first
+    update (see there).  ``witness``: (what, config), a variant of
+    ``base`` whose CPU first gradient is logged against the reference's and
+    the card's (not held)."""
     from repro_torch import models
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import make_train_step
@@ -2690,62 +2903,127 @@ def run_train_parity(torch, results, phase, base, *, batches_fn, want_of, grad_r
     n_steps = 3
     params0 = models.init_params(base, torch.Generator(device="cuda").manual_seed(1))
 
-    def run(dev, remat):
-        cfg = dataclasses.replace(base, remat=remat)
+    def leaf(tree, path):
+        for k in path:
+            tree = tree[k]
+        return tree
+
+    def run(dev, remat, pinned=None, record=False, cfg_of=None, grads_only=False):
+        """pinned: the CPU's recorded states (pin every leaf after each
+        step), False (pin nothing, skip the first gradient) or None."""
+        cfg = cfg_of or dataclasses.replace(base, remat=remat)
         p = tree_map(lambda t: t.detach().to(dev, copy=True).requires_grad_(True), params0)
         batches = batches_fn(cfg, dev)
         t0 = time.time()
-        grads = {k: g.cpu() for k, g in first_grads(torch, cfg, p, batches[0]).items()}
+        grads = ({k: g.cpu() for k, g in first_grads(torch, cfg, p, batches[0]).items()}
+                 if pinned is not False else None)
+        if grads_only:
+            return grads
         ops.reset_launch_counts()
         state = adamw_init(p)
         step = make_train_step(cfg, base_lr=3e-4, warmup=10, total_steps=20)
-        metrics, updates = [], []
-        for batch in batches:
+        metrics, updates, pins = [], [], []
+        for i, batch in enumerate(batches):
             before = {k: t.detach().cpu() for k, t in tree_paths(p)}
             p, state, m = step(p, state, batch)
             metrics.append({k: float(v) for k, v in m.items()})
             updates.append({k: t.detach().cpu() - before[k] for k, t in tree_paths(p)})
+            if i == len(batches) - 1:
+                break
+            if record:
+                pins.append({k: [leaf(t, k).detach().cpu().clone() for t in
+                                 (p, state["m"], state["v"])] for k, _ in tree_paths(p)})
+            if pinned:
+                with torch.no_grad():
+                    for k, vals in pinned[i].items():
+                        for t, val in zip((p, state["m"], state["v"]), vals):
+                            leaf(t, k).copy_(val)
         launches = {**ops.LAUNCHES, **ops.LAUNCHES_BY_SHAPE}
-        log(f"[{phase}] {dev} remat={remat}: {time.time() - t0:.1f}s, launches "
-            f"{dict(ops.LAUNCHES)}")
-        return grads, metrics, updates, launches
+        log(f"[{phase}] {dev} remat={remat}" + (", each step from the CPU's state" if pinned
+                                                else "")
+            + f": {time.time() - t0:.1f}s, launches {dict(ops.LAUNCHES)}")
+        return grads, metrics, updates, launches, pins
 
-    cpu = run("cpu", False)
+    def rel_l2(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    def compare(card, cpu):
+        mrel = {k: [abs(cm[k] - pm[k]) / max(abs(pm[k]), 1e-30)
+                    for cm, pm in zip(card[1], cpu[1])] for k in ("loss", "ce", "grad_norm", "lr")}
+        upd = [{k: rel_l2(cu[k], pu[k]) if pu[k].any() else float(cu[k].abs().max())
+                for k in pu} for cu, pu in zip(card[2], cpu[2])]
+        return mrel, upd
+
+    def describe(mrel, upd):
+        per_step = ", ".join(f"{k} [" + ", ".join(f"{v:.3e}" for v in vs) + "]"
+                             for k, vs in mrel.items())
+        tops = []
+        for i, u in enumerate(upd):
+            top = sorted(u, key=u.get, reverse=True)[:3]
+            tops.append(f"step {i}: " + ", ".join(f"{'/'.join(k)} {u[k]:.3e}" for k in top))
+        return f"metrics rel per step {per_step}; largest updates rel L2 " + "; ".join(tops)
+
+    cpu = run("cpu", False, record=pin_state)
     if any(v for k, v in cpu[3].items() if isinstance(k, str)):
         raise AssertionError(f"the CPU run launched kernels: {cpu[3]}")
     out, card_launches = {}, {}
     for remat in (True, False):
-        card = run("cuda", remat)
+        card = run("cuda", remat, pinned=cpu[4] if pin_state else None)
         want = {**dict.fromkeys(ops.LAUNCHES, 0), **want_of(remat, n_steps)}
         got = {k: v for k, v in card[3].items() if isinstance(k, str)}
         if got != want:
             raise AssertionError(f"{phase} remat={remat}: launches {got}, expected {want}")
         if remat:
-            card_launches = card[3]
-        rel = {k: float((card[0][k] - cpu[0][k]).norm() / cpu[0][k].norm().clamp_min(1e-30))
-               for k in cpu[0]}
+            card_launches, card_first = card[3], card[0]
+        rel = {k: rel_l2(card[0][k], cpu[0][k]) for k in cpu[0]}
         bound = {k: (grad_rel or {}).get(k[-1], TRAIN_GRAD_REL) for k in rel}
         worst = max(rel, key=lambda k: rel[k] / bound[k])
         top = sorted(rel, key=rel.get, reverse=True)[:3]
-        metric_rel = max(abs(cm[k] - pm[k]) / max(abs(pm[k]), 1e-30)
-                         for cm, pm in zip(card[1], cpu[1]) for k in ("loss", "ce", "grad_norm", "lr"))
-        upd_rel = [max(float((cu[k] - pu[k]).norm() / pu[k].norm().clamp_min(1e-30))
-                       if pu[k].any() else float(cu[k].abs().max()) for k in pu)
-                   for cu, pu in zip(card[2], cpu[2])]
-        log(f"[{phase}] remat={remat}: metrics max rel {metric_rel:.3e} (bound "
-            f"{TRAIN_METRIC_REL:.0e}), first gradient rel L2 nearest its bound {rel[worst]:.3e}"
+        mrel, upd = compare(card, cpu)
+        mmax = {k: max(v) for k, v in mrel.items()}
+        upd_rel = [max(u.values()) for u in upd]
+        log(f"[{phase}] remat={remat}: metrics max rel "
+            + ", ".join(f"{k} {v:.3e}" for k, v in mmax.items())
+            + f" (bound {TRAIN_METRIC_REL:.0e}), first gradient rel "
+            f"L2 nearest its bound {rel[worst]:.3e}"
             f" at {'/'.join(worst)} (bound {bound[worst]:.0e}; largest "
             + ", ".join(f"{'/'.join(k)} {rel[k]:.3e}" for k in top) + "), updates max rel L2 per step "
             + ", ".join(f"{u:.3e}" for u in upd_rel) + f" (bound {TRAIN_UPDATE_REL:.0e}); "
             f"losses card {[round(m['loss'], 6) for m in card[1]]} cpu "
             f"{[round(m['loss'], 6) for m in cpu[1]]}")
-        if not (metric_rel <= TRAIN_METRIC_REL and rel[worst] <= bound[worst]
+        log(f"[{phase}] remat={remat}: {describe(mrel, upd)}")
+        if not (max(mmax.values()) <= TRAIN_METRIC_REL and rel[worst] <= bound[worst]
                 and all(u <= TRAIN_UPDATE_REL for u in upd_rel)):
             raise AssertionError(f"{phase} remat={remat}: card and CPU disagree")
-        out[f"remat_{remat}"] = {"metric_max_rel": metric_rel,
+        out[f"remat_{remat}"] = {"metric_max_rel": max(mmax.values()), "metric_rel": mmax,
                                  "grad_max_rel_l2": rel[top[0]],
                                  "grad_max_rel_l2_leaf": "/".join(top[0]),
                                  "update_max_rel_l2": upd_rel}
+        del card
+    if pin_state:
+        del cpu[4][:]
+        free = run("cuda", True, pinned=False)
+        mrel, upd = compare(free, cpu)
+        upd_rel = [max(u.values()) for u in upd]
+        log(f"[{phase}] remat=True, nothing pinned: {describe(mrel, upd)} (bounds: grad_norm "
+            f"{FREE_RUN_GRAD_NORM_REL:.0e}, loss / ce / lr {TRAIN_METRIC_REL:.0e}, updates "
+            f"{TRAIN_UPDATE_REL:.0e})")
+        if not (max(mrel["loss"] + mrel["ce"] + mrel["lr"]) <= TRAIN_METRIC_REL
+                and max(mrel["grad_norm"]) <= FREE_RUN_GRAD_NORM_REL
+                and all(u <= TRAIN_UPDATE_REL for u in upd_rel)):
+            raise AssertionError(f"{phase}, nothing pinned: card and CPU disagree")
+        out["unpinned"] = {"metric_rel_per_step": mrel, "update_max_rel_l2": upd_rel}
+    if witness is not None:
+        alt, card0 = run("cpu", False, cfg_of=witness[1], grads_only=True), card_first
+        far = {k: rel_l2(alt[k], cpu[0][k]) for k in alt}
+        card_far = {k: rel_l2(card0[k], alt[k]) for k in alt}
+        ref_card = {k: rel_l2(card0[k], cpu[0][k]) for k in alt}
+        log(f"[{phase}] first gradients, max rel L2 over leaves: the CPU at {witness[0]} "
+            f"vs the reference {max(far.values()):.3e}, vs the card "
+            f"{max(card_far.values()):.3e}; the card vs the reference {max(ref_card.values()):.3e}")
+        out["witness_first_grad_rel"] = {"variant_vs_reference": max(far.values()),
+                                         "variant_vs_card": max(card_far.values()),
+                                         "card_vs_reference": max(ref_card.values())}
     results[phase] = out
     return card_launches
 
@@ -2795,6 +3073,55 @@ def phase_ssm_train_parity(torch, results):
         want_of=lambda remat, n: {"ssd_scan": base.n_layers * (2 if remat else 1) * n,
                                   "ssd_scan_bwd": base.n_layers * n},
         grad_rel={"a_log": SSM_SCALAR_GRAD_REL, "dt_bias": SSM_SCALAR_GRAD_REL})
+
+
+def phase_hybrid_train_parity(torch, results):
+    """zamba2-2.7b widths (d_model 2560, 80 SSD heads of 64, d_state 64,
+    the shared block of 32 heads of 80 with d_ff 10240, vocab 32000), two
+    groups (12 mamba layers, 2 applications of the shared block, whose
+    gradient sums over both), float32, B2 x S512 (``run_train_parity``):
+    the float32 flash backward at D 80 and the SSD backward through the
+    model; a_log and dt_bias held within SSM_SCALAR_GRAD_REL as in
+    ``ssm_train_parity``.  Each card step starts from the CPU's state
+    (``pin_state``), and a run that pins nothing is held beside
+    (FREE_RUN_GRAD_NORM_REL).  The CPU's plain scan runs at
+    HYBRID_PARITY_CHUNK (the kernel ignores the chunk); its first gradient
+    at the config's chunk is logged beside."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(HYBRID_TRAIN_ARCH)
+    base = dataclasses.replace(cfg, n_layers=2 * cfg.attn_every, dtype="float32",
+                               ssm=dataclasses.replace(cfg.ssm, chunk=HYBRID_PARITY_CHUNK))
+    n_groups = base.n_layers // base.attn_every
+    return run_train_parity(
+        torch, results, "hybrid_train_parity", base,
+        batches_fn=lambda cfg, dev: train_batches(torch, cfg, 2, 512, 3, seed=1, device=dev),
+        want_of=lambda remat, n: {"ssd_scan": base.n_layers * (2 if remat else 1) * n,
+                                  "ssd_scan_bwd": base.n_layers * n,
+                                  "flash_attention": n_groups * (2 if remat else 1) * n,
+                                  "flash_attention_bwd": n_groups * n},
+        grad_rel={"a_log": SSM_SCALAR_GRAD_REL, "dt_bias": SSM_SCALAR_GRAD_REL},
+        pin_state=True,
+        witness=(f"SSD chunk {cfg.ssm.chunk}", dataclasses.replace(base, ssm=cfg.ssm)))
+
+
+def phase_moe_train_parity(torch, results):
+    """mixtral-8x7b's attention widths (d_model 4096, 32 / 8 heads of 128,
+    vocab 32000, untied), 8 experts top-2 of width MOE_PARITY_FF (cut from
+    14336), 1 layer, the window cut to MOE_PARITY_WINDOW so that it binds,
+    float32, B2 x S384 (``run_train_parity``): the windowed float32 flash
+    backward and the MoE dispatch with its capacity drops under autograd."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MOE_TRAIN_ARCH)
+    base = dataclasses.replace(cfg, n_layers=1, dtype="float32", sliding_window=MOE_PARITY_WINDOW,
+                               moe=dataclasses.replace(cfg.moe, d_ff_expert=MOE_PARITY_FF))
+    return run_train_parity(
+        torch, results, "moe_train_parity", base,
+        batches_fn=lambda cfg, dev: train_batches(torch, cfg, 2, MOE_PARITY_S, 3, seed=1,
+                                                  device=dev),
+        want_of=lambda remat, n: {"flash_attention": base.n_layers * (2 if remat else 1) * n,
+                                  "flash_attention_bwd": base.n_layers * n})
 
 
 def phase_train_driver(torch, results):
@@ -2879,6 +3206,15 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
+# the train steps the profile phase traces: (arch, B, S, total steps);
+# mixtral at MOE_TRAIN_LAYERS layers
+TRAIN_PROFILED = {
+    "train": (TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS),
+    "hybrid_train": (HYBRID_TRAIN_ARCH, HYBRID_TRAIN_B, HYBRID_TRAIN_S, HYBRID_TRAIN_STEPS),
+    "moe_train": (MOE_TRAIN_ARCH, MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_STEPS),
+}
+
+
 def profile_windows(torch, arch):
     """The (name, function) windows the profile phase traces for ``arch``,
     warmed up: a full-width prefill and 8 decode steps of a served model
@@ -2886,9 +3222,11 @@ def profile_windows(torch, arch):
     1500 frames, from its 4-token prompt into a 448-row cache; paligemma's
     over its 256-row image prefix and a 32-token prompt, into a 448-row
     cache),
-    eager and through the captured graph (on a copy of the cache), or the
+    eager and through the captured graph (on a copy of the cache), the
     cim_scu phase's layer prefill (with the vocab softmax) and decode
-    step."""
+    step, or one train step of llama3.2-1b (``train``), zamba2-2.7b
+    (``hybrid_train``) or mixtral-8x7b at MOE_TRAIN_LAYERS layers
+    (``moe_train``) at its train phase's shape."""
     from repro_torch import models
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -2896,13 +3234,13 @@ def profile_windows(torch, arch):
                                           make_serve_step)
     from repro_torch.models.common import rmsnorm
 
-    if arch == "train":
-        from repro_torch.configs import get_config
+    if arch in TRAIN_PROFILED:
         from repro_torch.launch.steps import init_train_state, make_train_step
-        cfg = get_config(TRAIN_ARCH)
+        name, b, s, steps = TRAIN_PROFILED[arch]
+        cfg = mixtral_train_cut() if name == MOE_TRAIN_ARCH else get_config(name)
         params, opt_state = init_train_state(cfg, torch.Generator(device="cuda").manual_seed(0))
-        batch = train_batches(torch, cfg, TRAIN_B, TRAIN_S, 1)[0]
-        step = make_train_step(cfg, base_lr=3e-4, warmup=10, total_steps=TRAIN_STEPS)
+        batch = train_batches(torch, cfg, b, s, 1)[0]
+        step = make_train_step(cfg, base_lr=3e-4, warmup=10, total_steps=steps)
         state = {"p": params, "o": opt_state}
 
         def train_step():
@@ -3061,9 +3399,17 @@ def main(argv=None) -> int:
             launches_of[phase] = phase_ssm_train(torch, results)
         elif phase == "ssm_train_parity":
             launches_of[phase] = phase_ssm_train_parity(torch, results)
+        elif phase == "hybrid_train":
+            launches_of[phase] = phase_hybrid_train(torch, results)
+        elif phase == "hybrid_train_parity":
+            launches_of[phase] = phase_hybrid_train_parity(torch, results)
+        elif phase == "moe_train":
+            launches_of[phase] = phase_moe_train(torch, results)
+        elif phase == "moe_train_parity":
+            launches_of[phase] = phase_moe_train_parity(torch, results)
         elif phase == "profile":
             for arch in (*SERVE_ARCH.values(), "mixtral-8x7b", "whisper-large-v3",
-                         "paligemma-3b", "cim_scu", "train"):
+                         "paligemma-3b", "cim_scu", *TRAIN_PROFILED):
                 phase_profile(torch, results, arch)
                 torch.cuda.empty_cache()
         torch.cuda.synchronize()

@@ -6,7 +6,8 @@ fallback from one to the other.  ``LAUNCHES`` counts the kernel launches
 of each wrapper, so a run can show that its path went through the
 kernels; each kernel module adds one where it launches, and the plain
 versions are not counted.  ``LAUNCHES_BY_SHAPE`` counts the attention
-kernels' and the SSD backward's launches apart by (kernel, ``launch_key``).
+kernels' and the SSD scan's and its backward's launches apart by (kernel,
+``launch_key``).
 """
 from __future__ import annotations
 

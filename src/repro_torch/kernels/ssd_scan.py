@@ -321,6 +321,7 @@ def _ssd_fwd(x, dt, a_neg, B, C):
     b, S, H, P = x.shape
     N = B.shape[-1]
     dev = x.device
+    key = launch_key(x, B)
     x, B, C, x_stride, bc_stride = kernel_layout(x, B, C)
     dt, a_neg = dt.contiguous(), a_neg.contiguous()
     y = torch.empty((b, S, H, P), dtype=torch.float32, device=dev)
@@ -330,13 +331,13 @@ def _ssd_fwd(x, dt, a_neg, B, C):
         x.data_ptr(), dt.data_ptr(), a_neg.data_ptr(), B.data_ptr(),
         C.data_ptr(), y.data_ptr(), state.data_ptr(), b, S, H, P, N,
         x_stride, bc_stride, _DTYPE_CODES[x.dtype],
-        torch.cuda.current_stream(dev).cuda_stream), "ssd_scan")
+        torch.cuda.current_stream(dev).cuda_stream), "ssd_scan", key)
     return y, state
 
 
 def launch_key(x, B) -> str:
-    """The shape under which ``ssd_scan_bwd_cuda`` counts a launch in
-    ``_build.LAUNCHES_BY_SHAPE``."""
+    """The shape under which ``ssd_scan_cuda`` and ``ssd_scan_bwd_cuda``
+    count a launch in ``_build.LAUNCHES_BY_SHAPE``."""
     b, S, H, P = x.shape
     return f"b{b} S{S} H{H} P{P} N{B.shape[-1]} {str(x.dtype).removeprefix('torch.')}"
 

@@ -2,9 +2,10 @@
 (``flash_attention_bwd_plain``, the reference for the Hopper kernel
 ``csrc/flash_attention_bwd.cu``) against ``jax.vjp`` of the JAX model's
 attention (``repro.models.attention.flash_attention`` and
-``full_attention``) and against autograd of the port's plain forward; the
-forward's lse; and the refusal of every CUDA wrapper to hand autograd an
-output without a gradient.  CPU, float32.
+``full_attention``) and against autograd of the port's plain forward,
+causal or not, under a sliding window, at D 32 to 128; the forward's
+lse; and the refusal of every CUDA wrapper to hand autograd an output
+without a gradient.  CPU, float32.
 """
 import jax
 import jax.numpy as jnp
@@ -107,11 +108,11 @@ def test_plain_backward_leaves_masked_pairs_out_of_a_nan():
     assert not bwd_agreement(fake, dv)[2]
 
 
-def _pairwise_grads(q, k, v, out, lse, g, causal=True):
+def _pairwise_grads(q, k, v, out, lse, g, causal=True, window=None):
     """dQ, dK, dV pair by pair in float64 over the kept pairs only (every
-    key below Skv, and under the causal mask kpos <= qpos), GQA by h // G:
-    the rule the plain version and the kernel keep, written out as loops
-    (small shapes only)."""
+    key below Skv, under the causal mask kpos <= qpos, under a window
+    qpos - kpos < window), GQA by h // G: the rule the plain version and
+    the kernel keep, written out as loops (small shapes only)."""
     B, S, Hq, D = q.shape
     Skv = k.shape[1]
     G = Hq // k.shape[2]
@@ -125,6 +126,8 @@ def _pairwise_grads(q, k, v, out, lse, g, causal=True):
             for i in range(S):
                 delta = float(np.dot(g[b, i, h], out[b, i, h]))
                 for j in range(min(i + 1, Skv) if causal else Skv):
+                    if window is not None and i - j >= window:
+                        continue
                     p = np.exp(scale * np.dot(q[b, i, h], k[b, j, hk]) - lse[b, h, i])
                     ds = p * (np.dot(g[b, i, h], v[b, j, hk]) - delta)
                     dv[b, j, hk] += p * g[b, i, h]
@@ -219,22 +222,118 @@ def test_noncausal_plain_backward_nan_rule_matches_pair_by_pair_sums(where):
     assert (sum(n_bad) > 0) == (where != "none")
 
 
+# (window, S): windows that bind inside a 64-row chunk (1, 17), at a chunk
+# (64) and across chunks (100), at S that end ragged
+WINDOW_CASES = [(w, s) for w in (1, 17, 64, 100) for s in (37, 129, 300)]
+
+
+def _jax_vjp(jfn, q, k, v, g, **kw):
+    """The JAX model's output and (dq, dk, dv) by jax.vjp, jitted as one
+    function (the same numbers as op by op, in a fraction of the time)."""
+    if jfn == "flash":
+        fn = lambda q, k, v: jflash(q, k, v, q_chunk=64, kv_chunk=64, **kw)
+    else:
+        fn = lambda q, k, v: jfull(q, k, v, **kw)
+
+    def both(q, k, v, g):
+        out, vjp = jax.vjp(fn, q, k, v)
+        return out, vjp(g)
+    return jax.jit(both)(q, k, v, g)
+
+
+@pytest.mark.parametrize("jfn", ["flash", "full"])
+@pytest.mark.parametrize("window,s", WINDOW_CASES)
+def test_windowed_plain_backward_matches_jax_vjp(window, s, jfn):
+    """Causal under a sliding window (mixtral's), GQA 4:1, D 32: dQ, dK, dV
+    of the plain backward against jax.vjp of the JAX model's blockwise
+    flash_attention (chunks of 64) and of its full_attention, both with
+    ``window``; and against autograd of the port's plain forward."""
+    q, k, v, g = _inputs(s, 32, seed=window + s)
+    out_j, want = _jax_vjp(jfn, q, k, v, g, causal=True, window=window)
+    tq, tk, tv, tg = map(torch.from_numpy, (q, k, v, g))
+    out, lse = flash_attention_plain(tq, tk, tv, window=window, return_lse=True)
+    got = flash_attention_bwd_plain(tq, tk, tv, out, lse, tg, window=window)
+    np.testing.assert_allclose(out.numpy(), np.asarray(out_j), atol=ATOL)
+    for name, a, b in zip("qkv", got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL, err_msg=name)
+    tq, tk, tv = (t.clone().requires_grad_() for t in (tq, tk, tv))
+    auto = torch.autograd.grad(ops.flash_attention(tq, tk, tv, window=window), (tq, tk, tv), tg)
+    for name, a, b in zip("qkv", got, auto):
+        assert bwd_agreement(a, b)[2], name
+    if window < s:                        # the window binds: it moved the gradients
+        _, _, (dq, _, _) = _plain_grads(q, k, v, g)
+        assert not torch.allclose(dq, got[0], atol=ATOL)
+
+
+@pytest.mark.parametrize("jfn", ["flash", "full"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [80, 128])
+def test_plain_backward_matches_jax_vjp_at_d80_and_d128(d, causal, jfn):
+    """zamba2's head dim 80 and mixtral's 128, causal and not (Sq 100
+    against Skv 129 without the mask), GQA 4:1: dQ, dK, dV against
+    jax.vjp of the JAX model's attention."""
+    rng = np.random.default_rng(d + causal)
+    sq, skv = (129, 129) if causal else (100, 129)
+    q = rng.standard_normal((2, sq, 8, d)).astype(np.float32)
+    k, v = (rng.standard_normal((2, skv, 2, d)).astype(np.float32) for _ in range(2))
+    g = rng.standard_normal((2, sq, 8, d)).astype(np.float32)
+    out_j, want = _jax_vjp(jfn, q, k, v, g, causal=causal)
+    tq, tk, tv, tg = map(torch.from_numpy, (q, k, v, g))
+    out, lse = flash_attention_plain(tq, tk, tv, causal=causal, return_lse=True)
+    got = flash_attention_bwd_plain(tq, tk, tv, out, lse, tg, causal=causal)
+    np.testing.assert_allclose(out.numpy(), np.asarray(out_j), atol=ATOL)
+    for name, a, b in zip("qkv", got, want):
+        assert a.shape == b.shape, name
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize("window", [1, 3, 7])
+@pytest.mark.parametrize("where", ["none", "dout", "q", "k", "v"])
+def test_windowed_plain_backward_nan_rule_matches_pair_by_pair_sums(where, window):
+    """Under a window (causal, S 12): a NaN in dout, q, k or v makes the
+    plain backward non-finite exactly where the float64 pair-by-pair sums
+    over the kept pairs are, and equal to them elsewhere; the keys past a
+    row's window do not see its NaN."""
+    q, k, v, g = _inputs(12, 8, seed=6, hq=4, hkv=2, b=1)
+    if where in ("q", "k", "v"):
+        {"q": q, "k": k, "v": v}[where][0, 5, 1, 2] = np.nan
+    if where == "dout":
+        g[0, 5, 3, 2] = np.nan
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    out, lse = flash_attention_plain(tq, tk, tv, window=window, return_lse=True)
+    got = flash_attention_bwd_plain(tq, tk, tv, out, lse, torch.from_numpy(g), window=window)
+    want = _pairwise_grads(q, k, v, out.numpy(), lse.numpy(), g, window=window)
+    for name, a, w in zip("qkv", got, want):
+        a = a.numpy()
+        np.testing.assert_array_equal(np.isfinite(a), np.isfinite(w), err_msg=name)
+        fin = np.isfinite(w)
+        np.testing.assert_allclose(a[fin], w[fin], atol=ATOL, err_msg=name)
+    n_bad = [int((~np.isfinite(w)).sum()) for w in want]
+    assert (sum(n_bad) > 0) == (where != "none")
+    if where == "dout":
+        # row 5 sees keys 5 - window + 1 .. 5 of its KV head: only their dK
+        # and dV rows go NaN
+        bad_keys = np.flatnonzero(~np.isfinite(want[2][0, :, 1]).all(-1))
+        assert bad_keys.tolist() == list(range(max(0, 6 - window), 6))
+
+
 def test_cuda_wrappers_refuse_grad_without_a_backward():
     """Under grad, an input that requires grad: the wrapper raises
     NotImplementedError naming the ROADMAP item before it looks at the
-    device, so none can return an output without a gradient.  A mode that
-    has a backward kernel (flash with or without the causal mask; the SSD
-    scan) goes through its autograd Function, which reaches the device
-    check."""
+    device, so none can return an output without a gradient (flash: a
+    prefix, PWL exp, D 256).  A mode that has a backward kernel (flash with
+    or without the causal mask, with or without a window, D 32 / 64 / 80 /
+    128; the SSD scan) goes through its autograd Function, which reaches
+    the device check."""
     q = torch.zeros((1, 4, 2, 32), requires_grad=True)
     k = torch.zeros((1, 4, 2, 32))
-    for kw, item in ((dict(window=2), "window"), (dict(prefix_len=1), "prefix"),
-                     (dict(use_pwl=True), "PWL")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for kw, item in ((dict(prefix_len=1), "prefix in the flash backward"),
+                     (dict(use_pwl=True), "ROADMAP §B1, no PWL backward")):
+        with pytest.raises(NotImplementedError, match=item):
             flash_attention_cuda(q, k, k, **kw)
-    q80 = torch.zeros((1, 4, 2, 80), requires_grad=True)
-    with pytest.raises(NotImplementedError, match="head dim 80"):
-        flash_attention_cuda(q80, q80.detach(), q80.detach())
+    q256 = torch.zeros((1, 4, 2, 256), requires_grad=True)
+    with pytest.raises(NotImplementedError, match="head dim 256: ROADMAP §A5"):
+        flash_attention_cuda(q256, q256.detach(), q256.detach())
     with pytest.raises(NotImplementedError, match="ROADMAP §B2"):
         paged_attention_cuda(torch.zeros((1, 2, 32), requires_grad=True),
                              torch.zeros((1, 4, 2, 32)), torch.zeros((1, 4, 2, 32)),
@@ -252,16 +351,26 @@ def test_cuda_wrappers_refuse_grad_without_a_backward():
     wq, ws = quantize_weights(w)
     with pytest.raises(NotImplementedError, match="ROADMAP §B4"):
         cim_matmul_cuda(torch.zeros((4, 256), requires_grad=True), wq, ws)
-    # a supported mode goes through FlashAttentionFn, which takes CUDA tensors
+    # a supported mode goes through FlashAttentionFn, which takes CUDA tensors:
+    # the causal mask on or off, a window (mixtral), D 80 (zamba2)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_cuda(q, k, k)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_cuda(q, k[:, :3], k[:, :3], causal=False)
     with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(q, k, k, window=2)
+    q80 = torch.zeros((1, 4, 2, 80), requires_grad=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(q80, q80.detach(), q80.detach(), window=3)
+    with pytest.raises(ValueError, match="CUDA"):
         FlashAttentionFn.apply(q, k, k)
+    with pytest.raises(ValueError, match="CUDA"):
+        FlashAttentionFn.apply(q, k, k, True, 2)
     # without grad (or with no input that requires grad) the refusal is off:
     # the device check is reached
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
-        flash_attention_cuda(q, k, k, window=2)
+        flash_attention_cuda(q, k, k, prefix_len=1)
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(q256, q256, q256)
     with pytest.raises(ValueError, match="CUDA"):
         pwl_softmax_cuda(torch.zeros((2, 8)))

@@ -950,12 +950,12 @@ def test_paligemma_compiled_step_after_a_prefix_matches_the_eager_step(cuda, dty
 # 1e-4 of max(|want|, 1) (sums of up to S keys / rows in another order);
 # bf16 each element within 2**-7 |want| + 2**-12 max(|want|, 1)
 
-def _bwd_case(shape_q, hkv, dtype, seed, device):
+def _bwd_case(shape_q, hkv, dtype, seed, device, window=0):
     from repro_torch.kernels import flash_attention as fa
     b, s, hq, d = shape_q
     q = _randn(shape_q, dtype, seed, device)
     k, v = (_randn((b, s, hkv, d), dtype, seed + i + 1, device) for i in range(2))
-    out, lse = fa._flash_fwd(q, k, v, causal=True, use_pwl=False, window=0, prefix_len=0,
+    out, lse = fa._flash_fwd(q, k, v, causal=True, use_pwl=False, window=window, prefix_len=0,
                              with_lse=True)
     g = _randn(shape_q, dtype, seed + 3, device)
     return q, k, v, out, lse, g
@@ -1036,29 +1036,36 @@ def test_flash_attention_fn_matches_autograd_of_the_plain_version(cuda, dtype):
             # output; the backward reads the bf16 output the forward
             # returned (Delta = rowsum(dO O)), ~2**-9 of a term apart
             assert float((a.float() - w.float()).norm()) <= 2 ** -6 * float(w.float().norm())
-    with pytest.raises(NotImplementedError, match="window"):
-        ops.flash_attention(q, k, v, window=64)
+    with pytest.raises(NotImplementedError, match="prefix"):
+        ops.flash_attention(q, k, v, prefix_len=8)
     with torch.no_grad():                          # no grad: the forward alone
         assert ops.flash_attention(q, k, v).grad_fn is None
 
 
 def test_flash_bwd_entry_refuses_what_it_does_not_implement(cuda):
+    """The C entry refuses a prefix, PWL exp, a negative window and D 256
+    or 48 without a launch; it takes the causal mask on or off, a window,
+    and D 64 and 80."""
     from repro_torch.kernels import _build
-    q, k, v, out, lse, g = _bwd_case((1, 64, 4, 64), 2, torch.float32, 3, cuda)
     lib = _build.library("flash_attention_bwd")
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    delta = torch.empty((1, 4, 64), device=cuda)
     stream = torch.cuda.current_stream().cuda_stream
-    ptrs = [t.data_ptr() for t in (q, k, v, out, lse, g, dq, dk, dv, delta)]
-    for D, causal, window, prefix, pwl in ((64, 1, 16, 0, 0), (64, 0, 16, 0, 0),
-                                           (64, 1, 0, 8, 0), (64, 1, 0, 0, 1), (80, 1, 0, 0, 0),
-                                           (80, 0, 0, 0, 0)):
-        err = lib.flash_attention_bwd(*ptrs, 1, 64, 64, 4, 2, D, 0, causal, window, prefix,
-                                      pwl, stream)
-        assert err != 0, (D, causal, window, prefix, pwl)
-    for causal in (1, 0):
-        assert lib.flash_attention_bwd(*ptrs, 1, 64, 64, 4, 2, 64, 0, causal, 0, 0, 0,
-                                       stream) == 0
+    for D in (64, 80):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, out, lse, g = _bwd_case((1, 64, 4, D), 2, dtype, 3, cuda)
+            dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+            delta = torch.empty((1, 4, 64), device=cuda)
+            ptrs = [t.data_ptr() for t in (q, k, v, out, lse, g, dq, dk, dv, delta)]
+            code = 0 if dtype == torch.float32 else 1
+            for d, causal, window, prefix, pwl in ((D, 1, 0, 8, 0), (D, 1, 0, 0, 1),
+                                                   (D, 0, 0, 0, 1), (D, 1, -1, 0, 0),
+                                                   (256, 1, 0, 0, 0), (48, 0, 0, 0, 0)):
+                err = lib.flash_attention_bwd(*ptrs, 1, 64, 64, 4, 2, d, code, causal, window,
+                                              prefix, pwl, stream)
+                assert err != 0, (d, causal, window, prefix, pwl)
+            for causal, window in ((1, 0), (0, 0), (1, 16), (0, 16), (1, 1)):
+                assert lib.flash_attention_bwd(*ptrs, 1, 64, 64, 4, 2, D, code, causal, window,
+                                               0, 0, stream) == 0, (D, dtype, causal, window)
+    torch.cuda.synchronize()
 
 
 def _train_run(cfg, device, steps=3, seed=0):
@@ -1116,7 +1123,7 @@ def test_train_step_bf16_on_the_card_lowers_the_loss(cuda):
     assert all(np.isfinite(m["grad_norm"]) and m["grad_norm"] > 0 for m in metrics)
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "paligemma-3b"])
+@pytest.mark.parametrize("arch", ["paligemma-3b"])
 def test_training_a_family_without_backward_kernels_fails_loudly(cuda, arch):
     from repro_torch.launch.steps import make_train_step
     from repro_torch.optim import adamw_init
@@ -1203,6 +1210,94 @@ def test_flash_attention_fn_noncausal_matches_autograd_of_the_plain_version(cuda
         assert fa.bwd_agreement(a, p)[2], name
 
 
+# ---- the flash backward at D 80 and under a sliding window (training of
+# zamba2 and mixtral) ----------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,Hq,Hkv,D,window", [
+    (1024, 8, 8, 80, None),       # zamba2's shared block (MHA, D 80)
+    (300, 8, 2, 80, 100),         # D 80 under a window
+    (512, 8, 2, 128, 1),          # each row sees itself
+    (512, 8, 2, 128, 100),        # windows that cut tiles off the diagonal
+    (512, 8, 2, 128, 130),
+    (1000, 4, 1, 64, 130),        # ragged S
+    (129, 4, 2, 32, 17),
+    (600, 8, 2, 128, 64),         # a window of one tile
+])
+def test_flash_bwd_kernel_windowed_and_d80_match_plain(cuda, S, Hq, Hkv, D, window, dtype):
+    """dQ, dK, dV by bwd_agreement against the plain version under the same
+    window, two runs bit-equal, one counted launch; the forward with the
+    lse output bit-equal to the forward without it under the window."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, out, lse, g = _bwd_case((2, S, Hq, D), Hkv, dtype, S + D, cuda, window or 0)
+    assert torch.equal(out, ops.flash_attention(q, k, v, window=window))
+    _, lse_plain = fa.flash_attention_plain(q, k, v, window=window, return_lse=True)
+    assert (lse - lse_plain).abs().max().item() <= 1e-5
+    before = ops.LAUNCHES["flash_attention_bwd"]
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, g, window=window)
+    assert ops.LAUNCHES["flash_attention_bwd"] == before + 1
+    again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, g, window=window)
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, g, window=window)
+    torch.cuda.synchronize()
+    for name, a, w, c in zip("qkv", got, want, again):
+        assert a.dtype == dtype and a.shape == w.shape
+        assert fa.bwd_agreement(a, w)[2], (name, fa.bwd_agreement(a, w))
+        assert torch.equal(a, c), name
+    if window is not None and window < S:     # the window moved the gradients
+        full = fa.flash_attention_bwd_plain(q, k, v, *fa._flash_fwd(
+            q, k, v, causal=True, use_pwl=False, window=0, prefix_len=0, with_lse=True), g)
+        assert not torch.equal(full[1], want[1])
+
+
+@pytest.mark.parametrize("where", ["dout", "q", "k", "v"])
+@pytest.mark.parametrize("window", [100, 130])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernel_windowed_keeps_a_nan_where_plain(cuda, dtype, window, where):
+    """Under a window that is no multiple of 16 or 64: non-finite exactly
+    where the plain version is, so a key past a row's window, in a tile
+    the window's edge cuts, does not take that row's NaN."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, out, lse, g = _bwd_case((1, 512, 4, 128), 2, dtype, 13, cuda, window)
+    if where == "dout":
+        g[0, 300, 3, 5] = float("nan")
+    else:
+        {"q": q, "k": k, "v": v}[where][0, 300, 0, 5] = float("nan")
+        out, lse = fa._flash_fwd(q, k, v, causal=True, use_pwl=False, window=window,
+                                 prefix_len=0, with_lse=True)
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, g, window=window)
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, g, window=window)
+    assert not all(bool(torch.isfinite(w.float()).all()) for w in want)
+    assert all(bool(torch.isfinite(w.float()).any()) for w in want)
+    for a, w in zip(got, want):
+        assert fa.bwd_agreement(a, w)[2]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,window", [(80, None), (128, 100), (80, 37)])
+def test_flash_attention_fn_windowed_and_d80_match_autograd_of_the_plain_version(cuda, D,
+                                                                               window, dtype):
+    """A grad through ops.flash_attention on the card at D 80 or under a
+    window: FlashAttentionFn launches the forward and the backward kernel
+    once each, and gives the plain backward's gradients."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, _, _, g = _bwd_case((2, 300, 8, D), 2, dtype, 51, cuda)
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    before = dict(ops.LAUNCHES)
+    out = ops.flash_attention(q, k, v, window=window)
+    got = torch.autograd.grad(out, (q, k, v), g)
+    assert ops.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert ops.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    key = fa.launch_key(q, k, window=window)
+    assert ops.LAUNCHES_BY_SHAPE[("flash_attention_bwd", key)] >= 1
+    out_, lse = fa._flash_fwd(q.detach(), k.detach(), v.detach(), causal=True, use_pwl=False,
+                              window=window or 0, prefix_len=0, with_lse=True)
+    assert torch.equal(out.detach(), out_)
+    plain = fa.flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(), out_, lse, g,
+                                         window=window)
+    for name, a, p in zip("qkv", got, plain):
+        assert fa.bwd_agreement(a, p)[2], name
+
+
 def _ssd_bwd_case(b, S, H, P, N, dtype, seed, device, *, long=False, strided=False):
     if strided:             # as the mamba layer slices its conv output
         conv = _randn((b, S, H * P + 2 * N), torch.float32, seed, device)
@@ -1278,7 +1373,24 @@ def test_ssd_scan_fn_matches_autograd_of_the_plain_version(cuda, dtype):
         assert ops.ssd_scan(*args, chunk=256)[0].grad_fn is None
 
 
-@pytest.mark.parametrize("arch", ["whisper-large-v3", "mamba2-2.7b"])
+def _fwd_a_step(cfg):
+    """{forward kernel: its launches a train step without remat}; the
+    backward kernel ``<name>_bwd`` launches as often (remat doubles the
+    forwards)."""
+    if cfg.is_encoder_decoder:
+        return {"flash_attention": cfg.n_encoder_layers + 2 * cfg.n_layers}
+    if cfg.family in ("ssm", "hybrid"):
+        out = {"ssd_scan": cfg.n_layers}
+        if cfg.attn_every:              # the shared block, once a group
+            out["flash_attention"] = cfg.n_layers // cfg.attn_every
+        return out
+    return {"flash_attention": cfg.n_layers}
+
+
+FAMILIES = ["whisper-large-v3", "mamba2-2.7b", "zamba2-2.7b", "mixtral-8x7b"]
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
 def test_family_train_step_bf16_on_the_card_lowers_the_loss(cuda, arch):
     from repro_torch.launch.steps import make_train_step
     from repro_torch.optim import adamw_init
@@ -1304,30 +1416,27 @@ def test_family_train_step_bf16_on_the_card_lowers_the_loss(cuda, arch):
         losses.append(float(m["loss"]))
         assert np.isfinite(m["grad_norm"].item()) and m["grad_norm"].item() > 0
     assert losses[-1] < losses[0], losses
-    bwd = "flash_attention_bwd" if cfg.is_encoder_decoder else "ssd_scan_bwd"
-    per_step = cfg.n_encoder_layers + 2 * cfg.n_layers if cfg.is_encoder_decoder else cfg.n_layers
-    assert ops.LAUNCHES[bwd] - before[bwd] == 12 * per_step
+    for kern, n in _fwd_a_step(cfg).items():
+        bwd = f"{kern}_bwd"
+        assert ops.LAUNCHES[bwd] - before[bwd] == 12 * n, bwd
 
 
 @pytest.mark.parametrize("remat", [False, True])
-@pytest.mark.parametrize("arch", ["whisper-large-v3", "mamba2-2.7b"])
+@pytest.mark.parametrize("arch", FAMILIES)
 def test_family_train_step_on_the_card_matches_the_cpu(cuda, arch, remat):
-    """Smoke whisper / mamba2, float32, 3 AdamW steps: metrics within 1e-5
+    """Smoke whisper / mamba2 / zamba2 (one group: 6 mambas and the shared
+    block, head dim 32) / mixtral (window 64, which S 64 does not reach;
+    the MoE dispatch), float32, 3 AdamW steps: metrics within 1e-5
     relative and each leaf's update within 1e-2 in relative L2 norm, as the
     dense family's test; whisper's launches count encode's remat."""
     cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32", remat=remat)
     cpu = _train_run(cfg, "cpu")
     before = dict(ops.LAUNCHES)
     card = _train_run(cfg, cuda)
-    if cfg.is_encoder_decoder:
-        per_step = cfg.n_encoder_layers + 2 * cfg.n_layers
-        fwd = ops.LAUNCHES["flash_attention"] - before["flash_attention"]
-        bwd = ops.LAUNCHES["flash_attention_bwd"] - before["flash_attention_bwd"]
-    else:
-        per_step = cfg.n_layers
-        fwd = ops.LAUNCHES["ssd_scan"] - before["ssd_scan"]
-        bwd = ops.LAUNCHES["ssd_scan_bwd"] - before["ssd_scan_bwd"]
-    assert (fwd, bwd) == ((2 if remat else 1) * per_step * 3, per_step * 3)
+    for kern, n in _fwd_a_step(cfg).items():
+        fwd = ops.LAUNCHES[kern] - before[kern]
+        bwd = ops.LAUNCHES[f"{kern}_bwd"] - before[f"{kern}_bwd"]
+        assert (fwd, bwd) == ((2 if remat else 1) * n * 3, n * 3), kern
     for cm, pm in zip(card[0], cpu[0]):
         for k in ("loss", "ce", "grad_norm", "lr"):
             assert abs(cm[k] - pm[k]) <= 1e-5 * max(abs(pm[k]), 1e-30), (k, cm[k], pm[k])
