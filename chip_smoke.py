@@ -57,8 +57,13 @@ Phases, each of which fails the run if it fails:
                 Hq32 Hkv8 D128 with window 4096, bf16, and
                 moe_train_parity's B2 S384 window 128, float32, windows 1,
                 100 and 130 at B4 S512, ragged S under a window, a NaN in
-                dout and in k under windows 100 and 130; every case twice,
-                bit-equal); the
+                dout and in k under windows 100 and 130; with paligemma's
+                bidirectional prefix and at D 256: its train shape B4 S1280
+                Hq8 Hkv1 D256 with a prefix of 256, bf16, and
+                vlm_train_parity's B2 S384, float32, D 256 without a
+                prefix, prefixes of 100, past S, and 256 at D 64 and 128,
+                ragged S, a NaN in dout and in k inside and outside the
+                prefix; every case twice, bit-equal); the
                 SSD backward against its plain version (fed the forward
                 kernel's y and state) on dx, ddt, da_neg, dB and dC, da_neg
                 also against the float64 plain version: mamba2's train
@@ -175,15 +180,25 @@ Phases, each of which fails the run if it fails:
                 (cut from 14336), 1 layer, the window cut to 128, float32,
                 B2 x S384 (the MoE dispatch and its drops): as
                 ``train_parity``.
+  vlm_train     paligemma-3b at published widths and full depth (18
+                layers, 8 query heads on one KV head of 256) in bf16 under
+                remat: 10 AdamW steps of B4 x 1024 text tokens after 256
+                rows of seeded random patch embeddings (S 1280 through
+                attention, the prefix seen bidirectionally), as ``train``;
+                each step launches 36 flash forwards and 18 backwards with
+                the prefix, counted per shape.
+  vlm_train_parity  paligemma widths, 2 layers, float32, B2 x (256 prefix
+                rows + 128 text tokens): as ``train_parity`` (the float32
+                SIMT backward with the prefix at D 256).
   profile       (only when named) device time by kernel under torch.profiler
                 for one full-width prefill and 8 decode steps (eager, and
                 through the graph) of each of the six served models
                 (whisper's prefill with its encoder, paligemma's with its
                 image prefix), for the cim_scu layer's prefill and decode
                 step and for one train step each of llama3.2-1b,
-                zamba2-2.7b and mixtral-8x7b (2 layers) at their train
-                phases' shapes, and the device's busy share of the
-                host-clock window.
+                zamba2-2.7b, mixtral-8x7b (2 layers) and paligemma-3b at
+                their train phases' shapes, and the device's busy share of
+                the host-clock window.
 
 The line before the last two is a JSON object ``{"kernels": [...]}``, then
 the card's name and power limit as nvidia-smi reports them, and the last
@@ -207,7 +222,8 @@ PHASES = ("build", "kernels", "serve", "ssm_serve", "hybrid_serve", "moe_serve",
           "vlm_serve", "cim_scu", "parity", "ssm_parity", "moe_parity", "audio_parity",
           "vlm_parity", "server", "train", "train_parity", "train_driver", "audio_train",
           "audio_train_parity", "ssm_train", "ssm_train_parity", "hybrid_train",
-          "hybrid_train_parity", "moe_train", "moe_train_parity")
+          "hybrid_train_parity", "moe_train", "moe_train_parity", "vlm_train",
+          "vlm_train_parity")
 EXTRA_PHASES = ("profile",)          # run only when named in --phases
 SERVE_ARCH = {"serve": "llama3-8b", "ssm_serve": "mamba2-2.7b",
               "hybrid_serve": "zamba2-2.7b"}
@@ -336,6 +352,13 @@ SSM_TRAIN_ARCH, SSM_TRAIN_B, SSM_TRAIN_S, SSM_TRAIN_STEPS = "mamba2-2.7b", 8, 10
 HYBRID_TRAIN_ARCH, HYBRID_TRAIN_B, HYBRID_TRAIN_S, HYBRID_TRAIN_STEPS = "zamba2-2.7b", 8, 1024, 10
 MOE_TRAIN_ARCH, MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_STEPS = "mixtral-8x7b", 2, MIX_LONG, 10
 MOE_TRAIN_LAYERS = 2
+# paligemma-3b at full width and depth: B4 x 1024 text tokens after its 256
+# image rows (S 1280 through attention), 10 AdamW steps (warmup 5); its
+# 2.509 B params are 28.0 GiB of state at 12 bytes a parameter, and B4 x
+# 1024 x 257216 logits as many as llama3.2-1b's B8 x 1024 x 128256
+VLM_TRAIN_ARCH, VLM_TRAIN_B, VLM_TRAIN_S, VLM_TRAIN_STEPS = "paligemma-3b", 4, 1024, 10
+# vlm_train_parity: 2 layers, B2 x 128 text tokens after the 256-row prefix
+VLM_PARITY_S = 128
 # moe_train_parity: mixtral's attention widths (d_model 4096, 32 / 8 heads
 # of 128), 8 experts top-2, 1 layer, the window cut to 128 so that it binds
 # at S 384 (as moe_parity cuts it), B2 x S384 = 768 tokens, past
@@ -364,7 +387,7 @@ HYBRID_PARITY_CHUNK = 64
 FREE_RUN_GRAD_NORM_REL = TRAIN_GRAD_REL
 # the train phases whose flash forward the kernels phase times at their shape
 TRAIN_MODEL_OF = {"train": "llama3.2-1b", "audio_train": "whisper", "hybrid_train": "zamba2",
-                  "moe_train": "mixtral"}
+                  "moe_train": "mixtral", "vlm_train": "paligemma"}
 
 
 def log(*a):
@@ -886,25 +909,27 @@ def phase_kernels(torch, timer, results):
             + f", bound {kern['bound_ms']:.5f} ms ({kern['bound_by']})")
 
 
-def kept_pairs(sq, skv, causal=True, window=None):
+def kept_pairs(sq, skv, causal=True, window=None, prefix_len=0):
     """The (query, key) pairs a head keeps: under the causal mask the keys
-    at or before the query, under a window (an int or None) those fewer
-    than ``window`` positions before it, of ``skv`` keys."""
+    at or before the query and those below ``prefix_len``, under a window
+    (an int or None) those fewer than ``window`` positions before it, of
+    ``skv`` keys."""
     total = 0
     for i in range(sq):
-        hi = min(i + 1, skv) if causal else skv
+        hi = min(max(i + 1, prefix_len), skv) if causal else skv
         lo = max(0, i - window + 1) if window else 0
         total += max(0, hi - lo)
     return total
 
 
-def bwd_work(b, sq, skv, hq, hkv, d, esize, causal=True, window=None):
+def bwd_work(b, sq, skv, hq, hkv, d, esize, causal=True, window=None, prefix_len=0):
     """Bytes (q, k, v, out, dout and the float32 lse read once; dq, dk,
     dv written once) and FLOPs of attention's backward: five products of
     2 * D per (query, key) pair the mask keeps (S, dP, dV, dK, dQ): causal,
-    the pairs with kpos <= qpos, else sq * skv a head; a window keeps only
-    the pairs with qpos - kpos < window (``kept_pairs``)."""
-    pairs = kept_pairs(sq, skv, causal, window)
+    the pairs with kpos <= qpos or kpos < prefix_len, else sq * skv a head;
+    a window keeps only the pairs with qpos - kpos < window
+    (``kept_pairs``)."""
+    pairs = kept_pairs(sq, skv, causal, window, prefix_len)
     nbytes = (4 * b * sq * hq * d + 4 * b * skv * hkv * d) * esize + b * hq * sq * 4
     return nbytes, 5 * 2 * b * hq * d * pairs
 
@@ -923,86 +948,117 @@ def flash_bwd_cases(torch, timer, randn, extra):
     train shape (B2 S4160 Hq32 Hkv8 D128, window 4096), bf16, and
     moe_train_parity's (B2 S384, window 128), float32, windows 1, 100 and
     130 at B4 S512, ragged S under a window, and a NaN in dout and in k
-    under windows 100 and 130.  Each case also holds the forward with the
-    lse output bit-equal to the forward without it (under its window), the
+    under windows 100 and 130; with paligemma's bidirectional prefix and at
+    its D 256 (8 query heads on one KV head): its train shape B4 S1280 with
+    a prefix of 256, bf16, vlm_train_parity's B2 S384, float32, D 256
+    without a prefix, prefixes of 100 and past S (200 at S 129), a prefix
+    of 256 at llama3.2-1b's D 64 and llama3-8b's D 128 (B4 S512), ragged S
+    (1000; 77 in float32), and a NaN in dout and in k inside the prefix and
+    outside it.  Each case also holds the forward with the lse output
+    bit-equal to the forward without it (under its window or prefix), the
     lse to the plain version's, and two runs of the backward bit-equal (no
     atomics).  The timed cases are timed with the plain version and SDPA's
     backward (fwd + bwd through ``scaled_dot_product_attention(enable_gqa=
-    True)`` with ``is_causal`` or, under a window, the same boolean mask,
-    minus its forward, a yardstick).  Returns the main entry."""
+    True)`` with ``is_causal`` or, under a window or a prefix, the same
+    boolean mask, minus its forward, a yardstick).  Returns the main
+    entry."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
 
     WB, WS = AUDIO_TRAIN_B, AUDIO_TRAIN_S
     ZB, ZS = HYBRID_TRAIN_B, HYBRID_TRAIN_S
     MB, MS = MOE_TRAIN_B, MOE_TRAIN_S
-    cases = [  # B, Sq, Skv, Hq, Hkv, D, dtype, causal, window, NaN in, path, timed
-        (TRAIN_B, TRAIN_S, TRAIN_S, TRAIN_HQ, TRAIN_HKV, TRAIN_D, "bfloat16", True, None, None,
+    VB, VS, VPS = VLM_TRAIN_B, V_PREFIX + VLM_TRAIN_S, V_PREFIX + VLM_PARITY_S
+    cases = [  # B, Sq, Skv, Hq, Hkv, D, dtype, causal, window, prefix, NaN in,
+        # path, timed
+        (TRAIN_B, TRAIN_S, TRAIN_S, TRAIN_HQ, TRAIN_HKV, TRAIN_D, "bfloat16", True, None, 0, None,
          "train", True),                                                         # main path
-        (B_MAIN, PROMPT, PROMPT, HQ, HKV, D, "bfloat16", True, None, None, "train",
+        (B_MAIN, PROMPT, PROMPT, HQ, HKV, D, "bfloat16", True, None, 0, None, "train",
          True),                                                                  # llama3-8b
-        (2, 256, 256, TRAIN_HQ, TRAIN_HKV, TRAIN_D, "float32", True, None, None, "train_parity",
+        (2, 256, 256, TRAIN_HQ, TRAIN_HKV, TRAIN_D, "float32", True, None, 0, None, "train_parity",
          True),
-        (WB, W_FRAMES, W_FRAMES, WH, WH, WD, "bfloat16", False, None, None, "audio_train",
+        (WB, W_FRAMES, W_FRAMES, WH, WH, WD, "bfloat16", False, None, 0, None, "audio_train",
          True),                                                                  # whisper encoder
-        (WB, WS, W_FRAMES, WH, WH, WD, "bfloat16", False, None, None, "audio_train",
+        (WB, WS, W_FRAMES, WH, WH, WD, "bfloat16", False, None, 0, None, "audio_train",
          True),                                                                  # cross
-        (WB, W_FRAMES, W_FRAMES, WH, WH, WD, "float32", False, None, None, None, True),
-        (ZB, ZS, ZS, ZH, ZH, ZD, "bfloat16", True, None, None, "hybrid_train",
+        (WB, W_FRAMES, W_FRAMES, WH, WH, WD, "float32", False, None, 0, None, None, True),
+        (ZB, ZS, ZS, ZH, ZH, ZD, "bfloat16", True, None, 0, None, "hybrid_train",
          True),                                                                  # zamba2, D 80
-        (ZB, ZS, ZS, ZH, ZH, ZD, "float32", True, None, None, None, True),
-        (MB, MS, MS, HQ, HKV, D, "bfloat16", True, MIX_WINDOW, None, "moe_train",
+        (ZB, ZS, ZS, ZH, ZH, ZD, "float32", True, None, 0, None, None, True),
+        (MB, MS, MS, HQ, HKV, D, "bfloat16", True, MIX_WINDOW, 0, None, "moe_train",
          True),                                                                  # mixtral, window
-        (2, MOE_PARITY_S, MOE_PARITY_S, HQ, HKV, D, "float32", True, MOE_PARITY_WINDOW, None,
+        (2, MOE_PARITY_S, MOE_PARITY_S, HQ, HKV, D, "float32", True, MOE_PARITY_WINDOW, 0, None,
          "moe_train_parity", True),
-        (B_MAIN, PROMPT, PROMPT, HQ, HKV, D, "bfloat16", True, 1, None, None, True),
-        (B_MAIN, PROMPT, PROMPT, HQ, HKV, D, "bfloat16", True, 100, None, None, True),
-        (B_MAIN, PROMPT, PROMPT, HQ, HKV, D, "bfloat16", True, 130, None, None, True),
-        (B_MAIN, PROMPT, PROMPT, HQ, HKV, D, "float32", True, 130, None, None, False),
-        (2, 64, 64, 4, 2, 32, "bfloat16", True, None, None, None, False),        # smoke
-        (2, 64, 64, 4, 2, 32, "float32", True, None, None, None, False),
-        (2, 1, 1, 8, 2, 64, "float32", True, None, None, None, False),           # ragged S
-        (2, 1, 1, 4, 1, 128, "bfloat16", True, None, None, None, False),
-        (1, 129, 129, 8, 2, 64, "bfloat16", True, None, None, None, False),
-        (1, 129, 129, 4, 4, 128, "float32", True, None, None, None, False),
-        (2, 1000, 1000, 8, 2, 64, "bfloat16", True, None, None, None, False),
-        (1, 1000, 1000, 4, 1, 32, "float32", True, None, None, None, False),
-        (1, 1000, 1000, 8, 2, 80, "bfloat16", True, 130, None, None, False),     # ragged, window
-        (2, 77, 77, 4, 1, 80, "float32", True, 17, None, None, False),
-        (1, 130, 333, 8, 2, 128, "bfloat16", False, None, None, None, False),    # ragged GQA
-        (2, 77, 200, 4, 1, 32, "float32", False, None, None, None, False),
-        (2, 333, 1, 8, 2, 64, "bfloat16", False, None, None, None, False),
-        (1, 300, 300, 4, 1, 64, "float32", True, None, "dout", None, False),     # NaN in dout
-        (1, 300, 300, 8, 2, 128, "bfloat16", True, None, "dout", None, False),
-        (1, 300, 300, 8, 2, 64, "bfloat16", True, None, "k", None, False),       # NaN in k
-        (1, 200, 300, 8, 2, 64, "bfloat16", False, None, "dout", None, False),
-        (1, 300, 200, 4, 1, 64, "float32", False, None, "k", None, False),
-        (1, 512, 512, 8, 2, 128, "bfloat16", True, 100, "dout", None, False),    # windowed NaN
-        (1, 512, 512, 8, 2, 128, "bfloat16", True, 130, "k", None, False),
-        (1, 512, 512, 4, 1, 80, "float32", True, 130, "dout", None, False),
-        (1, 512, 512, 4, 1, 64, "float32", True, 100, "k", None, False),
+        (B_MAIN, PROMPT, PROMPT, HQ, HKV, D, "bfloat16", True, 1, 0, None, None, True),
+        (B_MAIN, PROMPT, PROMPT, HQ, HKV, D, "bfloat16", True, 100, 0, None, None, True),
+        (B_MAIN, PROMPT, PROMPT, HQ, HKV, D, "bfloat16", True, 130, 0, None, None, True),
+        (B_MAIN, PROMPT, PROMPT, HQ, HKV, D, "float32", True, 130, 0, None, None, False),
+        (2, 64, 64, 4, 2, 32, "bfloat16", True, None, 0, None, None, False),        # smoke
+        (2, 64, 64, 4, 2, 32, "float32", True, None, 0, None, None, False),
+        (2, 1, 1, 8, 2, 64, "float32", True, None, 0, None, None, False),           # ragged S
+        (2, 1, 1, 4, 1, 128, "bfloat16", True, None, 0, None, None, False),
+        (1, 129, 129, 8, 2, 64, "bfloat16", True, None, 0, None, None, False),
+        (1, 129, 129, 4, 4, 128, "float32", True, None, 0, None, None, False),
+        (2, 1000, 1000, 8, 2, 64, "bfloat16", True, None, 0, None, None, False),
+        (1, 1000, 1000, 4, 1, 32, "float32", True, None, 0, None, None, False),
+        (1, 1000, 1000, 8, 2, 80, "bfloat16", True, 130, 0, None, None, False),     # ragged, window
+        (2, 77, 77, 4, 1, 80, "float32", True, 17, 0, None, None, False),
+        (1, 130, 333, 8, 2, 128, "bfloat16", False, None, 0, None, None, False),    # ragged GQA
+        (2, 77, 200, 4, 1, 32, "float32", False, None, 0, None, None, False),
+        (2, 333, 1, 8, 2, 64, "bfloat16", False, None, 0, None, None, False),
+        (1, 300, 300, 4, 1, 64, "float32", True, None, 0, "dout", None, False),     # NaN in dout
+        (1, 300, 300, 8, 2, 128, "bfloat16", True, None, 0, "dout", None, False),
+        (1, 300, 300, 8, 2, 64, "bfloat16", True, None, 0, "k", None, False),       # NaN in k
+        (1, 200, 300, 8, 2, 64, "bfloat16", False, None, 0, "dout", None, False),
+        (1, 300, 200, 4, 1, 64, "float32", False, None, 0, "k", None, False),
+        (1, 512, 512, 8, 2, 128, "bfloat16", True, 100, 0, "dout", None, False),    # windowed NaN
+        (1, 512, 512, 8, 2, 128, "bfloat16", True, 130, 0, "k", None, False),
+        (1, 512, 512, 4, 1, 80, "float32", True, 130, 0, "dout", None, False),
+        (1, 512, 512, 4, 1, 64, "float32", True, 100, 0, "k", None, False),
+        # paligemma: the bidirectional prefix, D 256 (8 query heads on one KV head)
+        (VB, VS, VS, VH, 1, VD, "bfloat16", True, None, V_PREFIX, None, "vlm_train", True),
+        (2, VPS, VPS, VH, 1, VD, "float32", True, None, V_PREFIX, None, "vlm_train_parity",
+         True),
+        (VB, VS, VS, VH, 1, VD, "bfloat16", True, None, 0, None, None, True),   # no prefix
+        (2, 300, 300, VH, 1, VD, "bfloat16", True, None, 100, None, None, True),
+        (2, 129, 129, VH, 1, VD, "bfloat16", True, None, 200, None, None, True),  # prefix > S
+        (B_MAIN, PROMPT, PROMPT, TRAIN_HQ, TRAIN_HKV, TRAIN_D, "bfloat16", True, None, V_PREFIX,
+         None, None, True),
+        (B_MAIN, PROMPT, PROMPT, HQ, HKV, D, "bfloat16", True, None, V_PREFIX, None, None, True),
+        (1, 1000, 1000, VH, 1, VD, "bfloat16", True, None, V_PREFIX, None, None, False),
+        (1, 77, 77, 4, 1, VD, "float32", True, None, 16, None, None, False),       # ragged S
+        (1, 600, 600, VH, 1, VD, "bfloat16", True, None, 100, "dout", None, False),
+        (1, 600, 600, VH, 1, VD, "bfloat16", True, None, 100, "dout@P", None, False),
+        (1, 600, 600, VH, 1, VD, "bfloat16", True, None, 100, "k", None, False),
+        (1, 600, 600, VH, 1, VD, "bfloat16", True, None, 100, "k@P", None, False),
+        (1, 300, 300, 4, 1, VD, "float32", True, None, 100, "k", None, False),
+        (1, 300, 300, 4, 1, VD, "float32", True, None, 100, "dout@P", None, False),
     ]
     main = None
-    for i, (b, sq, skv, hq, hkv, d, dt, causal, window, nan, path, timed) in enumerate(cases):
+    for i, (b, sq, skv, hq, hkv, d, dt, causal, window, prefix, nan, path,
+            timed) in enumerate(cases):
         q = randn((b, sq, hq, d), dt)
         k, v = (randn((b, skv, hkv, d), dt) for _ in range(2))
-        if nan == "k":
-            k[0, skv // 3, 0, 3] = float("nan")
-        kw = dict(causal=causal, use_pwl=False, window=window or 0, prefix_len=0)
+        # a NaN at row sq // 2 of dout or key skv // 3 of k, or ("@P") at
+        # prefix // 2, inside the prefix
+        if nan in ("k", "k@P"):
+            k[0, prefix // 2 if nan == "k@P" else skv // 3, 0, 3] = float("nan")
+        kw = dict(causal=causal, use_pwl=False, window=window or 0, prefix_len=prefix)
         out0, _ = fa._flash_fwd(q, k, v, with_lse=False, **kw)
         out, lse = fa._flash_fwd(q, k, v, with_lse=True, **kw)
         _, lse_plain = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
-                                                return_lse=True)
+                                                prefix_len=prefix, return_lse=True)
         g = randn((b, sq, hq, d), dt)
-        if nan == "dout":
-            g[0, sq // 2, hq - 1, 5] = float("nan")
-        bkw = dict(causal=causal, window=window)
+        if nan in ("dout", "dout@P"):
+            g[0, prefix // 2 if nan == "dout@P" else sq // 2, hq - 1, 5] = float("nan")
+        bkw = dict(causal=causal, window=window, prefix_len=prefix)
         got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, g, **bkw)
         want = fa.flash_attention_bwd_plain(q, k, v, out, lse, g, **bkw)
         torch.cuda.synchronize()
         shape = (f"B{b} Sq{sq} Skv{skv} Hq{hq} Hkv{hkv} D{d} {dt} "
                  + ("causal" if causal else "non-causal")
-                 + (f" window {window}" if window else "") + (f" NaN in {nan}" if nan else ""))
+                 + (f" window {window}" if window else "") + (f" prefix {prefix}" if prefix else "")
+                 + (f" NaN in {nan}" if nan else ""))
         if not torch.equal(out0.nan_to_num(), out.nan_to_num()) or \
                 not torch.equal(out0.isnan(), out.isnan()):
             raise AssertionError(f"flash_attention {shape}: the forward with lse is not "
@@ -1031,11 +1087,13 @@ def flash_bwd_cases(torch, timer, randn, extra):
         del got, want, again
         if not timed:
             continue
-        nbytes, flops = bwd_work(b, sq, skv, hq, hkv, d, q.element_size(), causal, window)
+        nbytes, flops = bwd_work(b, sq, skv, hq, hkv, d, q.element_size(), causal, window,
+                                 prefix)
         bms, by = bound(nbytes, flops, dt)
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
         gt = g.transpose(1, 2)
-        mask = window_mask(torch, sq, skv, window, causal) if window else None
+        mask = (window_mask(torch, sq, skv, window, causal) if window else
+                prefix_mask(torch, sq, prefix) if prefix else None)
 
         def sdpa_fwd():
             if mask is not None:
@@ -1060,9 +1118,14 @@ def flash_bwd_cases(torch, timer, randn, extra):
                           "float32 SIMT")
                        + ("" if causal else "; no causal mask, Sq != Skv")
                        + (f"; sliding window {window} (the tiles of the window only)"
-                          if window else "")),
+                          if window else "")
+                       + (f"; bidirectional prefix {prefix} (kernels compiled apart)"
+                          if prefix else "")
+                       + ("; D 256: dK / dV columns split over two CTAs"
+                          if d == 256 and dt == "bfloat16" else
+                          "; D 256: 32-row SIMT tiles" if d == 256 else "")),
             "shape": shape, "max_abs_err": max(errs),
-            "launch_key": fa.launch_key(q, k, causal=causal, window=window),
+            "launch_key": fa.launch_key(q, k, causal=causal, window=window, prefix_len=prefix),
             "ms": timer.ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, out, lse, g, **bkw), 10),
             "plain_ms": timer.ms(lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, g,
                                                                       **bkw), 3),
@@ -1077,24 +1140,27 @@ def flash_bwd_cases(torch, timer, randn, extra):
             extra.append(entry)
         if path in TRAIN_MODEL_OF and (i == 0 or path != "train"):
             # the forward of the same shape, launched twice a layer and step
-            ferr = _check_flash(torch, out, fa.flash_attention_plain(q, k, v, causal=causal,
-                                                                     window=window), dt,
-                                f"{TRAIN_MODEL_OF[path]} train forward {shape}", False)
+            ferr = _check_flash(torch, out, fa.flash_attention_plain(
+                q, k, v, causal=causal, window=window, prefix_len=prefix), dt,
+                f"{TRAIN_MODEL_OF[path]} train forward {shape}", False)
             nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-            fbms, fby = bound(nbytes, 4 * b * hq * d * kept_pairs(sq, skv, causal, window), dt)
+            fbms, fby = bound(nbytes, 4 * b * hq * d * kept_pairs(sq, skv, causal, window, prefix),
+                              dt)
             extra.append({
                 "name": "flash_attention", "route": "cuda",
                 "source": "src/repro_torch/csrc/flash_attention.cu",
                 "replaces": "src/repro/kernels/flash_attention.py:76",
                 "design": "the mma.sync path with the lse output (training)"
                           + ("" if causal else ", non-causal")
-                          + (f", window {window}" if window else ""),
+                          + (f", window {window}" if window else "")
+                          + (f", prefix {prefix}" if prefix else ""),
                 "shape": f"{TRAIN_MODEL_OF[path]} train: {shape}, lse out",
                 "max_abs_err": ferr,
-                "path": path, "launch_key": fa.launch_key(q, k, causal=causal, window=window),
+                "path": path, "launch_key": fa.launch_key(q, k, causal=causal, window=window,
+                                                          prefix_len=prefix),
                 "ms": timer.ms(lambda: fa._flash_fwd(q, k, v, with_lse=True, **kw), 10),
                 "plain_ms": timer.ms(lambda: fa.flash_attention_plain(
-                    q, k, v, causal=causal, window=window), 3),
+                    q, k, v, causal=causal, window=window, prefix_len=prefix), 3),
                 "library_ms": timer.ms(sdpa_fwd, 10),
                 "bound_ms": fbms, "bound_by": fby,
             })
@@ -2661,6 +2727,8 @@ def run_train(torch, results, phase, cfg, batches, *, steps, warmup, want, want_
         f"{cfg.remat}, optimizer {cfg.optimizer}; batch {tuple(batches[0]['tokens'].shape)}"
         + (f" + {tuple(batches[0]['encoder_embeds'].shape)} frames"
            if "encoder_embeds" in batches[0] else "")
+        + (f" after {tuple(batches[0]['prefix_embeds'].shape)} prefix rows"
+           if "prefix_embeds" in batches[0] else "")
         + f"; init {time.time() - t0:.1f}s")
     grads = first_grads(torch, cfg, params, batches[0])
     bad = [path for path, g in grads.items()
@@ -2866,6 +2934,47 @@ def phase_moe_train(torch, results):
     k = torch.empty((MOE_TRAIN_B, MOE_TRAIN_S, HKV, D), dtype=torch.bfloat16, device="meta")
     key = launch_key(q, k, window=MIX_WINDOW)
     return run_train(torch, results, "moe_train", cfg, batches, steps=steps, warmup=5,
+                     want={"flash_attention": 2 * n * steps, "flash_attention_bwd": n * steps},
+                     want_by_shape={("flash_attention", key): 2 * n * steps,
+                                    ("flash_attention_bwd", key): n * steps})
+
+
+def vlm_batches(torch, cfg, batch, seq, n, seed=0, device="cuda"):
+    """``n`` batches of text from the port's PackedStream(seed), each with
+    ``paligemma_prefix``'s patch embeddings (float32 N(0, 1), drawn on the
+    CPU from seed 1000 * seed + the batch's index, the same on either
+    device) before its tokens."""
+    out = train_batches(torch, cfg, batch, seq, n, seed=seed, device=device)
+    for i, b in enumerate(out):
+        b["prefix_embeds"] = paligemma_prefix(torch, cfg, batch, 1000 * seed + i,
+                                              device="cpu").to(device)
+    return out
+
+
+def phase_vlm_train(torch, results):
+    """paligemma-3b at published widths and full depth (18 layers, 8 query
+    heads on one KV head of 256, GeGLU of 16384, a tied vocabulary of
+    257216; 2.509 B params) in bf16 under remat: 10 steps of B4 x 1024
+    text tokens from the port's PackedStream(seed=0), each sequence after
+    256 rows of seeded random patch embeddings (``vlm_batches``; not the
+    zero prefix of ``launch.train._batch``, whose keys would all be 0 in
+    the first layer),
+    warmup 5 (``run_train``).  A step launches the flash forward with the
+    bidirectional prefix twice a layer and its backward once, at S 1280:
+    36 + 18."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import launch_key
+
+    cfg = get_config(VLM_TRAIN_ARCH)
+    if not cfg.remat or (cfg.n_layers, cfg.n_prefix_tokens, cfg.n_heads, cfg.n_kv_heads,
+                         cfg.head_dim) != (18, V_PREFIX, VH, 1, VD):
+        raise AssertionError(f"{cfg.name}: expected 18 layers of {VH} heads on one KV head of "
+                             f"{VD} after {V_PREFIX} prefix rows, under remat")
+    b, s, steps, n = VLM_TRAIN_B, VLM_TRAIN_S, VLM_TRAIN_STEPS, cfg.n_layers
+    batches = vlm_batches(torch, cfg, b, s, steps + 1)
+    q = torch.empty((b, V_PREFIX + s, VH, VD), dtype=torch.bfloat16, device="meta")
+    key = launch_key(q, q[:, :, :1], prefix_len=V_PREFIX)
+    return run_train(torch, results, "vlm_train", cfg, batches, steps=steps, warmup=5,
                      want={"flash_attention": 2 * n * steps, "flash_attention_bwd": n * steps},
                      want_by_shape={("flash_attention", key): 2 * n * steps,
                                     ("flash_attention_bwd", key): n * steps})
@@ -3124,6 +3233,22 @@ def phase_moe_train_parity(torch, results):
                                   "flash_attention_bwd": base.n_layers * n})
 
 
+def phase_vlm_train_parity(torch, results):
+    """paligemma widths (d_model 2048, 8 heads of 256 on one KV head, GeGLU
+    of 16384, vocab 257216, tied), 2 layers, float32, B2 x 128 text tokens
+    after the 256-row prefix of ``vlm_batches`` (``run_train_parity``): the
+    float32 SIMT backward with the bidirectional prefix at D 256."""
+    from repro_torch.configs import get_config
+
+    base = dataclasses.replace(get_config(VLM_TRAIN_ARCH), n_layers=2, dtype="float32")
+    return run_train_parity(
+        torch, results, "vlm_train_parity", base,
+        batches_fn=lambda cfg, dev: vlm_batches(torch, cfg, 2, VLM_PARITY_S, 3, seed=1,
+                                                device=dev),
+        want_of=lambda remat, n: {"flash_attention": base.n_layers * (2 if remat else 1) * n,
+                                  "flash_attention_bwd": base.n_layers * n})
+
+
 def phase_train_driver(torch, results):
     """``repro_torch.launch.train.main`` on the card at llama3.2-1b's smoke
     size (bf16, head_dim 32) in a temporary directory: run 1 trains 10
@@ -3212,6 +3337,7 @@ TRAIN_PROFILED = {
     "train": (TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS),
     "hybrid_train": (HYBRID_TRAIN_ARCH, HYBRID_TRAIN_B, HYBRID_TRAIN_S, HYBRID_TRAIN_STEPS),
     "moe_train": (MOE_TRAIN_ARCH, MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_STEPS),
+    "vlm_train": (VLM_TRAIN_ARCH, VLM_TRAIN_B, VLM_TRAIN_S, VLM_TRAIN_STEPS),
 }
 
 
@@ -3225,8 +3351,9 @@ def profile_windows(torch, arch):
     eager and through the captured graph (on a copy of the cache), the
     cim_scu phase's layer prefill (with the vocab softmax) and decode
     step, or one train step of llama3.2-1b (``train``), zamba2-2.7b
-    (``hybrid_train``) or mixtral-8x7b at MOE_TRAIN_LAYERS layers
-    (``moe_train``) at its train phase's shape."""
+    (``hybrid_train``), mixtral-8x7b at MOE_TRAIN_LAYERS layers
+    (``moe_train``) or paligemma-3b with its image prefix (``vlm_train``)
+    at its train phase's shape."""
     from repro_torch import models
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -3239,7 +3366,7 @@ def profile_windows(torch, arch):
         name, b, s, steps = TRAIN_PROFILED[arch]
         cfg = mixtral_train_cut() if name == MOE_TRAIN_ARCH else get_config(name)
         params, opt_state = init_train_state(cfg, torch.Generator(device="cuda").manual_seed(0))
-        batch = train_batches(torch, cfg, b, s, 1)[0]
+        batch = (vlm_batches if cfg.n_prefix_tokens else train_batches)(torch, cfg, b, s, 1)[0]
         step = make_train_step(cfg, base_lr=3e-4, warmup=10, total_steps=steps)
         state = {"p": params, "o": opt_state}
 
@@ -3407,6 +3534,10 @@ def main(argv=None) -> int:
             launches_of[phase] = phase_moe_train(torch, results)
         elif phase == "moe_train_parity":
             launches_of[phase] = phase_moe_train_parity(torch, results)
+        elif phase == "vlm_train":
+            launches_of[phase] = phase_vlm_train(torch, results)
+        elif phase == "vlm_train_parity":
+            launches_of[phase] = phase_vlm_train_parity(torch, results)
         elif phase == "profile":
             for arch in (*SERVE_ARCH.values(), "mixtral-8x7b", "whisper-large-v3",
                          "paligemma-3b", "cim_scu", *TRAIN_PROFILED):

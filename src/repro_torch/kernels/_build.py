@@ -4,8 +4,10 @@ Every ``csrc/*.cu`` is compiled at first use by ``nvcc`` into a shared
 library with a plain C interface, in ``build/repro_torch_kernels/`` at the
 root of the checkout (git-ignored), and loaded with ``ctypes``.  A
 library's file name carries a hash of its sources and flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is.  Nothing is
-compiled when this module is imported.
+source is rebuilt and an unchanged one is loaded as it is.  A source named
+in ``PARTS`` is compiled as several translation units in parallel, one per
+set of ``-D`` flags besides the one without them, and linked into its one
+library.  Nothing is compiled when this module is imported.
 """
 from __future__ import annotations
 
@@ -23,6 +25,10 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+# the sources compiled in parts: the -D flags of each part (the file's own
+# comment says what each part holds); ptxas takes minutes over the flash
+# backward's kernels in one process
+PARTS = {"flash_attention_bwd": [[f"-DFLASH_BWD_PART={i}"] for i in range(1, 9)]}
 
 _VOID_P, _INT = ctypes.c_void_p, ctypes.c_int
 # C entry point of each source: (name, argtypes); each returns cudaError_t
@@ -57,16 +63,46 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha1((" ".join(NVCC_FLAGS) + repr(PARTS)).encode())
     for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
+def start(src: Path, out: Path, parts=()):
+    """Start compiling ``src`` into the library ``out``: one ``nvcc``, or,
+    with ``parts`` (lists of -D flags), one ``nvcc -c`` for the source as
+    it is and one for each part, all started together.  Returns
+    ``finish``, which waits, links the parts, and returns (ok, log)."""
+    def run(args):
+        return subprocess.Popen([nvcc(), *args], stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+    if not parts:
+        procs, objs = [run([*NVCC_FLAGS, "-o", str(out), str(src)])], []
+    else:
+        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        objs = [out.with_suffix(f".{i}.o") for i in range(len(parts) + 1)]
+        procs = [run([*compile_flags, *flags, "-c", "-o", str(obj), str(src)])
+                 for flags, obj in zip([[]] + list(parts), objs)]
+
+    def finish():
+        log = "".join(p.communicate()[0] for p in procs)
+        ok = not any(p.returncode for p in procs)
+        if ok and objs:
+            link = subprocess.run([nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(out),
+                                   *map(str, objs)], capture_output=True, text=True)
+            log += link.stdout + link.stderr
+            ok = link.returncode == 0
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        return ok, log
+    return finish
+
+
 def build_all(names=None) -> Dict[str, Path]:
     """Compile the named sources (default: every ``csrc/*.cu``) that are
-    not built yet, one ``nvcc`` per source, all started together."""
+    not built yet, one ``nvcc`` per source or part, all started together."""
     names = sorted(names or (p.stem for p in CSRC.glob("*.cu")))
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     targets = {n: _target(n) for n in names}
@@ -75,15 +111,13 @@ def build_all(names=None) -> Dict[str, Path]:
         if so.exists():
             continue
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        procs[n] = (tmp, subprocess.Popen(
-            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        procs[n] = (tmp, start(CSRC / f"{n}.cu", tmp, PARTS.get(n, ())))
     failed = []
-    for n, (tmp, proc) in procs.items():
-        BUILD_LOGS[n] = proc.communicate()[0]
+    for n, (tmp, finish) in procs.items():
+        ok, BUILD_LOGS[n] = finish()
         # C7514: ptxas serialized wgmma.mma_async, a correct but several
         # times slower kernel; refused like a failed build
-        if proc.returncode or "C7514" in BUILD_LOGS[n]:
+        if not ok or "C7514" in BUILD_LOGS[n]:
             failed.append(n)
             tmp.unlink(missing_ok=True)
         else:

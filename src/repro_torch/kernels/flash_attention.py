@@ -43,11 +43,11 @@ Training: ``FlashAttentionFn`` (which ``flash_attention_cuda`` takes under
 grad) launches the forward with its optional lse output, each row's
 log-sum-exp ``m + log l`` of its scaled scores, and differentiates it by
 ``csrc/flash_attention_bwd.cu`` (causal or not, Sq may differ from Skv,
-with or without a window, exact exp, no prefix, D 32 / 64 / 80 / 128;
+with or without a window or a prefix, exact exp, every head dim above;
 ``flash_attention_bwd_plain`` is its plain version, held by
 ``bwd_agreement``).  The reference has no backward kernel: XLA
-differentiates its model's attention.  In any other mode the wrapper
-raises under grad rather than return an output without a gradient.
+differentiates its model's attention.  Under PWL exp the wrapper raises
+under grad rather than return an output without a gradient.
 
 In PWL mode the result depends on how the keys are cut into online-softmax
 steps (PWL exp is not multiplicative), so both versions step over keys
@@ -68,7 +68,6 @@ from .pwl import PWL_COEFFS, pwl_exp
 NEG_INF = -1e30
 KV_STEP = 128
 HEAD_DIMS = (32, 64, 80, 128, 256)
-BWD_HEAD_DIMS = (32, 64, 80, 128)     # the backward kernel's
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # How far the kernel's output may lie from the plain version's on the same
@@ -206,20 +205,15 @@ def launch_key(q, k, *, causal: bool = True, use_pwl: bool = False,
             f"window={window or 0} prefix={prefix_len} pwl={int(use_pwl)}")
 
 
-def backward_refusal(q, *, use_pwl: bool, prefix_len: int):
+def backward_refusal(q, *, use_pwl: bool):
     """Why ``csrc/flash_attention_bwd.cu`` cannot differentiate this call,
     naming the ROADMAP item that would add it, or None where it can (the
-    window and the causal mask, on or off, it takes)."""
-    if prefix_len:
-        return "a bidirectional prefix: ROADMAP §A5, the prefix in the flash backward (paligemma)"
+    causal mask on or off, a window, a prefix, it takes)."""
     if use_pwl:
         return "PWL exp: ROADMAP §B1, no PWL backward (the JAX model trains with exact exp)"
     d = q.shape[-1]
-    if d == 256:
-        return (f"head dim 256: ROADMAP §A5, D 256 in the flash backward (paligemma); "
-                f"flash_attention_bwd takes D in {BWD_HEAD_DIMS}")
-    if d not in BWD_HEAD_DIMS:
-        return f"head dim {d}: ROADMAP §B1, flash_attention_bwd takes D in {BWD_HEAD_DIMS}"
+    if d not in HEAD_DIMS:
+        return f"head dim {d}: ROADMAP §B1, flash_attention_bwd takes D in {HEAD_DIMS}"
     return None
 
 
@@ -277,23 +271,25 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     window = window_arg(window)
     prefix_len = prefix_arg(prefix_len, causal=causal, window=window, use_pwl=use_pwl)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        why = backward_refusal(q, use_pwl=use_pwl, prefix_len=prefix_len)
+        why = backward_refusal(q, use_pwl=use_pwl)
         if why is not None:
             raise NotImplementedError(f"flash_attention has no backward kernel for {why}; "
                                       "its output would carry no gradient")
-        return FlashAttentionFn.apply(q, k, v, causal, window)
+        return FlashAttentionFn.apply(q, k, v, causal, window, prefix_len)
     return _flash_fwd(q, k, v, causal=causal, use_pwl=use_pwl, window=window,
                       prefix_len=prefix_len, with_lse=False)[0]
 
 
-def flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal: bool = True, window=None):
-    """dQ, dK, dV of ``flash_attention`` (exact exp, no prefix; causal or
-    not, with or without a window) by ``csrc/flash_attention_bwd.cu``, from
+def flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal: bool = True, window=None,
+                             prefix_len: int = 0):
+    """dQ, dK, dV of ``flash_attention`` (exact exp; causal or not, with or
+    without a window or a prefix) by ``csrc/flash_attention_bwd.cu``, from
     the forward's inputs, output and lse and the output's gradient; in q's
     dtype.  Its three launches (Delta, dK/dV, dQ) count as one."""
     _check_inputs("flash_attention_bwd_cuda", q, k, v)
     window = window_arg(window)
-    why = backward_refusal(q, use_pwl=False, prefix_len=0)
+    prefix_len = prefix_arg(prefix_len, causal=causal, window=window, use_pwl=False)
+    why = backward_refusal(q, use_pwl=False)
     if why is not None:
         raise ValueError(f"flash_attention_bwd_cuda: {why}")
     B, Sq, Hq, D = q.shape
@@ -313,51 +309,55 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal: bool = True, windo
     _build.check(lib.flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-        B, Sq, Skv, Hq, Hkv, D, _DTYPE_CODES[q.dtype], int(causal), window, 0, 0,
+        B, Sq, Skv, Hq, Hkv, D, _DTYPE_CODES[q.dtype], int(causal), window, prefix_len, 0,
         torch.cuda.current_stream(q.device).cuda_stream), "flash_attention_bwd",
-        launch_key(q, k, causal=causal, window=window))
+        launch_key(q, k, causal=causal, window=window, prefix_len=prefix_len))
     return dq, dk, dv
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """Flash attention, causal or not, with or without a window (exact
-    exp, no prefix), with its gradient: the forward launches
+    """Flash attention, causal or not, with or without a window or a
+    prefix (exact exp), with its gradient: the forward launches
     ``csrc/flash_attention.cu`` with the lse output and keeps q, k, v, out
     and lse; the backward launches ``csrc/flash_attention_bwd.cu``.
-    ``FlashAttentionFn.apply(q, k, v, causal, window)`` on CUDA tensors
-    (window an int > 0, or 0 / None for none)."""
+    ``FlashAttentionFn.apply(q, k, v, causal, window, prefix_len)`` on CUDA
+    tensors (window an int > 0, or 0 / None for none; prefix_len >= 0)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal=True, window=None):
+    def forward(ctx, q, k, v, causal=True, window=None, prefix_len=0):
         q, k, v = (_build.aligned(t) for t in (q, k, v))
         window = window_arg(window or None)
+        prefix_len = prefix_arg(prefix_len, causal=bool(causal), window=window, use_pwl=False)
         out, lse = _flash_fwd(q, k, v, causal=bool(causal), use_pwl=False, window=window,
-                              prefix_len=0, with_lse=True)
+                              prefix_len=prefix_len, with_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window = bool(causal), window
+        ctx.causal, ctx.window, ctx.prefix_len = bool(causal), window, prefix_len
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         return (*flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal=ctx.causal,
-                                          window=ctx.window or None), None, None)
+                                          window=ctx.window or None,
+                                          prefix_len=ctx.prefix_len), None, None, None)
 
 
-def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal: bool = True, window=None):
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal: bool = True, window=None,
+                              prefix_len: int = 0):
     """The backward of exact flash attention in plain PyTorch, with P made
     explicit: dQ, dK, dV (q's, k's and v's shapes, in q's dtype, computed in
     float32) from the forward's inputs, output ``out`` and ``lse`` (B, Hq,
     Sq) and the output's gradient ``dout``.  P = exp(scale Q K^T - lse) and
     dS = P (dO V^T - rowsum(dO O)) on the valid (query, key) pairs (under
-    the causal mask kpos <= qpos, under a window qpos - kpos < window, as
-    ``flash_attention_plain`` masks them), 0 elsewhere; dV = P^T dO, dK =
-    scale dS^T Q, dQ = scale dS K.  A gradient
+    the causal mask kpos <= qpos or kpos < prefix_len, under a window qpos
+    - kpos < window, as ``flash_attention_plain`` masks them), 0 elsewhere;
+    dV = P^T dO, dK = scale dS^T Q, dQ = scale dS K.  A gradient
     depends on the valid pairs only: a masked pair's term is left out, so
     a non-finite element of dO, Q or K makes NaN only the gradients of the
     pairs that see it (a dense product would spread it over the masked
     ones too, as 0 * NaN)."""
     window = window_arg(window)
+    prefix_len = prefix_arg(prefix_len, causal=causal, window=window, use_pwl=False)
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
     G = Hq // Hkv
@@ -370,8 +370,10 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal: bool = True, wind
     vf = v.float().permute(0, 2, 1, 3)
     qpos = torch.arange(Sq, device=q.device)
     kpos = torch.arange(Skv, device=q.device)
-    valid = (qpos[:, None] >= kpos[None, :]) if causal else \
-        torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        valid = (qpos[:, None] >= kpos[None, :]) | (kpos < prefix_len)[None, :]
+    else:
+        valid = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
     if window:
         valid &= (qpos[:, None] - kpos[None, :]) < window
     s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kf) * scale

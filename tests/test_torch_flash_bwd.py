@@ -320,19 +320,23 @@ def test_windowed_plain_backward_nan_rule_matches_pair_by_pair_sums(where, windo
 def test_cuda_wrappers_refuse_grad_without_a_backward():
     """Under grad, an input that requires grad: the wrapper raises
     NotImplementedError naming the ROADMAP item before it looks at the
-    device, so none can return an output without a gradient (flash: a
-    prefix, PWL exp, D 256).  A mode that has a backward kernel (flash with
-    or without the causal mask, with or without a window, D 32 / 64 / 80 /
-    128; the SSD scan) goes through its autograd Function, which reaches
-    the device check."""
+    device, so none can return an output without a gradient (flash: PWL
+    exp, a head dim outside 32 / 64 / 80 / 128 / 256).  A mode that has a
+    backward kernel (flash with or without the causal mask, with or
+    without a window or a prefix, D 32 / 64 / 80 / 128 / 256; the SSD scan)
+    goes through its autograd Function, which reaches the device check."""
     q = torch.zeros((1, 4, 2, 32), requires_grad=True)
     k = torch.zeros((1, 4, 2, 32))
-    for kw, item in ((dict(prefix_len=1), "prefix in the flash backward"),
-                     (dict(use_pwl=True), "ROADMAP §B1, no PWL backward")):
-        with pytest.raises(NotImplementedError, match=item):
-            flash_attention_cuda(q, k, k, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP §B1, no PWL backward"):
+        flash_attention_cuda(q, k, k, use_pwl=True)
+    q48 = torch.zeros((1, 4, 2, 48), requires_grad=True)
+    with pytest.raises(NotImplementedError, match="head dim 48: ROADMAP §B1"):
+        flash_attention_cuda(q48, q48.detach(), q48.detach())
+    # the prefix (paligemma) and D 256 have a backward: FlashAttentionFn
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(q, k, k, prefix_len=1)
     q256 = torch.zeros((1, 4, 2, 256), requires_grad=True)
-    with pytest.raises(NotImplementedError, match="head dim 256: ROADMAP §A5"):
+    with pytest.raises(ValueError, match="CUDA"):
         flash_attention_cuda(q256, q256.detach(), q256.detach())
     with pytest.raises(NotImplementedError, match="ROADMAP §B2"):
         paged_attention_cuda(torch.zeros((1, 2, 32), requires_grad=True),

@@ -950,13 +950,13 @@ def test_paligemma_compiled_step_after_a_prefix_matches_the_eager_step(cuda, dty
 # 1e-4 of max(|want|, 1) (sums of up to S keys / rows in another order);
 # bf16 each element within 2**-7 |want| + 2**-12 max(|want|, 1)
 
-def _bwd_case(shape_q, hkv, dtype, seed, device, window=0):
+def _bwd_case(shape_q, hkv, dtype, seed, device, window=0, prefix_len=0):
     from repro_torch.kernels import flash_attention as fa
     b, s, hq, d = shape_q
     q = _randn(shape_q, dtype, seed, device)
     k, v = (_randn((b, s, hkv, d), dtype, seed + i + 1, device) for i in range(2))
-    out, lse = fa._flash_fwd(q, k, v, causal=True, use_pwl=False, window=window, prefix_len=0,
-                             with_lse=True)
+    out, lse = fa._flash_fwd(q, k, v, causal=True, use_pwl=False, window=window,
+                             prefix_len=prefix_len, with_lse=True)
     g = _randn(shape_q, dtype, seed + 3, device)
     return q, k, v, out, lse, g
 
@@ -1036,16 +1036,28 @@ def test_flash_attention_fn_matches_autograd_of_the_plain_version(cuda, dtype):
             # output; the backward reads the bf16 output the forward
             # returned (Delta = rowsum(dO O)), ~2**-9 of a term apart
             assert float((a.float() - w.float()).norm()) <= 2 ** -6 * float(w.float().norm())
-    with pytest.raises(NotImplementedError, match="prefix"):
-        ops.flash_attention(q, k, v, prefix_len=8)
+    # a prefix (paligemma's) goes through FlashAttentionFn too: one forward
+    # and one backward launch, the plain backward's gradients under the prefix
+    before = dict(ops.LAUNCHES)
+    out = ops.flash_attention(q, k, v, prefix_len=8)
+    got = torch.autograd.grad(out, (q, k, v), g)
+    assert ops.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert ops.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    out_, lse = fa._flash_fwd(q.detach(), k.detach(), v.detach(), causal=True, use_pwl=False,
+                              window=0, prefix_len=8, with_lse=True)
+    assert torch.equal(out.detach(), out_)
+    plain = fa.flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(), out_, lse, g,
+                                         prefix_len=8)
+    for name, a, p in zip("qkv", got, plain):
+        assert fa.bwd_agreement(a, p)[2], name
     with torch.no_grad():                          # no grad: the forward alone
         assert ops.flash_attention(q, k, v).grad_fn is None
 
 
 def test_flash_bwd_entry_refuses_what_it_does_not_implement(cuda):
-    """The C entry refuses a prefix, PWL exp, a negative window and D 256
-    or 48 without a launch; it takes the causal mask on or off, a window,
-    and D 64 and 80."""
+    """The C entry refuses PWL exp, a negative window, D 48, and a prefix
+    with a window or without the causal mask without a launch; it takes
+    the causal mask on or off, a window, a prefix, and D 64, 80 and 256."""
     from repro_torch.kernels import _build
     lib = _build.library("flash_attention_bwd")
     stream = torch.cuda.current_stream().cuda_stream
@@ -1056,15 +1068,27 @@ def test_flash_bwd_entry_refuses_what_it_does_not_implement(cuda):
             delta = torch.empty((1, 4, 64), device=cuda)
             ptrs = [t.data_ptr() for t in (q, k, v, out, lse, g, dq, dk, dv, delta)]
             code = 0 if dtype == torch.float32 else 1
-            for d, causal, window, prefix, pwl in ((D, 1, 0, 8, 0), (D, 1, 0, 0, 1),
-                                                   (D, 0, 0, 0, 1), (D, 1, -1, 0, 0),
-                                                   (256, 1, 0, 0, 0), (48, 0, 0, 0, 0)):
+            for d, causal, window, prefix, pwl in ((D, 1, 16, 8, 0), (D, 0, 0, 8, 0),
+                                                   (D, 1, 0, 0, 1), (D, 0, 0, 0, 1),
+                                                   (D, 1, -1, 0, 0), (D, 1, 0, -1, 0),
+                                                   (48, 0, 0, 0, 0)):
                 err = lib.flash_attention_bwd(*ptrs, 1, 64, 64, 4, 2, d, code, causal, window,
                                               prefix, pwl, stream)
                 assert err != 0, (d, causal, window, prefix, pwl)
-            for causal, window in ((1, 0), (0, 0), (1, 16), (0, 16), (1, 1)):
+            for causal, window, prefix in ((1, 0, 0), (0, 0, 0), (1, 16, 0), (0, 16, 0),
+                                           (1, 1, 0), (1, 0, 8), (1, 0, 100)):
                 assert lib.flash_attention_bwd(*ptrs, 1, 64, 64, 4, 2, D, code, causal, window,
-                                               0, 0, stream) == 0, (D, dtype, causal, window)
+                                               prefix, 0, stream) == 0, (D, dtype, causal, window,
+                                                                         prefix)
+    for dtype in (torch.float32, torch.bfloat16):       # D 256 (paligemma)
+        q, k, v, out, lse, g = _bwd_case((1, 64, 4, 256), 2, dtype, 3, cuda)
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        delta = torch.empty((1, 4, 64), device=cuda)
+        ptrs = [t.data_ptr() for t in (q, k, v, out, lse, g, dq, dk, dv, delta)]
+        code = 0 if dtype == torch.float32 else 1
+        for prefix in (0, 16):
+            assert lib.flash_attention_bwd(*ptrs, 1, 64, 64, 4, 2, 256, code, 1, 0, prefix, 0,
+                                           stream) == 0, (dtype, prefix)
     torch.cuda.synchronize()
 
 
@@ -1084,6 +1108,9 @@ def _train_run(cfg, device, steps=3, seed=0):
         if cfg.is_encoder_decoder:       # the same numpy frames on either device
             b["encoder_embeds"] = np.random.default_rng(i).normal(
                 size=(2, cfg.encoder_seq, cfg.d_model)).astype(np.float32) * 0.02
+        if cfg.n_prefix_tokens:          # and the same patch embeddings
+            b["prefix_embeds"] = np.random.default_rng(100 + i).normal(
+                size=(2, cfg.n_prefix_tokens, cfg.d_model)).astype(np.float32) * 0.02
         batch = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
         batch["tokens"], batch["labels"] = batch["tokens"].long(), batch["labels"].long()
         before = {k: t.detach().cpu() for k, t in tree_paths(p)}
@@ -1125,9 +1152,12 @@ def test_train_step_bf16_on_the_card_lowers_the_loss(cuda):
 
 @pytest.mark.parametrize("arch", ["paligemma-3b"])
 def test_training_a_family_without_backward_kernels_fails_loudly(cuda, arch):
+    """A train step at a head dim the flash backward lacks (48; every
+    family's config has one it takes) raises NotImplementedError naming
+    the ROADMAP item on the card, before any launch."""
     from repro_torch.launch.steps import make_train_step
     from repro_torch.optim import adamw_init
-    cfg = get_smoke_config(arch)
+    cfg = dataclasses.replace(get_smoke_config(arch), head_dim=48)
     params = models.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
     params = {k: v for k, v in params.items()}
     from repro_torch.tree import tree_map
@@ -1138,8 +1168,10 @@ def test_training_a_family_without_backward_kernels_fails_loudly(cuda, arch):
         batch["prefix_embeds"] = torch.zeros((1, cfg.n_prefix_tokens, cfg.d_model), device=cuda)
     if cfg.is_encoder_decoder:
         batch["encoder_embeds"] = torch.zeros((1, cfg.encoder_seq, cfg.d_model), device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(NotImplementedError, match="head dim 48: ROADMAP"):
         make_train_step(cfg)(params, adamw_init(params), batch)
+    assert dict(ops.LAUNCHES) == before
 
 
 # ---- the non-causal flash backward and the SSD backward (training of
@@ -1298,6 +1330,98 @@ def test_flash_attention_fn_windowed_and_d80_match_autograd_of_the_plain_version
         assert fa.bwd_agreement(a, p)[2], name
 
 
+# ---- the prefix and D 256 in the flash backward (training of paligemma) --
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,prefix_len", [
+    (4, 1280, 8, 1, 256, 256),    # paligemma's train shape
+    (1, 300, 8, 1, 256, 100),     # a prefix that is no multiple of 16
+    (1, 129, 8, 1, 256, 200),     # a prefix past S: every pair kept
+    (2, 300, 8, 2, 256, 0),       # D 256 without a prefix
+    (2, 512, 8, 2, 64, 256),
+    (2, 512, 8, 2, 128, 256),
+    (2, 300, 4, 1, 32, 100),
+    (1, 77, 4, 2, 80, 16),
+])
+def test_flash_bwd_kernel_prefix_and_d256_match_plain(cuda, B, S, Hq, Hkv, D, prefix_len,
+                                                      dtype):
+    """dQ, dK, dV by bwd_agreement against the plain version with the same
+    prefix, two runs bit-equal, one launch counted under the prefix's
+    launch_key; the forward's lse against the plain version's; the prefix
+    moved the gradients."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, out, lse, g = _bwd_case((B, S, Hq, D), Hkv, dtype, S + D + prefix_len, cuda,
+                                     prefix_len=prefix_len)
+    _, lse_plain = fa.flash_attention_plain(q, k, v, prefix_len=prefix_len, return_lse=True)
+    assert (lse - lse_plain).abs().max().item() <= 1e-5
+    key = ("flash_attention_bwd", fa.launch_key(q, k, prefix_len=prefix_len))
+    before = ops.LAUNCHES_BY_SHAPE.get(key, 0)
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, g, prefix_len=prefix_len)
+    assert ops.LAUNCHES_BY_SHAPE[key] == before + 1
+    again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, g, prefix_len=prefix_len)
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, g, prefix_len=prefix_len)
+    torch.cuda.synchronize()
+    for name, a, w, c in zip("qkv", got, want, again):
+        assert a.dtype == dtype and a.shape == w.shape
+        assert fa.bwd_agreement(a, w)[2], (name, fa.bwd_agreement(a, w))
+        assert torch.equal(a, c), name
+    if prefix_len:                            # the prefix moved the gradients
+        causal = fa.flash_attention_bwd_plain(q, k, v, *fa._flash_fwd(
+            q, k, v, causal=True, use_pwl=False, window=0, prefix_len=0, with_lse=True), g)
+        assert not torch.equal(causal[1], want[1])
+
+
+@pytest.mark.parametrize("at", [50, 200])    # inside, outside the prefix of 100
+@pytest.mark.parametrize("where", ["dout", "q", "k", "v"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernel_prefix_keeps_a_nan_where_plain(cuda, dtype, where, at):
+    """D 256 with a prefix of 100 (no multiple of 16): non-finite exactly
+    where the plain version is, a NaN at row / key 50 (inside the prefix:
+    a key every row sees) or 200 (outside: a key only the rows from 200
+    see, and a row that sees the prefix and the keys up to it)."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, out, lse, g = _bwd_case((1, 300, 8, 256), 1, dtype, 17, cuda, prefix_len=100)
+    if where == "dout":
+        g[0, at, 7, 5] = float("nan")
+    else:
+        {"q": q, "k": k, "v": v}[where][0, at, 0, 5] = float("nan")
+        out, lse = fa._flash_fwd(q, k, v, causal=True, use_pwl=False, window=0,
+                                 prefix_len=100, with_lse=True)
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, g, prefix_len=100)
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, g, prefix_len=100)
+    assert not all(bool(torch.isfinite(w.float()).all()) for w in want)
+    for a, w in zip(got, want):
+        assert fa.bwd_agreement(a, w)[2]
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_paligemma_d256_train_step_on_the_card_matches_the_cpu(cuda, remat):
+    """One layer of smoke paligemma at head_dim 256 (4 query heads on one KV
+    head, 16 prefix rows before 64 tokens), float32, 3 AdamW steps: metrics
+    within 1e-5 relative and each leaf's update within 1e-2 in relative L2
+    norm, as the other families' test; launches exact, at the prefix's
+    shape."""
+    from repro_torch.kernels import flash_attention as fa
+    cfg = dataclasses.replace(get_smoke_config("paligemma-3b"), dtype="float32", remat=remat,
+                              n_layers=1, head_dim=256)
+    cpu = _train_run(cfg, "cpu")
+    before, before_shape = dict(ops.LAUNCHES), dict(ops.LAUNCHES_BY_SHAPE)
+    card = _train_run(cfg, cuda)
+    q = torch.empty((2, cfg.n_prefix_tokens + 64, cfg.n_heads, 256), device="meta")
+    key = fa.launch_key(q, q[:, :, :1], prefix_len=cfg.n_prefix_tokens)
+    fwd, bwd = (ops.LAUNCHES_BY_SHAPE.get((n, key), 0) - before_shape.get((n, key), 0)
+                for n in ("flash_attention", "flash_attention_bwd"))
+    assert (fwd, bwd) == ((2 if remat else 1) * 3, 3)
+    assert ops.LAUNCHES["flash_attention_bwd"] - before["flash_attention_bwd"] == 3
+    for cm, pm in zip(card[0], cpu[0]):
+        for k in ("loss", "ce", "grad_norm", "lr"):
+            assert abs(cm[k] - pm[k]) <= 1e-5 * max(abs(pm[k]), 1e-30), (k, cm[k], pm[k])
+    for cu, pu in zip(card[1], cpu[1]):
+        for k in pu:
+            scale = max(float(pu[k].norm()), 1e-30)
+            assert float((cu[k] - pu[k]).norm()) <= 1e-2 * scale or not pu[k].any(), k
+
+
 def _ssd_bwd_case(b, S, H, P, N, dtype, seed, device, *, long=False, strided=False):
     if strided:             # as the mamba layer slices its conv output
         conv = _randn((b, S, H * P + 2 * N), torch.float32, seed, device)
@@ -1387,7 +1511,7 @@ def _fwd_a_step(cfg):
     return {"flash_attention": cfg.n_layers}
 
 
-FAMILIES = ["whisper-large-v3", "mamba2-2.7b", "zamba2-2.7b", "mixtral-8x7b"]
+FAMILIES = ["whisper-large-v3", "mamba2-2.7b", "zamba2-2.7b", "mixtral-8x7b", "paligemma-3b"]
 
 
 @pytest.mark.parametrize("arch", FAMILIES)
@@ -1404,6 +1528,8 @@ def test_family_train_step_bf16_on_the_card_lowers_the_loss(cuda, arch):
     stream = PackedStream(cfg.vocab_size, 64, seed=0)
     frames = _randn((2, cfg.encoder_seq, cfg.d_model), torch.float32, 3, cuda) * 0.02 \
         if cfg.is_encoder_decoder else None
+    patches = _randn((2, cfg.n_prefix_tokens, cfg.d_model), torch.float32, 4, cuda) * 0.02 \
+        if cfg.n_prefix_tokens else None
     before = dict(ops.LAUNCHES)
     losses = []
     for _ in range(12):
@@ -1412,6 +1538,8 @@ def test_family_train_step_bf16_on_the_card_lowers_the_loss(cuda, arch):
         batch["tokens"], batch["labels"] = batch["tokens"].long(), batch["labels"].long()
         if frames is not None:
             batch["encoder_embeds"] = frames
+        if patches is not None:
+            batch["prefix_embeds"] = patches
         params, state, m = step(params, state, batch)
         losses.append(float(m["loss"]))
         assert np.isfinite(m["grad_norm"].item()) and m["grad_norm"].item() > 0
@@ -1426,7 +1554,8 @@ def test_family_train_step_bf16_on_the_card_lowers_the_loss(cuda, arch):
 def test_family_train_step_on_the_card_matches_the_cpu(cuda, arch, remat):
     """Smoke whisper / mamba2 / zamba2 (one group: 6 mambas and the shared
     block, head dim 32) / mixtral (window 64, which S 64 does not reach;
-    the MoE dispatch), float32, 3 AdamW steps: metrics within 1e-5
+    the MoE dispatch) / paligemma (16 prefix rows before 64 tokens),
+    float32, 3 AdamW steps: metrics within 1e-5
     relative and each leaf's update within 1e-2 in relative L2 norm, as the
     dense family's test; whisper's launches count encode's remat."""
     cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32", remat=remat)

@@ -174,11 +174,12 @@ def test_remat_gives_the_same_gradients():
 
 
 # the families whose training the card runs besides the dense one
-FAMILIES = ["whisper-large-v3", "mamba2-2.7b", "zamba2-2.7b", "mixtral-8x7b"]
+FAMILIES = ["whisper-large-v3", "mamba2-2.7b", "zamba2-2.7b", "mixtral-8x7b", "paligemma-3b"]
 # each leaf's gradient against JAX's at the same params and batch,
 # relative L2 norm: float32 sums in another order through a smoke model
 # (whisper's encoder and cross-attention, mamba2's chunked scan, zamba2's
-# shared block summed over its applications, mixtral's MoE dispatch)
+# shared block summed over its applications, mixtral's MoE dispatch,
+# paligemma's bidirectional prefix)
 GRAD_RTOL = 1e-4
 
 
@@ -198,12 +199,18 @@ def _family_cfgs(arch, **kw):
 def _family_batches(cfg, n, seq=S):
     """``n`` numpy batches of B x seq tokens, with the random frame
     embeddings (N(0, 0.02^2), seeded by the step) that the reference's
-    ``launch/train.py`` gives an encoder-decoder."""
+    ``launch/train.py`` gives an encoder-decoder, and random patch
+    embeddings of the same law before a VLM's tokens (the zero prefix of
+    ``launch/train.py`` would leave the prefix's keys all 0 in the first
+    layer)."""
     out = []
     for i, b in enumerate(_batches(cfg, n, seq=seq)):
         if cfg.is_encoder_decoder:
             b["encoder_embeds"] = np.random.default_rng(i).normal(
                 size=(B, cfg.encoder_seq, cfg.d_model)).astype(np.float32) * 0.02
+        if cfg.n_prefix_tokens:
+            b["prefix_embeds"] = np.random.default_rng(100 + i).normal(
+                size=(B, cfg.n_prefix_tokens, cfg.d_model)).astype(np.float32) * 0.02
         out.append(b)
     return out
 
@@ -229,8 +236,9 @@ def _port_grads(tcfg, tp, tb):
 def test_family_train_step_matches_jax(arch, remat):
     """whisper (the non-causal encoder, the cross-attention, encode's remat),
     mamba2 (the SSD scan's gradient), zamba2 (two groups: the shared
-    block's gradient sums over its two applications) and mixtral (the MoE
-    dispatch; at S 64 its smoke window of 64 does not bind): 3 AdamW steps
+    block's gradient sums over its two applications), mixtral (the MoE
+    dispatch; at S 64 its smoke window of 64 does not bind) and paligemma
+    (16 prefix rows seen bidirectionally before 64 tokens): 3 AdamW steps
     of the port's train step against ``jax.jit(make_train_step)`` without
     a sharding context, from the same weights and batches.  Before each
     step both take the loss's gradient at the same params: every leaf's
@@ -245,8 +253,9 @@ def test_family_train_step_matches_jax(arch, remat):
     for step, b in enumerate(_family_batches(tcfg, STEPS)):
         jb = {k: jnp.asarray(v) for k, v in b.items()}
         tb = _torch_batch(b)
-        if "encoder_embeds" in b:
-            tb["encoder_embeds"] = torch.from_numpy(b["encoder_embeds"])
+        for key in ("encoder_embeds", "prefix_embeds"):
+            if key in b:
+                tb[key] = torch.from_numpy(b[key])
         jgrads, (jp_next, jstate, jm) = jboth(jp, jstate, jb)
         tgrads, jflat = _port_grads(tcfg, tp, tb), _flat(jgrads)
         assert set(jflat) == set(tgrads)
