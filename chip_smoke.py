@@ -134,21 +134,37 @@ Phases, each of which fails the run if it fails:
                 Server) and paligemma-3b (no image prefix, as the JAX
                 Server); on the card the Server replays its captured graph.
   train         llama3.2-1b at full width and depth (16 layers) in bf16
-                under remat, random weights from a seed: 20 AdamW steps of
-                B8 x S1024 from the port's PackedStream through
-                ``launch.steps.make_train_step``; the loss must fall, every
-                leaf's first gradient be finite and non-zero, and each step
-                launch 32 flash forwards and 16 backwards; ms a step,
-                tokens/s, peak memory and the flash kernels' device time.
+                under remat, random weights from a seed: 20 + 2 AdamW steps
+                of B8 x S1024 from the port's PackedStream, the first half
+                (and one profiled) through the eager
+                ``launch.steps.make_train_step``, the rest (and one
+                profiled replay) through ``CompiledTrainStep`` (the step
+                captured as one CUDA graph, params and state updated in
+                place) built on the state the eager half leaves; the loss
+                must fall, every leaf's first gradient be finite and
+                non-zero, and each step launch 32 flash forwards and 16
+                backwards; eager and graph ms a step, tokens/s, the
+                capture's seconds, the graph pool, peak memory, each
+                profiled step's busy share and the kernels' device time.
   train_parity  llama3.2-1b widths, 2 layers, float32: 3 AdamW steps on the
                 card (remat on, then off) against the CPU from the same
-                weights and batches: metrics, first gradients, updates.
-  train_driver  ``launch.train.main`` at smoke size: a checkpoint at step
-                10, a failure injected at step 15, the restart from the
-                checkpoint, the loss down.
+                weights and batches: metrics, first gradients, updates;
+                beside each card run 3 captured steps, held to the CPU and
+                to eager: bit-equal, or, if not, by a second eager run
+                (bit-equal where eager is equal to itself, else within
+                twice its spread).
+  train_driver  ``launch.train.main`` at smoke size through the captured
+                step: a checkpoint at step 10, a failure injected at step
+                15, the restart from the checkpoint (copied into the
+                captured tensors), the loss down.
+  train_100m_torch  ``examples/train_100m_torch.py`` (smollm-100m, remat
+                off, B2 x S256): 40 steps with the eager step on the card,
+                then 40 through the captured step; both ms a step, busy
+                shares, peak memory, 10 flash forwards and backwards a
+                step.
   audio_train   whisper-large-v3 at published widths and full depth (32 +
                 32 layers) in bf16 under remat (each encoder layer and each
-                decoder layer checkpointed): 10 AdamW steps of B8 x S448
+                decoder layer checkpointed): 10 + 2 AdamW steps of B8 x S448
                 text over 1500 random frame embeddings a sequence, as
                 ``train`` (and its profiled step); each step launches 192
                 flash forwards (64 encoder non-causal S1500, 64 decoder
@@ -157,13 +173,13 @@ Phases, each of which fails the run if it fails:
   audio_train_parity  whisper widths, 2 + 2 layers over 1500 frames,
                 float32, B2 x S256: as ``train_parity``.
   ssm_train     mamba2-2.7b at full width and depth (64 layers) in bf16
-                under remat: 10 AdamW steps of B8 x S1024, as ``train``;
+                under remat: 10 + 2 AdamW steps of B8 x S1024, as ``train``;
                 each step launches 128 SSD scans and 64 SSD backwards.
   ssm_train_parity  mamba2 widths, 2 layers, float32, B2 x S512: as
                 ``train_parity``.
   hybrid_train  zamba2-2.7b at full width and depth (54 mamba layers, the
                 shared attention block of 32 heads of 80 applied 9 times)
-                in bf16 under remat: 10 AdamW steps of B8 x S1024, as
+                in bf16 under remat: 10 + 2 AdamW steps of B8 x S1024, as
                 ``train``; each step launches 108 SSD scans, 54 SSD
                 backwards, 18 flash forwards and 9 flash backwards at D 80,
                 counted per shape.
@@ -173,7 +189,7 @@ Phases, each of which fails the run if it fails:
                 AdamW moments, and a run that pins nothing held beside.
   moe_train     mixtral-8x7b at published widths, depth cut to 2 of 32
                 layers (the state of 32 is 521.9 GiB, of 2 35.4 GiB) in bf16
-                under remat: 10 AdamW steps of B2 x S4160 (the window of
+                under remat: 10 + 2 AdamW steps of B2 x S4160 (the window of
                 4096 binds on the last 64 rows), as ``train``; each step
                 launches 4 windowed flash forwards and 2 backwards.
   moe_train_parity  mixtral's attention widths, 8 experts of width 2048
@@ -182,7 +198,7 @@ Phases, each of which fails the run if it fails:
                 ``train_parity``.
   vlm_train     paligemma-3b at published widths and full depth (18
                 layers, 8 query heads on one KV head of 256) in bf16 under
-                remat: 10 AdamW steps of B4 x 1024 text tokens after 256
+                remat: 10 + 2 AdamW steps of B4 x 1024 text tokens after 256
                 rows of seeded random patch embeddings (S 1280 through
                 attention, the prefix seen bidirectionally), as ``train``;
                 each step launches 36 flash forwards and 18 backwards with
@@ -223,7 +239,7 @@ PHASES = ("build", "kernels", "serve", "ssm_serve", "hybrid_serve", "moe_serve",
           "vlm_parity", "server", "train", "train_parity", "train_driver", "audio_train",
           "audio_train_parity", "ssm_train", "ssm_train_parity", "hybrid_train",
           "hybrid_train_parity", "moe_train", "moe_train_parity", "vlm_train",
-          "vlm_train_parity")
+          "vlm_train_parity", "train_100m_torch")
 EXTRA_PHASES = ("profile",)          # run only when named in --phases
 SERVE_ARCH = {"serve": "llama3-8b", "ssm_serve": "mamba2-2.7b",
               "hybrid_serve": "zamba2-2.7b"}
@@ -352,6 +368,9 @@ SSM_TRAIN_ARCH, SSM_TRAIN_B, SSM_TRAIN_S, SSM_TRAIN_STEPS = "mamba2-2.7b", 8, 10
 HYBRID_TRAIN_ARCH, HYBRID_TRAIN_B, HYBRID_TRAIN_S, HYBRID_TRAIN_STEPS = "zamba2-2.7b", 8, 1024, 10
 MOE_TRAIN_ARCH, MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_STEPS = "mixtral-8x7b", 2, MIX_LONG, 10
 MOE_TRAIN_LAYERS = 2
+# examples/train_100m_torch.py's steps in the train_100m_torch phase (each
+# of its eager and captured runs)
+TRAIN_100M_STEPS = 40
 # paligemma-3b at full width and depth: B4 x 1024 text tokens after its 256
 # image rows (S 1280 through attention), 10 AdamW steps (warmup 5); its
 # 2.509 B params are 28.0 GiB of state at 12 bytes a parameter, and B4 x
@@ -378,8 +397,8 @@ HYBRID_PARITY_CHUNK = 64
 # TRAIN_GRAD_REL.  AdamW moves an element by about lr * sign(g), so the
 # float32 rounding of near-zero gradient elements makes step 1's updates
 # differ (ROADMAP hazard 10: zamba2's embed 3.0e-3, its a_log 1.1e-3), and
-# through zamba2's 12 mamba layers those params move the next gradient's
-# norm: 3.19e-5 apart, on an NVIDIA H100 80GB HBM3 at 700 W.  The cause is
+# through 12 mamba layers (two groups of 6) those params moved the
+# next gradient's norm 3.19e-5 apart, on an NVIDIA H100 80GB HBM3 at 700 W.  The cause is
 # the params, not the step: started from the CPU's params and moments, the
 # card's step 2 gives the norm within 1.7e-6 (the pinned runs, held within
 # TRAIN_METRIC_REL); pinning a_log and dt_bias alone leaves 3.13e-5,
@@ -2699,21 +2718,48 @@ def first_grads(torch, cfg, params, batch):
     return {path: g for (path, _), g in zip(paths, grads)}
 
 
+def first_step_grads(step, params, state, batch):
+    """``step(params, state, batch)``'s result and each leaf's gradient
+    that step took (by path, before clipping), kept from the step's
+    ``clip_by_global_norm``, which is wrapped for the call.  On the CPU it
+    is the gradient ``first_grads`` takes, bit for bit, without a forward
+    and backward of its own."""
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.tree import tree_paths
+    clip, kept = steps_mod.clip_by_global_norm, {}
+
+    def keep(grads, max_norm):
+        kept.update((k, g.detach().clone()) for k, g in tree_paths(grads))
+        return clip(grads, max_norm)
+
+    steps_mod.clip_by_global_norm = keep
+    try:
+        out = step(params, state, batch)
+    finally:
+        steps_mod.clip_by_global_norm = clip
+    return out, kept
+
+
 def run_train(torch, results, phase, cfg, batches, *, steps, warmup, want, want_by_shape=None):
-    """``steps`` AdamW steps of ``cfg`` (bf16, random weights from seed 0)
-    over ``batches`` (one more than ``steps``: the first also gives the
-    first gradients, the last the profiled step) through
-    ``launch.steps.make_train_step`` (lr 3e-4, the given warmup, total
-    ``steps``).  The main path is the ``steps`` steps: the launch counters
-    are zeroed just before and read just after, and must equal ``want``
-    (every kernel not named there 0) and, per shape, ``want_by_shape``.
-    Fails unless the last loss is below the first and every leaf's gradient
-    at the first step (taken apart, before the counted steps) is finite and
-    non-zero.  Prints ms a step (median of steps 3 on), tokens/s (the
-    batches' token ids), peak GiB, and the port's kernels' device time in
-    one more step under torch.profiler."""
+    """``steps`` + 2 AdamW steps of ``cfg`` (bf16, random weights from seed
+    0) over ``batches`` (``steps`` + 2 of them) with lr 3e-4, the given
+    warmup and total ``steps``: half of ``steps`` through the eager
+    ``launch.steps.make_train_step``, one more eager step under
+    torch.profiler, then the rest through a ``CompiledTrainStep`` built on
+    the params and state the eager half leaves (its first call an eager
+    step on a side stream, its second captures and replays), and one more
+    replay under torch.profiler.  The main path is all of them: the launch
+    counters are zeroed just before and read just after, and must equal
+    ``want`` (launches a step; every kernel not named there 0) times the
+    steps, and likewise per shape ``want_by_shape``.  Fails unless the last
+    loss is below the first and every leaf's gradient at the first batch
+    (taken apart, before the counted steps) is finite and non-zero.  Prints
+    eager and graph ms a step (medians, host clock after the loss is read:
+    eager steps 3 on, replays after the capture), tokens/s, the capture's
+    seconds, the graph pool's GiB, peak GiB of each half, and each profiled
+    step's device busy share and kernels' device time."""
     from repro_torch.kernels import ops
-    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.launch.steps import CompiledTrainStep, init_train_state, make_train_step
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
@@ -2737,49 +2783,81 @@ def run_train(torch, results, phase, cfg, batches, *, steps, warmup, want, want_
         raise AssertionError(f"{phase}: leaves without a finite non-zero gradient: {bad}")
     log(f"[{phase}] first step's gradient finite and non-zero on all {len(grads)} leaves")
     del grads
-    step = make_train_step(cfg, base_lr=3e-4, warmup=warmup, total_steps=steps)
+    hyper = dict(base_lr=3e-4, warmup=warmup, total_steps=steps)
+    step = make_train_step(cfg, **hyper)
+    half = steps // 2
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     times, losses = [], []
-    for i in range(steps):
+
+    def timed(fn, batch):
         t = time.time()
-        params, opt_state, m = step(params, opt_state, batches[i])
+        p, s, m = fn(params, opt_state, batch)
         losses.append(float(m["loss"]))          # reads the loss: the step is done
         times.append(time.time() - t)
+        return p, s
+
+    for i in range(half):
+        params, opt_state = timed(step, batches[i])
+    profiled = {"eager": trace(torch, lambda: timed(step, batches[half]))}
+    params, opt_state = profiled["eager"].pop("result")
+    peak_eager = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    compiled = CompiledTrainStep(cfg, params, opt_state, **hyper)
+    for i in range(half + 1, steps + 1):
+        timed(compiled, batches[i])
+    profiled["graph"] = trace(torch, lambda: timed(compiled, batches[steps + 1]))
     launches, by_shape = dict(ops.LAUNCHES), dict(ops.LAUNCHES_BY_SHAPE)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    want = {**dict.fromkeys(launches, 0), **want}
-    log(f"[{phase}] launches on the main path ({steps} steps): {launches} (expected {want})")
+    peak_graph = torch.cuda.max_memory_allocated() / 2 ** 30
+    reserved_graph = torch.cuda.max_memory_reserved() / 2 ** 30
+    n_run = steps + 2
+    want = {**dict.fromkeys(launches, 0), **{k: n * n_run for k, n in want.items()}}
+    log(f"[{phase}] launches on the main path ({n_run} steps): {launches} (expected {want})")
     if launches != want:
         raise AssertionError(f"{phase} launches {launches}, expected {want}")
     for key, n in (want_by_shape or {}).items():
-        log(f"[{phase}]   {key[0]} at {key[1]}: {by_shape.get(key, 0)} (expected {n})")
-        if by_shape.get(key, 0) != n:
+        log(f"[{phase}]   {key[0]} at {key[1]}: {by_shape.get(key, 0)} (expected {n * n_run})")
+        if by_shape.get(key, 0) != n * n_run:
             raise AssertionError(f"{phase}: {by_shape.get(key, 0)} launches of {key}, "
-                                 f"expected {n}")
+                                 f"expected {n * n_run}")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"{phase}: the loss did not fall: {losses}")
-    med = sorted(times[2:])[len(times[2:]) // 2]
-    log(f"[{phase}] loss {losses[0]:.4f} -> {losses[-1]:.4f} over {steps} steps; "
-        f"{med * 1e3:.2f} ms a step (median of steps 3-{steps}; first two "
-        f"{times[0] * 1e3:.1f} / {times[1] * 1e3:.1f} ms), "
-        f"{tokens / med:.0f} tokens/s, peak {peak:.2f} GiB")
-    prof = trace(torch, lambda: step(params, opt_state, batches[-1]))
-    for us, n, key in [t for t in prof.pop("top") if "repro_torch" in t[2]]:
-        log(f"[{phase}]   {us / 1e3:9.3f} ms  x{n:<5d} {key}")
-    log(f"[{phase}] one more step under torch.profiler: wall {prof['wall_ms']:.2f} ms, "
-        f"device busy {prof['device_busy_ms']:.2f} ms ({100 * prof['busy_share']:.1f}%), "
-        + ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(prof["device_ms_by_class"].items())))
+
+    def median(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    med = median(times[2:half])
+    med_graph = median(times[half + 3:steps + 1])
+    pool = compiled.pool_bytes / 2 ** 30
+    log(f"[{phase}] loss {losses[0]:.4f} -> {losses[-1]:.4f} over {n_run} steps; eager "
+        f"{med * 1e3:.2f} ms a step (median of steps 3-{half}; first two {times[0] * 1e3:.1f} / "
+        f"{times[1] * 1e3:.1f} ms), graph {med_graph * 1e3:.2f} ms a step (median of "
+        f"{steps - half - 2} replays; the step's eager call {times[half + 1] * 1e3:.1f} ms, "
+        f"capture and first replay {times[half + 2] * 1e3:.1f} ms, the capture "
+        f"{compiled.capture_seconds:.2f} s), {tokens / med:.0f} -> {tokens / med_graph:.0f} "
+        f"tokens/s; peak {peak_eager:.2f} GiB eager, {peak_graph:.2f} GiB with the graph "
+        f"(pool {pool:.2f} GiB, reserved {reserved_graph:.2f} GiB); {nvidia_smi_line()}")
+    profiled["graph"].pop("result")
+    for what, prof in profiled.items():
+        for us, n, key in [t for t in prof.pop("top") if "repro_torch" in t[2]]:
+            log(f"[{phase}]   {what}: {us / 1e3:9.3f} ms  x{n:<5d} {key}")
+        log(f"[{phase}] one {what} step under torch.profiler: wall {prof['wall_ms']:.2f} ms, "
+            f"device busy {prof['device_busy_ms']:.2f} ms ({100 * prof['busy_share']:.1f}%), "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(prof["device_ms_by_class"].items())))
     results[phase] = {
-        "arch": cfg.name, "batch": list(batches[0]["tokens"].shape), "steps": steps,
+        "arch": cfg.name, "batch": list(batches[0]["tokens"].shape), "steps": n_run,
         "losses": losses, "step_ms": [t * 1e3 for t in times], "median_step_ms": med * 1e3,
-        "tokens_per_s": tokens / med, "peak_gib": peak, "profiled_step": prof}
+        "median_graph_step_ms": med_graph * 1e3, "capture_s": compiled.capture_seconds,
+        "graph_pool_gib": pool, "tokens_per_s": tokens / med,
+        "graph_tokens_per_s": tokens / med_graph, "peak_gib": peak_eager,
+        "graph_peak_gib": peak_graph, "graph_reserved_gib": reserved_graph,
+        "profiled_step": profiled["eager"], "profiled_replay": profiled["graph"]}
     return {**launches, **by_shape}
 
 
 def phase_train(torch, results):
     """llama3.2-1b at full width and depth (16 layers, remat as the config
-    has it) in bf16: 20 steps of B8 x S1024 from the port's
+    has it) in bf16: 20 + 2 steps of B8 x S1024 from the port's
     PackedStream(seed=0), warmup 10 (``run_train``).  Each step launches
     the flash forward twice a layer (the forward, then remat's recompute)
     and its backward once."""
@@ -2788,10 +2866,10 @@ def phase_train(torch, results):
     cfg = get_config(TRAIN_ARCH)
     if not cfg.remat or cfg.n_layers != 16:
         raise AssertionError(f"{cfg.name}: expected 16 layers under remat")
-    batches = train_batches(torch, cfg, TRAIN_B, TRAIN_S, TRAIN_STEPS + 1)
+    batches = train_batches(torch, cfg, TRAIN_B, TRAIN_S, TRAIN_STEPS + 2)
     return run_train(torch, results, "train", cfg, batches, steps=TRAIN_STEPS, warmup=10,
-                     want={"flash_attention": 2 * cfg.n_layers * TRAIN_STEPS,
-                           "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS})
+                     want={"flash_attention": 2 * cfg.n_layers,
+                           "flash_attention_bwd": cfg.n_layers})
 
 
 def audio_batches(torch, cfg, batch, seq, n, seed=0, device="cuda"):
@@ -2807,7 +2885,7 @@ def audio_batches(torch, cfg, batch, seq, n, seed=0, device="cuda"):
 
 def phase_audio_train(torch, results):
     """whisper-large-v3 at published widths and full depth (32 encoder + 32
-    decoder layers, 1.601 B params) in bf16 under remat: 10 steps of B8 x
+    decoder layers, 1.601 B params) in bf16 under remat: 10 + 2 steps of B8 x
     S448 text (whisper's max_target_positions) over 1500 frames a sequence,
     warmup 5 (``run_train``).  Remat checkpoints each encoder layer and
     each decoder layer, so a step launches the flash forward twice for each
@@ -2822,7 +2900,7 @@ def phase_audio_train(torch, results):
                                                                                   W_FRAMES):
         raise AssertionError(f"{cfg.name}: expected 32 + 32 layers over {W_FRAMES} frames "
                              "under remat")
-    batches = audio_batches(torch, cfg, AUDIO_TRAIN_B, AUDIO_TRAIN_S, AUDIO_TRAIN_STEPS + 1)
+    batches = audio_batches(torch, cfg, AUDIO_TRAIN_B, AUDIO_TRAIN_S, AUDIO_TRAIN_STEPS + 2)
     n, n_enc, steps = cfg.n_layers, cfg.n_encoder_layers, AUDIO_TRAIN_STEPS
 
     def key(sq, skv, causal):
@@ -2835,17 +2913,17 @@ def phase_audio_train(torch, results):
                  key(AUDIO_TRAIN_S, W_FRAMES, False): n}                    # cross
     by_shape = {}
     for k, layers in per_layer.items():
-        by_shape[("flash_attention", k)] = 2 * layers * steps
-        by_shape[("flash_attention_bwd", k)] = layers * steps
+        by_shape[("flash_attention", k)] = 2 * layers
+        by_shape[("flash_attention_bwd", k)] = layers
     return run_train(torch, results, "audio_train", cfg, batches, steps=steps, warmup=5,
-                     want={"flash_attention": 2 * (n_enc + 2 * n) * steps,
-                           "flash_attention_bwd": (n_enc + 2 * n) * steps},
+                     want={"flash_attention": 2 * (n_enc + 2 * n),
+                           "flash_attention_bwd": (n_enc + 2 * n)},
                      want_by_shape=by_shape)
 
 
 def phase_ssm_train(torch, results):
     """mamba2-2.7b at full width and depth (64 mamba layers, 2.830 B
-    params) in bf16 under remat: 10 steps of B8 x S1024 from the port's
+    params) in bf16 under remat: 10 + 2 steps of B8 x S1024 from the port's
     PackedStream(seed=0), warmup 5 (``run_train``).  A step launches the
     SSD scan twice a layer (the forward, then remat's recompute) and its
     backward once: 128 + 64."""
@@ -2855,22 +2933,22 @@ def phase_ssm_train(torch, results):
     cfg = get_config(SSM_TRAIN_ARCH)
     if not cfg.remat or cfg.n_layers != 64:
         raise AssertionError(f"{cfg.name}: expected 64 layers under remat")
-    batches = train_batches(torch, cfg, SSM_TRAIN_B, SSM_TRAIN_S, SSM_TRAIN_STEPS + 1)
+    batches = train_batches(torch, cfg, SSM_TRAIN_B, SSM_TRAIN_S, SSM_TRAIN_STEPS + 2)
     steps = SSM_TRAIN_STEPS
     x = torch.empty((SSM_TRAIN_B, SSM_TRAIN_S, SSM_H, SSM_P), dtype=torch.bfloat16,
                     device="meta")
     bm = torch.empty((SSM_TRAIN_B, SSM_TRAIN_S, cfg.ssm.d_state), device="meta")
     return run_train(torch, results, "ssm_train", cfg, batches, steps=steps, warmup=5,
-                     want={"ssd_scan": 2 * cfg.n_layers * steps,
-                           "ssd_scan_bwd": cfg.n_layers * steps},
-                     want_by_shape={("ssd_scan", launch_key(x, bm)): 2 * cfg.n_layers * steps,
-                                    ("ssd_scan_bwd", launch_key(x, bm)): cfg.n_layers * steps})
+                     want={"ssd_scan": 2 * cfg.n_layers,
+                           "ssd_scan_bwd": cfg.n_layers},
+                     want_by_shape={("ssd_scan", launch_key(x, bm)): 2 * cfg.n_layers,
+                                    ("ssd_scan_bwd", launch_key(x, bm)): cfg.n_layers})
 
 
 def phase_hybrid_train(torch, results):
     """zamba2-2.7b at full width and depth (54 mamba layers in 9 groups,
     each closed by the shared attention block of 32 heads of 80; 2.422 B
-    params) in bf16 under remat: 10 steps of B8 x S1024 from the port's
+    params) in bf16 under remat: 10 + 2 steps of B8 x S1024 from the port's
     PackedStream(seed=0), warmup 5 (``run_train``).  Remat checkpoints
     each group (models/model.py's forward), so a step launches the SSD
     scan twice a mamba layer and its backward once (108 + 54), and the
@@ -2884,20 +2962,20 @@ def phase_hybrid_train(torch, results):
         raise AssertionError(f"{cfg.name}: expected 54 mamba layers in groups of 6 and a "
                              f"shared block of head dim {ZD} under remat")
     b, s, steps = HYBRID_TRAIN_B, HYBRID_TRAIN_S, HYBRID_TRAIN_STEPS
-    batches = train_batches(torch, cfg, b, s, steps + 1)
+    batches = train_batches(torch, cfg, b, s, steps + 2)
     n, n_groups = cfg.n_layers, cfg.n_layers // cfg.attn_every
     x = torch.empty((b, s, SSM_H, SSM_P), dtype=torch.bfloat16, device="meta")
     bm = torch.empty((b, s, cfg.ssm.d_state), device="meta")
     q = torch.empty((b, s, ZH, ZD), dtype=torch.bfloat16, device="meta")
     fkey = fa.launch_key(q, q)
     return run_train(torch, results, "hybrid_train", cfg, batches, steps=steps, warmup=5,
-                     want={"ssd_scan": 2 * n * steps, "ssd_scan_bwd": n * steps,
-                           "flash_attention": 2 * n_groups * steps,
-                           "flash_attention_bwd": n_groups * steps},
-                     want_by_shape={("ssd_scan", ss.launch_key(x, bm)): 2 * n * steps,
-                                    ("ssd_scan_bwd", ss.launch_key(x, bm)): n * steps,
-                                    ("flash_attention", fkey): 2 * n_groups * steps,
-                                    ("flash_attention_bwd", fkey): n_groups * steps})
+                     want={"ssd_scan": 2 * n, "ssd_scan_bwd": n,
+                           "flash_attention": 2 * n_groups,
+                           "flash_attention_bwd": n_groups},
+                     want_by_shape={("ssd_scan", ss.launch_key(x, bm)): 2 * n,
+                                    ("ssd_scan_bwd", ss.launch_key(x, bm)): n,
+                                    ("flash_attention", fkey): 2 * n_groups,
+                                    ("flash_attention_bwd", fkey): n_groups})
 
 
 def mixtral_train_cut():
@@ -2909,7 +2987,7 @@ def mixtral_train_cut():
 def phase_moe_train(torch, results):
     """mixtral-8x7b at its published widths (d_model 4096, 32 / 8 heads of
     128, 8 experts of 14336, top-2, window 4096) cut to MOE_TRAIN_LAYERS of
-    32 layers, in bf16 under remat: 10 steps of B2 x S4160 from the port's
+    32 layers, in bf16 under remat: 10 + 2 steps of B2 x S4160 from the port's
     PackedStream(seed=0), warmup 5 (``run_train``).  The window binds on
     each sequence's last 64 rows; 8320 tokens take the MoE dispatch path.
     A step launches the windowed flash forward twice a layer and its
@@ -2928,15 +3006,15 @@ def phase_moe_train(torch, results):
         f"is {per_layer / 1e9:.3f} B params ({per_layer * gib:.1f} GiB), the untied embedding "
         f"and head {embed / 1e9:.3f} B ({embed * gib:.1f} GiB), so {cfg.n_layers} layers are "
         f"{(cfg.n_layers * per_layer + embed) * gib:.1f} GiB")
-    batches = train_batches(torch, cfg, MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_STEPS + 1)
+    batches = train_batches(torch, cfg, MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_STEPS + 2)
     steps, n = MOE_TRAIN_STEPS, cfg.n_layers
     q = torch.empty((MOE_TRAIN_B, MOE_TRAIN_S, HQ, D), dtype=torch.bfloat16, device="meta")
     k = torch.empty((MOE_TRAIN_B, MOE_TRAIN_S, HKV, D), dtype=torch.bfloat16, device="meta")
     key = launch_key(q, k, window=MIX_WINDOW)
     return run_train(torch, results, "moe_train", cfg, batches, steps=steps, warmup=5,
-                     want={"flash_attention": 2 * n * steps, "flash_attention_bwd": n * steps},
-                     want_by_shape={("flash_attention", key): 2 * n * steps,
-                                    ("flash_attention_bwd", key): n * steps})
+                     want={"flash_attention": 2 * n, "flash_attention_bwd": n},
+                     want_by_shape={("flash_attention", key): 2 * n,
+                                    ("flash_attention_bwd", key): n})
 
 
 def vlm_batches(torch, cfg, batch, seq, n, seed=0, device="cuda"):
@@ -2954,7 +3032,7 @@ def vlm_batches(torch, cfg, batch, seq, n, seed=0, device="cuda"):
 def phase_vlm_train(torch, results):
     """paligemma-3b at published widths and full depth (18 layers, 8 query
     heads on one KV head of 256, GeGLU of 16384, a tied vocabulary of
-    257216; 2.509 B params) in bf16 under remat: 10 steps of B4 x 1024
+    257216; 2.509 B params) in bf16 under remat: 10 + 2 steps of B4 x 1024
     text tokens from the port's PackedStream(seed=0), each sequence after
     256 rows of seeded random patch embeddings (``vlm_batches``; not the
     zero prefix of ``launch.train._batch``, whose keys would all be 0 in
@@ -2971,13 +3049,65 @@ def phase_vlm_train(torch, results):
         raise AssertionError(f"{cfg.name}: expected 18 layers of {VH} heads on one KV head of "
                              f"{VD} after {V_PREFIX} prefix rows, under remat")
     b, s, steps, n = VLM_TRAIN_B, VLM_TRAIN_S, VLM_TRAIN_STEPS, cfg.n_layers
-    batches = vlm_batches(torch, cfg, b, s, steps + 1)
+    batches = vlm_batches(torch, cfg, b, s, steps + 2)
     q = torch.empty((b, V_PREFIX + s, VH, VD), dtype=torch.bfloat16, device="meta")
     key = launch_key(q, q[:, :, :1], prefix_len=V_PREFIX)
     return run_train(torch, results, "vlm_train", cfg, batches, steps=steps, warmup=5,
-                     want={"flash_attention": 2 * n * steps, "flash_attention_bwd": n * steps},
-                     want_by_shape={("flash_attention", key): 2 * n * steps,
-                                    ("flash_attention_bwd", key): n * steps})
+                     want={"flash_attention": 2 * n, "flash_attention_bwd": n},
+                     want_by_shape={("flash_attention", key): 2 * n,
+                                    ("flash_attention_bwd", key): n})
+
+
+def hold_graph(phase, what, graph, card, cpu, *, again, card_vs_cpu):
+    """A parity phase's captured run (``run``'s tuple) against its eager
+    card run on each step's metrics and each leaf's update: bit-equal, or
+    else, with a second eager run (``again()``, made only then), by
+    ``checks.graph_vs_eager``; and against the CPU by TRAIN_METRIC_REL
+    and TRAIN_UPDATE_REL as the eager card run (whose figures,
+    ``card_vs_cpu`` = (metric max rel by name, update max rel a step), are
+    the graph's when the two are bit-equal)."""
+    def steps(r):
+        return [{**{("metric", k): v for k, v in m.items()},
+                 **{("update",) + k: u for k, u in upd.items()}}
+                for m, upd in zip(r[1], r[2])]
+
+    g, a = steps(graph), steps(card)
+    n = len(a[0])
+    equal = all(x == y if isinstance(x, float) else x.equal(y)
+                for gs, es in zip(g, a) for x, y in ((gs[k], es[k]) for k in es))
+    spread, worst, bad = set(), 0.0, []
+    if not equal:
+        from repro_torch.checks import graph_vs_eager
+        spread, worst, bad = graph_vs_eager(g, a, steps(again()))
+    if equal:
+        mrel, upd_rel = card_vs_cpu
+    else:
+        mrel = {k: max(abs(gm[k] - pm[k]) / max(abs(pm[k]), 1e-30)
+                       for gm, pm in zip(graph[1], cpu[1]))
+                for k in ("loss", "ce", "grad_norm", "lr")}
+        upd_rel = [max(float((gu[k] - pu[k]).norm() / pu[k].norm().clamp_min(1e-30))
+                       if pu[k].any() else float(gu[k].abs().max()) for k in pu)
+                   for gu, pu in zip(graph[2], cpu[2])]
+    names = sorted("/".join(map(str, k)) for k in spread)
+    log(f"[{phase}] {what} graph vs eager on the card: "
+        + (f"bit-equal on all {n} names (metrics and each leaf's update) at every step"
+           if equal else
+           f"not bit-equal; a second eager run is bit-equal to the first on "
+           f"{n - len(names)} of {n} names"
+           + (f", not on {len(names)} ({', '.join(names[:6])}{', ...' if len(names) > 6 else ''})"
+              f", where the graph is at most {worst:.3f} of its bound" if names else "")
+           + f"; {len(bad)} failures")
+        + f"; vs the CPU metrics max rel {max(mrel.values()):.3e} (bound "
+        f"{TRAIN_METRIC_REL:.0e}), updates max rel L2 per step "
+        + ", ".join(f"{u:.3e}" for u in upd_rel) + f" (bound {TRAIN_UPDATE_REL:.0e})")
+    if bad:
+        raise AssertionError(f"{phase} {what}: the graph and the eager step disagree: {bad[:6]}")
+    if not (max(mrel.values()) <= TRAIN_METRIC_REL and all(u <= TRAIN_UPDATE_REL
+                                                           for u in upd_rel)):
+        raise AssertionError(f"{phase} {what}: the graph and the CPU disagree")
+    return {"bit_equal_to_eager": equal, "eager_not_bit_equal": names,
+            "worst_of_bound": worst, "metric_max_rel_cpu": max(mrel.values()),
+            "update_max_rel_l2_cpu": upd_rel}
 
 
 def run_train_parity(torch, results, phase, base, *, batches_fn, want_of, grad_rel=None,
@@ -2991,7 +3121,13 @@ def run_train_parity(torch, results, phase, base, *, batches_fn, want_of, grad_r
     one, else TRAIN_GRAD_REL) and each leaf's update per step
     (TRAIN_UPDATE_REL); the card's launches must equal ``want_of(remat)``.
     The CPU runs once, without remat: remat moves no number on the CPU
-    (tests/test_torch_train.py).
+    (tests/test_torch_train.py); its first gradient is the one its first
+    step takes (``first_step_grads``).
+
+    Beside each card run, 3 steps through a ``CompiledTrainStep`` from the
+    same starting state (its first call, an eager warm-up step, undone by
+    loading that state back): the graph's metrics and updates are held to
+    the eager run's (``hold_graph``) and to the CPU's by every bound above.
 
     ``pin_state``: the card's two runs take every leaf's params and AdamW
     moments from the CPU's after each step, once that step's update is
@@ -3005,7 +3141,7 @@ def run_train_parity(torch, results, phase, base, *, batches_fn, want_of, grad_r
     the card's (not held)."""
     from repro_torch import models
     from repro_torch.kernels import ops
-    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.steps import CompiledTrainStep, make_train_step
     from repro_torch.optim import adamw_init
     from repro_torch.tree import tree_map, tree_paths
 
@@ -3017,26 +3153,39 @@ def run_train_parity(torch, results, phase, base, *, batches_fn, want_of, grad_r
             tree = tree[k]
         return tree
 
-    def run(dev, remat, pinned=None, record=False, cfg_of=None, grads_only=False):
+    def run(dev, remat, pinned=None, record=False, cfg_of=None, grads_only=False,
+            graph=False, first_grad=True):
         """pinned: the CPU's recorded states (pin every leaf after each
-        step), False (pin nothing, skip the first gradient) or None."""
+        step), False (pin nothing, skip the first gradient) or None;
+        graph: step through a CompiledTrainStep."""
         cfg = cfg_of or dataclasses.replace(base, remat=remat)
         p = tree_map(lambda t: t.detach().to(dev, copy=True).requires_grad_(True), params0)
         batches = batches_fn(cfg, dev)
         t0 = time.time()
+        # the CPU's first gradient is kept from its first step
+        from_step = dev == "cpu" and pinned is not False and first_grad and not grads_only
         grads = ({k: g.cpu() for k, g in first_grads(torch, cfg, p, batches[0]).items()}
-                 if pinned is not False else None)
+                 if pinned is not False and first_grad and not from_step else None)
         if grads_only:
             return grads
-        ops.reset_launch_counts()
         state = adamw_init(p)
-        step = make_train_step(cfg, base_lr=3e-4, warmup=10, total_steps=20)
+        hyper = dict(base_lr=3e-4, warmup=10, total_steps=20)
+        if graph:
+            step = CompiledTrainStep(cfg, p, state, **hyper)
+            step(p, state, batches[0])            # its eager warm-up call, undone:
+            step.load(params0, adamw_init(params0))
+        else:
+            step = make_train_step(cfg, **hyper)
+        ops.reset_launch_counts()
         metrics, updates, pins = [], [], []
         for i, batch in enumerate(batches):
-            before = {k: t.detach().cpu() for k, t in tree_paths(p)}
-            p, state, m = step(p, state, batch)
+            before = {k: t.detach().clone() for k, t in tree_paths(p)}
+            if i == 0 and from_step:
+                (p, state, m), grads = first_step_grads(step, p, state, batch)
+            else:
+                p, state, m = step(p, state, batch)
             metrics.append({k: float(v) for k, v in m.items()})
-            updates.append({k: t.detach().cpu() - before[k] for k, t in tree_paths(p)})
+            updates.append({k: (t.detach() - before[k]).cpu() for k, t in tree_paths(p)})
             if i == len(batches) - 1:
                 break
             if record:
@@ -3048,8 +3197,8 @@ def run_train_parity(torch, results, phase, base, *, batches_fn, want_of, grad_r
                         for t, val in zip((p, state["m"], state["v"]), vals):
                             leaf(t, k).copy_(val)
         launches = {**ops.LAUNCHES, **ops.LAUNCHES_BY_SHAPE}
-        log(f"[{phase}] {dev} remat={remat}" + (", each step from the CPU's state" if pinned
-                                                else "")
+        log(f"[{phase}] {dev} remat={remat}" + (" graph" if graph else "")
+            + (", each step from the CPU's state" if pinned else "")
             + f": {time.time() - t0:.1f}s, launches {dict(ops.LAUNCHES)}")
         return grads, metrics, updates, launches, pins
 
@@ -3108,7 +3257,16 @@ def run_train_parity(torch, results, phase, base, *, batches_fn, want_of, grad_r
                                  "grad_max_rel_l2": rel[top[0]],
                                  "grad_max_rel_l2_leaf": "/".join(top[0]),
                                  "update_max_rel_l2": upd_rel}
-        del card
+        pins = cpu[4] if pin_state else None
+        graph = run("cuda", remat, pinned=pins, first_grad=False, graph=True)
+        got = {k: v for k, v in graph[3].items() if isinstance(k, str)}
+        if got != want:
+            raise AssertionError(f"{phase} remat={remat} graph: launches {got}, expected {want}")
+        out[f"remat_{remat}"]["graph"] = hold_graph(
+            phase, f"remat={remat}", graph, card, cpu,
+            again=lambda: run("cuda", remat, pinned=pins, first_grad=False),
+            card_vs_cpu=(mmax, upd_rel))
+        del card, graph
     if pin_state:
         del cpu[4][:]
         free = run("cuda", True, pinned=False)
@@ -3251,12 +3409,13 @@ def phase_vlm_train_parity(torch, results):
 
 def phase_train_driver(torch, results):
     """``repro_torch.launch.train.main`` on the card at llama3.2-1b's smoke
-    size (bf16, head_dim 32) in a temporary directory: run 1 trains 10
-    steps and saves at 10; run 2 (--steps 30 --save-every 10
-    --simulate-failures 1) restores step 10, fails at step 15, restarts
-    from the step-10 checkpoint and ends with the loss down.  The
-    full-width state would be 12.4 GB a checkpoint, so the card saves only
-    at smoke size."""
+    size (bf16, head_dim 32) in a temporary directory, through the
+    captured step (``CompiledTrainStep``; a restored state is copied into
+    its tensors): run 1 trains 10 steps and saves at 10; run 2 (--steps 30
+    --save-every 10 --simulate-failures 1) restores step 10, fails at step
+    15, restarts from the step-10 checkpoint and ends with the loss down.
+    The full-width state would be 12.4 GB a checkpoint, so the card saves
+    only at smoke size."""
     import contextlib
     import io
     import tempfile
@@ -3273,7 +3432,8 @@ def phase_train_driver(torch, results):
         text = buf.getvalue()
     for line in text.splitlines():
         log(f"[train_driver] {line}")
-    for want in ("restored from checkpoint at step 10", "[ft] restarted from step 10"):
+    for want in ("step=captured", "restored from checkpoint at step 10",
+                 "[ft] restarted from step 10"):
         if want not in text:
             raise AssertionError(f"train_driver: no '{want}' in the driver's output")
     if not second[-1] < second[0]:
@@ -3282,16 +3442,75 @@ def phase_train_driver(torch, results):
                                "seconds": time.time() - t0}
 
 
+def phase_train_100m(torch, results):
+    """``examples/train_100m_torch.py`` (smollm-100m: 10 layers, d_model
+    640, remat off, B2 x S256 from PackedStream(0), bf16) for
+    TRAIN_100M_STEPS steps with the eager step on the card (``--eager``),
+    then as many through the captured step (its default); each run's loss
+    must fall, and each launches the flash forward and its backward once a
+    layer a step (counters zeroed just before the run, read just after).
+    Prints both ms a step (medians of steps 3 on; the captured run's first
+    two are its eager call and its capture), peak GiB, and one more step of
+    each under torch.profiler."""
+    import contextlib
+    import importlib.util
+    import io
+    import tempfile
+
+    spec = importlib.util.spec_from_file_location("train_100m_torch",
+                                                  ROOT / "examples" / "train_100m_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    from repro_torch.kernels import ops
+    n = example.smollm_100m().n_layers * TRAIN_100M_STEPS
+    out = {}
+    for what, flags in (("eager", ["--eager"]), ("graph", [])):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        buf = io.StringIO()
+        ops.reset_launch_counts()
+        with tempfile.TemporaryDirectory() as d, contextlib.redirect_stdout(buf):
+            run = example.main(["--steps", str(TRAIN_100M_STEPS), "--ckpt-dir", d] + flags)
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        for line in buf.getvalue().splitlines():
+            log(f"[train_100m_torch] {what}: {line}")
+        log(f"[train_100m_torch] {what}: launches {launches}")
+        if launches != {"flash_attention": n, "flash_attention_bwd": n}:
+            raise AssertionError(f"train_100m_torch {what}: launches {launches}, expected "
+                                 f"{n} of flash_attention and of flash_attention_bwd")
+        if run["step"] != {"eager": "eager", "graph": "captured"}[what]:
+            raise AssertionError(f"train_100m_torch: the {what} run stepped {run['step']}")
+        step_fn, params, opt_state, batch = run["last"]
+        prof = trace(torch, lambda: float(step_fn(params, opt_state, batch)[2]["loss"]))
+        prof.pop("top")
+        prof.pop("result")
+        times = run["step_s"][2:]
+        out[what] = {"median_step_ms": sorted(times)[len(times) // 2] * 1e3,
+                     "losses": run["losses"],
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                     "profiled_step": prof}
+        del run, step_fn, params, opt_state, batch
+    e, g = out["eager"], out["graph"]
+    log(f"[train_100m_torch] {TRAIN_100M_STEPS} steps each: eager {e['median_step_ms']:.2f} ms "
+        f"a step, graph {g['median_step_ms']:.2f} ms ({e['median_step_ms'] / g['median_step_ms']:.2f}"
+        f"x); busy {100 * e['profiled_step']['busy_share']:.1f}% eager, "
+        f"{100 * g['profiled_step']['busy_share']:.1f}% a replay; peak {e['peak_gib']:.2f} / "
+        f"{g['peak_gib']:.2f} GiB; loss {g['losses'][0]:.4f} -> {g['losses'][-1]:.4f}; "
+        f"{nvidia_smi_line()}")
+    results["train_100m_torch"] = out
+
+
 def trace(torch, fn):
     """``fn()`` under torch.profiler: host wall, device busy time and its
-    share, device ms by kernel class, and the kernels by device time."""
+    share, device ms by kernel class, the kernels by device time, and what
+    ``fn`` returned."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        fn()
+        result = fn()
         torch.cuda.synchronize()
         wall_us = (time.time() - t0) * 1e6
     by_class, top = {}, []
@@ -3305,7 +3524,7 @@ def trace(torch, fn):
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "busy_share": busy / wall_us,
             "device_ms_by_class": {k: v / 1e3 for k, v in by_class.items()},
-            "top": sorted(top, reverse=True)}
+            "top": sorted(top, reverse=True), "result": result}
 
 
 def _kernel_class(name: str) -> str:
@@ -3438,6 +3657,7 @@ def phase_profile(torch, results, arch):
     for what, fn in profile_windows(torch, arch):
         t = trace(torch, fn)
         top = t.pop("top")
+        t.pop("result")
         out[what] = t
         log(f"[profile] {arch} {what}: wall {t['wall_ms']:.2f} ms, device busy "
             f"{t['device_busy_ms']:.2f} ms ({100 * t['busy_share']:.1f}%), by class "
@@ -3518,6 +3738,8 @@ def main(argv=None) -> int:
             launches_of[phase] = phase_train_parity(torch, results)
         elif phase == "train_driver":
             phase_train_driver(torch, results)
+        elif phase == "train_100m_torch":
+            phase_train_100m(torch, results)
         elif phase == "audio_train":
             launches_of[phase] = phase_audio_train(torch, results)
         elif phase == "audio_train_parity":

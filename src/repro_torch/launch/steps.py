@@ -1,12 +1,16 @@
 """Step functions: train_step, prefill_step and serve_step (decode), with
 greedy sampling.  Port of ``repro.launch.steps``: ``cross_entropy``,
 ``make_loss_fn``, ``make_train_step``, ``init_train_state``,
-``make_prefill_step`` and ``make_serve_step``; and ``CompiledServeStep``,
-the serve step captured once as a CUDA graph: the counterpart of the
+``make_prefill_step`` and ``make_serve_step``; ``CompiledServeStep``, the
+serve step captured once as a CUDA graph (the counterpart of the
 reference's ``jax.jit(serve_step, donate_argnums=(1,))`` in
-``launch/serve.py``."""
+``launch/serve.py``); and ``CompiledTrainStep``, the train step captured
+once as a CUDA graph with its params and optimizer state donated (the
+counterpart of ``jax.jit(train_step, donate_argnums=(0, 1))`` in
+``launch/train.py``), whose body is ``make_train_body``."""
 from __future__ import annotations
 
+import time
 from typing import Dict, Tuple
 
 import torch
@@ -37,15 +41,24 @@ def _noisy(leaf) -> bool:
     return leaf.is_floating_point() and leaf.ndim >= 2
 
 
-def weight_noise(params, std: float, step: int):
+def noise_seed(step: int) -> int:
+    """The seed of the RRAM noise's generator at ``step``: (NOISE_SEED,
+    step) folded into one integer."""
+    return NOISE_SEED * 1_000_003 + int(step)
+
+
+def weight_noise(params, std: float, step=None, *, generator=None):
     """The RRAM noise factors ``1 + std * N(0, 1)`` (float32) of every
-    leaf that takes noise (None elsewhere), drawn from a generator seeded
-    by (NOISE_SEED, step) on the params' device, one leaf after the other
-    in the JAX package's order.  The draws are the port's own, not JAX's
-    (the distributions are the same)."""
+    leaf that takes noise (None elsewhere), drawn one leaf after the other
+    in the JAX package's order from ``generator`` (on the params' device),
+    or else from a new one seeded by ``noise_seed(step)``: a caller that
+    seeds its own generator with ``noise_seed(step)`` draws the same
+    factors.  The draws are the port's own, not JAX's (the distributions
+    are the same)."""
     items = list(tree_paths(params))
     dev = items[0][1].device
-    gen = torch.Generator(device=dev).manual_seed(NOISE_SEED * 1_000_003 + int(step))
+    gen = generator if generator is not None else \
+        torch.Generator(device=dev).manual_seed(noise_seed(step))
     return tree_from_paths(
         (path, 1 + std * torch.randn(leaf.shape, generator=gen, device=dev,
                                      dtype=torch.float32) if _noisy(leaf) else None)
@@ -57,18 +70,15 @@ def make_loss_fn(cfg, *, weight_noise_std: float = 0.0):
     (§IV / [13]): multiplicative Gaussian noise on the weights during the
     forward pass models RRAM conductance relaxation.
 
-    ``loss_fn(params, batch, step=None, noise=None)`` -> (loss, {"ce",
-    "aux"}).  With noise on, ``noise`` is a tree of factors with the
-    params' nesting (``weight_noise`` gives the port's own; a test may
-    pass the JAX package's), else the factors are drawn for ``step`` (an
-    int, or a 0-dim tensor, which is then read on the host to seed the
-    generator).  A leaf becomes ``leaf * factor.to(leaf.dtype)``, as the
-    reference casts ``1 + std * normal`` to the leaf's dtype."""
-    def loss_fn(params, batch, step=None, noise=None):
+    ``loss_fn(params, batch, noise=None)`` -> (loss, {"ce", "aux"}).  With
+    noise on, ``noise`` is a tree of factors with the params' nesting
+    (``weight_noise`` gives the port's own; a test may pass the JAX
+    package's); without it the loss is the clean one.  A leaf becomes
+    ``leaf * factor.to(leaf.dtype)``, as the reference casts ``1 + std *
+    normal`` to the leaf's dtype."""
+    def loss_fn(params, batch, noise=None):
         p = params
-        if weight_noise_std > 0.0 and (noise is not None or step is not None):
-            if noise is None:
-                noise = weight_noise(params, weight_noise_std, int(step))
+        if weight_noise_std > 0.0 and noise is not None:
             p = tree_map(lambda l, f: l if f is None or not _noisy(l) else l * f.to(l.dtype),
                          params, noise)
         logits, aux, _ = models.forward(cfg, p, batch["tokens"],
@@ -78,6 +88,34 @@ def make_loss_fn(cfg, *, weight_noise_std: float = 0.0):
         loss = ce + 0.01 * aux
         return loss, {"ce": ce, "aux": aux}
     return loss_fn
+
+
+def _make_step(cfg, *, base_lr, warmup, total_steps, max_grad_norm, weight_noise_std):
+    """``step(params, opt_state, batch, noise, donate)`` -> (params,
+    opt_state, metrics): one train step on params that are leaves which
+    require grad, with the RRAM noise factors ``noise`` (or None)."""
+    loss_fn = make_loss_fn(cfg, weight_noise_std=weight_noise_std)
+    _, opt_update = make_optimizer(cfg.optimizer)
+
+    def step(params, opt_state, batch, noise, donate):
+        paths, leaves = zip(*tree_paths(params))
+        with torch.enable_grad():
+            loss, parts = loss_fn(params, batch, noise=noise)
+            grad_leaves = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with torch.no_grad():
+            grads = tree_from_paths(
+                (path, torch.zeros_like(leaf) if g is None else g)
+                for path, leaf, g in zip(paths, leaves, grad_leaves))
+            grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+            lr = linear_warmup_cosine(opt_state["step"].to(torch.float32),
+                                      base_lr=base_lr, warmup_steps=warmup,
+                                      total_steps=total_steps)
+            params, opt_state = opt_update(params, grads, opt_state, lr=lr, donate=donate)
+        metrics = {"loss": loss.detach(), "ce": parts["ce"].detach(),
+                   "aux": parts["aux"].detach(), "grad_norm": gnorm, "lr": lr}
+        return params, opt_state, metrics
+
+    return step
 
 
 def make_train_step(cfg, *, base_lr=3e-4, warmup=100, total_steps=10000,
@@ -92,32 +130,45 @@ def make_train_step(cfg, *, base_lr=3e-4, warmup=100, total_steps=10000,
     runs under ``torch.no_grad()``; metrics (``loss``, ``ce``, ``aux``,
     ``grad_norm``, ``lr``) are 0-dim tensors, read by nobody here.
     ``noise``: the RRAM noise factors for this step (see
-    ``make_loss_fn``); by default drawn for the state's step."""
-    loss_fn = make_loss_fn(cfg, weight_noise_std=weight_noise_std)
-    _, opt_update = make_optimizer(cfg.optimizer)
+    ``make_loss_fn``); by default drawn for the state's step, which is
+    then read on the host."""
+    step = _make_step(cfg, base_lr=base_lr, warmup=warmup, total_steps=total_steps,
+                      max_grad_norm=max_grad_norm, weight_noise_std=weight_noise_std)
 
     def train_step(params, opt_state, batch, noise=None):
         params = tree_map(lambda p: p if p.requires_grad else p.detach().requires_grad_(True),
                           params)
-        paths, leaves = zip(*tree_paths(params))
-        with torch.enable_grad():
-            loss, parts = loss_fn(params, batch, step=opt_state["step"], noise=noise)
-            grad_leaves = torch.autograd.grad(loss, leaves, allow_unused=True)
-        with torch.no_grad():
-            grads = tree_from_paths(
-                (path, torch.zeros_like(leaf) if g is None else g)
-                for path, leaf, g in zip(paths, leaves, grad_leaves))
-            grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
-            lr = linear_warmup_cosine(opt_state["step"].to(torch.float32),
-                                      base_lr=base_lr, warmup_steps=warmup,
-                                      total_steps=total_steps)
-            params, opt_state = opt_update(params, grads, opt_state, lr=lr)
-        params = tree_map(lambda p: p.requires_grad_(True), params)
-        metrics = {"loss": loss.detach(), "ce": parts["ce"].detach(),
-                   "aux": parts["aux"].detach(), "grad_norm": gnorm, "lr": lr}
-        return params, opt_state, metrics
+        if weight_noise_std > 0.0 and noise is None:
+            noise = weight_noise(params, weight_noise_std, int(opt_state["step"]))
+        params, opt_state, metrics = step(params, opt_state, batch, noise, False)
+        return tree_map(lambda p: p.requires_grad_(True), params), opt_state, metrics
 
     return train_step
+
+
+def make_train_body(cfg, *, base_lr=3e-4, warmup=100, total_steps=10000,
+                    max_grad_norm=1.0, weight_noise_std: float = 0.0):
+    """``body(params, opt_state, batch, generator=None)`` -> metrics: the
+    train step that ``CompiledTrainStep`` captures, runnable eagerly on any
+    device.  The same numbers as ``make_train_step``'s step, bit for bit,
+    but the params (leaves that require grad) and the state are updated IN
+    PLACE, the state's ``step`` included, and nothing is read on the host:
+    the RRAM noise factors, with noise on, are drawn from ``generator``,
+    which the caller has seeded with ``noise_seed(step)`` for the state's
+    step."""
+    step = _make_step(cfg, base_lr=base_lr, warmup=warmup, total_steps=total_steps,
+                      max_grad_norm=max_grad_norm, weight_noise_std=weight_noise_std)
+
+    def body(params, opt_state, batch, generator=None):
+        noise = None
+        if weight_noise_std > 0.0:
+            if generator is None:
+                raise ValueError("the weight noise is on: pass the generator seeded with "
+                                 "noise_seed(step)")
+            noise = weight_noise(params, weight_noise_std, generator=generator)
+        return step(params, opt_state, batch, noise, True)[2]
+
+    return body
 
 
 def init_train_state(cfg, gen: torch.Generator):
@@ -181,6 +232,30 @@ def _attention_rows(cache):
     return None
 
 
+def _launch_counts():
+    return dict(LAUNCHES), dict(LAUNCHES_BY_SHAPE)
+
+
+def _take_back(counts):
+    """Restore the launch counters to ``counts`` and return what was
+    counted since: (per kernel, per (kernel, shape))."""
+    before, shapes = counts
+    launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    by_shape = {k: n - shapes.get(k, 0) for k, n in LAUNCHES_BY_SHAPE.items()
+                if n != shapes.get(k, 0)}
+    LAUNCHES.update(before)
+    LAUNCHES_BY_SHAPE.clear()
+    LAUNCHES_BY_SHAPE.update(shapes)
+    return launches, by_shape
+
+
+def _add_launches(launches, by_shape):
+    for name, n in launches.items():
+        LAUNCHES[name] += n
+    for key, n in by_shape.items():
+        LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + n
+
+
 class CompiledServeStep:
     """The serve step captured once as a CUDA graph over one params tree
     and one cache, the counterpart of the reference's jitted step with its
@@ -225,19 +300,13 @@ class CompiledServeStep:
             step({k: {n: t.clone() for n, t in e.items()}
                   for k, e in cache.items()})                   # warm-up
             torch.cuda.synchronize(self.device)
-            counts, shapes = dict(LAUNCHES), dict(LAUNCHES_BY_SHAPE)
+            counts = _launch_counts()
             self.graph = torch.cuda.CUDAGraph()
             try:
                 with torch.cuda.graph(self.graph):
                     self.logits, self.next_token = step(cache)
             finally:
-                self.launches = {k: LAUNCHES[k] - counts[k] for k in LAUNCHES}
-                self.launches_by_shape = {
-                    k: n - shapes.get(k, 0) for k, n in LAUNCHES_BY_SHAPE.items()
-                    if n != shapes.get(k, 0)}
-                LAUNCHES.update(counts)
-                LAUNCHES_BY_SHAPE.clear()
-                LAUNCHES_BY_SHAPE.update(shapes)
+                self.launches, self.launches_by_shape = _take_back(counts)
 
     def __call__(self, params, cache, token, cache_len: int):
         if tensor_addresses(params, cache) != self.addresses:
@@ -249,8 +318,163 @@ class CompiledServeStep:
         self.token.copy_(token)
         self.cache_len.fill_(cache_len)
         self.graph.replay()
-        for name, n in self.launches.items():
-            LAUNCHES[name] += n
-        for key, n in self.launches_by_shape.items():
-            LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + n
+        _add_launches(self.launches, self.launches_by_shape)
         return self.next_token, cache
+
+
+class CompiledTrainStep:
+    """The train step (loss, autograd backward, global-norm clip,
+    warmup-cosine LR, the config's optimizer) captured once as a CUDA
+    graph over one params tree and one optimizer state, which it updates
+    in place: the counterpart of the reference's ``jax.jit(train_step,
+    donate_argnums=(0, 1))``.  The graph runs ``make_train_body``'s body,
+    the same numbers as ``make_train_step``.
+
+    ``step(params, opt_state, batch)`` -> ``(params, opt_state, metrics)``
+    takes the tensors the step was built on and returns them updated.  The
+    state's ``step`` is a 0-dim device tensor that the graph increments and
+    the LR is computed from on the device.  The batch (``tokens``,
+    ``labels``, ``mask``, and ``prefix_embeds`` or ``encoder_embeds``) is
+    copied into static buffers, made by the first call at its shapes.
+    ``metrics`` (``loss``, ``ce``, ``aux``, ``grad_norm``, ``lr``) are
+    static 0-dim tensors, overwritten by the next call: read or copy them
+    before it.
+
+    The first call is a real step of the run, run eagerly on a side stream:
+    it builds the kernels, sets their attributes at first launch, picks the
+    cuBLAS heuristics and runs autograd's set-up.  The second captures the
+    step (a capture executes nothing), then replays it, as does every call
+    after.  Both first empty the caching allocator, which keeps its cached
+    blocks per stream.  The graph's private pool keeps one step's
+    activations and gradients for its life (``pool_bytes``).
+
+    With the RRAM weight noise on, the class keeps the step on the host
+    (read from the state once when built and once in ``load``, advanced by
+    each call) and seeds a generator registered with the graph with
+    ``noise_seed(step)`` before each call, so a replay draws for step s the
+    factors ``weight_noise(params, std, s)`` draws.
+
+    ``load(params, opt_state)`` copies other tensors (a restored
+    checkpoint, a fresh state) into the captured ones.  A call whose
+    params or state are not the captured tensors, or whose batch has other
+    keys, shapes or dtypes, raises ``ValueError``; a failed capture or
+    replay raises.  Nothing falls back to the eager step, and a CPU device
+    is refused: the eager ``make_train_step`` is the caller's choice there.
+
+    ``kernels.ops.LAUNCHES`` and ``LAUNCHES_BY_SHAPE`` count as for
+    ``CompiledServeStep``: the capture's counts are taken back and added
+    again on every replay, so the counters read as the eager step's."""
+
+    def __init__(self, cfg, params, opt_state, *, base_lr=3e-4, warmup=100,
+                 total_steps=10000, max_grad_norm=1.0, weight_noise_std: float = 0.0):
+        self.device = opt_state["step"].device
+        if self.device.type != "cuda":
+            raise ValueError("CompiledTrainStep captures a CUDA graph: it takes params and "
+                             "state on a CUDA device (make_train_step runs elsewhere)")
+        for path, p in tree_paths(params):
+            if not p.is_leaf or p.device != self.device:
+                raise ValueError(f"param {'/'.join(path)}: a leaf tensor on {self.device} "
+                                 "is needed")
+            p.requires_grad_(True)
+        self.params, self.opt_state = params, opt_state
+        self.addresses = tensor_addresses(params, opt_state)
+        self.body = make_train_body(cfg, base_lr=base_lr, warmup=warmup,
+                                    total_steps=total_steps, max_grad_norm=max_grad_norm,
+                                    weight_noise_std=weight_noise_std)
+        self.generator = (torch.Generator(device=self.device) if weight_noise_std > 0.0
+                          else None)
+        self.host_step = int(opt_state["step"])
+        self.warm = False
+        self.batch = None
+        self.metrics = {k: torch.zeros((), dtype=torch.float32, device=self.device)
+                        for k in ("loss", "ce", "aux", "grad_norm", "lr")}
+        self.graph = None
+        self.launches, self.launches_by_shape = {}, {}
+        self.capture_seconds = None
+        self.pool_bytes = None
+
+    def _run(self):
+        """The body on the captured tensors and buffers; its metrics copied
+        into the static ones."""
+        metrics = self.body(self.params, self.opt_state, self.batch, self.generator)
+        with torch.no_grad():
+            for k, t in self.metrics.items():
+                t.copy_(metrics[k])
+
+    def _capture(self):
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
+        graph = torch.cuda.CUDAGraph()
+        if self.generator is not None:
+            graph.register_generator_state(self.generator)
+        counts = _launch_counts()
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph):
+                self._run()
+        except Exception as e:
+            raise RuntimeError(f"CompiledTrainStep: the capture failed: {e}") from e
+        finally:
+            self.launches, self.launches_by_shape = _take_back(counts)
+        self.capture_seconds = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+        self.graph = graph
+
+    def _check(self, params, opt_state, batch):
+        if tensor_addresses(params, opt_state) != self.addresses:
+            raise ValueError("CompiledTrainStep: params or state are not the tensors the step "
+                             "was built on; load() them into the step's own")
+        if self.batch is None:
+            self.batch = {k: torch.empty(v.shape, dtype=v.dtype, device=self.device)
+                          for k, v in batch.items()}
+            return
+        want = {k: (tuple(v.shape), v.dtype) for k, v in self.batch.items()}
+        got = {k: (tuple(v.shape), v.dtype) for k, v in batch.items()}
+        if got != want:
+            raise ValueError(f"CompiledTrainStep: the batch {got} is not the captured {want}")
+
+    def __call__(self, params, opt_state, batch):
+        self._check(params, opt_state, batch)
+        for k, t in self.batch.items():
+            t.copy_(batch[k])
+        if not self.warm:
+            self._seed()
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()        # the allocator keeps its blocks per stream
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                self._run()
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            self.warm = True
+        else:
+            if self.graph is None:
+                self._capture()
+            self._seed()
+            self.graph.replay()
+            _add_launches(self.launches, self.launches_by_shape)
+        self.host_step += 1
+        return self.params, self.opt_state, self.metrics
+
+    def _seed(self):
+        if self.generator is not None:
+            self.generator.manual_seed(noise_seed(self.host_step))
+
+    @torch.no_grad()
+    def load(self, params, opt_state):
+        """Copy ``params`` and ``opt_state`` (trees of the captured ones'
+        nesting and shapes, on any device) into the captured tensors, and
+        take the host's step from the state."""
+        mine = dict(tree_paths({"p": self.params, "s": self.opt_state}))
+        theirs = dict(tree_paths({"p": params, "s": opt_state}))
+        if set(mine) != set(theirs):
+            raise ValueError(f"load: other leaves {sorted(set(mine) ^ set(theirs))}")
+        for path, t in mine.items():
+            if tuple(theirs[path].shape) != tuple(t.shape):
+                raise ValueError(f"load: {'/'.join(path)} has shape "
+                                 f"{tuple(theirs[path].shape)}, the step's {tuple(t.shape)}")
+            t.copy_(theirs[path])
+        self.host_step = int(self.opt_state["step"])
+        return self.params, self.opt_state
+

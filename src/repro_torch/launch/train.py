@@ -1,11 +1,18 @@
 """End-to-end training driver; port of ``repro.launch.train``.
 
 Runs a training loop on one device, the CUDA card unless ``--device``
-names another (``--device cpu`` runs the kernels' plain versions).  Fault
-tolerance: periodic async checkpoints (the reference's format), restart
-from the latest one with the data cursor, optional injected failures to
-exercise the restart policy.  There is no mesh and no sharding context:
-the multi-device layer is still to be ported (ROADMAP §A6).
+names another.  On the card the step is ``launch.steps.CompiledTrainStep``:
+captured once as a CUDA graph over one params tree and one optimizer
+state, updated in place (the reference jits its step with both donated);
+a restored checkpoint, and the fresh state of a restart without one, are
+copied into those tensors, so one graph serves the whole run.
+``--device cpu`` runs the eager ``make_train_step`` on the kernels' plain
+versions.  The loss is read on the host every step, as the reference
+blocks on it.  Fault tolerance: periodic async checkpoints (the
+reference's format), restart from the latest one with the data cursor,
+optional injected failures to exercise the restart policy.  There is no
+mesh and no sharding context: the multi-device layer is still to be
+ported (ROADMAP §A6).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \
@@ -26,7 +33,8 @@ import torch
 from repro_torch.checkpoint import AsyncCheckpointer, latest_step, restore
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data import PackedStream
-from repro_torch.launch.steps import init_train_state, make_train_step
+from repro_torch.launch.steps import (CompiledTrainStep, init_train_state,
+                                      make_train_step)
 from repro_torch.models.common import count_params, resolve_device
 from repro_torch.runtime import RestartPolicy, StragglerDetector, WorkerFailure
 
@@ -72,15 +80,25 @@ def main(argv=None):
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     device = resolve_device(args.device)
-    train_step = make_train_step(cfg, base_lr=args.lr, warmup=10,
-                                 total_steps=args.steps)
 
     def fresh_state():
         return init_train_state(cfg, torch.Generator(device=device).manual_seed(args.seed))
 
     params, opt_state = fresh_state()
+    hyper = dict(base_lr=args.lr, warmup=10, total_steps=args.steps)
+    if device.type == "cuda":
+        train_step = CompiledTrainStep(cfg, params, opt_state, **hyper)
+
+        def adopt(new_params, new_state):
+            return train_step.load(new_params, new_state)
+    else:
+        train_step = make_train_step(cfg, **hyper)
+
+        def adopt(new_params, new_state):
+            return new_params, new_state
     where = torch.cuda.get_device_name(device) if device.type == "cuda" else str(device)
-    print(f"arch={cfg.name} params={count_params(params)/1e6:.1f}M device={where}")
+    print(f"arch={cfg.name} params={count_params(params)/1e6:.1f}M device={where} "
+          f"step={'captured' if device.type == 'cuda' else 'eager'}")
 
     stream = PackedStream(cfg.vocab_size, args.seq_len, seed=args.seed)
     ckpt = AsyncCheckpointer(args.ckpt_dir)
@@ -90,6 +108,7 @@ def main(argv=None):
     start = 0
     if latest_step(args.ckpt_dir) is not None:
         (params, opt_state), extras = restore(args.ckpt_dir, (params, opt_state))
+        params, opt_state = adopt(params, opt_state)
         start = extras.get("step", 0)
         if "data_state" in extras:
             stream.restore(extras["data_state"])
@@ -115,12 +134,13 @@ def main(argv=None):
             ckpt.wait()
             if latest_step(args.ckpt_dir) is not None:
                 (params, opt_state), extras = restore(args.ckpt_dir, (params, opt_state))
+                params, opt_state = adopt(params, opt_state)
                 step = extras.get("step", 0)
                 if "data_state" in extras:
                     stream.restore(extras["data_state"])
                 print(f"[ft] restarted from step {step}")
             else:
-                params, opt_state = fresh_state()
+                params, opt_state = adopt(*fresh_state())
                 step = 0
                 print("[ft] no checkpoint; restarted from scratch")
             continue

@@ -3,8 +3,10 @@
 Params, gradients and optimizer state are nested dicts of tensors (the
 JAX package's pytrees); a state keeps the JAX keys, with a 0-dim int32
 ``step`` tensor on the parameters' device.  Updates are functions that
-return new tensors, as the JAX ones return new arrays, and read nothing
-on the host: ``lr`` and the step stay tensors."""
+return new tensors, as the JAX ones return new arrays, or with
+``donate=True`` write the same bits into the given params and state (the
+captured train step's form), and read nothing on the host: ``lr`` and the
+step stay tensors."""
 from .adamw import adamw_init, adamw_update
 from .adafactor import adafactor_init, adafactor_update
 from .schedule import cosine_schedule, linear_warmup_cosine

@@ -26,9 +26,11 @@ def adafactor_init(params):
 
 @torch.no_grad()
 def adafactor_update(params, grads, state, *, lr, b2=0.999, eps=1e-30,
-                     weight_decay=0.0, clip_threshold=1.0):
+                     weight_decay=0.0, clip_threshold=1.0, donate=False):
     """One step: returns (new params, new state); float32 math, each result
-    cast to its param's dtype."""
+    cast to its param's dtype.  With ``donate`` the results are written
+    into the given params and state tensors, which are returned (the same
+    bits as the new tensors)."""
     step = state["step"] + 1
     t = step.to(torch.float32)
     beta2t = 1.0 - torch.pow(t, -0.8)
@@ -52,8 +54,16 @@ def adafactor_update(params, grads, state, *, lr, b2=0.999, eps=1e-30,
         newp = p.to(torch.float32) - lr * u
         if weight_decay:
             newp -= lr * weight_decay * p.to(torch.float32)
+        if donate:
+            p.copy_(newp)
+            for k, t in news.items():
+                s[k].copy_(t)
+            return p, s
         return newp.to(p.dtype), news
 
     # the params' nesting leads: at each param, state["v"] holds its dict
     out = tree_map(upd, params, grads, state["v"])
+    if donate:
+        state["step"].copy_(step)
+        return params, state
     return tree_pick(out, 0), {"v": tree_pick(out, 1), "step": step}

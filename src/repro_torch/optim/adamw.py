@@ -35,22 +35,23 @@ def _slices(p):
 
 @torch.no_grad()
 def adamw_update(params, grads, state, *, lr, b1=0.9, b2=0.95, eps=1e-8,
-                 weight_decay=0.1):
+                 weight_decay=0.1, donate=False):
     """One step: returns (new params, new state).  ``lr`` is a float or a
     0-dim float32 tensor; the math runs in float32 and each result is cast
     to its param's dtype.  The moments ``m`` and ``v`` are updated IN PLACE
     and returned in the new state (the reference's driver donates its
     state, ``donate_argnums=(0, 1)``, to the same end: at mamba2-2.7b's 2.83
     B params a second copy of the float32 moments would not fit the card);
-    the params are new tensors.  The arithmetic is the reference's,
-    element by element."""
+    the params are new tensors, or with ``donate`` the given ones updated in
+    place, as is the state's ``step`` (the same bits either way).  The
+    arithmetic is the reference's, element by element."""
     step = state["step"] + 1
     t = step.to(torch.float32)
     bc1 = 1.0 - torch.pow(b1, t)
     bc2 = 1.0 - torch.pow(b2, t)
 
     def upd(p, g, m, v):
-        out = torch.empty_like(p)
+        out = p if donate else torch.empty_like(p)
         for sl in _slices(p):
             g32 = g[sl].to(torch.float32)
             m[sl] = b1 * m[sl] + (1 - b1) * g32
@@ -62,5 +63,8 @@ def adamw_update(params, grads, state, *, lr, b1=0.9, b2=0.95, eps=1e-8,
             out[sl] = (p32 - lr * delta).to(p.dtype)
         return out
 
-    return (tree_map(upd, params, grads, state["m"], state["v"]),
-            {"m": state["m"], "v": state["v"], "step": step})
+    new = tree_map(upd, params, grads, state["m"], state["v"])
+    if donate:
+        state["step"].copy_(step)
+        return params, state
+    return new, {"m": state["m"], "v": state["v"], "step": step}

@@ -1573,3 +1573,198 @@ def test_family_train_step_on_the_card_matches_the_cpu(cuda, arch, remat):
         for k in pu:
             scale = max(float(pu[k].norm()), 1e-30)
             assert float((cu[k] - pu[k]).norm()) <= 1e-2 * scale or not pu[k].any(), k
+
+
+# ---------------------------------------------------------------------------
+# The train step captured as one CUDA graph (launch.steps.CompiledTrainStep)
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCHS = ["llama3.2-1b", *FAMILIES]
+
+
+def _graph_batches(cfg, device, n=3, seq=64):
+    """``n`` batches of PackedStream(0) on ``device``, with random frame /
+    patch embeddings where the family takes them."""
+    from repro_torch.data import PackedStream
+    stream = PackedStream(cfg.vocab_size, seq, seed=0)
+    out = []
+    for i in range(n):
+        b = {k: torch.from_numpy(v).to(device) for k, v in stream.next_batch(2).items()}
+        b["tokens"], b["labels"] = b["tokens"].long(), b["labels"].long()
+        if cfg.is_encoder_decoder:
+            b["encoder_embeds"] = _randn((2, cfg.encoder_seq, cfg.d_model), torch.float32,
+                                         10 + i, device) * 0.02
+        if cfg.n_prefix_tokens:
+            b["prefix_embeds"] = _randn((2, cfg.n_prefix_tokens, cfg.d_model), torch.float32,
+                                        20 + i, device) * 0.02
+        out.append(b)
+    return out
+
+
+def _start(cfg, device, seed=0):
+    """Params (leaves that require grad) from a seed, and a fresh state of
+    the config's optimizer, on ``device``."""
+    from repro_torch.launch.steps import init_train_state
+    params, state = init_train_state(cfg, torch.Generator().manual_seed(seed))
+    return (_on(params, device, grad=True), _on(state, device))
+
+
+def _on(tree, device, grad=False):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.detach().to(device, copy=True).requires_grad_(grad), tree)
+
+
+def _flat_cpu(params, state, metrics):
+    from repro_torch.tree import tree_paths
+    out = {("m",) + (k,): v.detach().cpu().clone() for k, v in metrics.items()}
+    out.update({("p",) + k: v.detach().cpu().clone() for k, v in tree_paths(params)})
+    out.update({("s",) + k: v.detach().cpu().clone() for k, v in tree_paths(state)})
+    return out
+
+
+def _eager_run(cfg, batches, device, noise=0.0):
+    """Each step's {metric / param / state leaf: CPU copy} of the eager
+    step from ``_start``, and the launches it made."""
+    from repro_torch.launch.steps import make_train_step
+    params, state = _start(cfg, device)
+    step = make_train_step(cfg, warmup=1, total_steps=10, weight_noise_std=noise)
+    before = dict(ops.LAUNCHES)
+    out = []
+    for b in batches:
+        params, state, m = step(params, state, b)
+        out.append(_flat_cpu(params, state, m))
+    return out, {k: ops.LAUNCHES[k] - before[k] for k in before}
+
+
+def _graph_run(cfg, batches, device, noise=0.0):
+    """The same steps through ``CompiledTrainStep``: one eager warm-up step
+    (the step's first call), the start state loaded back into the captured
+    tensors, then a replay a batch (the first also captures)."""
+    from repro_torch.launch.steps import CompiledTrainStep, tensor_addresses
+    params, state = _start(cfg, device)
+    step = CompiledTrainStep(cfg, params, state, warmup=1, total_steps=10,
+                             weight_noise_std=noise)
+    step(params, state, batches[0])
+    assert step.graph is None and int(state["step"]) == 1
+    step.load(*_start(cfg, "cpu"))
+    addresses = tensor_addresses(params, state)
+    before = dict(ops.LAUNCHES)
+    out = []
+    for b in batches:
+        p, s, m = step(params, state, b)
+        assert p is params and s is state
+        out.append(_flat_cpu(params, state, m))
+    assert step.graph is not None and tensor_addresses(params, state) == addresses
+    return out, {k: ops.LAUNCHES[k] - before[k] for k in before}, step
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_compiled_train_step_matches_the_eager_step(cuda, arch, remat):
+    """Smoke float32, 3 steps of the captured step against two eager runs
+    from the same state (``checks.graph_vs_eager``: bit-equal where
+    eager is equal to itself, else within twice its spread): metrics,
+    params and AdamW state after each step; the same launches a step as
+    eager."""
+    from repro_torch.checks import graph_vs_eager
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32", remat=remat)
+    batches = _graph_batches(cfg, cuda)
+    eager_a, launches = _eager_run(cfg, batches, cuda)
+    eager_b, _ = _eager_run(cfg, batches, cuda)
+    graph, graph_launches, _ = _graph_run(cfg, batches, cuda)
+    assert graph_launches == launches and sum(launches.values()) > 0
+    spread, _, bad = graph_vs_eager(graph, eager_a, eager_b)
+    assert not bad, (sorted(spread)[:8], bad[:8])
+
+
+def test_compiled_train_step_draws_weight_noise_of_the_step(cuda, monkeypatch):
+    """With the RRAM weight noise on, the factors a call draws are
+    bit-equal to ``weight_noise(params, std, s)``: at step 0 (the eager
+    warm-up call), then, after a state whose step is 5 is loaded, at steps
+    5, 6, 7 (replays); the loss of each replay equals the eager step's on
+    the same state, batch and factors within float32 rounding.  The step's
+    factors are read through the tree its ``weight_noise`` call returned:
+    for a replay, the captured tensors the graph draws into."""
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.steps import CompiledTrainStep, make_loss_fn
+    from repro_torch.tree import tree_paths
+    cfg = dataclasses.replace(get_smoke_config("llama3.2-1b"), dtype="float32")
+    std = 0.05
+    batches = _graph_batches(cfg, cuda)
+    params, state = _start(cfg, cuda)
+    weight_noise, drawn = steps_mod.weight_noise, []
+
+    def recorded(*args, **kw):
+        drawn.append(weight_noise(*args, **kw))
+        return drawn[-1]
+
+    monkeypatch.setattr(steps_mod, "weight_noise", recorded)
+    step = CompiledTrainStep(cfg, params, state, warmup=1, total_steps=10,
+                             weight_noise_std=std)
+
+    def same(s):
+        want = weight_noise(params, std, s)
+        for (path, got), (_, w) in zip(tree_paths(drawn[-1]), tree_paths(want)):
+            assert (got is None and w is None) or torch.equal(got, w), (s, path)
+
+    step(params, state, batches[0])
+    same(0)
+    start_p, start_s = _start(cfg, "cpu", seed=3)
+    start_s["step"].fill_(5)
+    step.load(start_p, start_s)
+    loss_fn = make_loss_fn(cfg, weight_noise_std=std)
+    for i, b in enumerate(batches):
+        with torch.no_grad():
+            want = float(loss_fn(params, b, noise=weight_noise(params, std, 5 + i))[0])
+        _, _, m = step(params, state, b)
+        same(5 + i)
+        assert abs(float(m["loss"]) - want) <= 1e-6 * abs(want), (i, float(m["loss"]), want)
+    assert int(state["step"]) == 8 and step.host_step == 8
+
+
+def test_compiled_train_step_refuses_other_tensors_and_batches(cuda):
+    from repro_torch.launch.steps import CompiledTrainStep
+    cfg = dataclasses.replace(get_smoke_config("llama3.2-1b"), dtype="float32")
+    batches = _graph_batches(cfg, cuda, n=2)
+    params, state = _start(cfg, cuda)
+    step = CompiledTrainStep(cfg, params, state, warmup=1, total_steps=10)
+    for b in batches:
+        step(params, state, b)
+    assert step.graph is not None
+    other = dict(params, embed=params["embed"].detach().clone().requires_grad_(True))
+    with pytest.raises(ValueError, match="not the tensors"):
+        step(other, state, batches[0])
+    with pytest.raises(ValueError, match="not the tensors"):
+        step(params, dict(state, step=state["step"].clone()), batches[0])
+    short = {k: v[:, :32] for k, v in batches[0].items()}
+    with pytest.raises(ValueError, match="batch"):
+        step(params, state, short)
+    with pytest.raises(ValueError, match="batch"):
+        step(params, state, dict(batches[0], mask=batches[0]["mask"].double()))
+    with pytest.raises(ValueError, match="shape"):
+        step.load({**params, "embed": params["embed"][:1]}, state)
+    n = int(state["step"])
+    step(params, state, batches[1])                         # still serves
+    assert int(state["step"]) == n + 1
+
+
+def test_train_driver_restores_into_the_captured_tensors(cuda, tmp_path, capsys):
+    """``launch.train.main`` on the card steps through CompiledTrainStep,
+    which refuses any tensors but its own: a run that restarts from scratch
+    after an injected failure (no checkpoint yet: a fresh state copied in),
+    then one that restores a checkpoint at start and again after a failure
+    (copied in), each ends with the loss down."""
+    from repro_torch.launch import train
+    fresh = ["--arch", "llama3.2-1b", "--smoke", "--ckpt-dir", str(tmp_path / "a"),
+             "--steps", "12", "--save-every", "100", "--simulate-failures", "1"]
+    losses = train.main(fresh)
+    out = capsys.readouterr().out
+    assert "step=captured" in out and "no checkpoint; restarted from scratch" in out
+    assert losses[-1] < losses[0]
+    base = ["--arch", "llama3.2-1b", "--smoke", "--ckpt-dir", str(tmp_path / "b")]
+    train.main(base + ["--steps", "10", "--save-every", "10"])
+    losses = train.main(base + ["--steps", "30", "--save-every", "10",
+                                "--simulate-failures", "1"])
+    out = capsys.readouterr().out
+    assert "restored from checkpoint at step 10" in out and "restarted from step 10" in out
+    assert losses[-1] < losses[0]

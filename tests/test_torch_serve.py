@@ -157,9 +157,10 @@ def _imports(path: Path):
 
 def test_no_port_file_imports_jax_or_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
-    assert len(files) > 15
-    rel = {str(f.relative_to(ROOT / "src" / "repro_torch")) for f in files[:-1]}
+    port = len(files)
+    files += [ROOT / "chip_smoke.py", ROOT / "examples" / "train_100m_torch.py"]
+    assert port > 15 and all(f.exists() for f in files)
+    rel = {str(f.relative_to(ROOT / "src" / "repro_torch")) for f in files[:port]}
     assert {"optim/adamw.py", "optim/adafactor.py", "optim/clip.py", "optim/schedule.py",
             "checkpoint/ckpt.py", "data/pipeline.py", "runtime/fault_tolerance.py",
             "runtime/straggler.py", "launch/train.py"} <= rel
