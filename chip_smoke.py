@@ -71,7 +71,12 @@ Phases, each of which fails the run if it fails:
                 bf16 views (bit-equal to contiguous copies) and float32,
                 zamba2's N 64, ragged S, long memory at S 2048, the smoke
                 widths, with and without the final state's gradient,
-                bit-equal across two runs; time kernel, plain
+                bit-equal across two runs; paged attention's partial mode
+                (PICNIC's shard partials, ``ops.paged_attention_partial``)
+                on (o, m, l) at llama3-8b's decode shape cut into 2 and 4
+                shards by ``key_offset``, bf16 and float32, windows that
+                bind across a shard boundary, shards with no kept key,
+                several splits and one; time kernel, plain
                 version and one PyTorch library call where there is one,
                 with CUDA events.
   serve         llama3-8b at full width and depth in bf16, random weights
@@ -133,6 +138,21 @@ Phases, each of which fails the run if it fails:
                 layers), whisper-large-v3 (no encoder run, as the JAX
                 Server) and paligemma-3b (no image prefix, as the JAX
                 Server); on the card the Server replays its captured graph.
+  picnic_decode PICNIC's sequence-sharded decode: two ranks spawned on the
+                one card (gloo; NCCL refuses two ranks on one GPU), a (1,
+                2) ("data", "model") mesh; llama3-8b at full width and
+                depth in bf16, B4, a 1024-row cache of which each rank
+                holds 512 rows (``sharding.local_cache``), a 500-token
+                prompt, then 32 greedy steps across the shard boundary at
+                row 512 under ``ShardingCtx(picnic_decode=True)``, eager;
+                the launch counters zeroed before each rank's prefill and
+                read after its decode; rank 0 also runs the single-rank
+                decode of the same prefill fed the same tokens, held per
+                row (PICNIC_BF16_ROW_REL) with the share of equal greedy
+                ids printed; then a float32 cut of 2 layers: greedy ids
+                equal, logits within 1e-5 relative.  Its ms a step is
+                printed as correctness-only: the two ranks share one
+                card's SMs.
   train         llama3.2-1b at full width and depth (16 layers) in bf16
                 under remat, random weights from a seed: 20 + 2 AdamW steps
                 of B8 x S1024 from the port's PackedStream, the first half
@@ -236,8 +256,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "serve", "ssm_serve", "hybrid_serve", "moe_serve", "audio_serve",
           "vlm_serve", "cim_scu", "parity", "ssm_parity", "moe_parity", "audio_parity",
-          "vlm_parity", "server", "train", "train_parity", "train_driver", "audio_train",
-          "audio_train_parity", "ssm_train", "ssm_train_parity", "hybrid_train",
+          "vlm_parity", "server", "picnic_decode", "train", "train_parity", "train_driver",
+          "audio_train", "audio_train_parity", "ssm_train", "ssm_train_parity", "hybrid_train",
           "hybrid_train_parity", "moe_train", "moe_train_parity", "vlm_train",
           "vlm_train_parity", "train_100m_torch")
 EXTRA_PHASES = ("profile",)          # run only when named in --phases
@@ -404,6 +424,21 @@ HYBRID_PARITY_CHUNK = 64
 # TRAIN_METRIC_REL); pinning a_log and dt_bias alone leaves 3.13e-5,
 # embed alone 2.43e-5
 FREE_RUN_GRAD_NORM_REL = TRAIN_GRAD_REL
+# picnic_decode: llama3-8b, B4, a prompt of 500 tokens and 32 greedy steps
+# into a 1024-row cache split in two along the sequence over a (1, 2)
+# ("data", "model") mesh, 512 rows a rank in 64-token blocks, so the steps
+# write rows 500..531 across the boundary at 512; a float32 cut of
+# PICNIC_F32_LAYERS layers held within PICNIC_F32_REL
+PICNIC_MESH, PICNIC_B, PICNIC_MAX_LEN, PICNIC_PROMPT, PICNIC_NEW = (1, 2), 4, 1024, 500, 32
+PICNIC_F32_LAYERS, PICNIC_F32_REL = 2, 1e-5
+# bf16: the picnic step and the single-rank step differ only where the
+# attention output rounds to bf16 from another float32 sum (two shards'
+# partials combined, against one kernel's nine splits): an ulp on a few
+# elements, carried through 32 layers.  Each (step, sequence) row of
+# logits is held within this relative L2 distance of the single-rank row;
+# a wrong shard or a mis-weighted partial moves a row by O(1)
+PICNIC_BF16_ROW_REL = 0.05
+PICNIC_TIMEOUT = 600                # seconds, each rank
 # the train phases whose flash forward the kernels phase times at their shape
 TRAIN_MODEL_OF = {"train": "llama3.2-1b", "audio_train": "whisper", "hybrid_train": "zamba2",
                   "moe_train": "mixtral", "vlm_train": "paligemma"}
@@ -814,6 +849,7 @@ def phase_kernels(torch, timer, results):
     paged_window_cases(torch, timer, randn, extra)
     audio_attention_cases(torch, timer, randn, extra)
     vlm_attention_cases(torch, timer, randn, extra)
+    partial = paged_partial_cases(torch, timer, randn)
 
     # ---- SSD scan (mamba prefill) -------------------------------------
     def ssd_case(b, s, h, p, n, dt, memory, strided=False):
@@ -918,7 +954,7 @@ def phase_kernels(torch, timer, results):
     flash_bwd = flash_bwd_cases(torch, timer, randn, extra)
     ssd_bwd = ssd_bwd_cases(torch, timer, randn, extra)
 
-    results["kernels"] = [flash, paged, ssd, softmax, cim, flash_bwd, ssd_bwd]
+    results["kernels"] = [flash, paged, ssd, softmax, cim, flash_bwd, ssd_bwd, partial]
     results["kernels_other_shapes"] = extra
     for kern in results["kernels"] + extra:
         lib = kern["library_ms"]
@@ -1448,6 +1484,154 @@ def paged_window_cases(torch, timer, randn, extra):
             "bound_ms": bms, "bound_by": by,
         })
     torch.cuda.synchronize()
+
+
+def merge_partials(torch, parts):
+    """The combine of ``models.attention.combine_partials`` over a list of
+    shards' (o, m, l), in one process: o / l of the merged terms."""
+    o, m, l = (torch.stack(t) for t in zip(*parts))
+    w = torch.exp(m - m.amax(0))
+    return (o * w[..., None]).sum(0) / (l * w).sum(0).clamp_min(1e-30)[..., None]
+
+
+def _hold_partial(torch, got, want, what):
+    """A shard's (o, m, l) against the plain version's: the heads with no
+    kept key exactly (0, NEG_INF, 0) in both, the others each within
+    PICNIC_F32_REL of the plain version's largest |value| (float32 sums in
+    another order, from the same inputs in either dtype).  Returns the
+    largest relative error."""
+    from repro_torch.kernels.paged_attention import NEG_INF
+    (o, m, l), (wo, wm, wl) = got, want
+    empty = wl == 0
+    if not torch.equal(empty, l == 0) or bool(o[empty].any()) \
+            or not bool((m[empty] == NEG_INF).all()):
+        raise AssertionError(f"paged_attention partial {what}: an empty head is not (0, -1e30, 0)")
+    errs = [0.0]
+    if bool((~empty).any()):
+        errs = [((a - b)[~empty].abs().max() / b[~empty].abs().max().clamp_min(1e-30)).item()
+                for a, b in ((o, wo), (m, wm), (l, wl))]
+    if not max(errs) <= PICNIC_F32_REL:
+        raise AssertionError(f"paged_attention partial {what}: rel errs (o, m, l) {errs}")
+    return max(errs)
+
+
+def paged_partial_cases(torch, timer, randn):
+    """Paged attention's partial mode (``ops.paged_attention_partial``, one
+    flag of ``csrc/paged_attention.cu``) against its plain version on
+    every shard: llama3-8b's decode shape (B4 H32 Hkv8 D128, bt 64) over
+    1024 rows cut into 2 and 4 shards by ``key_offset``, contexts ending in
+    every shard, windows of 300 and 100 across a boundary, shards with no
+    kept key, bf16 and float32, several splits (the split plan's 8 at B4)
+    and one (B33); each case's merged output held to the plain version's
+    merged output and to the ordinary call over the whole cache.  The
+    picnic_decode phase's shape (2 shards, contexts 532, rank 0's shard of
+    512 keys) is timed in turns with the ordinary paged call over the same
+    keys (no library call gives the partials).  Returns its ``kernels``
+    entry."""
+    from repro_torch.kernels import ops, paged_attention as pa
+    from repro_torch.kernels.paged_attention import (identity_block_table,
+                                                     paged_attention_plain, split_plan)
+
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bt, s = 64, PICNIC_MAX_LEN
+    cases = []  # contexts, n_shards, window, dtype
+    for dt in ("bfloat16", "float32"):
+        for n in (2, 4):
+            for window in (None, 300, 100):
+                cases.append(([1024, 700, 513, 300], n, window, dt))
+    cases.append(([900 - 3 * j for j in range(33)], 2, 200, "bfloat16"))   # one split
+    main = ([PICNIC_PROMPT + PICNIC_NEW] * PICNIC_B, 2, None, "bfloat16")
+    cases.append(main)
+    entry = None
+    for ctx, n, window, dt in cases:
+        b = len(ctx)
+        q = randn((b, HQ, D), dt)
+        cache_k, cache_v = (randn((b, s, HKV, D), dt) for _ in range(2))
+        lens = torch.tensor(ctx, dtype=torch.int32, device="cuda")
+        sl = s // n
+        table = identity_block_table(b, sl, bt, device="cuda")
+        n_splits, bps = split_plan(b * HKV, sl // bt, bt, n_sms)
+        if (n_splits == 1) != (b == 33):
+            raise AssertionError(f"split_plan gave {n_splits} splits at B{b}")
+        got, want, errs, pools = [], [], [], []
+        for i in range(n):
+            pk, pv = (c[:, i * sl:(i + 1) * sl].contiguous().view(b * sl // bt, bt, HKV, D)
+                      for c in (cache_k, cache_v))
+            pools.append((pk, pv))
+            kw = dict(key_offset=i * sl, window=window)
+            got.append(ops.paged_attention_partial(q, pk, pv, table, lens, **kw))
+            want.append(paged_attention_plain(q, pk, pv, table, lens, partial=True, **kw))
+            torch.cuda.synchronize()
+            errs.append(_hold_partial(torch, got[-1], want[-1], f"shard {i} of {n}"))
+        merged = merge_partials(torch, got)
+        whole = paged_attention_plain(q, cache_k.view(-1, bt, HKV, D), cache_v.view(-1, bt, HKV, D),
+                                      identity_block_table(b, s, bt, device="cuda"), lens,
+                                      window=window).float()
+        err = (merged - merge_partials(torch, want)).abs().max().item()
+        err_whole = (merged - whole).abs().max().item()
+        what = (f"B{b} H{HQ} Hkv{HKV} D{D} bt{bt} {dt} {n} shards of {sl} rows "
+                f"ctx={ctx if b <= 4 else f'{b} of {ctx[-1]}..{ctx[0]}'} window {window} "
+                f"splits {n_splits} x {bps}")
+        log(f"[kernels] paged_attention partial {what}: shards' max rel err (o, m, l) "
+            f"{max(errs):.3e} (tol {PICNIC_F32_REL:.0e}), merged max_abs_err={err:.3e}, "
+            f"merged vs the ordinary call over the whole cache {err_whole:.3e}")
+        # the whole cache's call rounds to bf16 for a bf16 q
+        if not (err <= TOL["float32"] and err_whole <= TOL[dt]):
+            raise AssertionError(f"paged_attention partial {what}: merged output disagrees")
+        if (ctx, n, window, dt) != main:
+            continue
+        q0, (pk, pv) = q, pools[0]
+        kept = [min(c, sl) for c in ctx]                 # rank 0's keys
+        esize = q.element_size()
+        nbytes = (q.numel() * esize + 2 * sum(kept) * HKV * D * esize + table.numel() * 4
+                  + lens.numel() * 4 + b * HQ * (D + 2) * 4)
+        bms, by = bound(nbytes, 4 * sum(kept) * HQ * D, dt)
+        local_lens = torch.tensor(kept, dtype=torch.int32, device="cuda")
+        # the partial call and the ordinary call over the same keys timed in
+        # turns (partial, ordinary, ordinary, partial) x 5, medians: one
+        # reading of a ~0.02 ms kernel moves up to 1.8x within a call
+        calls = {"partial": lambda: ops.paged_attention_partial(q0, pk, pv, table, lens),
+                 "ordinary": lambda: ops.paged_attention(q0, pk, pv, table, local_lens)}
+        rounds = {"partial": [], "ordinary": []}
+        for _ in range(5):
+            for which in ("partial", "ordinary", "ordinary", "partial"):
+                rounds[which].append(timer.ms(calls[which], 20))
+        med = {k: sorted(v)[len(v) // 2] for k, v in rounds.items()}
+
+        def device_ms(fn, n=20):
+            """Device time of a call under torch.profiler (its paged kernels
+            only, the L2 flushed before each call): no host gap in it."""
+            def body():
+                for _ in range(n):
+                    timer.flush_buf.zero_()
+                    fn()
+            return trace(torch, body)["device_ms_by_class"]["paged_attention"] / n
+
+        dev = {k: device_ms(fn) for k, fn in calls.items()}
+        log(f"[kernels] paged_attention partial at picnic_decode's shape, ms in turns: "
+            + "; ".join(f"{k} " + ", ".join(f"{t:.4f}" for t in v) for k, v in rounds.items())
+            + "; device ms a call (profiler): "
+            + ", ".join(f"{k} {t:.4f}" for k, t in dev.items()))
+        entry = {
+            "name": "paged_attention", "mode": "partial", "route": "cuda",
+            "source": "src/repro_torch/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention.py:86",
+            "design": "the split-KV kernel's float32 (o, m, l) under one flag, "
+                      "key_offset on both mask bounds",
+            "n_splits": n_splits, "blocks_per_split": bps,
+            "shape": f"picnic_decode rank 0 {what}", "max_abs_err": err,
+            "path": "picnic_decode",
+            "launch_key": pa.launch_key(q0, pk, table, partial=True),
+            "ms": med["partial"],
+            "plain_ms": timer.ms(lambda: paged_attention_plain(q0, pk, pv, table, lens,
+                                                               partial=True), 5),
+            "ordinary_call_ms": med["ordinary"], "ms_in_turns": rounds,
+            "device_ms": dev["partial"], "ordinary_call_device_ms": dev["ordinary"],
+            "library_ms": None,        # no PyTorch call returns the partials
+            "bound_ms": bms, "bound_by": by,
+        }
+    torch.cuda.synchronize()
+    return entry
 
 
 def audio_attention_cases(torch, timer, randn, extra):
@@ -2693,6 +2877,176 @@ def phase_server(torch, results):
     results["server"] = out
 
 
+def picnic_cfgs():
+    """The picnic_decode phase's configs: llama3-8b as published (bf16),
+    and its float32 cut of PICNIC_F32_LAYERS layers."""
+    from repro_torch.configs import get_config
+    cfg = get_config("llama3-8b")
+    return {"bfloat16": cfg,
+            "float32": dataclasses.replace(cfg, n_layers=PICNIC_F32_LAYERS, dtype="float32")}
+
+
+def picnic_rank(rank: int, out_dir: str) -> int:
+    """One rank of the picnic_decode phase (run as ``chip_smoke.py
+    --picnic-rank R --picnic-dir DIR`` by the phase): gloo over a file
+    store in DIR, the (1, 2) mesh on the card, each config's prefill of the
+    full batch cut to this rank's shard, then PICNIC_NEW eager greedy
+    steps under the picnic context; the launch counters are zeroed before
+    the prefill and read after the decode.  Rank 0 then runs the
+    single-rank decode of the same prefill, fed the picnic run's tokens.
+    Writes DIR/rank{R}_{dtype}.pt (logits, ids, ms a step, launches)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import models, sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_prefill_step
+
+    import datetime
+    world = PICNIC_MESH[0] * PICNIC_MESH[1]
+    # a rank that fails stops the other at its next collective within 120 s
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/store", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=120))
+    torch.cuda.set_device(rank % torch.cuda.device_count())     # both on the one card
+    mesh = init_device_mesh("cuda", PICNIC_MESH, mesh_dim_names=("data", "model"))
+    ctx = sharding.ShardingCtx(mesh, {}, {"picnic_decode": True, "seq_axes": ("model",),
+                                          "dp_axes": ("data",)})
+    tag = f"[picnic_decode rank {rank}]"
+    for dt, cfg in picnic_cfgs().items():
+        params = init_logged(torch, cfg, tag)
+        prompt = random_prompt(torch, cfg, PICNIC_B, PICNIC_PROMPT)
+        prefill = make_prefill_step(cfg, kv_max=PICNIC_MAX_LEN)
+        prefill(params, {"tokens": prompt[:, :64]})             # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        tok, cache = prefill(params, {"tokens": prompt})
+        local = sharding.local_cache(cache, mesh)
+        if rank:
+            del cache
+        first, ids, logits, step_s = tok, [tok], [], []
+        with torch.no_grad(), sharding.use_sharding(ctx):
+            for i in range(PICNIC_NEW):
+                torch.cuda.synchronize()
+                t0 = time.time()
+                lg, local = models.decode_step(cfg, params, tok, local, PICNIC_PROMPT + i + 1)
+                tok = torch.argmax(lg[:, -1:], dim=-1)
+                torch.cuda.synchronize()
+                step_s.append(time.time() - t0)
+                logits.append(lg[:, 0].float())
+                ids.append(tok)
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        by_shape = [[n, key, c] for (n, key), c in sorted(ops.LAUNCHES_BY_SHAPE.items())]
+        saved = {"logits": torch.stack(logits).cpu(), "ids": torch.cat(ids, 1).cpu(),
+                 "step_ms": [t * 1e3 for t in step_s], "launches": launches,
+                 "launches_by_shape": by_shape,
+                 "shard_rows": local["b0_dense"]["k"].shape[2],
+                 "seq_index": sharding.axes_index(mesh, ("model",))}
+        del local, logits
+        if rank == 0:                   # the single-rank decode, the same tokens
+            single = []
+            with torch.no_grad():
+                for i in range(PICNIC_NEW):
+                    lg, cache = models.decode_step(cfg, params, ids[i], cache,
+                                                   PICNIC_PROMPT + i + 1)
+                    single.append(lg[:, 0].float())
+            saved["single_logits"] = torch.stack(single).cpu()
+            del cache, single
+        torch.save(saved, f"{out_dir}/rank{rank}_{dt}.pt")
+        log(f"{tag} {dt}: launches {launches}, first ids {first[:, 0].tolist()}")
+        del params, prompt, first, ids, tok, lg
+        torch.cuda.empty_cache()
+    dist.barrier()                      # no rank tears gloo down while another still talks
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_picnic_decode(torch, results):
+    """PICNIC's sequence-sharded decode on the card: spawns the two ranks
+    (``picnic_rank``) and holds what they wrote: the shard of 512 rows
+    each; both ranks' logits bit-equal (the batch is not split, and the
+    all-reduces give both the same sums); each paged launch of the decode
+    in the partial mode, 32 a step a rank; bf16 against the single-rank
+    decode per row within PICNIC_BF16_ROW_REL, with the share of equal
+    greedy ids printed; float32 greedy ids equal and logits within
+    PICNIC_F32_REL.  Returns rank 0's launches, per kernel and per (kernel,
+    launch_key)."""
+    import tempfile
+    from repro_torch.kernels import _build
+
+    _build.build_all()                  # built once here, loaded by the ranks
+    torch.cuda.empty_cache()
+    world = PICNIC_MESH[0] * PICNIC_MESH[1]
+    with tempfile.TemporaryDirectory() as d:
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                   "--picnic-rank", str(r), "--picnic-dir", d],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(world)]
+        texts = []
+        try:
+            for p in procs:
+                texts.append(p.communicate(timeout=PICNIC_TIMEOUT)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, text) in enumerate(zip(procs, texts)):
+            for line in text.splitlines():
+                log(f"[picnic_decode] {line}" if line.startswith("[picnic_decode")
+                    else f"[picnic_decode rank {r}] {line}")
+            if p.returncode != 0:
+                raise AssertionError(f"picnic_decode: rank {r} exited {p.returncode}")
+        runs = {dt: [torch.load(f"{d}/rank{r}_{dt}.pt") for r in range(world)]
+                for dt in picnic_cfgs()}
+    out = {}
+    for dt, ranks in runs.items():
+        cfg = picnic_cfgs()[dt]
+        r0 = ranks[0]
+        want = r0["single_logits"]
+        got = r0["logits"]
+        if got.shape != (PICNIC_NEW, PICNIC_B, cfg.vocab_size) or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"picnic_decode {dt}: logits {tuple(got.shape)}, or not finite")
+        for r, run in enumerate(ranks):
+            if run["shard_rows"] != PICNIC_MAX_LEN // world or run["seq_index"] != r:
+                raise AssertionError(f"picnic_decode: rank {r} holds {run['shard_rows']} rows "
+                                     f"as shard {run['seq_index']}")
+            if not (torch.equal(run["logits"], got) and torch.equal(run["ids"], r0["ids"])):
+                raise AssertionError(f"picnic_decode {dt}: rank {r}'s logits differ from rank 0's")
+            key = [["paged_attention", k, c] for _, k, c in run["launches_by_shape"]
+                   if k.endswith("mode=partial")]
+            want_paged = cfg.n_layers * PICNIC_NEW
+            if run["launches"] != {"flash_attention": cfg.n_layers, "paged_attention": want_paged} \
+                    or len(key) != 1 or key[0][2] != want_paged:
+                raise AssertionError(f"picnic_decode {dt} rank {r}: launches {run['launches']}, "
+                                     f"{run['launches_by_shape']}")
+        same_ids = (want.argmax(-1) == r0["ids"][:, 1:].T).float().mean().item()
+        rows = ((got - want).norm(dim=-1) / want.norm(dim=-1)).flatten()
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        step_ms = sorted(r0["step_ms"][1:])[len(r0["step_ms"][1:]) // 2]
+        res = {"n_layers": cfg.n_layers, "batch": PICNIC_B, "prompt": PICNIC_PROMPT,
+               "new_tokens": PICNIC_NEW, "max_len": PICNIC_MAX_LEN, "mesh": PICNIC_MESH,
+               "shard_rows": r0["shard_rows"], "greedy_ids_equal_share": same_ids,
+               "logits_rel_err": rel, "row_rel_l2_max": rows.max().item(),
+               "row_rel_l2_median": rows.median().item(),
+               "decode_ms_per_step_correctness_only": step_ms,
+               "launches": r0["launches"]}
+        log(f"[picnic_decode] llama3-8b {dt} x {cfg.n_layers} layers, B{PICNIC_B}, "
+            f"{PICNIC_PROMPT} + {PICNIC_NEW} steps, 2 ranks of {r0['shard_rows']} rows: "
+            f"against the single-rank decode, logits rel err {rel:.3e}, per-row relative L2 "
+            f"max {res['row_rel_l2_max']:.3e} median {res['row_rel_l2_median']:.3e}, greedy "
+            f"ids equal {100 * same_ids:.2f}%; ranks bit-equal; decode {step_ms:.2f} ms a step "
+            f"(median, correctness-only: two ranks share one card's SMs)")
+        if dt == "float32" and not (rel <= PICNIC_F32_REL and same_ids == 1.0):
+            raise AssertionError(f"picnic_decode float32: rel err {rel}, ids equal {same_ids}")
+        if dt == "bfloat16" and not res["row_rel_l2_max"] <= PICNIC_BF16_ROW_REL:
+            raise AssertionError(f"picnic_decode bf16: a row {res['row_rel_l2_max']} from "
+                                 f"the single-rank decode")
+        out[dt] = res
+    results["picnic_decode"] = out
+    r0 = runs["bfloat16"][0]
+    return {**r0["launches"], **{(n, k): c for n, k, c in r0["launches_by_shape"]}}
+
+
 def train_batches(torch, cfg, batch, seq, n, seed=0, device="cuda"):
     """``n`` batches of the port's PackedStream(seed) on ``device``, token
     ids as int64."""
@@ -3674,6 +4028,8 @@ def main(argv=None) -> int:
                     help="comma-separated subset of "
                     + ",".join(PHASES + EXTRA_PHASES))
     ap.add_argument("--out", help="also write the results as JSON to this file")
+    ap.add_argument("--picnic-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--picnic-dir", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     unknown = set(phases) - set(PHASES + EXTRA_PHASES)
@@ -3693,6 +4049,8 @@ def main(argv=None) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.picnic_rank is not None:    # one rank of the picnic_decode phase
+        return picnic_rank(args.picnic_rank, args.picnic_dir)
     smi = nvidia_smi_line()
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
@@ -3732,6 +4090,8 @@ def main(argv=None) -> int:
             phase_vlm_parity(torch, results)
         elif phase == "server":
             phase_server(torch, results)
+        elif phase == "picnic_decode":
+            launches_of[phase] = phase_picnic_decode(torch, results)
         elif phase == "train":
             launches_of[phase] = phase_train(torch, results)
         elif phase == "train_parity":

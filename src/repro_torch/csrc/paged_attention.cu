@@ -55,6 +55,20 @@
 //   compose the segments as the Pallas kernel does (block by block, in
 //   order): with use_pwl the wrapper asks for one split and the entry
 //   refuses more.
+// - key_offset (PICNIC sequence-sharded decode, the JAX model's
+//   decode_attention_partial): the pool holds one shard of each
+//   sequence, whose local key j is global position key_offset + j, while
+//   context_lens stays global.  A CTA keeps local key j where key_offset +
+//   j < ctx and, under a window, key_offset + j >= ctx - window: both
+//   bounds move by key_offset, so on a shard before the last the window's
+//   lower bound is not the one the global context alone would give.
+// - partial (same entry, same kernels): instead of o / l the output is
+//   the float32 partial of the shard, o = sum e^(s - m) v (not
+//   normalised), m (the max scaled score, natural-exp units) and l = sum
+//   e^(s - m), in one buffer: o (B, H, D), then m (B, H), then l (B, H).
+//   With one split the main kernel writes them; with several the combine
+//   writes (sum w_i acc_i, M, sum w_i l_i), w_i = e^(m_i - M).  A head
+//   with no kept key gives (0, -1e30, 0).  PWL is refused in this mode.
 #include <cmath>
 #include <cstdint>
 
@@ -117,9 +131,10 @@ template <typename T, int D, bool kPwl>
 __global__ void __launch_bounds__(kThreads)
 paged_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                  const T* __restrict__ v_pool, const int* __restrict__ tables,
-                 const int* __restrict__ context_lens, T* __restrict__ out,
+                 const int* __restrict__ context_lens, void* __restrict__ out,
                  float* __restrict__ partials, int H, int Hkv, int bt, int max_blocks,
-                 int blocks_per_split, int window, int stages, float scale, PwlCoeffs pwl) {
+                 int blocks_per_split, int window, int key_offset, int partial, int stages,
+                 float scale, PwlCoeffs pwl) {
   constexpr int KS = kKvStride<T, D>;
   constexpr int kChunk = 16 / int(sizeof(T));  // elements per 16-byte copy
   const int G = H / Hkv;
@@ -136,8 +151,9 @@ paged_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 
   const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int ctx = context_lens[b];
-  const int lo = window > 0 ? max(ctx - window, 0) : 0;  // the first key kept
+  // local keys [lo, ctx) of this pool: global positions shifted by key_offset
+  const int ctx = max(context_lens[b] - key_offset, 0);
+  const int lo = window > 0 ? max(context_lens[b] - window - key_offset, 0) : 0;
   const int n_blocks = min((ctx + bt - 1) / bt, max_blocks);
   const int first = max(split * blocks_per_split, lo / bt);
   const int last = min(split * blocks_per_split + blocks_per_split, n_blocks);  // may be <= first
@@ -248,8 +264,18 @@ paged_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   __syncthreads();
 
   const int64_t head0 = int64_t(b) * H + int64_t(hk) * G;  // first query head of the CTA
+  if (n_splits == 1 && partial) {
+    const int64_t BH = int64_t(gridDim.x / Hkv) * H;
+    float* ob = static_cast<float*>(out);
+    for (int idx = tid; idx < G * D; idx += kThreads) ob[head0 * D + idx] = acc[idx];
+    for (int g = tid; g < G; g += kThreads) {
+      ob[BH * D + head0 + g] = m_s[g];
+      ob[BH * D + BH + head0 + g] = l_s[g];
+    }
+    return;
+  }
   if (n_splits == 1) {
-    T* ob = out + head0 * D;
+    T* ob = static_cast<T*>(out) + head0 * D;
     for (int idx = tid; idx < G * D; idx += kThreads) {
       ob[idx] = from_float<T>(acc[idx] / max_nan(l_s[idx / D], 1e-30f));
     }
@@ -268,10 +294,12 @@ paged_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 // memory (0 for a split past the context, l = 0, whose acc is not read).
 // A split that met a NaN score has m = l = NaN: it counts as live, and its
 // NaN goes through the max, the weights and the sum, as in the plain
-// version.
+// version.  With partial, out is the float32 (o, m, l) buffer and gets
+// (sum w_i acc_i, m, sum w_i l_i), not normalised.
 template <typename T, int D>
 __global__ void __launch_bounds__(kCombineThreads)
-paged_combine_kernel(const float* __restrict__ partials, T* __restrict__ out, int n_splits) {
+paged_combine_kernel(const float* __restrict__ partials, void* __restrict__ out, int n_splits,
+                     int partial) {
   extern __shared__ float w[];  // n_splits weights, then l
   const float* part = partials + int64_t(blockIdx.x) * n_splits * (D + 2);
   if (threadIdx.x < 32) {
@@ -289,7 +317,14 @@ paged_combine_kernel(const float* __restrict__ partials, T* __restrict__ out, in
       l = fmaf(ws, ls, l);
     }
     l = warp_sum(l);
-    if (lane == 0) w[n_splits] = max_nan(l, 1e-30f);
+    if (lane == 0) {
+      w[n_splits] = max_nan(l, 1e-30f);
+      if (partial) {
+        const int64_t BH = gridDim.x;
+        static_cast<float*>(out)[BH * D + blockIdx.x] = m;
+        static_cast<float*>(out)[BH * D + BH + blockIdx.x] = l;
+      }
+    }
   }
   __syncthreads();
   for (int d = threadIdx.x; d < D; d += kCombineThreads) {
@@ -297,7 +332,11 @@ paged_combine_kernel(const float* __restrict__ partials, T* __restrict__ out, in
     for (int s = 0; s < n_splits; ++s) {
       if (w[s] != 0.f) o = fmaf(w[s], part[s * (D + 2) + 2 + d], o);
     }
-    out[int64_t(blockIdx.x) * D + d] = from_float<T>(o / w[n_splits]);
+    if (partial) {
+      static_cast<float*>(out)[int64_t(blockIdx.x) * D + d] = o;
+    } else {
+      static_cast<T*>(out)[int64_t(blockIdx.x) * D + d] = from_float<T>(o / w[n_splits]);
+    }
   }
 }
 
@@ -305,7 +344,7 @@ template <typename T, int D, bool kPwl>
 cudaError_t launch(const void* q, const void* k_pool, const void* v_pool, const void* tables,
                    const void* context_lens, void* out, void* scratch, int B, int H, int Hkv,
                    int bt, int max_blocks, int n_splits, int blocks_per_split, int window,
-                   const PwlCoeffs& pwl, cudaStream_t stream) {
+                   int key_offset, int partial, const PwlCoeffs& pwl, cudaStream_t stream) {
   const int G = H / Hkv;
   // a second stage only where a split has a next block to load into it
   int stages = blocks_per_split > 1 ? 2 : 1;
@@ -321,34 +360,37 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool, const 
   if (err != cudaSuccess) return err;
   kernel<<<dim3(B * Hkv, n_splits), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
-      static_cast<const int*>(tables), static_cast<const int*>(context_lens),
-      static_cast<T*>(out), static_cast<float*>(scratch), H, Hkv, bt, max_blocks,
-      blocks_per_split, window, stages, float(pow(double(D), -0.5)), pwl);
+      static_cast<const int*>(tables), static_cast<const int*>(context_lens), out,
+      static_cast<float*>(scratch), H, Hkv, bt, max_blocks, blocks_per_split, window, key_offset,
+      partial, stages, float(pow(double(D), -0.5)), pwl);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_splits == 1) return err;
   paged_combine_kernel<T, D><<<B * H, kCombineThreads, (n_splits + 1) * sizeof(float), stream>>>(
-      static_cast<const float*>(scratch), static_cast<T*>(out), n_splits);
+      static_cast<const float*>(scratch), out, n_splits, partial);
   return cudaGetLastError();
 }
 
 template <typename T, bool kPwl>
 cudaError_t dispatch_dim(int D, const void* q, const void* kp, const void* vp, const void* tb,
                          const void* cl, void* out, void* scratch, int B, int H, int Hkv,
-                         int bt, int mb, int ns, int bps, int w, const PwlCoeffs& pwl,
-                         cudaStream_t s) {
+                         int bt, int mb, int ns, int bps, int w, int ko, int pt,
+                         const PwlCoeffs& pwl, cudaStream_t s) {
   switch (D) {
     case 32:
-      return launch<T, 32, kPwl>(q, kp, vp, tb, cl, out, scratch, B, H, Hkv, bt, mb, ns, bps, w, pwl, s);
+      return launch<T, 32, kPwl>(q, kp, vp, tb, cl, out, scratch, B, H, Hkv, bt, mb, ns, bps, w,
+                                 ko, pt, pwl, s);
     case 64:
-      return launch<T, 64, kPwl>(q, kp, vp, tb, cl, out, scratch, B, H, Hkv, bt, mb, ns, bps, w, pwl, s);
+      return launch<T, 64, kPwl>(q, kp, vp, tb, cl, out, scratch, B, H, Hkv, bt, mb, ns, bps, w,
+                                 ko, pt, pwl, s);
     case 80:
-      return launch<T, 80, kPwl>(q, kp, vp, tb, cl, out, scratch, B, H, Hkv, bt, mb, ns, bps, w, pwl, s);
+      return launch<T, 80, kPwl>(q, kp, vp, tb, cl, out, scratch, B, H, Hkv, bt, mb, ns, bps, w,
+                                 ko, pt, pwl, s);
     case 128:
-      return launch<T, 128, kPwl>(q, kp, vp, tb, cl, out, scratch, B, H, Hkv, bt, mb, ns, bps, w, pwl,
-                                  s);
+      return launch<T, 128, kPwl>(q, kp, vp, tb, cl, out, scratch, B, H, Hkv, bt, mb, ns, bps, w,
+                                  ko, pt, pwl, s);
     case 256:
-      return launch<T, 256, kPwl>(q, kp, vp, tb, cl, out, scratch, B, H, Hkv, bt, mb, ns, bps, w, pwl,
-                                  s);
+      return launch<T, 256, kPwl>(q, kp, vp, tb, cl, out, scratch, B, H, Hkv, bt, mb, ns, bps, w,
+                                  ko, pt, pwl, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -364,35 +406,43 @@ cudaError_t dispatch_dim(int D, const void* q, const void* kp, const void* vp, c
 // (n_splits * blocks_per_split >= max_blocks); with n_splits > 1, scratch
 // holds B * H * n_splits * (D + 2) floats, else it is not read.  use_pwl
 // needs n_splits == 1.  window > 0 keeps only the keys [ctx - window, ctx)
-// of each sequence; 0 is no window.  Returns cudaGetLastError() after the
-// launches.
+// of each sequence; 0 is no window.  key_offset >= 0 is the global
+// position of the pool's local key 0 (context_lens stay global).  With
+// partial = 1, out is a float32 buffer of B * H * (D + 2): the unnormalised
+// o (B, H, D), then m (B, H), then l (B, H); use_pwl must be 0.  Returns
+// cudaGetLastError() after the launches.
 extern "C" int paged_attention_fwd(const void* q, const void* k_pool, const void* v_pool,
                                    const void* tables, const void* context_lens, void* out,
                                    void* scratch, int B, int H, int Hkv, int D, int bt,
                                    int max_blocks, int n_splits, int blocks_per_split, int window,
-                                   int dtype, int use_pwl, const void* pwl_host, void* stream) {
+                                   int key_offset, int partial, int dtype, int use_pwl,
+                                   const void* pwl_host, void* stream) {
   using namespace repro_torch;
   if (B <= 0 || Hkv <= 0 || H % Hkv != 0 || bt <= 0 || n_splits < 1 || window < 0 ||
+      key_offset < 0 || (partial != 0 && partial != 1) || (partial && use_pwl) ||
       blocks_per_split < 1 || int64_t(n_splits) * blocks_per_split < max_blocks ||
       (use_pwl && n_splits != 1) || (n_splits > 1 && scratch == nullptr)) {
     return cudaErrorInvalidValue;
   }
   const PwlCoeffs pwl = read_pwl(pwl_host);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int ns = n_splits, bps = blocks_per_split, w = window;
+  const int ns = n_splits, bps = blocks_per_split, w = window, ko = key_offset, pt = partial;
   if (dtype == 0) {
     return use_pwl ? dispatch_dim<float, true>(D, q, k_pool, v_pool, tables, context_lens, out,
-                                               scratch, B, H, Hkv, bt, max_blocks, ns, bps, w, pwl, s)
+                                               scratch, B, H, Hkv, bt, max_blocks, ns, bps, w,
+                                               ko, pt, pwl, s)
                    : dispatch_dim<float, false>(D, q, k_pool, v_pool, tables, context_lens, out,
-                                                scratch, B, H, Hkv, bt, max_blocks, ns, bps, w, pwl, s);
+                                                scratch, B, H, Hkv, bt, max_blocks, ns, bps, w,
+                                                ko, pt, pwl, s);
   }
   if (dtype == 1) {
     return use_pwl ? dispatch_dim<__nv_bfloat16, true>(D, q, k_pool, v_pool, tables,
                                                        context_lens, out, scratch, B, H, Hkv,
-                                                       bt, max_blocks, ns, bps, w, pwl, s)
+                                                       bt, max_blocks, ns, bps, w, ko, pt, pwl, s)
                    : dispatch_dim<__nv_bfloat16, false>(D, q, k_pool, v_pool, tables,
                                                         context_lens, out, scratch, B, H, Hkv,
-                                                        bt, max_blocks, ns, bps, w, pwl, s);
+                                                        bt, max_blocks, ns, bps, w, ko, pt, pwl,
+                                                        s);
   }
   return cudaErrorInvalidValue;
 }

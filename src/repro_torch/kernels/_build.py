@@ -37,7 +37,7 @@ SIGNATURES = {
                         [_VOID_P] * 5 + [_INT] * 11 + [_VOID_P, _VOID_P]),
     "flash_attention_bwd": ("flash_attention_bwd", [_VOID_P] * 10 + [_INT] * 11 + [_VOID_P]),
     "paged_attention": ("paged_attention_fwd",
-                        [_VOID_P] * 7 + [_INT] * 11 + [_VOID_P, _VOID_P]),
+                        [_VOID_P] * 7 + [_INT] * 13 + [_VOID_P, _VOID_P]),
     "ssd_scan": ("ssd_scan_fwd", [_VOID_P] * 7 + [_INT] * 8 + [_VOID_P]),
     "ssd_scan_bwd": ("ssd_scan_bwd", [_VOID_P] * 15 + [_INT] * 8 + [_VOID_P]),
     "pwl_softmax": ("pwl_softmax_fwd", [_VOID_P] * 2 + [_INT] * 5 + [_VOID_P, _VOID_P]),

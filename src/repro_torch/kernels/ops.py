@@ -54,6 +54,24 @@ def paged_attention(q, k_cache, v_cache, block_tables, context_lens, *,
                                     context_lens, **kw)
 
 
+def paged_attention_partial(q, k_cache, v_cache, block_tables, context_lens, *,
+                            key_offset: int = 0, window=None):
+    """The float32 partial of one shard of a sequence-sharded KV cache
+    (PICNIC decode): q (B, H, D); k/v_cache (N, block_tokens, H_kv, D), the
+    shard's pool, whose local key j is global position ``key_offset + j``;
+    ``context_lens`` (B,) global.  Returns (o (B, H, D), m (B, H), l (B,
+    H)): o = sum exp(s - m) v, not normalised; m the max scaled score; l =
+    sum exp(s - m); (0, NEG_INF, 0) for a head with no kept key.
+    ``window``: mask the keys below ``context_lens - window``.  Exact exp
+    only."""
+    kw = dict(key_offset=key_offset, window=window)
+    if _route(q) == "cpu":
+        return _pa.paged_attention_plain(q, k_cache, v_cache, block_tables,
+                                         context_lens, partial=True, **kw)
+    return _pa.paged_attention_partial_cuda(q, k_cache, v_cache, block_tables,
+                                            context_lens, **kw)
+
+
 def ssd_scan(x, dt, a_neg, B, C, *, chunk: int):
     """x: (b, S, H, P); dt: (b, S, H); a_neg: (H,); B, C: (b, S, N).
     Returns y (b, S, H, P) and the final state (b, H, P, N), float32.

@@ -25,6 +25,18 @@ lies (on the card, in the kernel), and blocks wholly below it are skipped.
 Blocks stay aligned to absolute positions, so the PWL result composes as
 without a window.
 
+The partial mode (``paged_attention_plain(..., partial=True)`` /
+``paged_attention_partial_cuda``, the same kernels under one flag) serves
+PICNIC's sequence-sharded decode: the pool holds one shard of each
+sequence, whose local key ``j`` is global position ``key_offset + j``,
+``context_lens`` stay global, and the result is the shard's float32
+partial of ``repro.models.attention.decode_attention_partial``: ``o =
+sum exp(s - m) v`` (not normalised), ``m`` the max scaled score (natural
+exp) and ``l = sum exp(s - m)``.  A head with no kept key gives (0,
+NEG_INF, 0); the reference gives (sum v, NEG_INF, S_local), which the
+combine weighs by exp(NEG_INF - M) = 0 all the same.  PWL is refused:
+the reference's partial takes the exact exp.
+
 Head dims 32, 64, 80, 128 and 256.  Where two stages of a split's pool
 blocks do not fit in shared memory (float32 at D 256, or 128-token
 blocks) the kernel runs one; a shape whose one stage does not fit either
@@ -82,20 +94,38 @@ def identity_block_table(batch: int, max_len: int, block_tokens: int,
                         device=device).reshape(batch, nb)
 
 
+def offset_arg(key_offset, *, partial: bool, use_pwl: bool) -> int:
+    """The kernels' key_offset argument, a non-negative int; raises for
+    PWL in the partial mode, which takes the exact exp as the JAX model's
+    ``decode_attention_partial`` does."""
+    if partial and use_pwl:
+        raise ValueError("paged attention's partial mode takes the exact exp, as "
+                         "the JAX model's decode_attention_partial: no PWL")
+    if int(key_offset) < 0:
+        raise ValueError(f"key_offset must be >= 0, got {key_offset}")
+    return int(key_offset)
+
+
 def paged_attention_plain(q, k_cache, v_cache, block_tables, context_lens, *,
-                          use_pwl: bool = False, window=None) -> torch.Tensor:
+                          use_pwl: bool = False, window=None, key_offset: int = 0,
+                          partial: bool = False):
     """q: (B, H, D); k/v_cache: (N_blocks, bt, H_kv, D); block_tables:
-    (B, max_blocks) int; context_lens: (B,) int.  Returns (B, H, D)."""
+    (B, max_blocks) int; context_lens: (B,) int.  Returns (B, H, D); with
+    ``partial``, the float32 (o (B, H, D), m (B, H), l (B, H)) of the
+    keys this pool holds, local key j at global position ``key_offset +
+    j`` (the module's docstring)."""
     window = window_arg(window)
+    key_offset = offset_arg(key_offset, partial=partial, use_pwl=use_pwl)
     B, H, D = q.shape
     _, bt, Hkv, _ = k_cache.shape
     G = H // Hkv
     exp_fn = pwl_exp if use_pwl else torch.exp
     qf = q.float().reshape(B, Hkv, G, D) * D ** -0.5
     ctx = context_lens.to(device=q.device, dtype=torch.long)
-    lo = (ctx - window).clamp_min(0) if window else torch.zeros_like(ctx)
+    lo = (ctx - window - key_offset).clamp_min(0) if window else torch.zeros_like(ctx)
+    ctx = (ctx - key_offset).clamp_min(0)           # local keys [lo, ctx)
     tables = block_tables.to(device=q.device, dtype=torch.long)
-    n_steps = -(-int(ctx.max()) // bt) if B else 0
+    n_steps = min(-(-int(ctx.max()) // bt), tables.shape[1]) if B else 0
     m = torch.full((B, Hkv, G), NEG_INF, device=q.device)
     l = torch.zeros((B, Hkv, G), device=q.device)
     acc = torch.zeros((B, Hkv, G, D), device=q.device)
@@ -119,6 +149,8 @@ def paged_attention_plain(q, k_cache, v_cache, block_tables, context_lens, *,
         l = l * alpha + p.sum(dim=-1)
         acc = acc * alpha[..., None] + torch.einsum("bhgk,bkhd->bhgd", p, vb)
         m = m_new
+    if partial:
+        return acc.reshape(B, H, D), m.reshape(B, H), l.reshape(B, H)
     out = acc / l.clamp_min(1e-30)[..., None]
     return out.reshape(B, H, D).to(q.dtype)
 
@@ -129,23 +161,39 @@ def _sm_count(device: torch.device) -> int:
 
 
 def launch_key(q, k_cache, block_tables, *, use_pwl: bool = False,
-               window=None) -> str:
+               window=None, partial: bool = False) -> str:
     """The shape under which ``paged_attention_cuda`` counts a launch in
     ``_build.LAUNCHES_BY_SHAPE`` (the context lengths live on the device
-    and are not part of it)."""
+    and are not part of it; nor is a partial launch's key_offset, which
+    differs from shard to shard)."""
     B, H, D = q.shape
     _, bt, Hkv, _ = k_cache.shape
     return (f"B{B} H{H} Hkv{Hkv} D{D} bt{bt} blocks{block_tables.shape[1]} "
             f"{str(q.dtype).removeprefix('torch.')} window={window or 0} "
-            f"pwl={int(use_pwl)}")
+            f"pwl={int(use_pwl)}" + (" mode=partial" if partial else ""))
 
 
 def paged_attention_cuda(q, k_cache, v_cache, block_tables, context_lens, *,
                          use_pwl: bool = False, window=None) -> torch.Tensor:
     """Launch ``csrc/paged_attention.cu`` on PyTorch's current stream."""
+    return _launch(q, k_cache, v_cache, block_tables, context_lens, use_pwl=use_pwl,
+                   window=window, key_offset=0, partial=False)
+
+
+def paged_attention_partial_cuda(q, k_cache, v_cache, block_tables, context_lens, *,
+                                 key_offset: int = 0, window=None):
+    """The partial mode of ``csrc/paged_attention.cu``: (o (B, H, D), m (B,
+    H), l (B, H)) float32, views of one buffer the kernel writes."""
+    return _launch(q, k_cache, v_cache, block_tables, context_lens, use_pwl=False,
+                   window=window, key_offset=key_offset, partial=True)
+
+
+def _launch(q, k_cache, v_cache, block_tables, context_lens, *, use_pwl, window,
+            key_offset, partial):
     _build.refuse_grad("paged_attention", "ROADMAP §B2: decode attention, no training "
                        "path and no backward", q, k_cache, v_cache)
     window = window_arg(window)
+    key_offset = offset_arg(key_offset, partial=partial, use_pwl=use_pwl)
     B, H, D = q.shape
     n_blocks, bt, Hkv, Dk = k_cache.shape
     dev = q.device
@@ -171,9 +219,15 @@ def paged_attention_cuda(q, k_cache, v_cache, block_tables, context_lens, *,
         raise ValueError("block_tables (B, max_blocks) and context_lens (B,)")
     q, k_cache, v_cache = (_build.aligned(t) for t in (q, k_cache, v_cache))
     block_tables = block_tables.contiguous()
+    if partial:
+        # o (B, H, D), then m (B, H), then l (B, H)
+        buf = torch.empty(B * H * (D + 2), dtype=torch.float32, device=dev)
+        m, l = buf[B * H * D:].view(2, B, H).unbind(0)
+        result, out = (buf[:B * H * D].view(B, H, D), m, l), buf
+    else:
+        out = result = torch.empty_like(q)
     if q.numel() == 0:                      # no sequence: no launch
-        return torch.empty_like(q)
-    out = torch.empty_like(q)
+        return result
     max_blocks = block_tables.shape[1]
     n_splits, bps = split_plan(B * Hkv, max_blocks, bt, _sm_count(dev),
                                use_pwl=use_pwl)
@@ -184,8 +238,8 @@ def paged_attention_cuda(q, k_cache, v_cache, block_tables, context_lens, *,
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
         None if scratch is None else scratch.data_ptr(),
-        B, H, Hkv, D, bt, max_blocks, n_splits, bps, window,
+        B, H, Hkv, D, bt, max_blocks, n_splits, bps, window, key_offset, int(partial),
         _DTYPE_CODES[q.dtype], int(use_pwl), ctypes.addressof(PWL_COEFFS),
         torch.cuda.current_stream(dev).cuda_stream), "paged_attention",
-        launch_key(q, k_cache, block_tables, use_pwl=use_pwl, window=window))
-    return out
+        launch_key(q, k_cache, block_tables, use_pwl=use_pwl, window=window, partial=partial))
+    return result

@@ -14,8 +14,11 @@ import time
 from typing import Dict, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import models
+from repro_torch.models.attention import picnic_active
+from repro_torch.sharding import axes_groups, axes_size, current
 from repro_torch.kernels._build import LAUNCHES, LAUNCHES_BY_SHAPE
 from repro_torch.optim import clip_by_global_norm, linear_warmup_cosine, make_optimizer
 from repro_torch.tree import tree_from_paths, tree_map, tree_paths
@@ -278,14 +281,31 @@ class CompiledServeStep:
     launch when its wrapper runs, which for a graph is during capture; the
     capture's counts are taken back and added again on every replay, so
     the counters read as the eager step's would.  ``logits`` is the static (B, 1, V) output of the
-    last call."""
+    last call.
+
+    Under a PICNIC context (``models.attention.picnic_active``) the step
+    all-reduces over the seq axes' process groups; gloo runs those on the
+    host, which a graph cannot capture, so a context whose groups are not
+    all NCCL raises ``ValueError``.  (A captured NCCL picnic step needs
+    several cards and is untried.)"""
 
     def __init__(self, cfg, params, cache, batch: int):
+        ctx = current()
+        n_seq = 1
+        if picnic_active(ctx):
+            seq_axes = ctx.opt("seq_axes", ("model",))
+            backends = {dist.get_backend(g) for g in axes_groups(ctx.mesh, seq_axes)}
+            if backends != {"nccl"}:
+                raise ValueError(f"CompiledServeStep: the PICNIC decode's all-reduces over "
+                                 f"{sorted(backends)} groups cannot be captured in a CUDA "
+                                 f"graph; only NCCL's can")
+            n_seq = axes_size(ctx.mesh, seq_axes)
         self.device = next(_leaves(cache))[1].device
         if self.device.type != "cuda":
             raise ValueError("CompiledServeStep captures a CUDA graph: it "
                              "takes a cache on a CUDA device")
-        self.max_len = _attention_rows(cache)
+        rows = _attention_rows(cache)           # a shard's under PICNIC
+        self.max_len = None if rows is None else rows * n_seq
         self.token = torch.zeros((batch, 1), dtype=torch.long,
                                  device=self.device)
         self.cache_len = torch.ones((), dtype=torch.long, device=self.device)

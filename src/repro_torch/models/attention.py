@@ -10,15 +10,26 @@ contiguous cache: the Hopper kernels on a CUDA tensor, their plain
 versions on a CPU tensor; both take the sliding window (mixtral) and the
 bidirectional prefix (paligemma's prefix-LM), which the kernels apply in
 place of the JAX package's mask.  ``full_attention`` is the exact
-quadratic reference, for tests.  The sequence-parallel and PICNIC
-distributed-scratchpad paths, and prefill with a query offset, belong to
-later slices of the port.
+quadratic reference, for tests.
+
+PICNIC's distributed-scratchpad decode (``picnic_decode_attention``): under
+a ``ShardingCtx`` with ``picnic_decode`` whose ``seq_axes`` span more than
+one rank, each rank holds its shard of every self-attention cache's rows,
+the owning rank appends the new K/V, each rank takes the float32 partial
+of its shard (``decode_attention_partial``, the paged kernel's partial
+mode) and ``combine_partials`` reduces the partials over the seq axes'
+process groups: the paper's in-network reduction (§III).  The
+sequence-parallel prefill and prefill with a query offset belong to later
+slices of the port.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels import ops
+from repro_torch.sharding import ctx as shctx
+from repro_torch.sharding.layout import axes_groups, axes_index, axes_size
 from .common import apply_rope, dense_init, dtype_of
 
 NEG_INF = -1e30
@@ -97,6 +108,86 @@ def attn_sublayer(cfg, p, x, *, positions, causal=True, window=None,
     return out @ p["wo"], (k, v)
 
 
+# ---------------------------------------------------------------------------
+# PICNIC sequence-sharded decode
+# ---------------------------------------------------------------------------
+
+def decode_attention_partial(q, k_pool, v_pool, block_table, context_lens, *,
+                             key_offset: int, window=None):
+    """Local partial softmax terms of one shard of a sequence-sharded KV
+    cache: q (B, Hq, D); the shard's pool (N, bt, Hkv, D) through
+    ``block_table``, local key j at global position ``key_offset + j``;
+    ``context_lens`` (B,) global.  Returns float32 (o (B, Hq, D), m (B,
+    Hq), l (B, Hq)): o = sum_j exp(s_j - m) v_j, m the local max, l the
+    local denominator (the reference takes a boolean ``valid`` instead of
+    the offset and lengths; a shard with no kept key gives (0, NEG_INF, 0)
+    here, (sum v, NEG_INF, S_local) there, equal after the combine)."""
+    return ops.paged_attention_partial(q, k_pool, v_pool, block_table, context_lens,
+                                       key_offset=key_offset, window=window)
+
+
+def combine_partials(o, m, l, group):
+    """The in-network reduction of partial softmax terms: over ``group``, a
+    process group or a sequence of them (then one after the other, the
+    hierarchical reduction of the reference's seq axes), M = max m (an
+    all-reduce MAX), then the sums of o e^(m - M) and l e^(m - M) (all-reduce
+    SUM).  Returns o / max(l, 1e-30), float32 (B, Hq, D)."""
+    for g in (group if isinstance(group, (tuple, list)) else (group,)):
+        M = m.clone()
+        dist.all_reduce(M, dist.ReduceOp.MAX, group=g)
+        scale = torch.exp(m - M)
+        o = o * scale[..., None]
+        l = l * scale
+        dist.all_reduce(o, dist.ReduceOp.SUM, group=g)
+        dist.all_reduce(l, dist.ReduceOp.SUM, group=g)
+        m = M
+    return o / l.clamp_min(1e-30)[..., None]
+
+
+def picnic_decode_attention(q, k_new, v_new, k_cache, v_cache, cache_len, *, mesh,
+                            block_table, context_lens, seq_axes=("model",), window=None):
+    """PICNIC distributed-scratchpad decode over a sequence-sharded cache:
+    this rank holds rows [base, base + S_local) of every sequence, base its
+    index over ``seq_axes`` times S_local.  The new token's K/V is
+    appended by the OWNING rank only (the paper's cyclic scratchpad
+    write): every rank writes ``where(owns, new, current)`` at its clamped
+    local index, IN PLACE, so a 0-dim tensor ``cache_len`` is never read on
+    the host.  Then each rank's partial and the combine over the seq axes'
+    groups.  q, k_new, v_new: (B, 1, H, D); k/v_cache: (B, S_local, Hkv,
+    D); ``block_table`` the identity table of the local cache as a pool;
+    ``context_lens`` (B,) global.  Returns (out (B, 1, Hq, D), k_cache,
+    v_cache)."""
+    B, S_local = k_cache.shape[:2]
+    base = axes_index(mesh, seq_axes) * S_local
+    if isinstance(cache_len, torch.Tensor):
+        gpos = (cache_len - 1).reshape(1).long()
+    else:
+        n_rows = S_local * axes_size(mesh, seq_axes)
+        if not 1 <= cache_len <= n_rows:
+            raise ValueError(f"cache_len {cache_len} outside [1, {n_rows}]")
+        gpos = torch.full((1,), cache_len - 1, dtype=torch.long, device=q.device)
+    li = (gpos - base).clamp(0, S_local - 1)
+    owns = (gpos >= base) & (gpos < base + S_local)
+    for buf, new in ((k_cache, k_new), (v_cache, v_new)):
+        cur = buf.index_select(1, li)
+        buf.index_copy_(1, li, torch.where(owns, new.to(buf.dtype), cur))
+    bt = S_local // block_table.shape[1]
+    pool_k = k_cache.view(B * S_local // bt, bt, *k_cache.shape[2:])
+    pool_v = v_cache.view(B * S_local // bt, bt, *v_cache.shape[2:])
+    o, m, l = decode_attention_partial(q[:, 0], pool_k, pool_v, block_table, context_lens,
+                                       key_offset=base, window=window)
+    out = combine_partials(o, m, l, axes_groups(mesh, seq_axes))
+    return out[:, None].to(q.dtype), k_cache, v_cache
+
+
+def picnic_active(ctx=None) -> bool:
+    """Whether decode runs PICNIC's sharded path: a context with
+    ``picnic_decode`` whose ``seq_axes`` span more than one rank."""
+    ctx = shctx.current() if ctx is None else ctx
+    return bool(ctx is not None and ctx.opt("picnic_decode")
+                and axes_size(ctx.mesh, ctx.opt("seq_axes", ("model",))) > 1)
+
+
 def attn_decode_sublayer(cfg, p, x, cache_k, cache_v, cache_len, *,
                          block_table, context_lens, window=None):
     """One-token decode: x (B, 1, d); cache_k/v (B, max_len, Hkv, D) of one
@@ -111,19 +202,33 @@ def attn_decode_sublayer(cfg, p, x, cache_k, cache_v, cache_len, *,
     and the caller checks ``1 <= cache_len <= max_len`` (an int is checked
     here).  Under a ``window`` only the keys from ``cache_len - window`` on
     are attended, a bound the kernel takes from ``context_lens`` on the
-    device.  Returns (out (B, 1, d), cache_k, cache_v)."""
+    device.  Returns (out (B, 1, d), cache_k, cache_v).
+
+    Under a PICNIC context (``picnic_active``) cache_k/v are this rank's
+    shard of the rows, ``block_table`` the identity table of that shard,
+    ``context_lens`` global, and ``picnic_decode_attention`` appends and
+    attends."""
     q, k, v = qkv_project(cfg, p, x)
     B, max_len = cache_k.shape[:2]
+    ctx = shctx.current()
+    picnic = picnic_active(ctx)
+    seq_axes = tuple(ctx.opt("seq_axes", ("model",))) if picnic else ()
+    rows = max_len * axes_size(ctx.mesh, seq_axes) if picnic else max_len   # global
     if isinstance(cache_len, torch.Tensor):
         idx = (cache_len - 1).reshape(1).long()
     else:
-        if not 1 <= cache_len <= max_len:
-            raise ValueError(f"cache_len {cache_len} outside [1, {max_len}]")
+        if not 1 <= cache_len <= rows:
+            raise ValueError(f"cache_len {cache_len} outside [1, {rows}]")
         idx = torch.full((1,), cache_len - 1, dtype=torch.long, device=x.device)
     if cfg.use_rope:
         pos = idx.to(torch.float32).reshape(1, 1)
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
+    if picnic:
+        out, cache_k, cache_v = picnic_decode_attention(
+            q, k, v, cache_k, cache_v, cache_len, mesh=ctx.mesh, block_table=block_table,
+            context_lens=context_lens, seq_axes=seq_axes, window=window)
+        return out.reshape(B, 1, cfg.q_dim) @ p["wo"], cache_k, cache_v
     cache_k.index_copy_(1, idx, k.to(cache_k.dtype))
     cache_v.index_copy_(1, idx, v.to(cache_v.dtype))
     bt = max_len // block_table.shape[1]

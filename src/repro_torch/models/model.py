@@ -350,7 +350,18 @@ def decode_step(cfg, params, token, cache, cache_len):
     it lies in [1, max_len].  Writes this step's K/V and recurrent state
     into ``cache`` in place and returns (logits (B, 1, V), cache).  A
     decoder block (whisper) adds the sinusoidal position ``cache_len - 1``
-    and attends over its cross cache's first ``encoder_seq`` rows."""
+    and attends over its cross cache's first ``encoder_seq`` rows.
+
+    Under a PICNIC context (``attention.picnic_active``: ``picnic_decode``
+    with seq axes of more than one rank) ``cache`` is this rank's shard
+    (``sharding.local_cache``): every attention cache ``(n_groups, B /
+    n_dp, max_len / n_seq, H_kv, D)``, the cross cache and the recurrent
+    state of SSM / hybrid models cut in the batch only (the state is the
+    same on every rank of a seq group).  ``token`` holds the rank's batch
+    rows.  Every attention block gets the global ``context_lens`` and the
+    identity table of the shard; ``attention.picnic_decode_attention``
+    takes the rank's key offset, its index over the seq axes times the
+    shard's rows, from the mesh."""
     kinds, n_groups = group_layout(cfg)
     x = F.embedding(token, params["embed"])
     B = token.shape[0]

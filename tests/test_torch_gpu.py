@@ -498,7 +498,7 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
     for n_splits, bps, use_pwl in ((1, 3, 0), (2, 2, 1)):
         assert lib.paged_attention_fwd(
             qa.data_ptr(), pool.data_ptr(), pool.data_ptr(), table.data_ptr(), lens.data_ptr(),
-            out.data_ptr(), scratch.data_ptr(), 2, 8, 2, 64, 16, 4, n_splits, bps, 0, 0,
+            out.data_ptr(), scratch.data_ptr(), 2, 8, 2, 64, 16, 4, n_splits, bps, 0, 0, 0, 0,
             use_pwl, ctypes.addressof(PWL_COEFFS),
             torch.cuda.current_stream(cuda).cuda_stream) != 0
     with pytest.raises(ValueError, match="window"):

@@ -144,7 +144,8 @@ def test_port_imports_with_jax_blocked():
             "repro_torch.optim.clip", "repro_torch.optim.schedule",
             "repro_torch.checkpoint.ckpt", "repro_torch.data.pipeline",
             "repro_torch.runtime.fault_tolerance", "repro_torch.runtime.straggler",
-            "repro_torch.launch.train"} <= set(names)
+            "repro_torch.launch.train", "repro_torch.launch.mesh",
+            "repro_torch.sharding.ctx", "repro_torch.sharding.layout"} <= set(names)
 
 
 def _imports(path: Path):
@@ -163,7 +164,8 @@ def test_no_port_file_imports_jax_or_repro():
     rel = {str(f.relative_to(ROOT / "src" / "repro_torch")) for f in files[:port]}
     assert {"optim/adamw.py", "optim/adafactor.py", "optim/clip.py", "optim/schedule.py",
             "checkpoint/ckpt.py", "data/pipeline.py", "runtime/fault_tolerance.py",
-            "runtime/straggler.py", "launch/train.py"} <= rel
+            "runtime/straggler.py", "launch/train.py", "launch/mesh.py",
+            "sharding/ctx.py", "sharding/layout.py"} <= rel
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
