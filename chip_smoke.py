@@ -166,6 +166,22 @@ Phases, each of which fails the run if it fails:
                 backwards; eager and graph ms a step, tokens/s, the
                 capture's seconds, the graph pool, peak memory, each
                 profiled step's busy share and the kernels' device time.
+  dp_train      data-parallel training: two ranks spawned on the one card
+                (gloo, a (2, 1) ("data", "model") mesh), llama3.2-1b's
+                params and AdamW state cut by ``sharding.param_specs`` /
+                ``opt_state_specs``, each rank its B4 of PackedStream's
+                global B8 x S1024, ``launch.steps.make_sharded_train_step``
+                eager; rank 0 first runs the single-rank steps on the full
+                batches.  float32 cut to 2 layers, 3 steps: metrics within
+                1e-5 relative of the single-rank steps, every leaf's update
+                within 1e-3, both ranks' gathered params bit-equal after
+                every step; bf16 at full depth (16 layers, remat), 3 steps:
+                both ranks' losses bit-equal and falling, loss and gradient
+                norm within the DP_BF16_* bars of the single-rank steps;
+                launch counts a rank as ``train``'s; the int8 compressed
+                all-reduce on CUDA tensors of the embed gradient's shape
+                bit-equal to the same call on the CPU.  Its ms a step and
+                peak GiB a rank are printed, the time correctness-only.
   train_parity  llama3.2-1b widths, 2 layers, float32: 3 AdamW steps on the
                 card (remat on, then off) against the CPU from the same
                 weights and batches: metrics, first gradients, updates;
@@ -245,6 +261,7 @@ and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -256,7 +273,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "serve", "ssm_serve", "hybrid_serve", "moe_serve", "audio_serve",
           "vlm_serve", "cim_scu", "parity", "ssm_parity", "moe_parity", "audio_parity",
-          "vlm_parity", "server", "picnic_decode", "train", "train_parity", "train_driver",
+          "vlm_parity", "server", "picnic_decode", "train", "dp_train", "train_parity",
+          "train_driver",
           "audio_train", "audio_train_parity", "ssm_train", "ssm_train_parity", "hybrid_train",
           "hybrid_train_parity", "moe_train", "moe_train_parity", "vlm_train",
           "vlm_train_parity", "train_100m_torch")
@@ -439,6 +457,24 @@ PICNIC_F32_LAYERS, PICNIC_F32_REL = 2, 1e-5
 # a wrong shard or a mis-weighted partial moves a row by O(1)
 PICNIC_BF16_ROW_REL = 0.05
 PICNIC_TIMEOUT = 600                # seconds, each rank
+# dp_train: llama3.2-1b data-parallel over two ranks on the one card (a
+# (2, 1) ("data", "model") mesh over gloo, a file store, a 120 s collective
+# timeout), params and AdamW state cut by param_specs(..., "train") /
+# opt_state_specs; the train phase's hyper-parameters and PackedStream(0)'s
+# global B8 x S1024, B4 a rank.  float32 cut to DP_F32_LAYERS layers for
+# DP_F32_STEPS steps: loss, ce and grad_norm within TRAIN_METRIC_REL of rank
+# 0's single-rank eager step on the full batch, each leaf's update within
+# DP_UPDATE_REL (tests/test_torch_train.py's UPDATE_RTOL, hazard 10), the
+# two ranks' gathered params bit-equal after every step.  bf16 at full
+# depth for DP_BF16_STEPS steps: both ranks' losses bit-equal and falling;
+# each step's loss within DP_BF16_LOSS_REL and gradient norm within
+# DP_BF16_GNORM_REL of the single-rank steps (bf16 gradients of two B4
+# shards summed against one B8 gradient, cuBLAS's other tiles at the other
+# M; a gradient summed twice or not at all moves the norm 2x, a wrong token
+# count the loss 2x)
+DP_MESH, DP_F32_LAYERS, DP_F32_STEPS, DP_BF16_STEPS = (2, 1), 2, 3, 3
+DP_UPDATE_REL, DP_BF16_LOSS_REL, DP_BF16_GNORM_REL = 1e-3, 1e-2, 5e-2
+DP_TIMEOUT = 900                    # seconds, each rank
 # the train phases whose flash forward the kernels phase times at their shape
 TRAIN_MODEL_OF = {"train": "llama3.2-1b", "audio_train": "whisper", "hybrid_train": "zamba2",
                   "moe_train": "mixtral", "vlm_train": "paligemma"}
@@ -544,6 +580,8 @@ def phase_build():
                 kernel = _demangle(line.split("'")[1]) + ": "
             elif "registers" in line or ("spill" in line and " 0 bytes spill" not in line):
                 log(f"[build] {name}: {kernel}{line.strip()}")
+    log("[build] seconds until each nvcc ended (a library's source, then its parts): "
+        + "; ".join(f"{n} {', '.join(map(str, s))}" for n, s in sorted(_build.BUILD_SECONDS.items())))
 
 
 def _demangle(symbol: str) -> str:
@@ -2717,6 +2755,41 @@ def _tree_to(tree, device):
     return tree.to(device)
 
 
+def host_peak_gib():
+    """This process's peak resident memory so far, GiB."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+
+# glibc's mallopt parameters (malloc.h) and their defaults
+M_TRIM_THRESHOLD, M_MMAP_MAX = -1, -4
+TRIM_THRESHOLD_DEFAULT, MMAP_MAX_DEFAULT = 128 * 1024, 65536
+
+
+@contextlib.contextmanager
+def host_heap():
+    """The CPU reference runs' host tensors from glibc's heap, reused once
+    freed, instead of a fresh mmap for each large block (glibc's default):
+    such a block is page-faulted in anew on every allocation, and the CPU's
+    memory-bound passes (AdamW over a vocabulary-wide embedding) allocate
+    one for each temporary.  On leaving, the defaults come back and the
+    heap's free pages go back to the system.  The numbers are the same
+    either way.  Where the C library has no ``mallopt``, nothing changes."""
+    import ctypes
+    libc = ctypes.CDLL(None)
+    mallopt = getattr(libc, "mallopt", None)
+    if mallopt is None:
+        yield
+        return
+    mallopt(M_MMAP_MAX, 0)
+    mallopt(M_TRIM_THRESHOLD, 2 ** 31 - 1)
+    try:
+        yield
+    finally:
+        mallopt(M_MMAP_MAX, MMAP_MAX_DEFAULT)
+        mallopt(M_TRIM_THRESHOLD, TRIM_THRESHOLD_DEFAULT)
+        libc.malloc_trim(0)
+
+
 def _parity(torch, cfg, *, b, s, steps, max_len, seed):
     """float32 weights from a seed on the card, copied to the CPU: prefill
     logits, ``steps`` decode-step logits and the greedy ids of both (an
@@ -2744,33 +2817,34 @@ def _parity(torch, cfg, *, b, s, steps, max_len, seed):
     rows = s + cfg.n_prefix_tokens          # cache rows after the prefill
     out = {}
     for dev in ("cuda", "cpu"):
-        ops.reset_launch_counts()
-        t0 = time.time()
-        enc = {k: t.to(dev) for k, t in inputs.items()}
-        with torch.no_grad():
-            logits, _, _ = models.forward(cfg, params[dev], prompt.to(dev), **enc)
-        tok, cache = make_prefill_step(cfg, kv_max=max_len)(
-            params[dev], {"tokens": prompt.to(dev), **enc})
-        serve = make_serve_step(cfg)
-        ids, step_logits = [tok.cpu()], []
-        for i in range(steps):
+        with host_heap() if dev == "cpu" else contextlib.nullcontext():
+            ops.reset_launch_counts()
+            t0 = time.time()
+            enc = {k: t.to(dev) for k, t in inputs.items()}
             with torch.no_grad():
-                lg, _ = models.decode_step(cfg, params[dev], tok,
-                                           {k: {kk: vv.clone() for kk, vv in c.items()}
-                                            for k, c in cache.items()}, rows + i + 1)
-            step_logits.append(lg.float().cpu())
-            tok, cache = serve(params[dev], cache, tok, rows + i + 1)
-            ids.append(tok.cpu())
-        if dev == "cuda":
-            torch.cuda.synchronize()
-            want = expected_launches(cfg, steps)
-            missing = [k for k, n in want.items() if n and not ops.LAUNCHES[k]]
-            if missing:
-                raise AssertionError(f"card run launched {ops.LAUNCHES}")
-        elif any(ops.LAUNCHES.values()):
-            raise AssertionError(f"CPU run launched kernels {ops.LAUNCHES}")
-        out[dev] = (logits.float().cpu(), torch.cat(step_logits, 1), torch.cat(ids, 1))
-        log(f"[parity] {cfg.name} {dev}: {time.time() - t0:.1f}s")
+                logits, _, _ = models.forward(cfg, params[dev], prompt.to(dev), **enc)
+            tok, cache = make_prefill_step(cfg, kv_max=max_len)(
+                params[dev], {"tokens": prompt.to(dev), **enc})
+            serve = make_serve_step(cfg)
+            ids, step_logits = [tok.cpu()], []
+            for i in range(steps):
+                with torch.no_grad():
+                    lg, _ = models.decode_step(cfg, params[dev], tok,
+                                               {k: {kk: vv.clone() for kk, vv in c.items()}
+                                                for k, c in cache.items()}, rows + i + 1)
+                step_logits.append(lg.float().cpu())
+                tok, cache = serve(params[dev], cache, tok, rows + i + 1)
+                ids.append(tok.cpu())
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                want = expected_launches(cfg, steps)
+                missing = [k for k, n in want.items() if n and not ops.LAUNCHES[k]]
+                if missing:
+                    raise AssertionError(f"card run launched {ops.LAUNCHES}")
+            elif any(ops.LAUNCHES.values()):
+                raise AssertionError(f"CPU run launched kernels {ops.LAUNCHES}")
+            out[dev] = (logits.float().cpu(), torch.cat(step_logits, 1), torch.cat(ids, 1))
+            log(f"[parity] {cfg.name} {dev}: {time.time() - t0:.1f}s")
     err_prefill = (out["cuda"][0] - out["cpu"][0]).abs().max().item()
     err_decode = (out["cuda"][1] - out["cpu"][1]).abs().max().item()
     same_ids = torch.equal(out["cuda"][2], out["cpu"][2])
@@ -3045,6 +3119,270 @@ def phase_picnic_decode(torch, results):
     results["picnic_decode"] = out
     r0 = runs["bfloat16"][0]
     return {**r0["launches"], **{(n, k): c for n, k, c in r0["launches_by_shape"]}}
+
+
+def dp_cfgs():
+    """The dp_train phase's configs: llama3.2-1b's float32 cut of
+    DP_F32_LAYERS layers, and as published (bf16, 16 layers, remat)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(TRAIN_ARCH)
+    return {"float32": dataclasses.replace(cfg, n_layers=DP_F32_LAYERS, dtype="float32"),
+            "bfloat16": cfg}
+
+
+def _params_bits_equal(torch, dist, params):
+    """Whether every rank's ``params`` are rank 0's, bit for bit (each leaf
+    broadcast from rank 0 and compared as bytes)."""
+    from repro_torch.tree import tree_leaves
+    differ = 0
+    for t in tree_leaves(params):
+        mine = t.detach().contiguous()
+        theirs = mine.clone()
+        dist.broadcast(theirs, src=0)
+        differ += not torch.equal(theirs.view(torch.uint8), mine.view(torch.uint8))
+    flag = torch.tensor([differ], device=mine.device)
+    dist.all_reduce(flag)
+    return int(flag.item()) == 0
+
+
+def dp_rank(rank: int, out_dir: str) -> int:
+    """One rank of the dp_train phase (run as ``chip_smoke.py --dp-rank R
+    --dp-dir DIR`` by the phase): gloo over a file store in DIR, the (2, 1)
+    mesh on the card.  For each of ``dp_cfgs()``: rank 0 first runs the
+    single-rank eager steps on the full batches (the other rank waits),
+    then both ranks cut the same seed-0 state by the specs and run
+    ``make_sharded_train_step`` on their batch shards, the launch
+    counters zeroed just before and read just after.  Then
+    ``compressed_allreduce`` over the two ranks on CUDA tensors of
+    llama3.2-1b's embed-gradient shape and on the same values on the CPU.
+    After the bf16 steps, the step's two collectives are timed apart: the
+    gather of every param shard, and the SUM all-reduce of float32 buffers
+    of the gradients' shapes.  Writes DIR/rank{R}.pt."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.runtime import compressed_allreduce
+    from repro_torch.tree import tree_from_paths, tree_paths
+
+    world = DP_MESH[0] * DP_MESH[1]
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/store", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=120))
+    torch.cuda.set_device(rank % torch.cuda.device_count())     # both on the one card
+    mesh = init_device_mesh("cuda", DP_MESH, mesh_dim_names=("data", "model"))
+    tag = f"[dp_train rank {rank}]"
+    saved = {}
+    hyper = dict(base_lr=3e-4, warmup=10, total_steps=TRAIN_STEPS)
+    host = lambda tree: {path: t.detach().to("cpu", torch.float32, copy=True)
+                         for path, t in tree_paths(tree)}
+    for dt, cfg in dp_cfgs().items():
+        n_steps = DP_F32_STEPS if dt == "float32" else DP_BF16_STEPS
+        batches = train_batches(torch, cfg, TRAIN_B, TRAIN_S, n_steps)
+        res = {"seconds": {}}
+        t_part = time.time()
+        if rank == 0:                   # the single-rank steps on the full batches
+            params, state = steps.init_train_state(
+                cfg, torch.Generator(device="cuda").manual_seed(0))
+            p0 = host(params) if dt == "float32" else None
+            single = steps.make_train_step(cfg, **hyper)
+            res["single"] = []
+            for b in batches:
+                params, state, m = single(params, state, b)
+                res["single"].append({k: float(v) for k, v in m.items()})
+            p_single = host(params) if dt == "float32" else None
+            log(f"{tag} {dt}: single-rank losses {[m['loss'] for m in res['single']]}")
+            del params, state, single
+            torch.cuda.empty_cache()
+        res["seconds"]["single_rank"] = time.time() - t_part
+        dist.barrier()
+        t_part = time.time()
+        torch.cuda.reset_peak_memory_stats()
+        params, state = steps.init_train_state(cfg, torch.Generator(device="cuda").manual_seed(0))
+        pspecs = sharding.param_specs(cfg, params, mesh, "train")
+        ospecs = sharding.opt_state_specs(cfg, state, pspecs, mesh)
+        ps, os_ = steps.shard_train_state(params, state, pspecs, ospecs, mesh)
+        del params, state
+        torch.cuda.empty_cache()
+        ctx = sharding.ShardingCtx(mesh, sharding.activation_rules(cfg, mesh, "train"))
+        step = steps.make_sharded_train_step(cfg, ctx, pspecs, ospecs, **hyper)
+        bspecs = sharding.batch_specs(cfg, batches[0], mesh)
+        local = [{k: sharding.local_shard(v, bspecs[k], mesh) for k, v in b.items()}
+                 for b in batches]
+        del batches
+        res.update(metrics=[], step_ms=[], bits_equal=[])
+        torch.cuda.synchronize()
+        res["seconds"]["cut"] = time.time() - t_part
+        t_part = time.time()
+        ops.reset_launch_counts()
+        for b in local:
+            t0 = time.time()
+            ps, os_, m = step(ps, os_, b)
+            res["metrics"].append({k: float(v) for k, v in m.items()})
+            res["step_ms"].append((time.time() - t0) * 1e3)
+            if dt == "float32":
+                full = tree_from_paths(
+                    (path, sharding.gather_shard(t, spec, mesh,
+                                                 sharding.full_shape(t.shape, spec, mesh)))
+                    for (path, t), (_, spec) in zip(tree_paths(ps), tree_paths(pspecs)))
+                res["bits_equal"].append(_params_bits_equal(torch, dist, full))
+        res["launches"] = {k: v for k, v in ops.LAUNCHES.items() if v}
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        res["seconds"]["sharded_steps"] = time.time() - t_part
+        if dt == "bfloat16":            # the step's collectives, timed apart
+            leaves = [(t, spec) for (_, t), (_, spec) in zip(tree_paths(ps), tree_paths(pspecs))]
+            torch.cuda.synchronize()
+            t0 = time.time()
+            for t, spec in leaves:
+                sharding.gather_shard(t, spec, mesh, sharding.full_shape(t.shape, spec, mesh))
+            torch.cuda.synchronize()
+            res["seconds"]["gather_params"] = time.time() - t0
+            t0 = time.time()
+            for t, spec in leaves:
+                buf = torch.zeros(sharding.full_shape(t.shape, spec, mesh), device="cuda")
+                dist.all_reduce(buf, group=mesh.get_group("data"))
+                del buf
+            torch.cuda.synchronize()
+            res["seconds"]["allreduce_f32_grads"] = time.time() - t0
+        if dt == "float32" and rank == 0:
+            mine = host(full)
+            res["update_rel"] = {"/".join(path): (
+                (mine[path] - p_single[path]).norm()
+                / (p_single[path] - p0[path]).norm().clamp_min(1e-30)).item() for path in p0}
+            del p0, p_single, mine
+        log(f"{tag} {dt}: losses {[m['loss'] for m in res['metrics']]}, "
+            f"{res['step_ms'][-1]:.1f} ms the last step, peak {res['peak_gib']:.2f} GiB, "
+            f"launches {res['launches']}, seconds "
+            + ", ".join(f"{k} {v:.2f}" for k, v in res["seconds"].items()))
+        saved[dt] = res
+        del ps, os_, step, local
+        if dt == "float32":
+            del full
+        torch.cuda.empty_cache()
+    # the compressed all-reduce at the embed gradient's shape, CUDA and CPU
+    shape = (dp_cfgs()["bfloat16"].vocab_size, dp_cfgs()["bfloat16"].d_model)
+    g = torch.randn(shape, generator=torch.Generator(device="cuda").manual_seed(rank),
+                    device="cuda") * 1e-3
+    t0 = time.time()
+    red, err = compressed_allreduce({"g": g}, {"g": torch.zeros_like(g)}, mesh, "data")
+    torch.cuda.synchronize()
+    cuda_s = time.time() - t0
+    t0 = time.time()
+    red_cpu, err_cpu = compressed_allreduce({"g": g.cpu()}, {"g": torch.zeros(shape)}, mesh,
+                                            "data")
+    cpu_s = time.time() - t0
+    exact = g.cpu().double()
+    dist.all_reduce(exact)
+    got = red["g"].cpu()
+    saved["compress"] = {
+        "bit_equal": bool(torch.equal(got.view(torch.int32), red_cpu["g"].view(torch.int32))
+                          and torch.equal(err["g"].cpu().view(torch.int32),
+                                          err_cpu["g"].view(torch.int32))),
+        "rel": ((got.double() - exact).norm() / exact.norm()).item(),
+        "cuda_s": cuda_s, "cpu_s": cpu_s, "shape": list(shape)}
+    log(f"{tag} compressed all-reduce {shape}: {saved['compress']}")
+    torch.save(saved, f"{out_dir}/rank{rank}.pt")
+    dist.barrier()                      # no rank tears gloo down while another still talks
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_dp_train(torch, results):
+    """Data-parallel training on the card: spawns the two ranks
+    (``dp_rank``) and holds what they wrote (see DP_* above): float32
+    metrics within TRAIN_METRIC_REL of the single-rank steps, updates
+    within DP_UPDATE_REL, gathered params bit-equal across ranks after
+    every step; bf16 losses bit-equal across ranks and falling, within the
+    DP_BF16_* bars of the single-rank steps; exact launch counts a rank
+    (2 flash forwards with lse and 1 backward a layer a step, as ``train``);
+    the compressed all-reduce's CUDA result bit-equal to the CPU's.  The ms
+    a step is correctness-only: both ranks share one card's SMs and gloo
+    stages every collective through the host.  Returns rank 0's bf16
+    launches."""
+    import tempfile
+    from repro_torch.kernels import _build
+
+    _build.build_all()                  # built once here, loaded by the ranks
+    torch.cuda.empty_cache()
+    world = DP_MESH[0] * DP_MESH[1]
+    with tempfile.TemporaryDirectory() as d:
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                   "--dp-rank", str(r), "--dp-dir", d],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(world)]
+        texts = []
+        try:
+            for p in procs:
+                texts.append(p.communicate(timeout=DP_TIMEOUT)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, text) in enumerate(zip(procs, texts)):
+            for line in text.splitlines():
+                log(line if line.startswith("[dp_train") else f"[dp_train rank {r}] {line}")
+            if p.returncode != 0:
+                raise AssertionError(f"dp_train: rank {r} exited {p.returncode}")
+        ranks = [torch.load(f"{d}/rank{r}.pt") for r in range(world)]
+    out = {}
+    for dt, cfg in dp_cfgs().items():
+        runs = [rk[dt] for rk in ranks]
+        single = runs[0]["single"]
+        n = len(single)
+        want = {"flash_attention": 2 * cfg.n_layers * n, "flash_attention_bwd": cfg.n_layers * n}
+        for r, run in enumerate(runs):
+            if run["launches"] != want:
+                raise AssertionError(f"dp_train {dt} rank {r}: launches {run['launches']}, "
+                                     f"expected {want}")
+            if run["metrics"] != runs[0]["metrics"]:
+                raise AssertionError(f"dp_train {dt}: rank {r}'s metrics differ from rank 0's")
+        rel = {k: max(abs(m[k] - s[k]) / abs(s[k]) for m, s in zip(runs[0]["metrics"], single))
+               for k in ("loss", "ce", "grad_norm")}
+        losses = [m["loss"] for m in runs[0]["metrics"]]
+        res = {"n_layers": cfg.n_layers, "steps": n, "global_batch": [TRAIN_B, TRAIN_S],
+               "mesh": DP_MESH, "losses": losses, "single_losses": [s["loss"] for s in single],
+               "rel_vs_single": rel, "launches_a_rank": runs[0]["launches"],
+               "peak_gib": [run["peak_gib"] for run in runs],
+               "step_ms_correctness_only": runs[0]["step_ms"]}
+        log(f"[dp_train] llama3.2-1b {dt} x {cfg.n_layers} layers, global B{TRAIN_B} x "
+            f"S{TRAIN_S} on 2 ranks: losses {losses} (single-rank {res['single_losses']}); "
+            f"largest relative gap to the single-rank steps: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+            + f"; peak {', '.join(f'{g:.2f}' for g in res['peak_gib'])} GiB a rank; "
+            f"{sorted(runs[0]['step_ms'])[n // 2]:.1f} ms a step (median, correctness-only: "
+            f"two ranks share one card, gloo through the host); launches a rank "
+            f"{runs[0]['launches']}")
+        res["seconds_rank0"] = runs[0]["seconds"]
+        log(f"[dp_train] {dt} rank 0 seconds: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in runs[0]["seconds"].items()))
+        if dt == "float32":
+            worst = max(runs[0]["update_rel"].items(), key=lambda kv: kv[1])
+            res["update_rel_max"] = worst
+            equal = all(all(run["bits_equal"]) for run in runs)
+            log(f"[dp_train] float32: updates after {n} steps within {worst[1]:.3e} of the "
+                f"single-rank run ({worst[0]}; bar {DP_UPDATE_REL}); ranks' gathered params "
+                f"bit-equal after every step: {equal}")
+            if not (max(rel.values()) <= TRAIN_METRIC_REL and worst[1] <= DP_UPDATE_REL
+                    and equal and len(runs[0]["bits_equal"]) == n):
+                raise AssertionError(f"dp_train float32: {rel}, {worst}, bits equal {equal}")
+        else:
+            if not (rel["loss"] <= DP_BF16_LOSS_REL and rel["grad_norm"] <= DP_BF16_GNORM_REL
+                    and all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+                raise AssertionError(f"dp_train bf16: {rel}, losses {losses}")
+        out[dt] = res
+    comp = [rk["compress"] for rk in ranks]
+    log(f"[dp_train] compressed all-reduce over 2 ranks at {comp[0]['shape']} float32: CUDA "
+        f"bit-equal to the CPU call on both ranks: {all(c['bit_equal'] for c in comp)}; "
+        f"relative error to the exact sum {comp[0]['rel']:.4e}; {comp[0]['cuda_s']:.2f} s on "
+        f"the card, {comp[0]['cpu_s']:.2f} s on the CPU (correctness-only)")
+    if not all(c["bit_equal"] for c in comp) or not comp[0]["rel"] < 0.02:
+        raise AssertionError(f"dp_train: compressed all-reduce {comp}")
+    out["compressed_allreduce"] = comp[0]
+    results["dp_train"] = out
+    return ranks[0]["bfloat16"]["launches"]
 
 
 def train_batches(torch, cfg, batch, seq, n, seed=0, device="cuda"):
@@ -3464,6 +3802,7 @@ def hold_graph(phase, what, graph, card, cpu, *, again, card_vs_cpu):
             "update_max_rel_l2_cpu": upd_rel}
 
 
+@host_heap()
 def run_train_parity(torch, results, phase, base, *, batches_fn, want_of, grad_rel=None,
                      pin_state=False, witness=None):
     """``base`` (float32, cut in depth): 3 AdamW steps (lr 3e-4, warmup
@@ -3492,7 +3831,8 @@ def run_train_parity(torch, results, phase, base, *, batches_fn, want_of, grad_r
     norm within FREE_RUN_GRAD_NORM_REL, the drift of a step after the first
     update (see there).  ``witness``: (what, config), a variant of
     ``base`` whose CPU first gradient is logged against the reference's and
-    the card's (not held)."""
+    the card's (not held).  The phase's host tensors (the CPU run, the card
+    runs' copies, the comparisons) come from glibc's heap (``host_heap``)."""
     from repro_torch import models
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import CompiledTrainStep, make_train_step
@@ -3513,9 +3853,11 @@ def run_train_parity(torch, results, phase, base, *, batches_fn, want_of, grad_r
         step), False (pin nothing, skip the first gradient) or None;
         graph: step through a CompiledTrainStep."""
         cfg = cfg_of or dataclasses.replace(base, remat=remat)
+        t_setup = time.time()
         p = tree_map(lambda t: t.detach().to(dev, copy=True).requires_grad_(True), params0)
         batches = batches_fn(cfg, dev)
         t0 = time.time()
+        t_setup = t0 - t_setup
         # the CPU's first gradient is kept from its first step
         from_step = dev == "cpu" and pinned is not False and first_grad and not grads_only
         grads = ({k: g.cpu() for k, g in first_grads(torch, cfg, p, batches[0]).items()}
@@ -3553,7 +3895,8 @@ def run_train_parity(torch, results, phase, base, *, batches_fn, want_of, grad_r
         launches = {**ops.LAUNCHES, **ops.LAUNCHES_BY_SHAPE}
         log(f"[{phase}] {dev} remat={remat}" + (" graph" if graph else "")
             + (", each step from the CPU's state" if pinned else "")
-            + f": {time.time() - t0:.1f}s, launches {dict(ops.LAUNCHES)}")
+            + f": {time.time() - t0:.1f}s (set-up {t_setup:.1f}s), launches {dict(ops.LAUNCHES)}"
+            + (f", host peak RSS {host_peak_gib():.1f} GiB" if dev == "cpu" else ""))
         return grads, metrics, updates, launches, pins
 
     def rel_l2(a, b):
@@ -3635,16 +3978,19 @@ def run_train_parity(torch, results, phase, base, *, batches_fn, want_of, grad_r
             raise AssertionError(f"{phase}, nothing pinned: card and CPU disagree")
         out["unpinned"] = {"metric_rel_per_step": mrel, "update_max_rel_l2": upd_rel}
     if witness is not None:
+        t_wit = time.time()
         alt, card0 = run("cpu", False, cfg_of=witness[1], grads_only=True), card_first
         far = {k: rel_l2(alt[k], cpu[0][k]) for k in alt}
         card_far = {k: rel_l2(card0[k], alt[k]) for k in alt}
         ref_card = {k: rel_l2(card0[k], cpu[0][k]) for k in alt}
         log(f"[{phase}] first gradients, max rel L2 over leaves: the CPU at {witness[0]} "
             f"vs the reference {max(far.values()):.3e}, vs the card "
-            f"{max(card_far.values()):.3e}; the card vs the reference {max(ref_card.values()):.3e}")
+            f"{max(card_far.values()):.3e}; the card vs the reference {max(ref_card.values()):.3e}"
+            f" ({time.time() - t_wit:.1f}s)")
         out["witness_first_grad_rel"] = {"variant_vs_reference": max(far.values()),
                                          "variant_vs_card": max(card_far.values()),
                                          "card_vs_reference": max(ref_card.values())}
+    log(f"[{phase}] host peak RSS so far {host_peak_gib():.1f} GiB")
     results[phase] = out
     return card_launches
 
@@ -4030,6 +4376,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", help="also write the results as JSON to this file")
     ap.add_argument("--picnic-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--picnic-dir", help=argparse.SUPPRESS)
+    ap.add_argument("--dp-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--dp-dir", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     unknown = set(phases) - set(PHASES + EXTRA_PHASES)
@@ -4051,6 +4399,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     if args.picnic_rank is not None:    # one rank of the picnic_decode phase
         return picnic_rank(args.picnic_rank, args.picnic_dir)
+    if args.dp_rank is not None:        # one rank of the dp_train phase
+        return dp_rank(args.dp_rank, args.dp_dir)
     smi = nvidia_smi_line()
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
@@ -4094,6 +4444,8 @@ def main(argv=None) -> int:
             launches_of[phase] = phase_picnic_decode(torch, results)
         elif phase == "train":
             launches_of[phase] = phase_train(torch, results)
+        elif phase == "dp_train":
+            launches_of[phase] = phase_dp_train(torch, results)
         elif phase == "train_parity":
             launches_of[phase] = phase_train_parity(torch, results)
         elif phase == "train_driver":

@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, Tuple
 
@@ -50,6 +51,10 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
 LAUNCHES_BY_SHAPE: Dict[Tuple[str, str], int] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOGS: Dict[str, str] = {}
+# seconds from the start of the last ``build_all`` until each ``nvcc`` of a
+# library ended, in the order of its translation units (the source as it
+# is, then each part); the link not counted
+BUILD_SECONDS: Dict[str, list] = {}
 
 
 def nvcc() -> str:
@@ -74,10 +79,15 @@ def start(src: Path, out: Path, parts=()):
     """Start compiling ``src`` into the library ``out``: one ``nvcc``, or,
     with ``parts`` (lists of -D flags), one ``nvcc -c`` for the source as
     it is and one for each part, all started together.  Returns
-    ``finish``, which waits, links the parts, and returns (ok, log)."""
+    ``finish``, which waits, links the parts, and returns (ok, log);
+    ``finish.procs`` are the ``nvcc`` processes.  Their output goes to
+    files beside ``out``, so no process waits on a full pipe."""
+    logs = []
+
     def run(args):
-        return subprocess.Popen([nvcc(), *args], stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
+        logs.append(out.with_suffix(f".{len(logs)}.log"))
+        with open(logs[-1], "w") as f:
+            return subprocess.Popen([nvcc(), *args], stdout=f, stderr=subprocess.STDOUT)
     if not parts:
         procs, objs = [run([*NVCC_FLAGS, "-o", str(out), str(src)])], []
     else:
@@ -87,7 +97,11 @@ def start(src: Path, out: Path, parts=()):
                  for flags, obj in zip([[]] + list(parts), objs)]
 
     def finish():
-        log = "".join(p.communicate()[0] for p in procs)
+        for p in procs:
+            p.wait()
+        log = "".join(f.read_text() for f in logs)
+        for f in logs:
+            f.unlink(missing_ok=True)
         ok = not any(p.returncode for p in procs)
         if ok and objs:
             link = subprocess.run([nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(out),
@@ -97,6 +111,7 @@ def start(src: Path, out: Path, parts=()):
         for obj in objs:
             obj.unlink(missing_ok=True)
         return ok, log
+    finish.procs = procs
     return finish
 
 
@@ -112,6 +127,16 @@ def build_all(names=None) -> Dict[str, Path]:
             continue
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         procs[n] = (tmp, start(CSRC / f"{n}.cu", tmp, PARTS.get(n, ())))
+    t0 = time.time()
+    ends = {n: [None] * len(finish.procs) for n, (_, finish) in procs.items()}
+    while any(None in e for e in ends.values()):
+        for n, (_, finish) in procs.items():
+            for i, p in enumerate(finish.procs):
+                if ends[n][i] is None and p.poll() is not None:
+                    ends[n][i] = round(time.time() - t0, 1)
+        time.sleep(0.2)
+    BUILD_SECONDS.clear()
+    BUILD_SECONDS.update(ends)
     failed = []
     for n, (tmp, finish) in procs.items():
         ok, BUILD_LOGS[n] = finish()

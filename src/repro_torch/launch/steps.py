@@ -4,10 +4,13 @@ greedy sampling.  Port of ``repro.launch.steps``: ``cross_entropy``,
 ``make_prefill_step`` and ``make_serve_step``; ``CompiledServeStep``, the
 serve step captured once as a CUDA graph (the counterpart of the
 reference's ``jax.jit(serve_step, donate_argnums=(1,))`` in
-``launch/serve.py``); and ``CompiledTrainStep``, the train step captured
+``launch/serve.py``); ``CompiledTrainStep``, the train step captured
 once as a CUDA graph with its params and optimizer state donated (the
 counterpart of ``jax.jit(train_step, donate_argnums=(0, 1))`` in
-``launch/train.py``), whose body is ``make_train_body``."""
+``launch/train.py``), whose body is ``make_train_body``; and
+``make_sharded_train_step``, the data-parallel train step on a rank's
+shards (the counterpart of the reference's ``jax.jit(..., in_shardings=)``
+over a mesh), with ``shard_train_state`` / ``gather_train_state``."""
 from __future__ import annotations
 
 import time
@@ -18,7 +21,8 @@ import torch.distributed as dist
 
 from repro_torch import models
 from repro_torch.models.attention import picnic_active
-from repro_torch.sharding import axes_groups, axes_size, current
+from repro_torch.sharding import (axes_groups, axes_size, current, full_shape, gather_shard,
+                                  local_shard, use_sharding)
 from repro_torch.kernels._build import LAUNCHES, LAUNCHES_BY_SHAPE
 from repro_torch.optim import clip_by_global_norm, linear_warmup_cosine, make_optimizer
 from repro_torch.tree import tree_from_paths, tree_map, tree_paths
@@ -28,12 +32,18 @@ from repro_torch.tree import tree_from_paths, tree_map, tree_paths
 NOISE_SEED = 17
 
 
-def cross_entropy(logits, labels, mask=None):
-    """Mean next-token CE: float32 logsumexp, masked mean over ``mask``."""
+def cross_entropy(logits, labels, mask=None, *, count=None):
+    """Mean next-token CE: float32 logsumexp, masked mean over ``mask``.
+    ``count`` (a 0-dim tensor): the divisor instead of this batch's mask
+    sum (or token count), as a data-parallel rank divides its shard's sum
+    by the global batch's, so that the ranks' losses add up to the global
+    mean."""
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     nll = lse - ll
+    if count is not None:
+        return torch.sum(nll if mask is None else nll * mask) / count
     if mask is not None:
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
     return torch.mean(nll)
@@ -68,7 +78,20 @@ def weight_noise(params, std: float, step=None, *, generator=None):
         for path, leaf in items)
 
 
-def make_loss_fn(cfg, *, weight_noise_std: float = 0.0):
+def _global_count(batch, groups):
+    """The global batch's mask sum (its token count without a mask),
+    all-reduced over ``groups``, at least 1: a data-parallel loss's
+    divisor."""
+    with torch.no_grad():
+        mask = batch.get("mask")
+        n = (mask.sum() if mask is not None else
+             torch.tensor(batch["labels"].numel(), device=batch["labels"].device)).to(torch.float32)
+        for g in groups:
+            dist.all_reduce(n, group=g)
+        return torch.clamp(n, min=1)
+
+
+def make_loss_fn(cfg, *, weight_noise_std: float = 0.0, dp_groups=()):
     """weight_noise_std > 0 enables the paper's noise-resilient training
     (§IV / [13]): multiplicative Gaussian noise on the weights during the
     forward pass models RRAM conductance relaxation.
@@ -78,7 +101,12 @@ def make_loss_fn(cfg, *, weight_noise_std: float = 0.0):
     (``weight_noise`` gives the port's own; a test may pass the JAX
     package's); without it the loss is the clean one.  A leaf becomes
     ``leaf * factor.to(leaf.dtype)``, as the reference casts ``1 + std *
-    normal`` to the leaf's dtype."""
+    normal`` to the leaf's dtype.
+
+    ``dp_groups``: the process groups over which the batch is cut (a
+    data-parallel rank's); its ``ce`` is then this shard's share of the
+    global batch's, ``cross_entropy(..., count=)`` of the global mask sum,
+    and the ranks' ``ce`` add up to the global one."""
     def loss_fn(params, batch, noise=None):
         p = params
         if weight_noise_std > 0.0 and noise is not None:
@@ -87,10 +115,24 @@ def make_loss_fn(cfg, *, weight_noise_std: float = 0.0):
         logits, aux, _ = models.forward(cfg, p, batch["tokens"],
                                         prefix_embeds=batch.get("prefix_embeds"),
                                         encoder_embeds=batch.get("encoder_embeds"))
-        ce = cross_entropy(logits, batch["labels"], batch.get("mask"))
+        count = _global_count(batch, dp_groups) if dp_groups else None
+        ce = cross_entropy(logits, batch["labels"], batch.get("mask"), count=count)
         loss = ce + 0.01 * aux
         return loss, {"ce": ce, "aux": aux}
     return loss_fn
+
+
+def _loss_and_grads(loss_fn, params, batch, noise):
+    """(loss, its parts, the gradient tree) of ``loss_fn`` at ``params``
+    (leaves that require grad); a leaf the loss does not reach gets
+    zeros."""
+    paths, leaves = zip(*tree_paths(params))
+    with torch.enable_grad():
+        loss, parts = loss_fn(params, batch, noise=noise)
+        grad_leaves = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = tree_from_paths((path, torch.zeros_like(leaf) if g is None else g)
+                            for path, leaf, g in zip(paths, leaves, grad_leaves))
+    return loss, parts, grads
 
 
 def _make_step(cfg, *, base_lr, warmup, total_steps, max_grad_norm, weight_noise_std):
@@ -101,14 +143,8 @@ def _make_step(cfg, *, base_lr, warmup, total_steps, max_grad_norm, weight_noise
     _, opt_update = make_optimizer(cfg.optimizer)
 
     def step(params, opt_state, batch, noise, donate):
-        paths, leaves = zip(*tree_paths(params))
-        with torch.enable_grad():
-            loss, parts = loss_fn(params, batch, noise=noise)
-            grad_leaves = torch.autograd.grad(loss, leaves, allow_unused=True)
+        loss, parts, grads = _loss_and_grads(loss_fn, params, batch, noise)
         with torch.no_grad():
-            grads = tree_from_paths(
-                (path, torch.zeros_like(leaf) if g is None else g)
-                for path, leaf, g in zip(paths, leaves, grad_leaves))
             grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
             lr = linear_warmup_cosine(opt_state["step"].to(torch.float32),
                                       base_lr=base_lr, warmup_steps=warmup,
@@ -172,6 +208,120 @@ def make_train_body(cfg, *, base_lr=3e-4, warmup=100, total_steps=10000,
         return step(params, opt_state, batch, noise, True)[2]
 
     return body
+
+
+def _zip_specs(tree, specs):
+    """(path, leaf, spec) over the leaves of ``tree`` and its spec tree."""
+    spec_of = dict(tree_paths(specs))
+    return [(path, leaf, spec_of[path]) for path, leaf in tree_paths(tree)]
+
+
+def shard_train_state(params, opt_state, pspecs, ospecs, mesh):
+    """This rank's shards of global params and optimizer state (on every
+    rank the same), cut by ``pspecs`` / ``ospecs`` (``sharding.specs``):
+    contiguous copies, the params' without grad."""
+    return tuple(tree_from_paths((path, local_shard(leaf, spec, mesh))
+                                 for path, leaf, spec in _zip_specs(tree, specs))
+                 for tree, specs in ((params, pspecs), (opt_state, ospecs)))
+
+
+def gather_train_state(params, opt_state, pspecs, ospecs, mesh):
+    """``shard_train_state``'s inverse: the global params and optimizer
+    state from every rank's shards (what a checkpoint holds).  A
+    collective over the mesh."""
+    return tuple(tree_from_paths(
+        (path, gather_shard(leaf, spec, mesh, full_shape(leaf.shape, spec, mesh)))
+        for path, leaf, spec in _zip_specs(tree, specs))
+        for tree, specs in ((params, pspecs), (opt_state, ospecs)))
+
+
+def make_sharded_train_step(cfg, ctx, pspecs, ospecs, *, base_lr=3e-4, warmup=100,
+                            total_steps=10000, max_grad_norm=1.0,
+                            weight_noise_std: float = 0.0):
+    """``step(params, opt_state, batch)`` -> (params, opt_state, metrics)
+    on this rank's shards: the counterpart of the reference's
+    ``jax.jit(train_step, in_shardings=to_named((pspecs, ospecs,
+    bspecs)))`` under the sharding context ``ctx`` (``ctx.mesh`` a
+    ``DeviceMesh``; one process a rank).
+
+    ``params`` / ``opt_state`` are this rank's shards by ``pspecs`` /
+    ``ospecs`` (``shard_train_state``), ``batch`` its shard by
+    ``batch_specs``, which must cut the batch over all of ``ctx``'s
+    data-parallel axes (``ShardingCtx.dp_groups``).  A step gathers every
+    param (``gather_shard``) as a leaf that requires grad, and takes the
+    loss of its batch shard under ``ctx``: its mask sum over the global
+    batch's (``make_loss_fn(dp_groups=)``), the MoE aux loss from global
+    batch means (``models.moe``), the RRAM noise factors drawn on the full
+    leaves from ``noise_seed(step)`` (the same on every rank).  The
+    gradients are SUM-all-reduced (in float32) over the data-parallel
+    groups only: ranks along the other axes hold the same batch shard and
+    the same gradients.  Then the global-norm clip on the full gradients,
+    the LR of the replicated ``step`` and the optimizer: AdamW, elementwise,
+    on the slice of each leaf that ``ospecs`` gives this rank's moments, the
+    new slices gathered over the optimizer's axes where the param is cut
+    otherwise; Adafactor, whose row / column statistics and update clip
+    span a leaf, on the full leaf, its ``vr`` / ``vc`` gathered.  The
+    result is the single-device update, up to the order of the data-parallel
+    sum.  Metrics (``loss``, ``ce``, ``aux``, ``grad_norm``, ``lr``) are the
+    global batch's, the same on every rank.  Collectives: all-reduce and
+    all-gather only, every rank of the mesh calling the step in step."""
+    mesh = ctx.mesh
+    groups = ctx.dp_groups()
+    loss_fn = make_loss_fn(cfg, weight_noise_std=weight_noise_std, dp_groups=groups)
+    _, opt_update = make_optimizer(cfg.optimizer)
+    elementwise = cfg.optimizer == "adamw"
+
+    def gather(leaf, spec):
+        return gather_shard(leaf, spec, mesh, full_shape(leaf.shape, spec, mesh))
+
+    def allreduce_sum(t):
+        t32 = t.to(torch.float32, copy=True)
+        for g in groups:
+            dist.all_reduce(t32, group=g)
+        return t32.to(t.dtype)
+
+    def step(params, opt_state, batch):
+        full = tree_from_paths((path, gather(leaf, spec).requires_grad_(True))
+                               for path, leaf, spec in _zip_specs(params, pspecs))
+        noise = (weight_noise(full, weight_noise_std, int(opt_state["step"]))
+                 if weight_noise_std > 0.0 else None)
+        with use_sharding(ctx):
+            _, parts, grads = _loss_and_grads(loss_fn, full, batch, noise)
+        with torch.no_grad():
+            grads = tree_map(allreduce_sum, grads)
+            ce = allreduce_sum(parts["ce"].detach())
+            aux = parts["aux"].detach()
+            grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+            lr = linear_warmup_cosine(opt_state["step"].to(torch.float32), base_lr=base_lr,
+                                      warmup_steps=warmup, total_steps=total_steps)
+            full = tree_map(lambda t: t.detach(), full)
+            if elementwise:
+                params, opt_state = _sliced_update(full, grads, params, opt_state, lr)
+            else:
+                params, opt_state = _full_update(full, grads, opt_state, lr)
+        metrics = {"loss": ce + 0.01 * aux, "ce": ce, "aux": aux, "grad_norm": gnorm, "lr": lr}
+        return params, opt_state, metrics
+
+    def _sliced_update(full, grads, params, opt_state, lr):
+        mspecs = dict(tree_paths(ospecs["m"]))
+        pspec_of = dict(tree_paths(pspecs))
+        slices = lambda tree: tree_from_paths((path, local_shard(t, mspecs[path], mesh))
+                                              for path, t in tree_paths(tree))
+        new_slices, opt_state = opt_update(slices(full), slices(grads), opt_state, lr=lr)
+        out = []
+        for path, t in tree_paths(new_slices):
+            if mspecs[path] != pspec_of[path]:
+                t = local_shard(gather(t, mspecs[path]), pspec_of[path], mesh)
+            out.append((path, t))
+        return tree_from_paths(out), opt_state
+
+    def _full_update(full, grads, opt_state, lr):
+        state = tree_from_paths((path, gather(t, spec))
+                                for path, t, spec in _zip_specs(opt_state, ospecs))
+        new_full, new_state = opt_update(full, grads, state, lr=lr)
+        return shard_train_state(new_full, new_state, pspecs, ospecs, mesh)
+
+    return step
 
 
 def init_train_state(cfg, gen: torch.Generator):
@@ -383,10 +533,28 @@ class CompiledTrainStep:
 
     ``kernels.ops.LAUNCHES`` and ``LAUNCHES_BY_SHAPE`` count as for
     ``CompiledServeStep``: the capture's counts are taken back and added
-    again on every replay, so the counters read as the eager step's."""
+    again on every replay, so the counters read as the eager step's.
+
+    The step is the single-device one: under a sharding context whose
+    data-parallel axes hold more than one rank it raises.  Over gloo groups
+    (``ValueError``) a data-parallel step's all-reduces run on the host,
+    which a graph cannot capture; over NCCL (``NotImplementedError``) a
+    captured sharded step waits for several cards, and
+    ``make_sharded_train_step`` runs eagerly."""
 
     def __init__(self, cfg, params, opt_state, *, base_lr=3e-4, warmup=100,
                  total_steps=10000, max_grad_norm=1.0, weight_noise_std: float = 0.0):
+        ctx = current()
+        groups = ctx.dp_groups() if ctx is not None else ()
+        if groups:
+            backends = {dist.get_backend(g) for g in groups}
+            if backends != {"nccl"}:
+                raise ValueError(f"CompiledTrainStep: a data-parallel step's all-reduces over "
+                                 f"{sorted(backends)} groups cannot be captured in a CUDA "
+                                 f"graph; only NCCL's can")
+            raise NotImplementedError("CompiledTrainStep: a captured data-parallel train step "
+                                      "over NCCL is not ported (it needs several cards); "
+                                      "make_sharded_train_step runs eagerly")
         self.device = opt_state["step"].device
         if self.device.type != "cuda":
             raise ValueError("CompiledTrainStep captures a CUDA graph: it takes params and "

@@ -403,7 +403,7 @@ def decode_step(cfg, params, token, cache, cache_len):
                     context_lens=cross_lens)
             h = apply_norm(cfg, p["ln2"], x)
             if kind == "moe":
-                y, _ = X.moe_sublayer(cfg, p["moe"], h)
+                y, _ = X.moe_sublayer(cfg, p["moe"], h, with_aux=False)
             else:
                 y = M.mlp_sublayer(cfg, p["mlp"], h)
             x = x + y

@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.sharding import batch_mean, current
+
 from .common import ACTS, dense_init, dtype_of
 
 DENSE_TOKEN_THRESHOLD = 32   # at or below this many tokens: the dense path
@@ -72,8 +74,16 @@ def _all_experts(act, x, p, gate=None):
     return (h @ p["w_down"].reshape(E * f, d)).reshape(B, S, d)
 
 
-def moe_sublayer(cfg, p, x):
-    """x: (B, S, d) -> (y (B, S, d) in x's dtype, aux_loss float32 scalar)."""
+def moe_sublayer(cfg, p, x, *, with_aux: bool = True):
+    """x: (B, S, d) -> (y (B, S, d) in x's dtype, aux_loss float32 scalar,
+    or None without ``with_aux``: a decode step takes none).
+
+    Under a sharding context whose data-parallel axes hold more than one
+    rank, x is this rank's shard of the batch and the aux loss is the
+    global batch's, the same on every rank, as the reference's under
+    GSPMD: the routed and probability fractions are means over the ranks
+    (``sharding.batch_mean``), the probabilities' gradient reaching this
+    rank's own router once."""
     m = cfg.moe
     B, S, d = x.shape
     E, k = m.n_experts, m.top_k
@@ -88,9 +98,16 @@ def moe_sublayer(cfg, p, x):
     # load-balancing aux loss (Switch): E * sum_e f_e * p_e / k
     experts = torch.arange(E, device=x.device)
     sel_onehot = (idx[..., None] == experts).float()           # (B, S, k, E)
-    frac_routed = sel_onehot.sum(2).mean(dim=(0, 1))           # (E,)
-    frac_prob = probs.mean(dim=(0, 1))
-    aux = E * torch.sum(frac_routed * frac_prob) / k
+    aux = None
+    if with_aux:
+        frac_routed = sel_onehot.sum(2).mean(dim=(0, 1))       # (E,)
+        frac_prob = probs.mean(dim=(0, 1))
+        ctx = current()
+        groups = ctx.dp_groups() if ctx is not None else ()
+        if groups:
+            frac_routed = batch_mean(frac_routed, groups)
+            frac_prob = batch_mean(frac_prob, groups)
+        aux = E * torch.sum(frac_routed * frac_prob) / k
 
     if B * S <= DENSE_TOKEN_THRESHOLD:
         # few tokens (a decode step): every expert densely, combined through

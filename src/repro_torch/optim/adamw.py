@@ -44,7 +44,14 @@ def adamw_update(params, grads, state, *, lr, b1=0.9, b2=0.95, eps=1e-8,
     B params a second copy of the float32 moments would not fit the card);
     the params are new tensors, or with ``donate`` the given ones updated in
     place, as is the state's ``step`` (the same bits either way).  The
-    arithmetic is the reference's, element by element."""
+    arithmetic is the reference's, element by element:
+
+        m = b1 m + (1 - b1) g;  v = b2 v + (1 - b2) g^2
+        p = p - lr (m / bc1 / (sqrt(v / bc2) + eps) + wd p)
+
+    each operation rounded once to float32 in that order, written with
+    in-place operations on three temporaries a slice (a memory-bound pass
+    and a fresh allocation fewer for each one left out)."""
     step = state["step"] + 1
     t = step.to(torch.float32)
     bc1 = 1.0 - torch.pow(b1, t)
@@ -54,13 +61,13 @@ def adamw_update(params, grads, state, *, lr, b1=0.9, b2=0.95, eps=1e-8,
         out = p if donate else torch.empty_like(p)
         for sl in _slices(p):
             g32 = g[sl].to(torch.float32)
-            m[sl] = b1 * m[sl] + (1 - b1) * g32
-            v[sl] = b2 * v[sl] + (1 - b2) * torch.square(g32)
-            mh = m[sl] / bc1
-            vh = v[sl] / bc2
+            ms, vs = m[sl], v[sl]
+            ms.mul_(b1).add_((1 - b1) * g32)
+            vs.mul_(b2).add_(torch.square(g32).mul_(1 - b2))
+            delta = torch.div(ms, bc1).div_(torch.div(vs, bc2).sqrt_().add_(eps))
             p32 = p[sl].to(torch.float32)
-            delta = mh / (torch.sqrt(vh) + eps) + weight_decay * p32
-            out[sl] = (p32 - lr * delta).to(p.dtype)
+            delta.add_(weight_decay * p32).mul_(lr)
+            out[sl] = torch.sub(p32, delta, out=delta)
         return out
 
     new = tree_map(upd, params, grads, state["m"], state["v"])

@@ -1,17 +1,25 @@
-"""Where a rank sits on the mesh's axes, and its shard of a cache.
+"""Where a rank sits on the mesh's axes, and its shards.
 
-The reference lets ``shard_map`` cut a global array by a ``PartitionSpec``
-and names a device's place with ``jax.lax.axis_index``; the port runs one
-process a rank, and these functions give the same numbers from a
-``DeviceMesh``: the size of a set of axes, the rank's index over them
-(the last axis fastest, as ``picnic_decode_attention`` composes it), their
-process groups, and ``local_cache``, the rank's shard of a global cache.
+The reference lets GSPMD or ``shard_map`` cut a global array by a
+``PartitionSpec`` and names a device's place with ``jax.lax.axis_index``;
+the port runs one process a rank, on plain local tensors, and these
+functions give the same numbers from a ``DeviceMesh``: the size of a set
+of axes, the rank's index over them (the last axis fastest, as
+``picnic_decode_attention`` composes it and as JAX orders ``P(("data",
+"model"))``), their process groups; ``local_shard`` / ``gather_shard``, a
+tensor cut by a ``sharding.specs.Spec`` and put back together; the mean of
+equal batch shards over the ranks (``batch_mean``); and ``local_cache``,
+the rank's shard of a global cache for PICNIC decode.
+
+A mesh here is anything with ``mesh_dim_names``, ``size(dim)`` and
+``get_local_rank(axis)`` (and ``get_group(axis)`` to gather).
 """
 from __future__ import annotations
 
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 
 
 def _dim(mesh, axis: str) -> int:
@@ -47,9 +55,71 @@ def _cut(t: torch.Tensor, dim: int, n: int, i: int) -> torch.Tensor:
     return t.narrow(dim, i * step, step)
 
 
+def full_shape(shape, spec, mesh) -> tuple:
+    """The global shape of a shard of ``shape`` cut by ``spec``."""
+    out = list(shape)
+    for d, entry in enumerate(spec):
+        if entry:
+            out[d] *= axes_size(mesh, entry)
+    return tuple(out)
+
+
+def local_shard(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's shard of the global ``x`` cut by ``spec`` (one entry a
+    dim: None, or the mesh axes that cut it, the first the major one), as
+    a contiguous copy without grad."""
+    x = x.detach()
+    for d, entry in enumerate(spec):
+        if entry:
+            x = _cut(x, d, axes_size(mesh, entry), axes_index(mesh, entry))
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def _gather_dim(x: torch.Tensor, d: int, mesh, axis: str) -> torch.Tensor:
+    """Every rank's ``x`` along ``axis``, concatenated on dim ``d`` in the
+    axis's order (an all-gather, which gloo takes on CUDA tensors too,
+    through the host)."""
+    n = mesh.size(_dim(mesh, axis))
+    if n == 1:
+        return x
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x, group=mesh.get_group(axis))
+    return torch.cat(parts, dim=d)
+
+
+def gather_shard(x: torch.Tensor, spec, mesh, full_shape) -> torch.Tensor:
+    """``local_shard``'s inverse: the global tensor of shape
+    ``full_shape`` from every rank's shard ``x``, gathered over each cut
+    dim's axis groups, the fastest axis first.  A collective: every rank of
+    those groups calls it."""
+    x = x.detach()
+    for d, entry in enumerate(spec):
+        for axis in reversed(entry or ()):
+            x = _gather_dim(x, d, mesh, axis)
+    if tuple(x.shape) != tuple(full_shape):
+        raise ValueError(f"gathered {tuple(x.shape)} by {spec}, expected {tuple(full_shape)}")
+    return x
+
+
+def batch_mean(t: torch.Tensor, groups) -> torch.Tensor:
+    """The mean of ``t`` over the ranks of ``groups``, each holding an
+    equal shard of a batch (``t`` a statistic of its shard): the value is
+    the mean of every rank's, the gradient reaches this rank's ``t`` once,
+    scaled by 1 / ranks, so that a SUM of the ranks' gradients counts each
+    shard once.  A collective."""
+    total, n = t.detach().clone(), 1
+    for g in groups:
+        dist.all_reduce(total, group=g)
+        n *= dist.get_world_size(g)
+    return (total + (t - t.detach())) / n
+
+
 def local_cache(cache, mesh, *, seq_axes=("model",), dp_axes=("data",)):
     """This rank's shard of a global cache (as ``models.init_cache`` or a
-    prefill returns it), as contiguous copies: every tensor's batch
+    prefill returns it) for PICNIC decode, as contiguous copies.  Not
+    ``sharding.specs.cache_specs``, which also cuts cross-attention and SSM
+    heads over ``model``: here every tensor's batch
     (dimension 1) over ``dp_axes`` where it divides (else replicated, as
     the reference's ``bspec``), and a self-attention cache's rows
     (``k`` / ``v``, dimension 2) over ``seq_axes``.  Whisper's cross cache

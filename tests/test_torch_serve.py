@@ -145,7 +145,8 @@ def test_port_imports_with_jax_blocked():
             "repro_torch.checkpoint.ckpt", "repro_torch.data.pipeline",
             "repro_torch.runtime.fault_tolerance", "repro_torch.runtime.straggler",
             "repro_torch.launch.train", "repro_torch.launch.mesh",
-            "repro_torch.sharding.ctx", "repro_torch.sharding.layout"} <= set(names)
+            "repro_torch.sharding.ctx", "repro_torch.sharding.layout",
+            "repro_torch.sharding.specs", "repro_torch.runtime.compression"} <= set(names)
 
 
 def _imports(path: Path):
@@ -165,7 +166,8 @@ def test_no_port_file_imports_jax_or_repro():
     assert {"optim/adamw.py", "optim/adafactor.py", "optim/clip.py", "optim/schedule.py",
             "checkpoint/ckpt.py", "data/pipeline.py", "runtime/fault_tolerance.py",
             "runtime/straggler.py", "launch/train.py", "launch/mesh.py",
-            "sharding/ctx.py", "sharding/layout.py"} <= rel
+            "sharding/ctx.py", "sharding/layout.py", "sharding/specs.py",
+            "runtime/compression.py"} <= rel
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]

@@ -359,6 +359,40 @@ def test_optimizer_updates_match_jax(name):
     assert all(t.dtype == torch.bfloat16 for _, t in tree_paths(nb))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sliced", [False, True])
+def test_adamw_update_is_the_formula_bit_for_bit(dtype, sliced):
+    """``adamw_update``'s in-place arithmetic gives the bits of the
+    reference's formula written out of place, params and moments, over 3
+    steps with the LR a float and a 0-dim tensor, exact zeros in the
+    gradient, and a leaf updated whole or a slice at a time."""
+    from repro_torch.optim import adamw
+    b1, b2, eps, wd = 0.9, 0.95, 1e-8, 0.1
+    rng = np.random.default_rng(3)
+    p = torch.from_numpy(rng.standard_normal((6, 40, 24)).astype(np.float32)).to(dtype)
+    state = toptim.adamw_init({"w": p})
+    m, v = state["m"]["w"].clone(), state["v"]["w"].clone()
+    old = adamw.SLICE_ELEMENTS
+    adamw.SLICE_ELEMENTS = 1000 if sliced else old
+    try:
+        for i, lr in enumerate((1e-2, torch.tensor(3e-3), torch.tensor(0.0))):
+            g = torch.from_numpy((1e-3 * rng.standard_normal(p.shape)).astype(np.float32))
+            g[0, :3] = 0.0
+            g = g.to(dtype)
+            t = torch.tensor(float(i + 1))
+            bc1, bc2 = 1.0 - torch.pow(b1, t), 1.0 - torch.pow(b2, t)
+            g32, p32 = g.to(torch.float32), p.to(torch.float32)
+            m = b1 * m + (1 - b1) * g32
+            v = b2 * v + (1 - b2) * torch.square(g32)
+            want = (p32 - lr * (m / bc1 / (torch.sqrt(v / bc2) + eps) + wd * p32)).to(dtype)
+            new, state = toptim.adamw_update({"w": p}, {"w": g}, state, lr=lr)
+            assert torch.equal(new["w"], want), i
+            assert torch.equal(state["m"]["w"], m) and torch.equal(state["v"]["w"], v), i
+            p = want
+    finally:
+        adamw.SLICE_ELEMENTS = old
+
+
 def test_clip_and_schedule_match_jax():
     _, g = _grads_and_params(1)
     for max_norm in (0.5, 100.0):
