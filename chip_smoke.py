@@ -76,9 +76,16 @@ Phases, each of which fails the run if it fails:
                 on (o, m, l) at llama3-8b's decode shape cut into 2 and 4
                 shards by ``key_offset``, bf16 and float32, windows that
                 bind across a shard boundary, shards with no kept key,
-                several splits and one; time kernel, plain
-                version and one PyTorch library call where there is one,
-                with CUDA events.
+                several splits and one; both flash kernels with
+                ``q_offset`` (sequence-parallel attention's rows: offsets
+                0, 1, 250 and 1024, causal, window 100, prefix 300, non-
+                causal, Sq < Skv, bf16 and float32; sp_train's B4 Sq1024
+                Skv2048 D64 at offsets 0 and 1024, bf16 and float32, and
+                picnic_decode's prefill rank, B4 Sq250 Skv500 D128 at 250;
+                the forward with lse bit-equal to without, the backward
+                twice bit-equal), rank 1's sp_train shape timed; time
+                kernel, plain version and one PyTorch library call where
+                there is one, with CUDA events.
   serve         llama3-8b at full width and depth in bf16, random weights
                 from a seed: prefill of 4 x 512 tokens, then 32 greedy
                 decode steps through the user-facing step functions, first
@@ -141,16 +148,18 @@ Phases, each of which fails the run if it fails:
   picnic_decode PICNIC's sequence-sharded decode: two ranks spawned on the
                 one card (gloo; NCCL refuses two ranks on one GPU), a (1,
                 2) ("data", "model") mesh; llama3-8b at full width and
-                depth in bf16, B4, a 1024-row cache of which each rank
-                holds 512 rows (``sharding.local_cache``), a 500-token
-                prompt, then 32 greedy steps across the shard boundary at
-                row 512 under ``ShardingCtx(picnic_decode=True)``, eager;
-                the launch counters zeroed before each rank's prefill and
-                read after its decode; rank 0 also runs the single-rank
-                decode of the same prefill fed the same tokens, held per
-                row (PICNIC_BF16_ROW_REL) with the share of equal greedy
-                ids printed; then a float32 cut of 2 layers: greedy ids
-                equal, logits within 1e-5 relative.  Its ms a step is
+                depth in bf16, B4, a 500-token prompt prefilled
+                sequence-parallel (``ShardingCtx(sp_attention=True,
+                picnic_decode=True)``: each rank its 250 rows, rank 1's
+                flash at q_offset 250) into a 1024-row cache of which the
+                prefill returns each rank's 512 rows, then 32 greedy steps
+                across the shard boundary at row 512 under the same
+                context, eager; the launch counters zeroed before each
+                rank's prefill and read after its decode; rank 0 also runs
+                the single-rank prefill and decode fed the same tokens,
+                held per row (PICNIC_BF16_ROW_REL) with the share of equal
+                greedy ids printed; then a float32 cut of 2 layers: greedy
+                ids equal, logits within 1e-5 relative.  Its ms a step is
                 printed as correctness-only: the two ranks share one
                 card's SMs.
   train         llama3.2-1b at full width and depth (16 layers) in bf16
@@ -175,13 +184,23 @@ Phases, each of which fails the run if it fails:
                 batches.  float32 cut to 2 layers, 3 steps: metrics within
                 1e-5 relative of the single-rank steps, every leaf's update
                 within 1e-3, both ranks' gathered params bit-equal after
-                every step; bf16 at full depth (16 layers, remat), 3 steps:
-                both ranks' losses bit-equal and falling, loss and gradient
+                every step; bf16 at 4 of 16 layers (remat), 3 steps: both
+                ranks' losses bit-equal and falling, loss and gradient
                 norm within the DP_BF16_* bars of the single-rank steps;
                 launch counts a rank as ``train``'s; the int8 compressed
                 all-reduce on CUDA tensors of the embed gradient's shape
                 bit-equal to the same call on the CPU.  Its ms a step and
                 peak GiB a rank are printed, the time correctness-only.
+  sp_train      sequence-parallel training: two ranks spawned on the one
+                card (gloo, a (1, 2) ("data", "model") mesh under
+                ``ShardingCtx(sp_attention=True)``), llama3.2-1b at full
+                width, PackedStream(0)'s global B4 x S2048 on both ranks,
+                each forward keeping its 1024 rows (K/V gathered, rank 1's
+                flash forward and backward at q_offset 1024), as
+                ``dp_train`` otherwise: float32 at 2 layers and bf16 at 16
+                (remat), 3 steps each, against rank 0's single-rank steps
+                on the whole batch, with exact launch counts a rank at its
+                rows' shape and offset.
   train_parity  llama3.2-1b widths, 2 layers, float32: 3 AdamW steps on the
                 card (remat on, then off) against the CPU from the same
                 weights and batches: metrics, first gradients, updates;
@@ -273,7 +292,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "serve", "ssm_serve", "hybrid_serve", "moe_serve", "audio_serve",
           "vlm_serve", "cim_scu", "parity", "ssm_parity", "moe_parity", "audio_parity",
-          "vlm_parity", "server", "picnic_decode", "train", "dp_train", "train_parity",
+          "vlm_parity", "server", "picnic_decode", "train", "dp_train", "sp_train",
+          "train_parity",
           "train_driver",
           "audio_train", "audio_train_parity", "ssm_train", "ssm_train_parity", "hybrid_train",
           "hybrid_train_parity", "moe_train", "moe_train_parity", "vlm_train",
@@ -427,8 +447,7 @@ MOE_PARITY_WINDOW, MOE_PARITY_S, MOE_PARITY_FF = 128, 384, 2048
 # card kernel's own sub-chunk, instead of zamba2's 256: the same function,
 # its decays' exponents summed over the same 64-row spans on both devices
 # (over 256 rows the float32 sum of dt * A grows ~4x, and its rounding with
-# it).  The phase logs the CPU's first gradient at chunk 256 against the
-# reference's and the card's.
+# it).
 HYBRID_PARITY_CHUNK = 64
 # hybrid_train_parity's run that pins nothing: its gradient norm from step
 # 2 on, after the first update (step 0's LR is 0), held within
@@ -465,16 +484,27 @@ PICNIC_TIMEOUT = 600                # seconds, each rank
 # DP_F32_STEPS steps: loss, ce and grad_norm within TRAIN_METRIC_REL of rank
 # 0's single-rank eager step on the full batch, each leaf's update within
 # DP_UPDATE_REL (tests/test_torch_train.py's UPDATE_RTOL, hazard 10), the
-# two ranks' gathered params bit-equal after every step.  bf16 at full
-# depth for DP_BF16_STEPS steps: both ranks' losses bit-equal and falling;
+# two ranks' gathered params bit-equal after every step.  bf16 (remat) at
+# DP_BF16_LAYERS of the 16 layers (cut to make room for sp_train: the gloo
+# collectives through the host are most of its time) for DP_BF16_STEPS
+# steps: both ranks' losses bit-equal and falling;
 # each step's loss within DP_BF16_LOSS_REL and gradient norm within
 # DP_BF16_GNORM_REL of the single-rank steps (bf16 gradients of two B4
 # shards summed against one B8 gradient, cuBLAS's other tiles at the other
 # M; a gradient summed twice or not at all moves the norm 2x, a wrong token
 # count the loss 2x)
 DP_MESH, DP_F32_LAYERS, DP_F32_STEPS, DP_BF16_STEPS = (2, 1), 2, 3, 3
+DP_BF16_LAYERS = 4
 DP_UPDATE_REL, DP_BF16_LOSS_REL, DP_BF16_GNORM_REL = 1e-3, 1e-2, 5e-2
 DP_TIMEOUT = 900                    # seconds, each rank
+# sp_train: llama3.2-1b sequence-parallel over two ranks on the one card (a
+# (1, 2) ("data", "model") mesh over gloo, ShardingCtx(sp_attention) over
+# "model"), PackedStream(0)'s global B4 x S2048 on both ranks, each
+# forward keeping its 1024 rows (rank 1's flash at q_offset 1024); the
+# same steps, bars and layers as dp_train but bf16 at full depth (16
+# layers, remat)
+SP_MESH, SP_B, SP_S = (1, 2), 4, 2048
+SP_OPTIONS = {"sp_attention": True, "seq_axes": ("model",), "dp_axes": ("data",)}
 # the train phases whose flash forward the kernels phase times at their shape
 TRAIN_MODEL_OF = {"train": "llama3.2-1b", "audio_train": "whisper", "hybrid_train": "zamba2",
                   "moe_train": "mixtral", "vlm_train": "paligemma"}
@@ -991,8 +1021,10 @@ def phase_kernels(torch, timer, results):
 
     flash_bwd = flash_bwd_cases(torch, timer, randn, extra)
     ssd_bwd = ssd_bwd_cases(torch, timer, randn, extra)
+    offset_fwd, offset_bwd = flash_offset_cases(torch, timer, randn)
 
-    results["kernels"] = [flash, paged, ssd, softmax, cim, flash_bwd, ssd_bwd, partial]
+    results["kernels"] = [flash, paged, ssd, softmax, cim, flash_bwd, ssd_bwd, partial,
+                          offset_fwd, offset_bwd]
     results["kernels_other_shapes"] = extra
     for kern in results["kernels"] + extra:
         lib = kern["library_ms"]
@@ -1002,27 +1034,28 @@ def phase_kernels(torch, timer, results):
             + f", bound {kern['bound_ms']:.5f} ms ({kern['bound_by']})")
 
 
-def kept_pairs(sq, skv, causal=True, window=None, prefix_len=0):
+def kept_pairs(sq, skv, causal=True, window=None, prefix_len=0, q_offset=0):
     """The (query, key) pairs a head keeps: under the causal mask the keys
     at or before the query and those below ``prefix_len``, under a window
     (an int or None) those fewer than ``window`` positions before it, of
-    ``skv`` keys."""
+    ``skv`` keys; query i at position ``q_offset + i``."""
     total = 0
-    for i in range(sq):
+    for i in range(q_offset, q_offset + sq):
         hi = min(max(i + 1, prefix_len), skv) if causal else skv
         lo = max(0, i - window + 1) if window else 0
         total += max(0, hi - lo)
     return total
 
 
-def bwd_work(b, sq, skv, hq, hkv, d, esize, causal=True, window=None, prefix_len=0):
+def bwd_work(b, sq, skv, hq, hkv, d, esize, causal=True, window=None, prefix_len=0,
+             q_offset=0):
     """Bytes (q, k, v, out, dout and the float32 lse read once; dq, dk,
     dv written once) and FLOPs of attention's backward: five products of
     2 * D per (query, key) pair the mask keeps (S, dP, dV, dK, dQ): causal,
     the pairs with kpos <= qpos or kpos < prefix_len, else sq * skv a head;
     a window keeps only the pairs with qpos - kpos < window
     (``kept_pairs``)."""
-    pairs = kept_pairs(sq, skv, causal, window, prefix_len)
+    pairs = kept_pairs(sq, skv, causal, window, prefix_len, q_offset)
     nbytes = (4 * b * sq * hq * d + 4 * b * skv * hkv * d) * esize + b * hq * sq * 4
     return nbytes, 5 * 2 * b * hq * d * pairs
 
@@ -1260,6 +1293,143 @@ def flash_bwd_cases(torch, timer, randn, extra):
         del q, k, v, out, lse, g, qt, kt, vt, gt, mask
     torch.cuda.synchronize()
     return main
+
+
+def offset_mask(torch, sq, skv, q_offset, causal=True, window=None, prefix_len=0):
+    """The boolean (sq, skv) mask of query i at position ``q_offset + i``
+    (True: attend), for SDPA's ``attn_mask``."""
+    qpos = torch.arange(q_offset, q_offset + sq, device="cuda")[:, None]
+    kpos = torch.arange(skv, device="cuda")[None, :]
+    keep = (kpos <= qpos) | (kpos < prefix_len) if causal else torch.ones_like(kpos <= qpos)
+    if window:
+        keep &= qpos - kpos < window
+    return keep
+
+
+def flash_offset_cases(torch, timer, randn):
+    """The flash forward (with and without its lse output) and backward
+    with ``q_offset`` (sequence-parallel attention's rank: query i at
+    position q_offset + i against every key of the sequence) against their
+    plain versions, by ``flash_attention.agreement`` / ``bwd_agreement``,
+    the lse within 1e-5: offsets 0, 1, 250 and 1024 (off the 16-row blocks
+    and on the 64-row tiles), causal, under a window of 100, with a prefix
+    of 300, without the causal mask, Sq < Skv, bf16 and float32; the
+    ``sp_train`` phase's shapes (llama3.2-1b, B4 Sq1024 Skv2048 Hq32 Hkv8
+    D64, rank 1 at offset 1024, rank 0 at 0; bf16 and float32) and
+    ``picnic_decode``'s sequence-parallel prefill (llama3-8b, B4 Sq250
+    Skv500 D128, rank 1 at offset 250; bf16), every backward twice,
+    bit-equal.  Rank 1's sp_train shape in bf16 is timed, forward with lse
+    and backward, beside the plain versions, SDPA under the same boolean
+    offset mask and the bound.  Returns the two timed entries."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    rows = SP_S // (SP_MESH[0] * SP_MESH[1])     # a sp_train rank's
+    cases = [  # B, Sq, Skv, Hq, Hkv, D, dtype, causal, window, prefix, q_offset, backward
+        (SP_B, rows, SP_S, TRAIN_HQ, TRAIN_HKV, TRAIN_D, "bfloat16", True, None, 0, rows, True),
+        (SP_B, rows, SP_S, TRAIN_HQ, TRAIN_HKV, TRAIN_D, "bfloat16", True, None, 0, 0, True),
+        (SP_B, rows, SP_S, TRAIN_HQ, TRAIN_HKV, TRAIN_D, "float32", True, None, 0, rows, True),
+        (PICNIC_B, PICNIC_PROMPT // 2, PICNIC_PROMPT, HQ, HKV, D, "bfloat16", True, None, 0,
+         PICNIC_PROMPT // 2, False),
+    ]
+    for off in (0, 1, 250, 1024):
+        for dt in ("bfloat16", "float32"):
+            for causal, window, prefix in ((True, None, 0), (True, 100, 0), (True, None, 300),
+                                           (False, None, 0)):
+                cases.append((2, 300, off + 337, 8, 2, 64, dt, causal, window, prefix, off, True))
+    timed = []
+    for i, (b, sq, skv, hq, hkv, d, dt, causal, window, prefix, off, bwd) in enumerate(cases):
+        q = randn((b, sq, hq, d), dt)
+        k, v = (randn((b, skv, hkv, d), dt) for _ in range(2))
+        kw = dict(causal=causal, window=window, prefix_len=prefix, q_offset=off)
+        shape = (f"B{b} Sq{sq} Skv{skv} Hq{hq} Hkv{hkv} D{d} {dt} "
+                 + ("causal" if causal else "non-causal") + (f" window {window}" if window else "")
+                 + (f" prefix {prefix}" if prefix else "") + f" q_offset {off}")
+        fkw = dict(causal=causal, use_pwl=False, window=window or 0, prefix_len=prefix,
+                   q_offset=off)
+        out0, _ = fa._flash_fwd(q, k, v, with_lse=False, **fkw)
+        out, lse = fa._flash_fwd(q, k, v, with_lse=True, **fkw)
+        want, lse_plain = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(out0, out):
+            raise AssertionError(f"flash_attention {shape}: the forward with lse is not "
+                                 "bit-equal to the forward without it")
+        lse_err = (lse - lse_plain).abs().max().item()
+        if not lse_err <= 1e-5:
+            raise AssertionError(f"flash_attention {shape}: lse off by {lse_err}")
+        ferr = _check_flash(torch, out, want, dt, shape, False)
+        berrs = []
+        if bwd:
+            g = randn((b, sq, hq, d), dt)
+            got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, g, **kw)
+            plain = fa.flash_attention_bwd_plain(q, k, v, out, lse, g, **kw)
+            again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, g, **kw)
+            torch.cuda.synchronize()
+            for name, a, w in zip(("dq", "dk", "dv"), got, plain):
+                err, ratio, ok = fa.bwd_agreement(a, w)
+                if not ok:
+                    raise AssertionError(f"flash_attention_bwd {shape} {name} disagrees with "
+                                         f"its plain version ({err:.3e}, {ratio:.3f} of the bound)")
+                berrs.append(err)
+            if not all(torch.equal(a, c) for a, c in zip(got, again)):
+                raise AssertionError(f"flash_attention_bwd {shape}: two runs differ")
+            del got, plain, again
+        log(f"[kernels] flash_attention {shape}: forward max_abs_err={ferr:.3e}, lse "
+            f"{lse_err:.3e}" + (f"; backward max_abs_err={max(berrs):.3e}, two runs bit-equal"
+                               if bwd else ""))
+        if i == 0:                          # sp_train rank 1, timed
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+            gt = g.transpose(1, 2)
+            mask = offset_mask(torch, sq, skv, off, causal, window, prefix)
+
+            def sdpa_fwd():
+                return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                      enable_gqa=True)
+
+            def sdpa_fwd_bwd():
+                torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), gt)
+
+            key = fa.launch_key(q, k, causal=causal, window=window, prefix_len=prefix,
+                                q_offset=off)
+            pairs = kept_pairs(sq, skv, causal, window, prefix, off)
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+            fbms, fby = bound(nbytes, 4 * b * hq * d * pairs, dt)
+            bbytes, bflops = bwd_work(b, sq, skv, hq, hkv, d, q.element_size(), causal, window,
+                                      prefix, off)
+            bbms, bby = bound(bbytes, bflops, dt)
+            sdpa_ms = timer.ms(sdpa_fwd, 10)
+            common = {"route": "cuda", "mode": "q_offset", "path": "sp_train", "launch_key": key,
+                      "shape": f"sp_train rank 1: {shape}"}
+            timed = [{
+                "name": "flash_attention", **common,
+                "source": "src/repro_torch/csrc/flash_attention.cu",
+                "replaces": "src/repro/kernels/flash_attention.py:76",
+                "design": "the mma.sync path with the lse output and q_offset: the masks read "
+                          "the global row, tiles stay local, steps at absolute keys",
+                "max_abs_err": ferr,
+                "ms": timer.ms(lambda: fa._flash_fwd(q, k, v, with_lse=True, **fkw), 10),
+                "plain_ms": timer.ms(lambda: fa.flash_attention_plain(q, k, v, **kw), 3),
+                "library_ms": sdpa_ms, "bound_ms": fbms, "bound_by": fby,
+            }, {
+                "name": "flash_attention_bwd", **common,
+                "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+                "replaces": "src/repro/models/attention.py:153",
+                "design": "q_offset: tiles stay local, the masks read the global row; a "
+                          "multiple of 64 keeps the diagonal mode, any other offset runs the "
+                          "window's kernels with a window wider than any sequence, blocks "
+                          "sorted by block_kept",
+                "max_abs_err": max(berrs),
+                "ms": timer.ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, out, lse, g, **kw),
+                               10),
+                "plain_ms": timer.ms(lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, g,
+                                                                          **kw), 3),
+                "library_ms": max(timer.ms(sdpa_fwd_bwd, 10) - sdpa_ms, 0.0),
+                "bound_ms": bbms, "bound_by": bby,
+            }]
+            del qt, kt, vt, gt, mask
+        del q, k, v, out, out0, lse, want, lse_plain
+    torch.cuda.synchronize()
+    return timed
 
 
 def ssd_bwd_work(b, s, h, p, n, esize, with_dstate):
@@ -2964,11 +3134,13 @@ def picnic_rank(rank: int, out_dir: str) -> int:
     """One rank of the picnic_decode phase (run as ``chip_smoke.py
     --picnic-rank R --picnic-dir DIR`` by the phase): gloo over a file
     store in DIR, the (1, 2) mesh on the card, each config's prefill of the
-    full batch cut to this rank's shard, then PICNIC_NEW eager greedy
-    steps under the picnic context; the launch counters are zeroed before
-    the prefill and read after the decode.  Rank 0 then runs the
-    single-rank decode of the same prefill, fed the picnic run's tokens.
-    Writes DIR/rank{R}_{dtype}.pt (logits, ids, ms a step, launches)."""
+    full batch under ``sp_attention`` and ``picnic_decode`` (each rank its
+    250 rows of the 500, rank 1's flash at q_offset 250; it returns the
+    rank's cache shard), then PICNIC_NEW eager greedy steps under the same
+    context; the launch counters are zeroed before the prefill and read
+    after the decode.  Rank 0 then runs the single-rank prefill and
+    decode, fed the picnic run's tokens.  Writes DIR/rank{R}_{dtype}.pt
+    (logits, ids, ms a step, launches)."""
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -2983,8 +3155,8 @@ def picnic_rank(rank: int, out_dir: str) -> int:
                             world_size=world, timeout=datetime.timedelta(seconds=120))
     torch.cuda.set_device(rank % torch.cuda.device_count())     # both on the one card
     mesh = init_device_mesh("cuda", PICNIC_MESH, mesh_dim_names=("data", "model"))
-    ctx = sharding.ShardingCtx(mesh, {}, {"picnic_decode": True, "seq_axes": ("model",),
-                                          "dp_axes": ("data",)})
+    ctx = sharding.ShardingCtx(mesh, {}, {"picnic_decode": True, "sp_attention": True,
+                                          "seq_axes": ("model",), "dp_axes": ("data",)})
     tag = f"[picnic_decode rank {rank}]"
     for dt, cfg in picnic_cfgs().items():
         params = init_logged(torch, cfg, tag)
@@ -2993,10 +3165,8 @@ def picnic_rank(rank: int, out_dir: str) -> int:
         prefill(params, {"tokens": prompt[:, :64]})             # warm-up
         torch.cuda.synchronize()
         ops.reset_launch_counts()
-        tok, cache = prefill(params, {"tokens": prompt})
-        local = sharding.local_cache(cache, mesh)
-        if rank:
-            del cache
+        with sharding.use_sharding(ctx):     # sequence-parallel: this rank's cache shard
+            tok, local = prefill(params, {"tokens": prompt})
         first, ids, logits, step_s = tok, [tok], [], []
         with torch.no_grad(), sharding.use_sharding(ctx):
             for i in range(PICNIC_NEW):
@@ -3016,7 +3186,8 @@ def picnic_rank(rank: int, out_dir: str) -> int:
                  "shard_rows": local["b0_dense"]["k"].shape[2],
                  "seq_index": sharding.axes_index(mesh, ("model",))}
         del local, logits
-        if rank == 0:                   # the single-rank decode, the same tokens
+        if rank == 0:                   # the single-rank prefill and decode, the same tokens
+            _, cache = prefill(params, {"tokens": prompt})
             single = []
             with torch.no_grad():
                 for i in range(PICNIC_NEW):
@@ -3035,17 +3206,20 @@ def picnic_rank(rank: int, out_dir: str) -> int:
 
 
 def phase_picnic_decode(torch, results):
-    """PICNIC's sequence-sharded decode on the card: spawns the two ranks
-    (``picnic_rank``) and holds what they wrote: the shard of 512 rows
-    each; both ranks' logits bit-equal (the batch is not split, and the
-    all-reduces give both the same sums); each paged launch of the decode
-    in the partial mode, 32 a step a rank; bf16 against the single-rank
-    decode per row within PICNIC_BF16_ROW_REL, with the share of equal
-    greedy ids printed; float32 greedy ids equal and logits within
-    PICNIC_F32_REL.  Returns rank 0's launches, per kernel and per (kernel,
+    """PICNIC's sequence-sharded decode on the card, from the
+    sequence-parallel prefill: spawns the two ranks (``picnic_rank``) and
+    holds what they wrote: the shard of 512 rows each; both ranks' logits
+    bit-equal (the batch is not split, and the all-reduces give both the
+    same sums); each rank's prefill launching the flash kernel once a
+    layer at its rows' shape and q_offset (250 rows against 500 keys, rank
+    1 at 250); each paged launch of the decode in the partial mode, 32 a
+    step a rank; bf16 against the single-rank prefill and decode per row
+    within PICNIC_BF16_ROW_REL, with the share of equal greedy ids
+    printed; float32 greedy ids equal and logits within PICNIC_F32_REL.  Returns rank 0's launches, per kernel and per (kernel,
     launch_key)."""
     import tempfile
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import launch_key
 
     _build.build_all()                  # built once here, loaded by the ranks
     torch.cuda.empty_cache()
@@ -3089,8 +3263,15 @@ def phase_picnic_decode(torch, results):
             key = [["paged_attention", k, c] for _, k, c in run["launches_by_shape"]
                    if k.endswith("mode=partial")]
             want_paged = cfg.n_layers * PICNIC_NEW
+            rows = PICNIC_PROMPT // world
+            q = torch.empty((PICNIC_B, rows, cfg.n_heads, cfg.head_dim),
+                            dtype=getattr(torch, dt), device="meta")
+            k = torch.empty((PICNIC_B, PICNIC_PROMPT, cfg.n_kv_heads, cfg.head_dim),
+                            dtype=getattr(torch, dt), device="meta")
+            flash = ["flash_attention", launch_key(q, k, q_offset=r * rows), cfg.n_layers]
             if run["launches"] != {"flash_attention": cfg.n_layers, "paged_attention": want_paged} \
-                    or len(key) != 1 or key[0][2] != want_paged:
+                    or len(key) != 1 or key[0][2] != want_paged \
+                    or flash not in run["launches_by_shape"]:
                 raise AssertionError(f"picnic_decode {dt} rank {r}: launches {run['launches']}, "
                                      f"{run['launches_by_shape']}")
         same_ids = (want.argmax(-1) == r0["ids"][:, 1:].T).float().mean().item()
@@ -3121,13 +3302,16 @@ def phase_picnic_decode(torch, results):
     return {**r0["launches"], **{(n, k): c for n, k, c in r0["launches_by_shape"]}}
 
 
-def dp_cfgs():
-    """The dp_train phase's configs: llama3.2-1b's float32 cut of
-    DP_F32_LAYERS layers, and as published (bf16, 16 layers, remat)."""
+def sharded_cfgs(kind):
+    """The ``kind`` phase's configs (``dp_train`` or ``sp_train``):
+    llama3.2-1b's float32 cut of DP_F32_LAYERS layers, and bf16 with remat
+    at DP_BF16_LAYERS layers (``dp_train``) or as published, 16 layers
+    (``sp_train``)."""
     from repro_torch.configs import get_config
     cfg = get_config(TRAIN_ARCH)
+    bf16 = cfg if kind == "sp_train" else dataclasses.replace(cfg, n_layers=DP_BF16_LAYERS)
     return {"float32": dataclasses.replace(cfg, n_layers=DP_F32_LAYERS, dtype="float32"),
-            "bfloat16": cfg}
+            "bfloat16": bf16}
 
 
 def _params_bits_equal(torch, dist, params):
@@ -3145,19 +3329,23 @@ def _params_bits_equal(torch, dist, params):
     return int(flag.item()) == 0
 
 
-def dp_rank(rank: int, out_dir: str) -> int:
-    """One rank of the dp_train phase (run as ``chip_smoke.py --dp-rank R
-    --dp-dir DIR`` by the phase): gloo over a file store in DIR, the (2, 1)
-    mesh on the card.  For each of ``dp_cfgs()``: rank 0 first runs the
-    single-rank eager steps on the full batches (the other rank waits),
-    then both ranks cut the same seed-0 state by the specs and run
-    ``make_sharded_train_step`` on their batch shards, the launch
-    counters zeroed just before and read just after.  Then
-    ``compressed_allreduce`` over the two ranks on CUDA tensors of
-    llama3.2-1b's embed-gradient shape and on the same values on the CPU.
-    After the bf16 steps, the step's two collectives are timed apart: the
-    gather of every param shard, and the SUM all-reduce of float32 buffers
-    of the gradients' shapes.  Writes DIR/rank{R}.pt."""
+def sharded_rank(kind: str, rank: int, out_dir: str) -> int:
+    """One rank of the ``dp_train`` or ``sp_train`` phase (run as
+    ``chip_smoke.py --dp-rank R --dp-dir DIR`` / ``--sp-rank R --sp-dir
+    DIR`` by the phase): gloo over a file store in DIR, the phase's mesh on
+    the card (``dp_train`` (2, 1), each rank its B4 of the global B8 x
+    S1024; ``sp_train`` (1, 2) under ``sp_attention``, each rank the global
+    B4 x S2048, of which its forward keeps 1024 rows).  For each of
+    ``sharded_cfgs(kind)``: rank 0 first runs the single-rank eager steps
+    on the full batches (the other rank waits), then both ranks cut the
+    same seed-0 state by the specs and run ``make_sharded_train_step`` on
+    their batch shards, the launch counters zeroed just before and read
+    just after.  ``dp_train`` then runs ``compressed_allreduce`` over the
+    two ranks on CUDA tensors of llama3.2-1b's embed-gradient shape and on
+    the same values on the CPU, and after the bf16 steps times the step's
+    two collectives apart: the gather of every param shard, and the SUM
+    all-reduce of float32 buffers of the gradients' shapes.  Writes
+    DIR/rank{R}.pt."""
     import datetime
     import torch
     import torch.distributed as dist
@@ -3168,19 +3356,21 @@ def dp_rank(rank: int, out_dir: str) -> int:
     from repro_torch.runtime import compressed_allreduce
     from repro_torch.tree import tree_from_paths, tree_paths
 
-    world = DP_MESH[0] * DP_MESH[1]
+    sp = kind == "sp_train"
+    mesh_shape, (gb, gs) = (SP_MESH, (SP_B, SP_S)) if sp else (DP_MESH, (TRAIN_B, TRAIN_S))
+    world = mesh_shape[0] * mesh_shape[1]
     dist.init_process_group("gloo", init_method=f"file://{out_dir}/store", rank=rank,
                             world_size=world, timeout=datetime.timedelta(seconds=120))
     torch.cuda.set_device(rank % torch.cuda.device_count())     # both on the one card
-    mesh = init_device_mesh("cuda", DP_MESH, mesh_dim_names=("data", "model"))
-    tag = f"[dp_train rank {rank}]"
+    mesh = init_device_mesh("cuda", mesh_shape, mesh_dim_names=("data", "model"))
+    tag = f"[{kind} rank {rank}]"
     saved = {}
     hyper = dict(base_lr=3e-4, warmup=10, total_steps=TRAIN_STEPS)
     host = lambda tree: {path: t.detach().to("cpu", torch.float32, copy=True)
                          for path, t in tree_paths(tree)}
-    for dt, cfg in dp_cfgs().items():
+    for dt, cfg in sharded_cfgs(kind).items():
         n_steps = DP_F32_STEPS if dt == "float32" else DP_BF16_STEPS
-        batches = train_batches(torch, cfg, TRAIN_B, TRAIN_S, n_steps)
+        batches = train_batches(torch, cfg, gb, gs, n_steps)
         res = {"seconds": {}}
         t_part = time.time()
         if rank == 0:                   # the single-rank steps on the full batches
@@ -3206,7 +3396,8 @@ def dp_rank(rank: int, out_dir: str) -> int:
         ps, os_ = steps.shard_train_state(params, state, pspecs, ospecs, mesh)
         del params, state
         torch.cuda.empty_cache()
-        ctx = sharding.ShardingCtx(mesh, sharding.activation_rules(cfg, mesh, "train"))
+        ctx = sharding.ShardingCtx(mesh, sharding.activation_rules(cfg, mesh, "train"),
+                                   SP_OPTIONS if sp else None)
         step = steps.make_sharded_train_step(cfg, ctx, pspecs, ospecs, **hyper)
         bspecs = sharding.batch_specs(cfg, batches[0], mesh)
         local = [{k: sharding.local_shard(v, bspecs[k], mesh) for k, v in b.items()}
@@ -3229,9 +3420,11 @@ def dp_rank(rank: int, out_dir: str) -> int:
                     for (path, t), (_, spec) in zip(tree_paths(ps), tree_paths(pspecs)))
                 res["bits_equal"].append(_params_bits_equal(torch, dist, full))
         res["launches"] = {k: v for k, v in ops.LAUNCHES.items() if v}
+        res["launches_by_shape"] = [[n, key, c] for (n, key), c in
+                                    sorted(ops.LAUNCHES_BY_SHAPE.items())]
         res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
         res["seconds"]["sharded_steps"] = time.time() - t_part
-        if dt == "bfloat16":            # the step's collectives, timed apart
+        if dt == "bfloat16" and not sp:     # the step's collectives, timed apart
             leaves = [(t, spec) for (_, t), (_, spec) in zip(tree_paths(ps), tree_paths(pspecs))]
             torch.cuda.synchronize()
             t0 = time.time()
@@ -3261,55 +3454,74 @@ def dp_rank(rank: int, out_dir: str) -> int:
         if dt == "float32":
             del full
         torch.cuda.empty_cache()
-    # the compressed all-reduce at the embed gradient's shape, CUDA and CPU
-    shape = (dp_cfgs()["bfloat16"].vocab_size, dp_cfgs()["bfloat16"].d_model)
-    g = torch.randn(shape, generator=torch.Generator(device="cuda").manual_seed(rank),
-                    device="cuda") * 1e-3
-    t0 = time.time()
-    red, err = compressed_allreduce({"g": g}, {"g": torch.zeros_like(g)}, mesh, "data")
-    torch.cuda.synchronize()
-    cuda_s = time.time() - t0
-    t0 = time.time()
-    red_cpu, err_cpu = compressed_allreduce({"g": g.cpu()}, {"g": torch.zeros(shape)}, mesh,
-                                            "data")
-    cpu_s = time.time() - t0
-    exact = g.cpu().double()
-    dist.all_reduce(exact)
-    got = red["g"].cpu()
-    saved["compress"] = {
-        "bit_equal": bool(torch.equal(got.view(torch.int32), red_cpu["g"].view(torch.int32))
-                          and torch.equal(err["g"].cpu().view(torch.int32),
-                                          err_cpu["g"].view(torch.int32))),
-        "rel": ((got.double() - exact).norm() / exact.norm()).item(),
-        "cuda_s": cuda_s, "cpu_s": cpu_s, "shape": list(shape)}
-    log(f"{tag} compressed all-reduce {shape}: {saved['compress']}")
+    if not sp:
+        # the compressed all-reduce at the embed gradient's shape, CUDA and CPU
+        shape = (sharded_cfgs(kind)["bfloat16"].vocab_size,
+                 sharded_cfgs(kind)["bfloat16"].d_model)
+        g = torch.randn(shape, generator=torch.Generator(device="cuda").manual_seed(rank),
+                        device="cuda") * 1e-3
+        t0 = time.time()
+        red, err = compressed_allreduce({"g": g}, {"g": torch.zeros_like(g)}, mesh, "data")
+        torch.cuda.synchronize()
+        cuda_s = time.time() - t0
+        t0 = time.time()
+        red_cpu, err_cpu = compressed_allreduce({"g": g.cpu()}, {"g": torch.zeros(shape)}, mesh,
+                                                "data")
+        cpu_s = time.time() - t0
+        exact = g.cpu().double()
+        dist.all_reduce(exact)
+        got = red["g"].cpu()
+        saved["compress"] = {
+            "bit_equal": bool(torch.equal(got.view(torch.int32), red_cpu["g"].view(torch.int32))
+                              and torch.equal(err["g"].cpu().view(torch.int32),
+                                              err_cpu["g"].view(torch.int32))),
+            "rel": ((got.double() - exact).norm() / exact.norm()).item(),
+            "cuda_s": cuda_s, "cpu_s": cpu_s, "shape": list(shape)}
+        log(f"{tag} compressed all-reduce {shape}: {saved['compress']}")
     torch.save(saved, f"{out_dir}/rank{rank}.pt")
     dist.barrier()                      # no rank tears gloo down while another still talks
     dist.destroy_process_group()
     return 0
 
 
-def phase_dp_train(torch, results):
-    """Data-parallel training on the card: spawns the two ranks
-    (``dp_rank``) and holds what they wrote (see DP_* above): float32
-    metrics within TRAIN_METRIC_REL of the single-rank steps, updates
-    within DP_UPDATE_REL, gathered params bit-equal across ranks after
-    every step; bf16 losses bit-equal across ranks and falling, within the
-    DP_BF16_* bars of the single-rank steps; exact launch counts a rank
-    (2 flash forwards with lse and 1 backward a layer a step, as ``train``);
-    the compressed all-reduce's CUDA result bit-equal to the CPU's.  The ms
-    a step is correctness-only: both ranks share one card's SMs and gloo
-    stages every collective through the host.  Returns rank 0's bf16
-    launches."""
+def sp_launch_keys(torch, cfg, rank: int):
+    """The flash forward's and backward's launch key of ``sp_train``'s rank
+    ``rank``: its 1024 rows of the global S2048 against all 2048 keys, at
+    ``q_offset`` rank * 1024."""
+    from repro_torch.kernels.flash_attention import launch_key
+    dt = getattr(torch, cfg.dtype)
+    rows = SP_S // (SP_MESH[0] * SP_MESH[1])
+    q = torch.empty((SP_B, rows, cfg.n_heads, cfg.head_dim), dtype=dt, device="meta")
+    k = torch.empty((SP_B, SP_S, cfg.n_kv_heads, cfg.head_dim), dtype=dt, device="meta")
+    return launch_key(q, k, q_offset=rank * rows)
+
+
+def phase_sharded_train(torch, results, kind):
+    """Sharded training on the card, ``dp_train`` or ``sp_train``: spawns
+    the two ranks (``sharded_rank``) and holds what they wrote (see DP_*
+    and SP_* above): float32 metrics within TRAIN_METRIC_REL of the
+    single-rank steps, updates within DP_UPDATE_REL, gathered params
+    bit-equal across ranks after every step; bf16 losses bit-equal across
+    ranks and falling, within the DP_BF16_* bars of the single-rank steps;
+    exact launch counts a rank (2 flash forwards with lse and 1 backward a
+    layer a step, as ``train``; ``sp_train``: each at its rank's shape and
+    ``q_offset``, ``sp_launch_keys``); ``dp_train``: the compressed
+    all-reduce's CUDA result bit-equal to the CPU's.  The ms a step is
+    correctness-only: both ranks share one card's SMs and gloo stages every
+    collective through the host.  Returns the last rank's bf16 launches,
+    per kernel and per (kernel, launch_key)."""
     import tempfile
     from repro_torch.kernels import _build
 
     _build.build_all()                  # built once here, loaded by the ranks
     torch.cuda.empty_cache()
-    world = DP_MESH[0] * DP_MESH[1]
+    sp = kind == "sp_train"
+    flag = "--sp" if sp else "--dp"
+    mesh_shape = SP_MESH if sp else DP_MESH
+    world = mesh_shape[0] * mesh_shape[1]
     with tempfile.TemporaryDirectory() as d:
         procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
-                                   "--dp-rank", str(r), "--dp-dir", d],
+                                   f"{flag}-rank", str(r), f"{flag}-dir", d],
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
                  for r in range(world)]
         texts = []
@@ -3323,32 +3535,42 @@ def phase_dp_train(torch, results):
                     p.wait()
         for r, (p, text) in enumerate(zip(procs, texts)):
             for line in text.splitlines():
-                log(line if line.startswith("[dp_train") else f"[dp_train rank {r}] {line}")
+                log(line if line.startswith(f"[{kind}") else f"[{kind} rank {r}] {line}")
             if p.returncode != 0:
-                raise AssertionError(f"dp_train: rank {r} exited {p.returncode}")
+                raise AssertionError(f"{kind}: rank {r} exited {p.returncode}")
         ranks = [torch.load(f"{d}/rank{r}.pt") for r in range(world)]
     out = {}
-    for dt, cfg in dp_cfgs().items():
+    for dt, cfg in sharded_cfgs(kind).items():
         runs = [rk[dt] for rk in ranks]
         single = runs[0]["single"]
         n = len(single)
         want = {"flash_attention": 2 * cfg.n_layers * n, "flash_attention_bwd": cfg.n_layers * n}
         for r, run in enumerate(runs):
             if run["launches"] != want:
-                raise AssertionError(f"dp_train {dt} rank {r}: launches {run['launches']}, "
+                raise AssertionError(f"{kind} {dt} rank {r}: launches {run['launches']}, "
                                      f"expected {want}")
+            if sp:
+                key = sp_launch_keys(torch, cfg, r)
+                shaped = sorted([n_, k_, c] for n_, k_, c in run["launches_by_shape"])
+                if shaped != sorted([[name, key, c] for name, c in want.items()]):
+                    raise AssertionError(f"{kind} {dt} rank {r}: launches by shape {shaped}, "
+                                         f"expected {want} at {key}")
             if run["metrics"] != runs[0]["metrics"]:
-                raise AssertionError(f"dp_train {dt}: rank {r}'s metrics differ from rank 0's")
+                raise AssertionError(f"{kind} {dt}: rank {r}'s metrics differ from rank 0's")
         rel = {k: max(abs(m[k] - s[k]) / abs(s[k]) for m, s in zip(runs[0]["metrics"], single))
                for k in ("loss", "ce", "grad_norm")}
         losses = [m["loss"] for m in runs[0]["metrics"]]
-        res = {"n_layers": cfg.n_layers, "steps": n, "global_batch": [TRAIN_B, TRAIN_S],
-               "mesh": DP_MESH, "losses": losses, "single_losses": [s["loss"] for s in single],
+        res = {"n_layers": cfg.n_layers, "steps": n,
+               "global_batch": [SP_B, SP_S] if sp else [TRAIN_B, TRAIN_S],
+               "mesh": mesh_shape, "losses": losses,
+               "single_losses": [s["loss"] for s in single],
                "rel_vs_single": rel, "launches_a_rank": runs[0]["launches"],
                "peak_gib": [run["peak_gib"] for run in runs],
                "step_ms_correctness_only": runs[0]["step_ms"]}
-        log(f"[dp_train] llama3.2-1b {dt} x {cfg.n_layers} layers, global B{TRAIN_B} x "
-            f"S{TRAIN_S} on 2 ranks: losses {losses} (single-rank {res['single_losses']}); "
+        log(f"[{kind}] llama3.2-1b {dt} x {cfg.n_layers} layers, global "
+            f"B{res['global_batch'][0]} x S{res['global_batch'][1]} on 2 ranks"
+            + (" (sequence-parallel: 1024 rows a rank)" if sp else "")
+            + f": losses {losses} (single-rank {res['single_losses']}); "
             f"largest relative gap to the single-rank steps: "
             + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
             + f"; peak {', '.join(f'{g:.2f}' for g in res['peak_gib'])} GiB a rank; "
@@ -3356,33 +3578,35 @@ def phase_dp_train(torch, results):
             f"two ranks share one card, gloo through the host); launches a rank "
             f"{runs[0]['launches']}")
         res["seconds_rank0"] = runs[0]["seconds"]
-        log(f"[dp_train] {dt} rank 0 seconds: "
+        log(f"[{kind}] {dt} rank 0 seconds: "
             + ", ".join(f"{k} {v:.2f}" for k, v in runs[0]["seconds"].items()))
         if dt == "float32":
             worst = max(runs[0]["update_rel"].items(), key=lambda kv: kv[1])
             res["update_rel_max"] = worst
             equal = all(all(run["bits_equal"]) for run in runs)
-            log(f"[dp_train] float32: updates after {n} steps within {worst[1]:.3e} of the "
+            log(f"[{kind}] float32: updates after {n} steps within {worst[1]:.3e} of the "
                 f"single-rank run ({worst[0]}; bar {DP_UPDATE_REL}); ranks' gathered params "
                 f"bit-equal after every step: {equal}")
             if not (max(rel.values()) <= TRAIN_METRIC_REL and worst[1] <= DP_UPDATE_REL
                     and equal and len(runs[0]["bits_equal"]) == n):
-                raise AssertionError(f"dp_train float32: {rel}, {worst}, bits equal {equal}")
+                raise AssertionError(f"{kind} float32: {rel}, {worst}, bits equal {equal}")
         else:
             if not (rel["loss"] <= DP_BF16_LOSS_REL and rel["grad_norm"] <= DP_BF16_GNORM_REL
                     and all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
-                raise AssertionError(f"dp_train bf16: {rel}, losses {losses}")
+                raise AssertionError(f"{kind} bf16: {rel}, losses {losses}")
         out[dt] = res
-    comp = [rk["compress"] for rk in ranks]
-    log(f"[dp_train] compressed all-reduce over 2 ranks at {comp[0]['shape']} float32: CUDA "
-        f"bit-equal to the CPU call on both ranks: {all(c['bit_equal'] for c in comp)}; "
-        f"relative error to the exact sum {comp[0]['rel']:.4e}; {comp[0]['cuda_s']:.2f} s on "
-        f"the card, {comp[0]['cpu_s']:.2f} s on the CPU (correctness-only)")
-    if not all(c["bit_equal"] for c in comp) or not comp[0]["rel"] < 0.02:
-        raise AssertionError(f"dp_train: compressed all-reduce {comp}")
-    out["compressed_allreduce"] = comp[0]
-    results["dp_train"] = out
-    return ranks[0]["bfloat16"]["launches"]
+    if not sp:
+        comp = [rk["compress"] for rk in ranks]
+        log(f"[dp_train] compressed all-reduce over 2 ranks at {comp[0]['shape']} float32: "
+            f"CUDA bit-equal to the CPU call on both ranks: {all(c['bit_equal'] for c in comp)}; "
+            f"relative error to the exact sum {comp[0]['rel']:.4e}; {comp[0]['cuda_s']:.2f} s "
+            f"on the card, {comp[0]['cpu_s']:.2f} s on the CPU (correctness-only)")
+        if not all(c["bit_equal"] for c in comp) or not comp[0]["rel"] < 0.02:
+            raise AssertionError(f"dp_train: compressed all-reduce {comp}")
+        out["compressed_allreduce"] = comp[0]
+    results[kind] = out
+    last = ranks[-1]["bfloat16"]
+    return {**last["launches"], **{(n_, k_): c for n_, k_, c in last["launches_by_shape"]}}
 
 
 def train_batches(torch, cfg, batch, seq, n, seed=0, device="cuda"):
@@ -3804,7 +4028,7 @@ def hold_graph(phase, what, graph, card, cpu, *, again, card_vs_cpu):
 
 @host_heap()
 def run_train_parity(torch, results, phase, base, *, batches_fn, want_of, grad_rel=None,
-                     pin_state=False, witness=None):
+                     pin_state=False):
     """``base`` (float32, cut in depth): 3 AdamW steps (lr 3e-4, warmup
     10, total 20) on the card (kernels) and on the CPU (plain versions)
     from the same weights (seed 1) and batches (``batches_fn(cfg, device)``),
@@ -3829,9 +4053,7 @@ def run_train_parity(torch, results, phase, base, *, batches_fn, want_of, grad_r
     nothing, as the other phases run: its loss, ce and LR are held within
     TRAIN_METRIC_REL, its updates within TRAIN_UPDATE_REL and its gradient
     norm within FREE_RUN_GRAD_NORM_REL, the drift of a step after the first
-    update (see there).  ``witness``: (what, config), a variant of
-    ``base`` whose CPU first gradient is logged against the reference's and
-    the card's (not held).  The phase's host tensors (the CPU run, the card
+    update (see there).  The phase's host tensors (the CPU run, the card
     runs' copies, the comparisons) come from glibc's heap (``host_heap``)."""
     from repro_torch import models
     from repro_torch.kernels import ops
@@ -3847,23 +4069,20 @@ def run_train_parity(torch, results, phase, base, *, batches_fn, want_of, grad_r
             tree = tree[k]
         return tree
 
-    def run(dev, remat, pinned=None, record=False, cfg_of=None, grads_only=False,
-            graph=False, first_grad=True):
+    def run(dev, remat, pinned=None, record=False, graph=False, first_grad=True):
         """pinned: the CPU's recorded states (pin every leaf after each
         step), False (pin nothing, skip the first gradient) or None;
         graph: step through a CompiledTrainStep."""
-        cfg = cfg_of or dataclasses.replace(base, remat=remat)
+        cfg = dataclasses.replace(base, remat=remat)
         t_setup = time.time()
         p = tree_map(lambda t: t.detach().to(dev, copy=True).requires_grad_(True), params0)
         batches = batches_fn(cfg, dev)
         t0 = time.time()
         t_setup = t0 - t_setup
         # the CPU's first gradient is kept from its first step
-        from_step = dev == "cpu" and pinned is not False and first_grad and not grads_only
+        from_step = dev == "cpu" and pinned is not False and first_grad
         grads = ({k: g.cpu() for k, g in first_grads(torch, cfg, p, batches[0]).items()}
                  if pinned is not False and first_grad and not from_step else None)
-        if grads_only:
-            return grads
         state = adamw_init(p)
         hyper = dict(base_lr=3e-4, warmup=10, total_steps=20)
         if graph:
@@ -3929,7 +4148,7 @@ def run_train_parity(torch, results, phase, base, *, batches_fn, want_of, grad_r
         if got != want:
             raise AssertionError(f"{phase} remat={remat}: launches {got}, expected {want}")
         if remat:
-            card_launches, card_first = card[3], card[0]
+            card_launches = card[3]
         rel = {k: rel_l2(card[0][k], cpu[0][k]) for k in cpu[0]}
         bound = {k: (grad_rel or {}).get(k[-1], TRAIN_GRAD_REL) for k in rel}
         worst = max(rel, key=lambda k: rel[k] / bound[k])
@@ -3977,19 +4196,6 @@ def run_train_parity(torch, results, phase, base, *, batches_fn, want_of, grad_r
                 and all(u <= TRAIN_UPDATE_REL for u in upd_rel)):
             raise AssertionError(f"{phase}, nothing pinned: card and CPU disagree")
         out["unpinned"] = {"metric_rel_per_step": mrel, "update_max_rel_l2": upd_rel}
-    if witness is not None:
-        t_wit = time.time()
-        alt, card0 = run("cpu", False, cfg_of=witness[1], grads_only=True), card_first
-        far = {k: rel_l2(alt[k], cpu[0][k]) for k in alt}
-        card_far = {k: rel_l2(card0[k], alt[k]) for k in alt}
-        ref_card = {k: rel_l2(card0[k], cpu[0][k]) for k in alt}
-        log(f"[{phase}] first gradients, max rel L2 over leaves: the CPU at {witness[0]} "
-            f"vs the reference {max(far.values()):.3e}, vs the card "
-            f"{max(card_far.values()):.3e}; the card vs the reference {max(ref_card.values()):.3e}"
-            f" ({time.time() - t_wit:.1f}s)")
-        out["witness_first_grad_rel"] = {"variant_vs_reference": max(far.values()),
-                                         "variant_vs_card": max(card_far.values()),
-                                         "card_vs_reference": max(ref_card.values())}
     log(f"[{phase}] host peak RSS so far {host_peak_gib():.1f} GiB")
     results[phase] = out
     return card_launches
@@ -4052,8 +4258,7 @@ def phase_hybrid_train_parity(torch, results):
     ``ssm_train_parity``.  Each card step starts from the CPU's state
     (``pin_state``), and a run that pins nothing is held beside
     (FREE_RUN_GRAD_NORM_REL).  The CPU's plain scan runs at
-    HYBRID_PARITY_CHUNK (the kernel ignores the chunk); its first gradient
-    at the config's chunk is logged beside."""
+    HYBRID_PARITY_CHUNK (the kernel ignores the chunk)."""
     from repro_torch.configs import get_config
 
     cfg = get_config(HYBRID_TRAIN_ARCH)
@@ -4068,8 +4273,7 @@ def phase_hybrid_train_parity(torch, results):
                                   "flash_attention": n_groups * (2 if remat else 1) * n,
                                   "flash_attention_bwd": n_groups * n},
         grad_rel={"a_log": SSM_SCALAR_GRAD_REL, "dt_bias": SSM_SCALAR_GRAD_REL},
-        pin_state=True,
-        witness=(f"SSD chunk {cfg.ssm.chunk}", dataclasses.replace(base, ssm=cfg.ssm)))
+        pin_state=True)
 
 
 def phase_moe_train_parity(torch, results):
@@ -4378,6 +4582,8 @@ def main(argv=None) -> int:
     ap.add_argument("--picnic-dir", help=argparse.SUPPRESS)
     ap.add_argument("--dp-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--dp-dir", help=argparse.SUPPRESS)
+    ap.add_argument("--sp-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--sp-dir", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     unknown = set(phases) - set(PHASES + EXTRA_PHASES)
@@ -4400,7 +4606,9 @@ def main(argv=None) -> int:
     if args.picnic_rank is not None:    # one rank of the picnic_decode phase
         return picnic_rank(args.picnic_rank, args.picnic_dir)
     if args.dp_rank is not None:        # one rank of the dp_train phase
-        return dp_rank(args.dp_rank, args.dp_dir)
+        return sharded_rank("dp_train", args.dp_rank, args.dp_dir)
+    if args.sp_rank is not None:        # one rank of the sp_train phase
+        return sharded_rank("sp_train", args.sp_rank, args.sp_dir)
     smi = nvidia_smi_line()
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
@@ -4445,7 +4653,9 @@ def main(argv=None) -> int:
         elif phase == "train":
             launches_of[phase] = phase_train(torch, results)
         elif phase == "dp_train":
-            launches_of[phase] = phase_dp_train(torch, results)
+            launches_of[phase] = phase_sharded_train(torch, results, phase)
+        elif phase == "sp_train":
+            launches_of[phase] = phase_sharded_train(torch, results, phase)
         elif phase == "train_parity":
             launches_of[phase] = phase_train_parity(torch, results)
         elif phase == "train_driver":

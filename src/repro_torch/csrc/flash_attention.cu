@@ -21,6 +21,13 @@
 // version's step for step: a tile starts at the step that holds the first
 // key inside the window of its first row, and the steps before it, which
 // no row of the tile sees, contribute nothing.
+// A query offset (q_offset >= 0; the JAX model's, which the Pallas kernel
+// does not take) puts q row i at global position q_offset + i against keys
+// at 0 .. Skv - 1: the causal mask, the window and the prefix read the
+// global position (sequence-parallel attention, where a rank's q rows are
+// its cut of the sequence and K/V the whole gathered sequence).  Tiles
+// stay aligned to local rows and steps to absolute key positions, so the
+// PWL result is still the plain version's step for step.
 // An optional lse output (B, Hq, Sq) float32 takes each row's m + log l,
 // the log-sum-exp of its scaled scores, for the backward
 // (flash_attention_bwd.cu); where its pointer is null nothing else changes.
@@ -156,7 +163,7 @@ template <typename T, int D, bool kPwl>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ out, float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv, int causal,
-                 int window, int prefix, float scale, PwlCoeffs pwl) {
+                 int window, int prefix, int q_offset, float scale, PwlCoeffs pwl) {
   constexpr int DP = D + 1, BKP = kBK + 1, CPT = D / 16;
   extern __shared__ float smem[];
   float* Qs = smem;                 // kBQ x DP, pre-scaled q
@@ -191,7 +198,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
     for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
 
-  const int2 steps = step_range(q0, min(q0 + kBQ, Sq), Skv, causal, window, prefix);
+  const int2 steps =
+      step_range(q0 + q_offset, min(q0 + kBQ, Sq) + q_offset, Skv, causal, window, prefix);
   for (int step = steps.x; step < steps.y; ++step) {
     const int k0 = step * kBK;
     load_tile<T, D>(KVs, kb, k0, kBK, kv_stride, Skv);
@@ -217,7 +225,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i;
+      const int qpos = q_offset + q0 + ty * 4 + i;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int kpos = k0 + tx + 16 * j;
@@ -232,7 +240,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     load_tile<T, D>(KVs, vb, k0, kBK, kv_stride, Skv);
     for (int rr = 0; rr < kBQ / (kThreads / 32); ++rr) {
       const int r = warp * (kBQ / (kThreads / 32)) + rr;
-      const int qpos = q0 + r;
+      const int qpos = q_offset + q0 + r;
       float sv[4];
       bool ok[4];
       float mx = kNegInf;
@@ -343,7 +351,7 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
                      float* __restrict__ lse, int B, int Sq, int Skv, int Hq, int Hkv, int causal, int window,
-                     int prefix, float scale, PwlCoeffs pwl) {
+                     int prefix, int q_offset, float scale, PwlCoeffs pwl) {
   constexpr bool kBig = kMmaBig<D>;
   constexpr int kS = kMmaStride<D>;
   constexpr int kTile = kBK * kS;  // elements of one staged tile
@@ -377,12 +385,14 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   float o[2 * kKC][4];
   float m_run[2], l_run[2];  // rows g and g + 8: unscaled max, this lane's share of l
   int row_w = 0;             // the warp's first q row in the tile
+  int pos_w = 0;             // its global position, row_w + q_offset: what the masks read
   const float scale_log2 = scale * kLog2e;
   // this lane's ldmatrix address of the warp's Q rows in Qs
   auto q_row = [&]() { return Qs + (warp * 16 + (mi & 1) * 8 + mr) * kS + (mi >> 1) * 8; };
 
   auto steps_of = [&](int t) {
-    return step_range(q0_of(t), min(q0_of(t) + kMmaBQ, Sq), Skv, causal, window, prefix);
+    return step_range(q0_of(t) + q_offset, min(q0_of(t) + kMmaBQ, Sq) + q_offset, Skv, causal,
+                      window, prefix);
   };
 
   // A masked step holds keys past Skv, past a row of this warp outside the
@@ -392,9 +402,9 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   auto live_keys = [&](auto masked, int k0) {
     constexpr bool kMasked = decltype(masked)::value;
     const int n_keys =
-        kMasked && causal ? max(0, min(kBK, max(row_w + 16, prefix) - k0)) : kBK;
+        kMasked && causal ? max(0, min(kBK, max(pos_w + 16, prefix) - k0)) : kBK;
     // keys before k0 + k_lo are outside the window of the warp's first row
-    const int k_lo = kMasked && window > 0 ? min(kBK, max(0, row_w - window + 1 - k0)) : 0;
+    const int k_lo = kMasked && window > 0 ? min(kBK, max(0, pos_w - window + 1 - k0)) : 0;
     return make_int2(k_lo, n_keys);
   };
 
@@ -430,7 +440,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
       for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int row = row_w + g + (e >> 1) * 8;
+          const int row = pos_w + g + (e >> 1) * 8;
           const int key = k0 + nt * 8 + 2 * t4 + (e & 1);
           if (!key_valid(row, key, Skv, causal, window, prefix)) s[nt][e] = -INFINITY;
         }
@@ -460,7 +470,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
       mx[r] = max_nan(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
       bool seen = true;
       if constexpr (kMasked) {
-        const int row = row_w + g + 8 * r;
+        const int row = pos_w + g + 8 * r;
         const int lo = window > 0 ? max(k0, row - window + 1) : k0;
         const int hi = min(min(k0 + kBK, Skv), causal ? max(row + 1, prefix) : Skv);
         seen = lo < hi;
@@ -538,6 +548,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     const int2 steps = steps_of(t);
     const int step0 = steps.x, n_steps = steps.y;
     row_w = q0 + warp * 16;
+    pos_w = row_w + q_offset;
     if constexpr (!kBig) {
       cp_async_wait<0>();  // Q and step 0's K and V of this tile
       __syncthreads();
@@ -553,8 +564,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     for (int step = step0; step < n_steps; ++step) {
       const int k0 = step * kBK, st = kBig ? 0 : gs & 1;
       const bool masked = k0 + kBK > Skv ||
-                          (causal && k0 + kBK - 1 > row_w && k0 + kBK > prefix) ||
-                          (window > 0 && k0 < row_w + 16 - window);
+                          (causal && k0 + kBK - 1 > pos_w && k0 + kBK > prefix) ||
+                          (window > 0 && k0 < pos_w + 16 - window);
       float s[kNT][4];
       if constexpr (kBig) {
         // Two barriers a step.  The first publishes this step's K (and, on
@@ -651,7 +662,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 
 template <int D, bool kPwl>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq,
-                       int Skv, int Hq, int Hkv, int causal, int window, int prefix,
+                       int Skv, int Hq, int Hkv, int causal, int window, int prefix, int q_offset,
                        const PwlCoeffs& pwl, cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<D>();
   auto kernel = flash_fwd_mma_kernel<D, kPwl>;
@@ -667,18 +678,18 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, f
   using bf16 = __nv_bfloat16;
   kernel<<<n_tiles < n_sm ? n_tiles : n_sm, kMmaThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), lse, B, Sq, Skv, Hq, Hkv, causal, window, prefix,
+      static_cast<bf16*>(out), lse, B, Sq, Skv, Hq, Hkv, causal, window, prefix, q_offset,
       float(pow(double(D), -0.5)), pwl);
   return cudaGetLastError();
 }
 
 template <typename T, int D, bool kPwl>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq,
-                   int Skv, int Hq, int Hkv, int causal, int window, int prefix,
+                   int Skv, int Hq, int Hkv, int causal, int window, int prefix, int q_offset,
                    const PwlCoeffs& pwl, cudaStream_t stream) {
   if constexpr (!std::is_same_v<T, float>) {
-    return launch_mma<D, kPwl>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, window, prefix, pwl,
-                               stream);
+    return launch_mma<D, kPwl>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, window, prefix,
+                               q_offset, pwl, stream);
   } else {
     constexpr size_t smem = flash_smem_bytes<D>();
     auto kernel = flash_fwd_kernel<T, D, kPwl>;
@@ -688,7 +699,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
     const dim3 grid(B * Hq, (Sq + kBQ - 1) / kBQ);
     kernel<<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(out), lse, Sq, Skv, Hq, Hkv, causal, window, prefix,
+        static_cast<T*>(out), lse, Sq, Skv, Hq, Hkv, causal, window, prefix, q_offset,
         float(pow(double(D), -0.5)), pwl);
     return cudaGetLastError();
   }
@@ -698,23 +709,23 @@ template <typename T, bool kPwl>
 cudaError_t dispatch_dim(int D, const void* q, const void* k, const void* v, void* out, float* lse,
                          int B,
                          int Sq, int Skv, int Hq, int Hkv, int causal, int window, int prefix,
-                         const PwlCoeffs& pwl, cudaStream_t s) {
+                         int q_offset, const PwlCoeffs& pwl, cudaStream_t s) {
   switch (D) {
     case 32:
-      return launch<T, 32, kPwl>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, window, prefix, pwl,
-                                s);
+      return launch<T, 32, kPwl>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, window, prefix,
+                                q_offset, pwl, s);
     case 64:
-      return launch<T, 64, kPwl>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, window, prefix, pwl,
-                                s);
+      return launch<T, 64, kPwl>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, window, prefix,
+                                q_offset, pwl, s);
     case 80:
-      return launch<T, 80, kPwl>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, window, prefix, pwl,
-                                s);
+      return launch<T, 80, kPwl>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, window, prefix,
+                                q_offset, pwl, s);
     case 128:
-      return launch<T, 128, kPwl>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, window, prefix, pwl,
-                                s);
+      return launch<T, 128, kPwl>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, window, prefix,
+                                 q_offset, pwl, s);
     case 256:
-      return launch<T, 256, kPwl>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, window, prefix, pwl,
-                                s);
+      return launch<T, 256, kPwl>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, window, prefix,
+                                 q_offset, pwl, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -728,32 +739,35 @@ cudaError_t dispatch_dim(int D, const void* q, const void* k, const void* v, voi
 // that sees no key).  dtype 0 = float32, 1 = bfloat16.  window > 0 masks keys
 // window or more positions before the query; 0 is no window.  prefix_len
 // > 0 makes keys below it visible to every query (causal only, and with
-// neither a window nor PWL exp: refused).  Returns cudaGetLastError()
-// after the launch.
+// neither a window nor PWL exp: refused).  q_offset >= 0 is the global
+// position of q's row 0 (keys at 0 .. Skv - 1).  Returns
+// cudaGetLastError() after the launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
                                    void* lse_out, int B,
                                    int Sq, int Skv, int Hq, int Hkv, int D, int dtype, int causal,
-                                   int window, int prefix_len, int use_pwl, const void* pwl_host,
-                                   void* stream) {
+                                   int window, int prefix_len, int q_offset, int use_pwl,
+                                   const void* pwl_host, void* stream) {
   using namespace repro_torch;
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0 || window < 0 ||
-      prefix_len < 0 || (prefix_len > 0 && (!causal || window > 0 || use_pwl)))
+      prefix_len < 0 || q_offset < 0 ||
+      (prefix_len > 0 && (!causal || window > 0 || use_pwl)))
     return cudaErrorInvalidValue;
   const PwlCoeffs pwl = read_pwl(pwl_host);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int w = window, p = prefix_len;
+  const int w = window, p = prefix_len, o = q_offset;
   float* lse = static_cast<float*>(lse_out);
   if (dtype == 0) {
     return use_pwl
-               ? dispatch_dim<float, true>(D, q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, w, p, pwl, s)
-               : dispatch_dim<float, false>(D, q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, w, p, pwl,
-                                            s);
+               ? dispatch_dim<float, true>(D, q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, w, p, o,
+                                           pwl, s)
+               : dispatch_dim<float, false>(D, q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, w, p, o,
+                                            pwl, s);
   }
   if (dtype == 1) {
     return use_pwl ? dispatch_dim<__nv_bfloat16, true>(D, q, k, v, out, lse, B, Sq, Skv, Hq, Hkv,
-                                                       causal, w, p, pwl, s)
+                                                       causal, w, p, o, pwl, s)
                    : dispatch_dim<__nv_bfloat16, false>(D, q, k, v, out, lse, B, Sq, Skv, Hq, Hkv,
-                                                        causal, w, p, pwl, s);
+                                                        causal, w, p, o, pwl, s);
   }
   return cudaErrorInvalidValue;
 }

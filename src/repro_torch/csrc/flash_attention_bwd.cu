@@ -19,6 +19,15 @@
 //   dS = P o (dP - Delta) on valid pairs, 0 elsewhere
 //   dQ = scale dS K,  dK = scale dS^T Q
 // summed over the Hq / Hkv query heads of a KV head for dK and dV.
+// A query offset (q_offset >= 0, the forward's) puts q row i at global
+// position q_offset + i: every mask above reads that position (sequence-
+// parallel attention's rank, whose rows are its cut of the sequence
+// against the whole gathered K/V).  Tiles stay aligned to local rows, so
+// the diagonal crosses a tile's 16 x 16 blocks off their corners unless
+// q_offset is a multiple of 64; such a call runs the kernels compiled
+// for a window (kMaskWindow, with a window wider than any sequence,
+// kNoWindow), whose blocks are sorted by block_kept, not the plain ones,
+// whose only cut block is the warp's own on the diagonal tile.
 //
 // Three launches on one stream, counted as one by the wrapper:
 // - flash_bwd_delta_kernel: Delta (B, Hq, Sq) float32, a warp a row.
@@ -122,15 +131,21 @@
 namespace repro_torch {
 
 // the mask a launch is compiled for: the causal mask on or off and nothing
-// else (kMaskPlain; float32 takes a window here too, at run time), a
-// sliding window (kMaskWindow, bfloat16), a bidirectional prefix
-// (kMaskPrefix)
+// else (kMaskPlain; float32 takes a window and any query offset here too,
+// at run time), a sliding window or a causal mask that a query offset not
+// a multiple of kT moves off the tiles' corners (kMaskWindow, bfloat16),
+// a bidirectional prefix (kMaskPrefix)
 enum { kMaskPlain = 0, kMaskWindow = 1, kMaskPrefix = 2 };
+
+constexpr int kT = 64;  // query rows of a query tile, keys of a key tile
+// the window a kMaskWindow launch takes for none: wider than any sequence,
+// so that every window bound holds, and far from int overflow
+constexpr int kNoWindow = 1 << 30;
 
 #define FLASH_BWD_LAUNCH_ARGS                                                                 \
   const void *q, const void *k, const void *v, const void *out, const void *lse,            \
       const void *dout, void *dq, void *dk, void *dv, void *delta, int B, int Sq, int Skv,  \
-      int Hq, int Hkv, bool causal, int window, int prefix, cudaStream_t stream
+      int Hq, int Hkv, bool causal, int window, int prefix, int qoff, cudaStream_t stream
 
 // Delta, dK/dV and dQ of one dtype, head dim and mask: three launches on
 // `stream`; defined and instantiated in the parts
@@ -143,7 +158,6 @@ cudaError_t launch(FLASH_BWD_LAUNCH_ARGS);
 namespace repro_torch {
 namespace {
 
-constexpr int kT = 64;  // query rows of a query tile, keys of a key tile
 constexpr int kThreads = 256;
 constexpr int kMaxSmem = 232448;  // bytes a block may take
 
@@ -187,28 +201,35 @@ __device__ __forceinline__ int block_kept(int r0, int c0, int n, bool causal, in
   }
 }
 
-// the query tiles [x, y) of TT rows that hold a row some key of [k0, k0 +
-// TT) sees; a prefix key is seen by every row
+// the query tiles [x, y) of TT local rows (global position qoff + row) that
+// hold a row some key of [k0, k0 + TT) sees; a prefix key is seen by every
+// row; empty where x >= y
 template <bool kPrefix, int TT>
-__device__ __forceinline__ int2 query_tiles(int k0, int Sq, bool causal, int window, int prefix) {
+__device__ __forceinline__ int2 query_tiles(int k0, int Sq, bool causal, int window, int prefix,
+                                            int qoff) {
   const int n_qt = (Sq + TT - 1) / TT;
+  const int first = max(0, k0 - qoff) / TT;  // the tile of the row at the tile's first key
   if constexpr (kPrefix) {
-    return make_int2(k0 < prefix ? 0 : k0 / TT, n_qt);
+    return make_int2(k0 < prefix ? 0 : first, n_qt);
   } else {
-    const int hi = window > 0 ? min(n_qt, (k0 + TT - 2 + window) / TT + 1) : n_qt;
-    return make_int2(causal ? k0 / TT : 0, hi);
+    // the last row inside the window of the tile's last key, local
+    const int last = k0 + TT - 2 + window - qoff;
+    const int hi = window > 0 ? (last < 0 ? 0 : min(n_qt, last / TT + 1)) : n_qt;
+    return make_int2(causal ? first : 0, hi);
   }
 }
 
 // the key tiles [x, y) of TT keys that hold a key some row of [q0, min(q0 +
-// TT, Sq)) sees; with a prefix also every tile of a prefix key
+// TT, Sq)) (local; global position qoff + row) sees; with a prefix also
+// every tile of a prefix key
 template <bool kPrefix, int TT>
 __device__ __forceinline__ int2 key_tiles(int q0, int Sq, int Skv, bool causal, int window,
-                                          int prefix) {
+                                          int prefix, int qoff) {
   const int n_kt = (Skv + TT - 1) / TT;
-  int hi = causal ? min(n_kt, (min(q0 + TT, Sq) - 1) / TT + 1) : n_kt;
+  const int p0 = q0 + qoff, p1 = min(q0 + TT, Sq) - 1 + qoff;  // global first and last row
+  int hi = causal ? min(n_kt, p1 / TT + 1) : n_kt;
   if constexpr (kPrefix) hi = max(hi, min(n_kt, (prefix + TT - 1) / TT));
-  return make_int2(window > 0 ? max(0, q0 - window + 1) / TT : 0, hi);
+  return make_int2(window > 0 ? max(0, p0 - window + 1) / TT : 0, hi);
 }
 
 // rows [row0, row0 + TT) of a matrix with row_stride elements between rows
@@ -230,16 +251,16 @@ __device__ __forceinline__ void stage_row(float* dst, const float* src, int q0, 
   if (threadIdx.x < TT) dst[threadIdx.x] = q0 + threadIdx.x < Sq ? src[q0 + threadIdx.x] : pad;
 }
 
-// P and dS of a TT-row query tile against a TT-key tile into Ps and dSs
-// (row r at r * (TT + 1)): this thread's R = TT / 16 rows ty * R + i and R
-// keys tx + 16 j.
+// P and dS of a TT-row query tile (local rows from q0, global from qoff +
+// q0) against a TT-key tile into Ps and dSs (row r at r * (TT + 1)): this
+// thread's R = TT / 16 rows ty * R + i and R keys tx + 16 j.
 template <int D, int TT, bool kPrefix>
 __device__ __forceinline__ void probs_and_dscores(const float* Qs, const float* Ks,
                                                   const float* dOs, const float* Vs,
                                                   const float* lse_s, const float* delta_s,
                                                   float* Ps, float* dSs, int q0, int k0, int Sq,
                                                   int Skv, bool causal, int window, int prefix,
-                                                  float scale) {
+                                                  int qoff, float scale) {
   constexpr int DP = D + 1, TP = TT + 1, R = TT / 16;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   float s[R][R], dp[R][R];
@@ -270,12 +291,12 @@ __device__ __forceinline__ void probs_and_dscores(const float* Qs, const float* 
   }
 #pragma unroll
   for (int i = 0; i < R; ++i) {
-    const int r = ty * R + i, qpos = q0 + r;
+    const int r = ty * R + i, qrow = q0 + r;
 #pragma unroll
     for (int j = 0; j < R; ++j) {
       const int c = tx + 16 * j, kpos = k0 + c;
-      const bool ok =
-          qpos < Sq && kpos < Skv && pair_kept<kPrefix>(qpos, kpos, causal, window, prefix);
+      const bool ok = qrow < Sq && kpos < Skv &&
+                      pair_kept<kPrefix>(qoff + qrow, kpos, causal, window, prefix);
       const float p = ok ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
       Ps[r * TP + c] = p;
       dSs[r * TP + c] = ok ? p * (dp[i][j] - delta_s[r]) : 0.f;
@@ -308,7 +329,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
                       const T* __restrict__ dout, const float* __restrict__ lse,
                       const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
                       int B, int Sq, int Skv, int Hq, int Hkv, bool causal, int window,
-                      int prefix, float scale) {
+                      int prefix, int qoff, float scale) {
   constexpr int DP = D + 1, CPT = D / 16, TP = TT + 1, R = TT / 16;
   extern __shared__ float smem[];
   float* Ks = smem;
@@ -338,7 +359,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
 #pragma unroll
     for (int j = 0; j < CPT; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
 
-  const int2 tiles = query_tiles<kPrefix, TT>(k0, Sq, causal, window, prefix);
+  const int2 tiles = query_tiles<kPrefix, TT>(k0, Sq, causal, window, prefix, qoff);
   for (int g = 0; g < G; ++g) {
     const int h = hk * G + g;
     const int64_t q_off = (int64_t(b) * Sq * Hq + h) * D;
@@ -352,12 +373,12 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
       stage_row<TT>(delta_s, delta + row_off, q0, Sq, 0.f);
       __syncthreads();
       probs_and_dscores<D, TT, kPrefix>(Qs, Ks, dOs, Vs, lse_s, delta_s, Ps, dSs, q0, k0, Sq,
-                                        Skv, causal, window, prefix, scale);
+                                        Skv, causal, window, prefix, qoff, scale);
       __syncthreads();
       // dV += P^T dO, dK += dS^T Q over the tile's rows; on a tile that the
       // diagonal or a mask's edge cuts a masked pair adds nothing (a
       // select, so a NaN of its row stays out)
-      const bool cut = block_kept<kPrefix>(q0, k0, TT, causal, window, prefix) != kAll;
+      const bool cut = block_kept<kPrefix>(qoff + q0, k0, TT, causal, window, prefix) != kAll;
 #pragma unroll 2
       for (int r = 0; r < TT; ++r) {
         float p[R], ds[R], ov[CPT], qv[CPT];
@@ -374,7 +395,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
 #pragma unroll
         for (int i = 0; i < R; ++i) {
           const bool keep =
-              !cut || pair_kept<kPrefix>(q0 + r, k0 + ty * R + i, causal, window, prefix);
+              !cut || pair_kept<kPrefix>(qoff + q0 + r, k0 + ty * R + i, causal, window, prefix);
 #pragma unroll
           for (int j = 0; j < CPT; ++j) {
             const float a = fmaf(p[i], ov[j], dv_acc[i][j]);
@@ -405,7 +426,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq, int B, int Sq, int Skv,
-                    int Hq, int Hkv, bool causal, int window, int prefix, float scale) {
+                    int Hq, int Hkv, bool causal, int window, int prefix, int qoff, float scale) {
   constexpr int DP = D + 1, CPT = D / 16, TP = TT + 1, R = TT / 16;
   extern __shared__ float smem[];
   float* Qs = smem;
@@ -439,7 +460,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
     for (int j = 0; j < CPT; ++j) dq_acc[i][j] = 0.f;
 
-  const int2 tiles = key_tiles<kPrefix, TT>(q0, Sq, Skv, causal, window, prefix);
+  const int2 tiles = key_tiles<kPrefix, TT>(q0, Sq, Skv, causal, window, prefix, qoff);
   for (int kt = tiles.x; kt < tiles.y; ++kt) {
     const int k0 = kt * TT;
     __syncthreads();  // the tile before is consumed
@@ -447,11 +468,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     stage<T, D, TT>(Vs, v + kv_off, k0, kv_stride, Skv);
     __syncthreads();
     probs_and_dscores<D, TT, kPrefix>(Qs, Ks, dOs, Vs, lse_s, delta_s, Ps, dSs, q0, k0, Sq, Skv,
-                                      causal, window, prefix, scale);
+                                      causal, window, prefix, qoff, scale);
     __syncthreads();
     // dQ += dS K over the tile's keys; on a tile that the diagonal or a
     // mask's edge cuts a masked pair adds nothing (a select)
-    const bool cut = block_kept<kPrefix>(q0, k0, TT, causal, window, prefix) != kAll;
+    const bool cut = block_kept<kPrefix>(qoff + q0, k0, TT, causal, window, prefix) != kAll;
 #pragma unroll 2
     for (int c = 0; c < TT; ++c) {
       float ds[R], kv[CPT];
@@ -462,7 +483,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
       for (int i = 0; i < R; ++i) {
         const bool keep =
-            !cut || pair_kept<kPrefix>(q0 + ty * R + i, k0 + c, causal, window, prefix);
+            !cut || pair_kept<kPrefix>(qoff + q0 + ty * R + i, k0 + c, causal, window, prefix);
 #pragma unroll
         for (int j = 0; j < CPT; ++j) {
           const float a = fmaf(ds[i], kv[j], dq_acc[i][j]);
@@ -649,7 +670,8 @@ __device__ __forceinline__ uint2 warp_blocks(int w0, int t0, bool by_key, bool c
 // of the tile)
 enum { kTileFull = 0, kTileDiag = 1, kTileCut = 2 };
 
-// One query tile's share of a dK/dV warp's keys kw0 .. kw0 + 15: P^T and
+// One query tile's share (local rows from q0, global from qoff + q0) of a
+// dK/dV warp's keys kw0 .. kw0 + 15: P^T and
 // dS^T (16 keys x 64 rows) from S^T = K Q^T and dP^T = V dO^T over all D
 // columns, then dV += P^T dO and dK += dS^T Q over the DO columns from
 // col0.  blocks (kTileCut): the query chunks that see the warp's keys (.x)
@@ -660,7 +682,8 @@ __device__ __forceinline__ void dkdv_tile(float (&dk_acc)[DO / 8][4], float (&dv
                                           const __nv_bfloat16* Qs, const __nv_bfloat16* dOs,
                                           const float* lse_s, const float* delta_s, uint2 blocks,
                                           int warp, int q0, int kw0, int Sq, int Skv, bool causal,
-                                          int window, int prefix, int col0, float scale_log2) {
+                                          int window, int prefix, int qoff, int col0,
+                                          float scale_log2) {
   const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
   unsigned need = 0xFu, full = 0xFu;
   if (kMode == kTileDiag) {  // the warp's keys see query chunks >= warp
@@ -678,8 +701,8 @@ __device__ __forceinline__ void dkdv_tile(float (&dk_acc)[DO / 8][4], float (&dv
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int key = kw0 + g + 8 * (e >> 1);
-      const int ql = nt * 8 + 2 * t4 + (e & 1), qpos = q0 + ql;
-      bool ok = qpos < Sq && key < Skv;
+      const int ql = nt * 8 + 2 * t4 + (e & 1), qpos = qoff + q0 + ql;
+      bool ok = q0 + ql < Sq && key < Skv;
       if (kMode == kTileDiag) ok = ok && key <= qpos;
       if (kMode == kTileCut) ok = ok && pair_kept<kPrefix>(qpos, key, causal, window, prefix);
       const float p = ok ? ex2_approx(fmaf(s[nt][e], scale_log2, -lse_s[ql])) : 0.f;
@@ -696,7 +719,7 @@ __device__ __forceinline__ void dkdv_tile(float (&dk_acc)[DO / 8][4], float (&dv
   } else if constexpr (kMode == kTileCut) {
     const unsigned cut = need & ~full;
     if (cut) {
-      const int first = kw0 + g - q0;
+      const int first = kw0 + g - (qoff + q0);
       if constexpr (kPrefix) {
         // key kw0 + g (+ 8) sees query q0 + c for c from key - q0 on, and
         // every query where it lies below the prefix's end
@@ -708,7 +731,7 @@ __device__ __forceinline__ void dkdv_tile(float (&dk_acc)[DO / 8][4], float (&dv
         add_cut_blocks<D, DO>(dk_acc, dp, Qc, cut, keep);
       } else {
         // key kw0 + g (+ 8) sees query q0 + c for c from key - q0 (causal)
-        // to below key - q0 + window
+        // to below key - q0 + window (q0 global)
         auto keep = [first, causal, window](int h, int, int c) {
           return (!causal || first + 8 * h <= c) && c < first + 8 * h + window;
         };
@@ -730,7 +753,7 @@ __device__ __forceinline__ void dq_tile(float (&dq_acc)[D / 8][4], const __nv_bf
                                         const __nv_bfloat16* Vs, const float (&lse2)[2],
                                         const float (&dlt)[2], uint2 blocks, int warp, int qw0,
                                         int k0, int Sq, int Skv, bool causal, int window,
-                                        int prefix, float scale_log2) {
+                                        int prefix, int qoff, float scale_log2) {
   const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
   unsigned need = 0xFu, full = 0xFu;
   if (kMode == kTileDiag) {  // the warp's rows see key chunks <= warp
@@ -747,11 +770,11 @@ __device__ __forceinline__ void dq_tile(float (&dq_acc)[D / 8][4], const __nv_bf
   for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int row = qw0 + g + 8 * (e >> 1);
+      const int row = qw0 + g + 8 * (e >> 1), qpos = qoff + row;
       const int key = k0 + nt * 8 + 2 * t4 + (e & 1);
       bool ok = row < Sq && key < Skv;
-      if (kMode == kTileDiag) ok = ok && key <= row;
-      if (kMode == kTileCut) ok = ok && pair_kept<kPrefix>(row, key, causal, window, prefix);
+      if (kMode == kTileDiag) ok = ok && key <= qpos;
+      if (kMode == kTileCut) ok = ok && pair_kept<kPrefix>(qpos, key, causal, window, prefix);
       const float p = ok ? ex2_approx(fmaf(s[nt][e], scale_log2, -lse2[e >> 1])) : 0.f;
       s[nt][e] = ok ? p * (dp[nt][e] - dlt[e >> 1]) : 0.f;  // dS
     }
@@ -762,7 +785,7 @@ __device__ __forceinline__ void dq_tile(float (&dq_acc)[D / 8][4], const __nv_bf
   } else if constexpr (kMode == kTileCut) {
     const unsigned cut = need & ~full;
     if (cut) {
-      const int last = qw0 + g - k0;
+      const int last = qoff + qw0 + g - k0;
       if constexpr (kPrefix) {
         // row qw0 + g (+ 8) sees key k0 + c for c up to row - k0, and every
         // key below the prefix's end
@@ -771,7 +794,7 @@ __device__ __forceinline__ void dq_tile(float (&dq_acc)[D / 8][4], const __nv_bf
         add_cut_blocks<D, D>(dq_acc, s, Ks, cut, keep);
       } else {
         // row qw0 + g (+ 8) sees key k0 + c for c above row - k0 - window and
-        // up to row - k0 (causal)
+        // up to row - k0 (causal; the row global)
         auto keep = [last, causal, window](int h, int, int c) {
           return (!causal || c <= last + 8 * h) && c > last + 8 * h - window;
         };
@@ -798,7 +821,7 @@ flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
                           const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
                           const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
                           __nv_bfloat16* __restrict__ dv, int B, int Sq, int Skv, int Hq, int Hkv,
-                          bool causal, int window, int prefix, float scale) {
+                          bool causal, int window, int prefix, int qoff, float scale) {
   constexpr int kS = kStride<D>, kTile = kT * kS, kSplit = kDkdvSplit<D>, DO = D / kSplit;
   constexpr int kDT = DO / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -834,7 +857,7 @@ flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
   const int kw0 = k0 + warp * 16;  // the warp's first key
   const __nv_bfloat16* Kw = Ks + warp * 16 * kS;
   const __nv_bfloat16* Vw = Vs + warp * 16 * kS;
-  const int2 tiles = query_tiles<kPrefix, kT>(k0, Sq, causal, window, prefix);
+  const int2 tiles = query_tiles<kPrefix, kT>(k0, Sq, causal, window, prefix, qoff);
   for (int gq = 0; gq < G; ++gq) {
     const int h = hk * G + gq;
     const int64_t q_off = (int64_t(b) * Sq * Hq + h) * D;
@@ -854,24 +877,25 @@ flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
       __syncthreads();
       if constexpr (kWindow || kPrefix) {
         // the query chunks that see the warp's keys, and those that see all
-        const uint2 blocks = warp_blocks<kPrefix>(kw0, q0, true, causal, window, prefix);
+        const uint2 blocks =
+            warp_blocks<kPrefix>(kw0, qoff + q0, true, causal, window, prefix);
         if (blocks.y == 0xFu) {
           dkdv_tile<D, DO, kTileFull, kPrefix>(dk_acc, dv_acc, Kw, Vw, Qs, dOs, lse_s, delta_s,
                                                blocks, warp, q0, kw0, Sq, Skv, causal, window,
-                                               prefix, col0, scale_log2);
+                                               prefix, qoff, col0, scale_log2);
         } else {
           dkdv_tile<D, DO, kTileCut, kPrefix>(dk_acc, dv_acc, Kw, Vw, Qs, dOs, lse_s, delta_s,
                                               blocks, warp, q0, kw0, Sq, Skv, causal, window,
-                                              prefix, col0, scale_log2);
+                                              prefix, qoff, col0, scale_log2);
         }
-      } else if (causal && q0 == k0) {
+      } else if (causal && qoff + q0 == k0) {  // qoff a multiple of kT here
         dkdv_tile<D, DO, kTileDiag, false>(dk_acc, dv_acc, Kw, Vw, Qs, dOs, lse_s, delta_s,
                                            uint2{}, warp, q0, kw0, Sq, Skv, causal, window,
-                                           prefix, col0, scale_log2);
+                                           prefix, qoff, col0, scale_log2);
       } else {  // past the diagonal, or no mask: every pair kept
         dkdv_tile<D, DO, kTileFull, false>(dk_acc, dv_acc, Kw, Vw, Qs, dOs, lse_s, delta_s,
                                            uint2{}, warp, q0, kw0, Sq, Skv, causal, window,
-                                           prefix, col0, scale_log2);
+                                           prefix, qoff, col0, scale_log2);
       }
     }
   }
@@ -902,7 +926,7 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
                         const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         __nv_bfloat16* __restrict__ dq, int B, int Sq, int Skv, int Hq, int Hkv,
-                        bool causal, int window, int prefix, float scale) {
+                        bool causal, int window, int prefix, int qoff, float scale) {
   constexpr int kS = kStride<D>, kTile = kT * kS, kDT = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -938,7 +962,7 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
   const int qw0 = q0 + warp * 16;  // the warp's first row
   const __nv_bfloat16* Qw = Qs + warp * 16 * kS;
   const __nv_bfloat16* dOw = dOs + warp * 16 * kS;
-  const int2 tiles = key_tiles<kPrefix, kT>(q0, Sq, Skv, causal, window, prefix);
+  const int2 tiles = key_tiles<kPrefix, kT>(q0, Sq, Skv, causal, window, prefix, qoff);
   for (int kt = tiles.x; kt < tiles.y; ++kt) {
     const int k0 = kt * kT;
     __syncthreads();  // the tile before is consumed
@@ -949,20 +973,21 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
     __syncthreads();
     if constexpr (kWindow || kPrefix) {
       // the key chunks the warp's rows see, and those they all see whole
-      const uint2 blocks = warp_blocks<kPrefix>(qw0, k0, false, causal, window, prefix);
+      const uint2 blocks =
+          warp_blocks<kPrefix>(qoff + qw0, k0, false, causal, window, prefix);
       if (blocks.y == 0xFu) {
         dq_tile<D, kTileFull, kPrefix>(dq_acc, Qw, dOw, Ks, Vs, lse2, dlt, blocks, warp, qw0, k0,
-                                       Sq, Skv, causal, window, prefix, scale_log2);
+                                       Sq, Skv, causal, window, prefix, qoff, scale_log2);
       } else {
         dq_tile<D, kTileCut, kPrefix>(dq_acc, Qw, dOw, Ks, Vs, lse2, dlt, blocks, warp, qw0, k0,
-                                      Sq, Skv, causal, window, prefix, scale_log2);
+                                      Sq, Skv, causal, window, prefix, qoff, scale_log2);
       }
-    } else if (causal && k0 == q0) {
+    } else if (causal && k0 == qoff + q0) {  // qoff a multiple of kT here
       dq_tile<D, kTileDiag, false>(dq_acc, Qw, dOw, Ks, Vs, lse2, dlt, uint2{}, warp, qw0, k0, Sq,
-                                   Skv, causal, window, prefix, scale_log2);
+                                   Skv, causal, window, prefix, qoff, scale_log2);
     } else {  // before the diagonal, or no mask: every pair kept
       dq_tile<D, kTileFull, false>(dq_acc, Qw, dOw, Ks, Vs, lse2, dlt, uint2{}, warp, qw0, k0, Sq,
-                                   Skv, causal, window, prefix, scale_log2);
+                                   Skv, causal, window, prefix, qoff, scale_log2);
     }
   }
 
@@ -990,9 +1015,9 @@ cudaError_t launch(FLASH_BWD_LAUNCH_ARGS) {
   constexpr int threads = kMma ? kMmaThreads : kThreads;
   constexpr int kv_split = kMma ? kDkdvSplit<D> : 1;
   using DkdvFn = void (*)(const T*, const T*, const T*, const T*, const float*, const float*, T*,
-                          T*, int, int, int, int, int, bool, int, int, float);
+                          T*, int, int, int, int, int, bool, int, int, int, float);
   using DqFn = void (*)(const T*, const T*, const T*, const T*, const float*, const float*, T*,
-                        int, int, int, int, int, bool, int, int, float);
+                        int, int, int, int, int, bool, int, int, int, float);
   DkdvFn dkdv;
   DqFn dqk;
   if constexpr (kMma) {
@@ -1021,9 +1046,10 @@ cudaError_t launch(FLASH_BWD_LAUNCH_ARGS) {
   const int n_kt = (Skv + TT - 1) / TT, n_qt = (Sq + TT - 1) / TT;
   dkdv<<<n_kt * B * Hkv * kv_split, threads, smem, stream>>>(
       qt, kt, vt, gt, lt, dt, static_cast<T*>(dk), static_cast<T*>(dv), B, Sq, Skv, Hq, Hkv,
-      causal, window, prefix, scale);
+      causal, window, prefix, qoff, scale);
   dqk<<<n_qt * B * Hq, threads, smem, stream>>>(qt, kt, vt, gt, lt, dt, static_cast<T*>(dq), B,
-                                                Sq, Skv, Hq, Hkv, causal, window, prefix, scale);
+                                                Sq, Skv, Hq, Hkv, causal, window, prefix, qoff,
+                                                scale);
   return cudaGetLastError();
 }
 
@@ -1073,20 +1099,23 @@ FLASH_BWD_BF16(256, kMaskPrefix)
 namespace repro_torch {
 namespace {
 
-// the mask's launch of one dtype and head dim: float32 takes a window at
-// run time in its plain kernels
+// the mask's launch of one dtype and head dim: float32 takes a window and
+// a query offset at run time in its plain kernels; bf16 takes a causal
+// diagonal off the tiles' corners (a query offset not a multiple of kT) in
+// the window's kernels, with kNoWindow for none
 template <typename T, int D>
 cudaError_t launch_mask(FLASH_BWD_LAUNCH_ARGS) {
   if (prefix > 0)
     return launch<T, D, kMaskPrefix>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Skv, Hq,
-                                     Hkv, causal, window, prefix, stream);
+                                     Hkv, causal, window, prefix, qoff, stream);
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    if (window > 0)
+    if (window > 0 || (causal && qoff % kT != 0))
       return launch<T, D, kMaskWindow>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Skv,
-                                       Hq, Hkv, causal, window, prefix, stream);
+                                       Hq, Hkv, causal, window > 0 ? window : kNoWindow, prefix,
+                                       qoff, stream);
   }
   return launch<T, D, kMaskPlain>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Skv, Hq, Hkv,
-                                  causal, window, prefix, stream);
+                                  causal, window, prefix, qoff, stream);
 }
 
 template <typename T>
@@ -1094,19 +1123,19 @@ cudaError_t dispatch_dim(int D, FLASH_BWD_LAUNCH_ARGS) {
   switch (D) {
     case 32:
       return launch_mask<T, 32>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Skv, Hq, Hkv,
-                                causal, window, prefix, stream);
+                                causal, window, prefix, qoff, stream);
     case 64:
       return launch_mask<T, 64>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Skv, Hq, Hkv,
-                                causal, window, prefix, stream);
+                                causal, window, prefix, qoff, stream);
     case 80:
       return launch_mask<T, 80>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Skv, Hq, Hkv,
-                                causal, window, prefix, stream);
+                                causal, window, prefix, qoff, stream);
     case 128:
       return launch_mask<T, 128>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Skv, Hq, Hkv,
-                                 causal, window, prefix, stream);
+                                 causal, window, prefix, qoff, stream);
     case 256:
       return launch_mask<T, 256>(q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Skv, Hq, Hkv,
-                                 causal, window, prefix, stream);
+                                 causal, window, prefix, qoff, stream);
     default: return cudaErrorNotSupported;
   }
 }
@@ -1122,7 +1151,7 @@ cudaError_t dispatch_dim(int D, FLASH_BWD_LAUNCH_ARGS) {
 // (window > 0 masks keys window or more positions before the query; 0 is
 // none), and with or without a prefix (prefix_len > 0 makes keys below it
 // visible to every query; causal only, without a window) has a backward
-// here.  PWL exp or D outside 32 / 64 / 80 / 128 / 256 returns
+// here, q row i at global position q_offset + i (q_offset >= 0).  PWL exp or D outside 32 / 64 / 80 / 128 / 256 returns
 // cudaErrorNotSupported, and a prefix the forward refuses
 // cudaErrorInvalidValue, without a launch.  Returns cudaGetLastError()
 // after the three launches.
@@ -1130,20 +1159,20 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
                                    const void* lse, const void* dout, void* dq, void* dk,
                                    void* dv, void* delta, int B, int Sq, int Skv, int Hq,
                                    int Hkv, int D, int dtype, int causal, int window,
-                                   int prefix_len, int use_pwl, void* stream) {
+                                   int prefix_len, int q_offset, int use_pwl, void* stream) {
   using namespace repro_torch;
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0 || window < 0 ||
-      prefix_len < 0 || (prefix_len > 0 && (!causal || window > 0)))
+      prefix_len < 0 || q_offset < 0 || (prefix_len > 0 && (!causal || window > 0)))
     return cudaErrorInvalidValue;
   if (use_pwl) return cudaErrorNotSupported;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     return dispatch_dim<float>(D, q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Skv, Hq,
-                               Hkv, causal != 0, window, prefix_len, s);
+                               Hkv, causal != 0, window, prefix_len, q_offset, s);
   }
   if (dtype == 1) {
     return dispatch_dim<__nv_bfloat16>(D, q, k, v, out, lse, dout, dq, dk, dv, delta, B, Sq, Skv,
-                                       Hq, Hkv, causal != 0, window, prefix_len, s);
+                                       Hq, Hkv, causal != 0, window, prefix_len, q_offset, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -35,8 +35,8 @@ _VOID_P, _INT = ctypes.c_void_p, ctypes.c_int
 # C entry point of each source: (name, argtypes); each returns cudaError_t
 SIGNATURES = {
     "flash_attention": ("flash_attention_fwd",
-                        [_VOID_P] * 5 + [_INT] * 11 + [_VOID_P, _VOID_P]),
-    "flash_attention_bwd": ("flash_attention_bwd", [_VOID_P] * 10 + [_INT] * 11 + [_VOID_P]),
+                        [_VOID_P] * 5 + [_INT] * 12 + [_VOID_P, _VOID_P]),
+    "flash_attention_bwd": ("flash_attention_bwd", [_VOID_P] * 10 + [_INT] * 12 + [_VOID_P]),
     "paged_attention": ("paged_attention_fwd",
                         [_VOID_P] * 7 + [_INT] * 13 + [_VOID_P, _VOID_P]),
     "ssd_scan": ("ssd_scan_fwd", [_VOID_P] * 7 + [_INT] * 8 + [_VOID_P]),

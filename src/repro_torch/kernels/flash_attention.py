@@ -25,6 +25,15 @@ not take) also masks a key ``window`` or more positions before its query
 (``qpos - kpos >= window``), as ``repro.models.attention`` does; ``None``
 is no window.
 
+``q_offset`` (the JAX model's, which the Pallas kernel does not take)
+puts query row ``i`` at global position ``q_offset + i`` against keys at
+``0 .. Skv - 1``: the causal mask, the window and the prefix all read the
+global position, as ``repro.models.attention.flash_attention`` masks it.
+Its one caller is sequence-parallel attention
+(``models.attention.sp_flash_attention``), where a rank's queries are its
+rows of the sequence and the keys the whole gathered sequence.  The
+128-key steps stay at absolute key positions, so PWL composes with it.
+
 ``prefix_len`` (the JAX model's prefix-LM, paligemma's image prefix, which
 the Pallas kernel does not take either) makes the keys below it visible to
 every query of a causal call: key ``kpos`` is valid for query ``qpos`` when
@@ -116,16 +125,28 @@ def prefix_arg(prefix_len, *, causal: bool, window: int, use_pwl: bool) -> int:
     return prefix_len
 
 
+def offset_arg(q_offset) -> int:
+    """The kernels' query offset, an int >= 0; raises ``ValueError`` for a
+    negative one."""
+    q_offset = int(q_offset)
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
+    return q_offset
+
+
 def flash_attention_plain(q, k, v, *, causal: bool = True,
                           use_pwl: bool = False, window=None,
-                          prefix_len: int = 0, return_lse: bool = False):
-    """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D), Hq % Hkv == 0.
-    Returns (B, Sq, Hq, D) in q.dtype, computed in float32; with
-    ``return_lse`` also each row's log-sum-exp of its scaled scores, (B,
-    Hq, Sq) float32, ``m + log l`` (+inf for a row that sees no key), what
-    the kernel hands its backward."""
+                          prefix_len: int = 0, q_offset: int = 0,
+                          return_lse: bool = False):
+    """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D), Hq % Hkv == 0; query row
+    i at global position ``q_offset + i``.  Returns (B, Sq, Hq, D) in
+    q.dtype, computed in float32; with ``return_lse`` also each row's
+    log-sum-exp of its scaled scores, (B, Hq, Sq) float32, ``m + log l``
+    (+inf for a row that sees no key), what the kernel hands its
+    backward."""
     window = window_arg(window)
     prefix_len = prefix_arg(prefix_len, causal=causal, window=window, use_pwl=use_pwl)
+    q_offset = offset_arg(q_offset)
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
     G = Hq // Hkv
@@ -137,7 +158,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     m = torch.full((B, Hkv, G, Sq), NEG_INF, device=q.device)
     l = torch.zeros((B, Hkv, G, Sq), device=q.device)
     acc = torch.zeros((B, Hkv, G, Sq, D), device=q.device)
-    qpos = torch.arange(Sq, device=q.device)
+    qpos = torch.arange(q_offset, q_offset + Sq, device=q.device)
     for k0 in range(0, Skv, KV_STEP):
         kb = kf[:, :, k0:k0 + KV_STEP]
         vb = vf[:, :, k0:k0 + KV_STEP]
@@ -196,13 +217,15 @@ def agreement(got: torch.Tensor, want: torch.Tensor, *, pwl: bool = False):
 
 
 def launch_key(q, k, *, causal: bool = True, use_pwl: bool = False,
-               window=None, prefix_len: int = 0) -> str:
+               window=None, prefix_len: int = 0, q_offset: int = 0) -> str:
     """The shape under which ``flash_attention_cuda`` counts a launch in
-    ``_build.LAUNCHES_BY_SHAPE``."""
+    ``_build.LAUNCHES_BY_SHAPE`` (a query offset ends the key where it is
+    not 0)."""
     B, Sq, Hq, D = q.shape
     return (f"B{B} Sq{Sq} Skv{k.shape[1]} Hq{Hq} Hkv{k.shape[2]} D{D} "
             f"{str(q.dtype).removeprefix('torch.')} causal={int(causal)} "
-            f"window={window or 0} prefix={prefix_len} pwl={int(use_pwl)}")
+            f"window={window or 0} prefix={prefix_len} pwl={int(use_pwl)}"
+            + (f" q_offset={q_offset}" if q_offset else ""))
 
 
 def backward_refusal(q, *, use_pwl: bool):
@@ -233,7 +256,7 @@ def _check_inputs(name, q, k, v):
 
 
 def _flash_fwd(q, k, v, *, causal: bool, use_pwl: bool, window: int,
-               prefix_len: int, with_lse: bool):
+               prefix_len: int, with_lse: bool, q_offset: int = 0):
     """One launch of ``csrc/flash_attention.cu`` on PyTorch's current
     stream: (out, the (B, Hq, Sq) float32 lse or None)."""
     _check_inputs("flash_attention_cuda", q, k, v)
@@ -252,16 +275,16 @@ def _flash_fwd(q, k, v, *, causal: bool, use_pwl: bool, window: int,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if lse is not None else None,
         B, Sq, Skv, Hq, Hkv, D, _DTYPE_CODES[q.dtype], int(causal), window,
-        prefix_len, int(use_pwl), ctypes.addressof(PWL_COEFFS),
+        prefix_len, q_offset, int(use_pwl), ctypes.addressof(PWL_COEFFS),
         torch.cuda.current_stream(q.device).cuda_stream), "flash_attention",
         launch_key(q, k, causal=causal, use_pwl=use_pwl, window=window,
-                   prefix_len=prefix_len))
+                   prefix_len=prefix_len, q_offset=q_offset))
     return out, lse
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          use_pwl: bool = False, window=None,
-                         prefix_len: int = 0) -> torch.Tensor:
+                         prefix_len: int = 0, q_offset: int = 0) -> torch.Tensor:
     """Launch ``csrc/flash_attention.cu`` on PyTorch's current stream.
     Where autograd needs the gradient (grad enabled, an input that
     requires grad) the call goes through ``FlashAttentionFn``, whose
@@ -270,25 +293,28 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     an output without a gradient."""
     window = window_arg(window)
     prefix_len = prefix_arg(prefix_len, causal=causal, window=window, use_pwl=use_pwl)
+    q_offset = offset_arg(q_offset)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         why = backward_refusal(q, use_pwl=use_pwl)
         if why is not None:
             raise NotImplementedError(f"flash_attention has no backward kernel for {why}; "
                                       "its output would carry no gradient")
-        return FlashAttentionFn.apply(q, k, v, causal, window, prefix_len)
+        return FlashAttentionFn.apply(q, k, v, causal, window, prefix_len, q_offset)
     return _flash_fwd(q, k, v, causal=causal, use_pwl=use_pwl, window=window,
-                      prefix_len=prefix_len, with_lse=False)[0]
+                      prefix_len=prefix_len, q_offset=q_offset, with_lse=False)[0]
 
 
 def flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal: bool = True, window=None,
-                             prefix_len: int = 0):
+                             prefix_len: int = 0, q_offset: int = 0):
     """dQ, dK, dV of ``flash_attention`` (exact exp; causal or not, with or
-    without a window or a prefix) by ``csrc/flash_attention_bwd.cu``, from
-    the forward's inputs, output and lse and the output's gradient; in q's
-    dtype.  Its three launches (Delta, dK/dV, dQ) count as one."""
+    without a window, a prefix or a query offset) by
+    ``csrc/flash_attention_bwd.cu``, from the forward's inputs, output and
+    lse and the output's gradient; in q's dtype.  Its three launches
+    (Delta, dK/dV, dQ) count as one."""
     _check_inputs("flash_attention_bwd_cuda", q, k, v)
     window = window_arg(window)
     prefix_len = prefix_arg(prefix_len, causal=causal, window=window, use_pwl=False)
+    q_offset = offset_arg(q_offset)
     why = backward_refusal(q, use_pwl=False)
     if why is not None:
         raise ValueError(f"flash_attention_bwd_cuda: {why}")
@@ -309,48 +335,53 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal: bool = True, windo
     _build.check(lib.flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-        B, Sq, Skv, Hq, Hkv, D, _DTYPE_CODES[q.dtype], int(causal), window, prefix_len, 0,
-        torch.cuda.current_stream(q.device).cuda_stream), "flash_attention_bwd",
-        launch_key(q, k, causal=causal, window=window, prefix_len=prefix_len))
+        B, Sq, Skv, Hq, Hkv, D, _DTYPE_CODES[q.dtype], int(causal), window, prefix_len,
+        q_offset, 0, torch.cuda.current_stream(q.device).cuda_stream), "flash_attention_bwd",
+        launch_key(q, k, causal=causal, window=window, prefix_len=prefix_len,
+                   q_offset=q_offset))
     return dq, dk, dv
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """Flash attention, causal or not, with or without a window or a
-    prefix (exact exp), with its gradient: the forward launches
+    """Flash attention, causal or not, with or without a window, a prefix
+    or a query offset (exact exp), with its gradient: the forward launches
     ``csrc/flash_attention.cu`` with the lse output and keeps q, k, v, out
     and lse; the backward launches ``csrc/flash_attention_bwd.cu``.
-    ``FlashAttentionFn.apply(q, k, v, causal, window, prefix_len)`` on CUDA
-    tensors (window an int > 0, or 0 / None for none; prefix_len >= 0)."""
+    ``FlashAttentionFn.apply(q, k, v, causal, window, prefix_len,
+    q_offset)`` on CUDA tensors (window an int > 0, or 0 / None for none;
+    prefix_len >= 0; q_offset >= 0)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal=True, window=None, prefix_len=0):
+    def forward(ctx, q, k, v, causal=True, window=None, prefix_len=0, q_offset=0):
         q, k, v = (_build.aligned(t) for t in (q, k, v))
         window = window_arg(window or None)
         prefix_len = prefix_arg(prefix_len, causal=bool(causal), window=window, use_pwl=False)
+        q_offset = offset_arg(q_offset)
         out, lse = _flash_fwd(q, k, v, causal=bool(causal), use_pwl=False, window=window,
-                              prefix_len=prefix_len, with_lse=True)
+                              prefix_len=prefix_len, q_offset=q_offset, with_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window, ctx.prefix_len = bool(causal), window, prefix_len
+        ctx.q_offset = q_offset
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         return (*flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal=ctx.causal,
-                                          window=ctx.window or None,
-                                          prefix_len=ctx.prefix_len), None, None, None)
+                                          window=ctx.window or None, prefix_len=ctx.prefix_len,
+                                          q_offset=ctx.q_offset), None, None, None, None)
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal: bool = True, window=None,
-                              prefix_len: int = 0):
+                              prefix_len: int = 0, q_offset: int = 0):
     """The backward of exact flash attention in plain PyTorch, with P made
     explicit: dQ, dK, dV (q's, k's and v's shapes, in q's dtype, computed in
     float32) from the forward's inputs, output ``out`` and ``lse`` (B, Hq,
     Sq) and the output's gradient ``dout``.  P = exp(scale Q K^T - lse) and
     dS = P (dO V^T - rowsum(dO O)) on the valid (query, key) pairs (under
     the causal mask kpos <= qpos or kpos < prefix_len, under a window qpos
-    - kpos < window, as ``flash_attention_plain`` masks them), 0 elsewhere;
+    - kpos < window, qpos = q_offset + the row, as ``flash_attention_plain``
+    masks them), 0 elsewhere;
     dV = P^T dO, dK = scale dS^T Q, dQ = scale dS K.  A gradient
     depends on the valid pairs only: a masked pair's term is left out, so
     a non-finite element of dO, Q or K makes NaN only the gradients of the
@@ -358,6 +389,7 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal: bool = True, wind
     ones too, as 0 * NaN)."""
     window = window_arg(window)
     prefix_len = prefix_arg(prefix_len, causal=causal, window=window, use_pwl=False)
+    q_offset = offset_arg(q_offset)
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
     G = Hq // Hkv
@@ -368,7 +400,7 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal: bool = True, wind
     qf, of, gf = heads(q, Sq), heads(out, Sq), heads(dout, Sq)
     kf = k.float().permute(0, 2, 1, 3)                   # (B, Hkv, Skv, D)
     vf = v.float().permute(0, 2, 1, 3)
-    qpos = torch.arange(Sq, device=q.device)
+    qpos = torch.arange(q_offset, q_offset + Sq, device=q.device)
     kpos = torch.arange(Skv, device=q.device)
     if causal:
         valid = (qpos[:, None] >= kpos[None, :]) | (kpos < prefix_len)[None, :]

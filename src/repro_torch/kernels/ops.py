@@ -32,11 +32,15 @@ def _route(t) -> str:
 
 
 def flash_attention(q, k, v, *, causal: bool = True, use_pwl: bool = False,
-                    window=None, prefix_len: int = 0):
+                    window=None, prefix_len: int = 0, q_offset: int = 0):
     """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D).  Returns (B, Sq, Hq, D).
     ``window``: mask keys ``window`` or more positions before the query.
-    ``prefix_len``: keys below it are visible to every query (causal)."""
-    kw = dict(causal=causal, use_pwl=use_pwl, window=window, prefix_len=prefix_len)
+    ``prefix_len``: keys below it are visible to every query (causal).
+    ``q_offset``: query row i sits at global position ``q_offset + i``
+    (a rank's rows under sequence-parallel attention), keys at 0 .. Skv -
+    1; every mask reads the global position."""
+    kw = dict(causal=causal, use_pwl=use_pwl, window=window, prefix_len=prefix_len,
+              q_offset=q_offset)
     if _route(q) == "cpu":
         return _fa.flash_attention_plain(q, k, v, **kw)
     return _fa.flash_attention_cuda(q, k, v, **kw)

@@ -20,9 +20,10 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import models
-from repro_torch.models.attention import picnic_active
-from repro_torch.sharding import (axes_groups, axes_size, current, full_shape, gather_shard,
-                                  local_shard, use_sharding)
+from repro_torch.models.attention import picnic_active, sp_axes
+from repro_torch.sharding import (axes_groups, axes_index, axes_size, current, dp_axes,
+                                  full_shape, gather_shard, local_cache, local_shard,
+                                  use_sharding)
 from repro_torch.kernels._build import LAUNCHES, LAUNCHES_BY_SHAPE
 from repro_torch.optim import clip_by_global_norm, linear_warmup_cosine, make_optimizer
 from repro_torch.tree import tree_from_paths, tree_map, tree_paths
@@ -104,19 +105,27 @@ def make_loss_fn(cfg, *, weight_noise_std: float = 0.0, dp_groups=()):
     normal`` to the leaf's dtype.
 
     ``dp_groups``: the process groups over which the batch is cut (a
-    data-parallel rank's); its ``ce`` is then this shard's share of the
-    global batch's, ``cross_entropy(..., count=)`` of the global mask sum,
-    and the ranks' ``ce`` add up to the global one."""
+    data-parallel rank's, and under the sequence cut a sequence-parallel
+    rank's); its ``ce`` is then this shard's share of the global batch's,
+    ``cross_entropy(..., count=)`` of the global mask sum, and the ranks'
+    ``ce`` add up to the global one.  Under the sequence cut
+    (``models.local_text_rows``) the labels and mask are cut to the text
+    rows whose logits this rank's forward returns."""
     def loss_fn(params, batch, noise=None):
         p = params
         if weight_noise_std > 0.0 and noise is not None:
             p = tree_map(lambda l, f: l if f is None or not _noisy(l) else l * f.to(l.dtype),
                          params, noise)
-        logits, aux, _ = models.forward(cfg, p, batch["tokens"],
-                                        prefix_embeds=batch.get("prefix_embeds"),
+        prefix = batch.get("prefix_embeds")
+        logits, aux, _ = models.forward(cfg, p, batch["tokens"], prefix_embeds=prefix,
                                         encoder_embeds=batch.get("encoder_embeds"))
-        count = _global_count(batch, dp_groups) if dp_groups else None
-        ce = cross_entropy(logits, batch["labels"], batch.get("mask"), count=count)
+        rows = models.local_text_rows(batch["tokens"].shape[1],
+                                      0 if prefix is None else prefix.shape[1])
+        mask = batch.get("mask")
+        cut = {"labels": batch["labels"][:, rows],
+               **({} if mask is None else {"mask": mask[:, rows]})}
+        count = _global_count(cut, dp_groups) if dp_groups else None
+        ce = cross_entropy(logits, cut["labels"], cut.get("mask"), count=count)
         loss = ce + 0.01 * aux
         return loss, {"ce": ce, "aux": aux}
     return loss_fn
@@ -247,16 +256,24 @@ def make_sharded_train_step(cfg, ctx, pspecs, ospecs, *, base_lr=3e-4, warmup=10
     ``params`` / ``opt_state`` are this rank's shards by ``pspecs`` /
     ``ospecs`` (``shard_train_state``), ``batch`` its shard by
     ``batch_specs``, which must cut the batch over all of ``ctx``'s
-    data-parallel axes (``ShardingCtx.dp_groups``).  A step gathers every
+    data-parallel axes (``ShardingCtx.dp_groups``).  Under ``ctx``'s
+    ``sp_attention`` with seq axes that divide the batch's positions
+    (``models.attention.sp_axes``), the forward keeps this rank's rows of
+    the sequence and the loss its text rows: ranks along the seq axes
+    hold other tokens of the same batch shard, and every reduction below
+    that runs over the data-parallel groups runs over the seq groups
+    (``ShardingCtx.sp_groups``) too; seq axes that share an axis with the
+    data-parallel ones are refused.  A step gathers every
     param (``gather_shard``) as a leaf that requires grad, and takes the
     loss of its batch shard under ``ctx``: its mask sum over the global
     batch's (``make_loss_fn(dp_groups=)``), the MoE aux loss from global
     batch means (``models.moe``), the RRAM noise factors drawn on the full
     leaves from ``noise_seed(step)`` (the same on every rank).  The
     gradients are SUM-all-reduced (in float32) over the data-parallel
-    groups only: ranks along the other axes hold the same batch shard and
-    the same gradients.  Then the global-norm clip on the full gradients,
-    the LR of the replicated ``step`` and the optimizer: AdamW, elementwise,
+    groups (and the seq groups under the sequence cut): ranks along the
+    other axes hold the same tokens and the same gradients.  Then the
+    global-norm clip on the full gradients, the LR of the replicated
+    ``step`` and the optimizer: AdamW, elementwise,
     on the slice of each leaf that ``ospecs`` gives this rank's moments, the
     new slices gathered over the optimizer's axes where the param is cut
     otherwise; Adafactor, whose row / column statistics and update clip
@@ -266,15 +283,18 @@ def make_sharded_train_step(cfg, ctx, pspecs, ospecs, *, base_lr=3e-4, warmup=10
     global batch's, the same on every rank.  Collectives: all-reduce and
     all-gather only, every rank of the mesh calling the step in step."""
     mesh = ctx.mesh
-    groups = ctx.dp_groups()
-    loss_fn = make_loss_fn(cfg, weight_noise_std=weight_noise_std, dp_groups=groups)
+    dp = ctx.opt("dp_axes") or dp_axes(mesh)
+    seq = tuple(ctx.opt("seq_axes", ("model",)))
+    if ctx.sp_groups() and set(dp) & set(seq):
+        raise ValueError(f"make_sharded_train_step: the sequence cut over {seq} shares an axis "
+                         f"with the batch cut over {tuple(dp)}")
     _, opt_update = make_optimizer(cfg.optimizer)
     elementwise = cfg.optimizer == "adamw"
 
     def gather(leaf, spec):
         return gather_shard(leaf, spec, mesh, full_shape(leaf.shape, spec, mesh))
 
-    def allreduce_sum(t):
+    def allreduce_sum(t, groups):
         t32 = t.to(torch.float32, copy=True)
         for g in groups:
             dist.all_reduce(t32, group=g)
@@ -285,11 +305,15 @@ def make_sharded_train_step(cfg, ctx, pspecs, ospecs, *, base_lr=3e-4, warmup=10
                                for path, leaf, spec in _zip_specs(params, pspecs))
         noise = (weight_noise(full, weight_noise_std, int(opt_state["step"]))
                  if weight_noise_std > 0.0 else None)
+        prefix = batch.get("prefix_embeds")
+        rows = batch["tokens"].shape[1] + (0 if prefix is None else prefix.shape[1])
+        groups = ctx.dp_groups() + (ctx.sp_groups() if sp_axes(rows, ctx) else ())
+        loss_fn = make_loss_fn(cfg, weight_noise_std=weight_noise_std, dp_groups=groups)
         with use_sharding(ctx):
             _, parts, grads = _loss_and_grads(loss_fn, full, batch, noise)
         with torch.no_grad():
-            grads = tree_map(allreduce_sum, grads)
-            ce = allreduce_sum(parts["ce"].detach())
+            grads = tree_map(lambda t: allreduce_sum(t, groups), grads)
+            ce = allreduce_sum(parts["ce"].detach(), groups)
             aux = parts["aux"].detach()
             grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
             lr = linear_warmup_cosine(opt_state["step"].to(torch.float32), base_lr=base_lr,
@@ -336,14 +360,34 @@ def make_prefill_step(cfg, *, kv_max: int):
     """``batch``: ``tokens`` (B, S), ``prefix_embeds`` (B, P, d) for a
     prefix-LM (paligemma's patch embeddings; the cache then holds P + S
     rows) and ``encoder_embeds`` (B, S_enc, d) for an encoder-decoder
-    (whisper)."""
+    (whisper).
+
+    Under a context with ``sp_attention`` whose seq axes divide the P + S
+    positions (``models.attention.sp_axes``) each rank runs its rows of
+    the sequence (``batch`` is its batch shard): the next token is the
+    argmax of the global last row, which the last seq rank holds, summed
+    over the seq groups so that every rank returns it, and the cache holds
+    the gathered K/V of the whole sequence.  With ``picnic_decode`` on as
+    well (``models.attention.picnic_active``) the step returns this rank's
+    cache shard (``sharding.local_cache``'s rows over the seq axes; the
+    batch is already cut), from which the PICNIC decode step goes on."""
     @torch.no_grad()
     def prefill_step(params, batch):
-        logits, _, cache = models.forward(cfg, params, batch["tokens"],
-                                          prefix_embeds=batch.get("prefix_embeds"),
+        prefix = batch.get("prefix_embeds")
+        logits, _, cache = models.forward(cfg, params, batch["tokens"], prefix_embeds=prefix,
                                           encoder_embeds=batch.get("encoder_embeds"),
                                           collect_cache=True, kv_max=kv_max)
         next_tok = torch.argmax(logits[:, -1:], dim=-1)
+        ctx = current()
+        seq = sp_axes(batch["tokens"].shape[1] + (0 if prefix is None else prefix.shape[1]), ctx)
+        if seq:
+            if axes_index(ctx.mesh, seq) != axes_size(ctx.mesh, seq) - 1:
+                next_tok = torch.zeros_like(batch["tokens"][:, :1], dtype=torch.long)
+            for g in axes_groups(ctx.mesh, seq):
+                dist.all_reduce(next_tok, group=g)
+        if picnic_active(ctx):
+            cache = local_cache(cache, ctx.mesh, seq_axes=tuple(ctx.opt("seq_axes", ("model",))),
+                                dp_axes=())
         return next_tok, cache
     return prefill_step
 
@@ -536,7 +580,8 @@ class CompiledTrainStep:
     again on every replay, so the counters read as the eager step's.
 
     The step is the single-device one: under a sharding context whose
-    data-parallel axes hold more than one rank it raises.  Over gloo groups
+    data-parallel axes, or under ``sp_attention`` whose seq axes, hold more
+    than one rank it raises.  Over gloo groups
     (``ValueError``) a data-parallel step's all-reduces run on the host,
     which a graph cannot capture; over NCCL (``NotImplementedError``) a
     captured sharded step waits for several cards, and
@@ -545,7 +590,7 @@ class CompiledTrainStep:
     def __init__(self, cfg, params, opt_state, *, base_lr=3e-4, warmup=100,
                  total_steps=10000, max_grad_norm=1.0, weight_noise_std: float = 0.0):
         ctx = current()
-        groups = ctx.dp_groups() if ctx is not None else ()
+        groups = ctx.dp_groups() + ctx.sp_groups() if ctx is not None else ()
         if groups:
             backends = {dist.get_backend(g) for g in groups}
             if backends != {"nccl"}:

@@ -18,9 +18,16 @@ one rank, each rank holds its shard of every self-attention cache's rows,
 the owning rank appends the new K/V, each rank takes the float32 partial
 of its shard (``decode_attention_partial``, the paged kernel's partial
 mode) and ``combine_partials`` reduces the partials over the seq axes'
-process groups: the paper's in-network reduction (§III).  The
-sequence-parallel prefill and prefill with a query offset belong to later
-slices of the port.
+process groups: the paper's in-network reduction (§III).
+
+Sequence-parallel attention (``sp_flash_attention``): under a
+``ShardingCtx`` with ``sp_attention`` whose ``seq_axes`` span more than
+one rank and divide the sequence (``sp_axes``), ``models.forward`` keeps
+each rank's rows of the sequence; an attention block gathers K and V over
+the seq axes (``sharding.seq_gather``) and runs the flash kernel on its
+own queries against the whole sequence with ``q_offset`` = its index over
+the seq axes times its rows, as the reference's ``sp_flash_attention``
+does inside ``shard_map``.
 """
 from __future__ import annotations
 
@@ -29,7 +36,7 @@ import torch.distributed as dist
 
 from repro_torch.kernels import ops
 from repro_torch.sharding import ctx as shctx
-from repro_torch.sharding.layout import axes_groups, axes_index, axes_size
+from repro_torch.sharding.layout import axes_groups, axes_index, axes_size, seq_gather
 from .common import apply_rope, dense_init, dtype_of
 
 NEG_INF = -1e30
@@ -89,20 +96,62 @@ def full_attention(q, k, v, *, causal=True, window=None, q_offset=0,
 # Full attention sublayer (projections + rope + attention + output)
 # ---------------------------------------------------------------------------
 
+def sp_axes(n_rows: int, ctx=None) -> tuple:
+    """The seq axes over which a forward of ``n_rows`` positions runs
+    sequence-parallel under ``ctx`` (the current context by default): the
+    reference's condition, ``sp_attention`` on and ``seq_axes`` of more
+    than one rank that divide ``n_rows``; else ()."""
+    ctx = shctx.current() if ctx is None else ctx
+    if ctx is None or not ctx.opt("sp_attention"):
+        return ()
+    axes = tuple(ctx.opt("seq_axes", ("model",)))
+    n = axes_size(ctx.mesh, axes)
+    return axes if n > 1 and n_rows % n == 0 else ()
+
+
+def sp_flash_attention(q, k, v, *, mesh, seq_axes=("model",), causal=True, window=None,
+                       prefix_len=0):
+    """Sequence-parallel attention on this rank's rows: q, k, v (B,
+    S_local, H, D), the rank's rows ``[i S_local, (i + 1) S_local)`` of the
+    sequence, i its index over ``seq_axes``.  K and V are gathered over the
+    seq axes (``sharding.seq_gather``: in the backward, a reduce-scatter of
+    their gradients) and the flash kernel runs the rank's queries against
+    the whole sequence at ``q_offset = i * S_local``, with the global
+    ``prefix_len``.  Returns (out (B, S_local, Hq, D), (k, v) of the whole
+    sequence).  The counterpart of ``repro.models.attention.
+    sp_flash_attention`` (:192), whose ``shard_map`` body does the same per
+    device.  A collective over the seq axes' groups."""
+    k_full = seq_gather(k, mesh, seq_axes)
+    v_full = seq_gather(v, mesh, seq_axes)
+    q_offset = axes_index(mesh, seq_axes) * q.shape[1]
+    out = ops.flash_attention(q, k_full, v_full, causal=causal, window=window,
+                              prefix_len=prefix_len, q_offset=q_offset)
+    return out, (k_full, v_full)
+
+
 def attn_sublayer(cfg, p, x, *, positions, causal=True, window=None,
-                  prefix_len=0):
+                  prefix_len=0, sp: bool = False):
     """Returns (out (B, S, d), (k, v)).  The JAX package picks between two
     exact paths by sequence length and prefix (``impl``); both are the
     flash kernel here.  ``window``: keys ``window`` or more positions
     before a query are masked.  ``prefix_len``: the first ``prefix_len``
     keys are visible to every query (paligemma's image prefix; causal,
-    without a window)."""
+    without a window).  ``sp``: x is this rank's rows of the sequence
+    under the current context's ``sp_attention`` (``models.forward`` cut
+    it, ``positions`` are global): ``sp_flash_attention``, and (k, v) are
+    the whole sequence's."""
     q, k, v = qkv_project(cfg, p, x)
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    out = ops.flash_attention(q, k, v, causal=causal, window=window,
-                              prefix_len=prefix_len)
+    if sp:
+        ctx = shctx.current()
+        out, (k, v) = sp_flash_attention(q, k, v, mesh=ctx.mesh,
+                                         seq_axes=tuple(ctx.opt("seq_axes", ("model",))),
+                                         causal=causal, window=window, prefix_len=prefix_len)
+    else:
+        out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                  prefix_len=prefix_len)
     B, S = x.shape[:2]
     out = out.reshape(B, S, cfg.q_dim)
     return out @ p["wo"], (k, v)

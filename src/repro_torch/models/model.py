@@ -41,6 +41,15 @@ packages) before the token embeddings, attends over them bidirectionally
 (``prefix_len = P``: every query sees the prefix) and returns logits of
 the text positions only.  Decode needs nothing more: every cached row is
 visible to the new token.
+
+Sequence parallelism (the reference's ``act_btd: P(dp, ("model",))`` under
+``sp_attention``): where ``attention.sp_axes`` gives seq axes for the P +
+S positions, ``forward`` keeps this rank's rows of them after the
+embedding, the prefix and whisper's positions, with global ``positions``;
+attention gathers K/V (``attention.sp_flash_attention``), the mamba mixer
+and the MoE dispatch run on the gathered rows, and the logits are those of
+the rank's text rows (``local_text_rows``).  Whisper's encoder runs whole
+on every rank, as the reference never cuts it.
 """
 from __future__ import annotations
 
@@ -52,6 +61,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.paged_attention import (contiguous_block_tokens,
                                                  identity_block_table)
+from repro_torch.sharding import axes_index, axes_size, current, seq_slice, use_sharding
 from repro_torch.tree import tree_map
 from . import attention as A
 from . import mlp as M
@@ -183,14 +193,15 @@ def encode(cfg, params, encoder_embeds):
 
 
 def _attn_block(cfg, p, kind: str, x, positions, *, causal: bool = True, enc=None,
-                prefix_len: int = 0):
+                prefix_len: int = 0, sp: bool = False):
     """A pre-norm attention block: self-attention (the first ``prefix_len``
     positions seen by every query), a decoder block's cross-attention over
-    the encoder output ``enc``, then the MLP (or MoE).  Returns (x, the MoE
+    the encoder output ``enc``, then the MLP (or MoE).  ``sp``: x is this
+    rank's rows of the sequence (``forward``'s cut).  Returns (x, the MoE
     aux loss or None, (k, v), the cross (k, v) or None)."""
     attn_out, kv = A.attn_sublayer(cfg, p["attn"], apply_norm(cfg, p.get("ln1"), x),
                                    positions=positions, causal=causal,
-                                   window=cfg.sliding_window, prefix_len=prefix_len)
+                                   window=cfg.sliding_window, prefix_len=prefix_len, sp=sp)
     x = x + attn_out
     cross_kv = None
     if kind == "dec":
@@ -199,9 +210,24 @@ def _attn_block(cfg, p, kind: str, x, positions, *, causal: bool = True, enc=Non
         x = x + y
     h = apply_norm(cfg, p["ln2"], x)
     if kind == "moe":
-        y, aux = X.moe_sublayer(cfg, p["moe"], h)
+        y, aux = X.moe_sublayer(cfg, p["moe"], h, sp=sp)
         return x + y, aux, kv, cross_kv
     return x + M.mlp_sublayer(cfg, p["mlp"], h), None, kv, cross_kv
+
+
+def local_text_rows(n_text: int, prefix_len: int = 0, ctx=None) -> slice:
+    """The text positions (of ``n_text`` after a prefix of ``prefix_len``)
+    whose logits ``forward`` returns on this rank: all of them, or under
+    the sequence cut (``attention.sp_axes``) those among the rank's rows,
+    an empty slice on a rank that holds only prefix rows."""
+    seq = A.sp_axes(prefix_len + n_text, ctx)
+    if not seq:
+        return slice(0, n_text)
+    mesh = (ctx or current()).mesh
+    rows = (prefix_len + n_text) // axes_size(mesh, seq)
+    base = axes_index(mesh, seq) * rows
+    lo = max(base, prefix_len) - prefix_len
+    return slice(lo, max(lo, base + rows - prefix_len))
 
 
 def forward(cfg, params, tokens, *, prefix_embeds=None, encoder_embeds=None,
@@ -219,7 +245,11 @@ def forward(cfg, params, tokens, *, prefix_embeds=None, encoder_embeds=None,
     buffer, zeros after, a decoder block's also the encoder output's K/V in
     rows [0, S_enc) of its cross cache (S_enc must be the config's
     ``encoder_seq``, the length the decode step attends), and a mamba
-    block's cache its conv window and final SSM state."""
+    block's cache its conv window and final SSM state.
+
+    Under the sequence cut (see the module's note) the logits are this
+    rank's text rows, ``local_text_rows``; the cache, when collected, is
+    the whole sequence's on every rank of a seq group."""
     kinds, n_groups = group_layout(cfg)
     B = tokens.shape[0]
     x = F.embedding(tokens, params["embed"])
@@ -245,13 +275,30 @@ def forward(cfg, params, tokens, *, prefix_embeds=None, encoder_embeds=None,
                                      device=x.device).to(x.dtype)[None]
     elif encoder_embeds is not None:
         raise ValueError(f"{cfg.name} takes no encoder_embeds")
+    seq = A.sp_axes(Sq)
+    base = 0            # the global position of x's first row
+    if seq:             # this rank's rows, at their global positions
+        mesh = current().mesh
+        x = seq_slice(x, mesh, seq)
+        positions = seq_slice(positions, mesh, seq, dim=0)
+        base = axes_index(mesh, seq) * x.shape[1]
+    sp = bool(seq)
     cache = (init_cache(cfg, B, max(kv_max, Sq), device=x.device)
              if collect_cache else None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     layers = _groups(params["layers"])
 
+    ctx = current()
+
     def group(x, g):
-        """Layer group ``g`` on x: (x, the group's MoE aux loss or None)."""
+        """Layer group ``g`` on x: (x, the group's MoE aux loss or None),
+        under the forward's sharding context also where remat recomputes
+        it in the backward, which autograd runs on its own thread for CUDA
+        tensors, where the (thread-local) context is not set."""
+        with use_sharding(ctx):
+            return group_body(x, g)
+
+    def group_body(x, g):
         gp = _layer(layers, g)
         aux = None
         for i, kind in enumerate(kinds):
@@ -261,14 +308,14 @@ def forward(cfg, params, tokens, *, prefix_embeds=None, encoder_embeds=None,
                 h = apply_norm(cfg, p.get("ln1"), x)
                 if collect_cache:
                     y, (conv_s, ssm_s) = S.mamba_sublayer(
-                        cfg, p["mamba"], h, return_state=True)
+                        cfg, p["mamba"], h, return_state=True, sp=sp)
                     c["conv"][g], c["ssm"][g] = conv_s, ssm_s
                 else:
-                    y = S.mamba_sublayer(cfg, p["mamba"], h)
+                    y = S.mamba_sublayer(cfg, p["mamba"], h, sp=sp)
                 x = x + y
                 continue
             x, a, (k, v), cross_kv = _attn_block(cfg, p, kind, x, positions, enc=enc,
-                                                 prefix_len=prefix_len)
+                                                 prefix_len=prefix_len, sp=sp)
             if a is not None:
                 aux = a if aux is None else aux + a
             if collect_cache:
@@ -294,7 +341,9 @@ def forward(cfg, params, tokens, *, prefix_embeds=None, encoder_embeds=None,
             aux = aux + a
     # the JAX package cuts the logits at prefix_len; the rows of x are cut
     # before the head instead, the same numbers without the prefix's logits
-    x = apply_norm(cfg, params["final_norm"], x[:, prefix_len:])
+    # (under the sequence cut, the rank's rows at global positions >= P)
+    x = apply_norm(cfg, params["final_norm"],
+                   x[:, max(0, min(x.shape[1], prefix_len - base)):])
     logits = x @ _head(cfg, params)
     return logits, aux, cache
 

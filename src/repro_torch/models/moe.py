@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.sharding import batch_mean, current
+from repro_torch.sharding import batch_mean, current, seq_gather, seq_slice
 
 from .common import ACTS, dense_init, dtype_of
 
@@ -74,7 +74,7 @@ def _all_experts(act, x, p, gate=None):
     return (h @ p["w_down"].reshape(E * f, d)).reshape(B, S, d)
 
 
-def moe_sublayer(cfg, p, x, *, with_aux: bool = True):
+def moe_sublayer(cfg, p, x, *, with_aux: bool = True, sp: bool = False):
     """x: (B, S, d) -> (y (B, S, d) in x's dtype, aux_loss float32 scalar,
     or None without ``with_aux``: a decode step takes none).
 
@@ -83,7 +83,27 @@ def moe_sublayer(cfg, p, x, *, with_aux: bool = True):
     global batch's, the same on every rank, as the reference's under
     GSPMD: the routed and probability fractions are means over the ranks
     (``sharding.batch_mean``), the probabilities' gradient reaching this
-    rank's own router once."""
+    rank's own router once.
+
+    ``sp``: x is this rank's rows of the sequence (``models.forward``'s
+    cut under ``sp_attention``).  The capacity, the dense-path switch and
+    the token-major drop order read the whole row, so the dispatch runs on
+    the gathered sequence (``sharding.seq_gather``) and returns this rank's
+    rows (``seq_slice``); the fractions, then the same on every rank of a
+    seq group, are means over the seq groups too, so that the SUM of every
+    rank's gradient counts the aux loss once."""
+    ctx = current()
+    groups = ctx.dp_groups() if ctx is not None else ()
+    if sp:
+        seq = (ctx.mesh, tuple(ctx.opt("seq_axes", ("model",))))
+        y, aux = _moe(cfg, p, seq_gather(x, *seq), with_aux, groups + ctx.sp_groups())
+        return seq_slice(y, *seq), aux
+    return _moe(cfg, p, x, with_aux, groups)
+
+
+def _moe(cfg, p, x, with_aux, groups):
+    """``moe_sublayer`` on the rows ``x`` holds, its aux fractions batch
+    means over ``groups``."""
     m = cfg.moe
     B, S, d = x.shape
     E, k = m.n_experts, m.top_k
@@ -102,8 +122,6 @@ def moe_sublayer(cfg, p, x, *, with_aux: bool = True):
     if with_aux:
         frac_routed = sel_onehot.sum(2).mean(dim=(0, 1))       # (E,)
         frac_prob = probs.mean(dim=(0, 1))
-        ctx = current()
-        groups = ctx.dp_groups() if ctx is not None else ()
         if groups:
             frac_routed = batch_mean(frac_routed, groups)
             frac_prob = batch_mean(frac_prob, groups)

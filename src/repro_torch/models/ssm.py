@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.sharding import current, seq_gather, seq_slice
 from .common import dense_init, dtype_of, rmsnorm, silu
 
 
@@ -73,13 +74,27 @@ def _causal_conv(xBC, w, b, width):
     return silu(out + b)
 
 
-def mamba_sublayer(cfg, p, x, *, return_state: bool = False):
+def mamba_sublayer(cfg, p, x, *, return_state: bool = False, sp: bool = False):
     """Full Mamba2 block: in_proj -> conv -> SSD -> gate -> out_proj.
 
     x: (B, S, d).  Returns y, or (y, (conv_state, ssm_state)) with
     ``return_state``: conv_state (B, W-1, conv_dim) holds the last W-1 rows
     of the pre-conv input (zeros in front when S < W-1), ssm_state
-    (B, H, P, N) float32 is the scan's final state."""
+    (B, H, P, N) float32 is the scan's final state.
+
+    ``sp``: x is this rank's rows of the sequence (``models.forward``'s cut
+    under ``sp_attention``).  The reference keeps the mixer's heads whole
+    over the sequence (``ssm_heads: P(dp)``), so the mixer runs on the
+    gathered sequence (``sharding.seq_gather``) and y is this rank's rows
+    (``seq_slice``); the states are the whole row's, the same on every
+    rank of a seq group."""
+    if sp:
+        ctx = current()
+        seq = (ctx.mesh, tuple(ctx.opt("seq_axes", ("model",))))
+        out = mamba_sublayer(cfg, p, seq_gather(x, *seq), return_state=return_state)
+        if return_state:
+            return seq_slice(out[0], *seq), out[1]
+        return seq_slice(out, *seq)
     ssm = cfg.ssm
     H, P, N = n_ssm_heads(cfg), ssm.head_dim, ssm.d_state
     di = d_inner_of(cfg)

@@ -8,8 +8,11 @@ of axes, the rank's index over them (the last axis fastest, as
 ``picnic_decode_attention`` composes it and as JAX orders ``P(("data",
 "model"))``), their process groups; ``local_shard`` / ``gather_shard``, a
 tensor cut by a ``sharding.specs.Spec`` and put back together; the mean of
-equal batch shards over the ranks (``batch_mean``); and ``local_cache``,
-the rank's shard of a global cache for PICNIC decode.
+equal batch shards over the ranks (``batch_mean``); ``local_cache``, the
+rank's shard of a global cache for PICNIC decode; and the sequence cut of
+sequence-parallel attention, ``seq_gather`` (every rank's rows, an
+all-gather whose backward is a reduce-scatter) and ``seq_slice`` (this
+rank's rows).
 
 A mesh here is anything with ``mesh_dim_names``, ``size(dim)`` and
 ``get_local_rank(axis)`` (and ``get_group(axis)`` to gather).
@@ -113,6 +116,46 @@ def batch_mean(t: torch.Tensor, groups) -> torch.Tensor:
         dist.all_reduce(total, group=g)
         n *= dist.get_world_size(g)
     return (total + (t - t.detach())) / n
+
+
+class _SeqGather(torch.autograd.Function):
+    """Every rank's rows of ``x`` over the seq axes, concatenated on ``dim``
+    in ``axes_index``'s order; the backward is a reduce-scatter: the float32
+    SUM over those ranks of each one's gradient of the whole, then this
+    rank's rows."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim, ctx.rows = mesh, axes, dim, x.shape[dim]
+        for axis in reversed(axes):        # the fastest axis first, as gather_shard
+            x = _gather_dim(x, dim, mesh, axis)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad.to(torch.float32, copy=True).contiguous()
+        for axis in ctx.axes:
+            dist.all_reduce(g, group=ctx.mesh.get_group(axis))
+        i = axes_index(ctx.mesh, ctx.axes)
+        return g.narrow(ctx.dim, i * ctx.rows, ctx.rows).to(grad.dtype), None, None, None
+
+
+def seq_gather(x: torch.Tensor, mesh, seq_axes: Sequence[str], dim: int = 1) -> torch.Tensor:
+    """The whole sequence from every rank's rows ``x`` (this rank's are
+    rows ``[i * n, (i + 1) * n)`` of dim ``dim``, i its ``axes_index`` over
+    ``seq_axes``): an all-gather over the seq axes' groups, the last axis
+    fastest, as the reference's ``sp_flash_attention`` gathers K and V.
+    Differentiable: the gradient of this rank's rows is the SUM over the
+    seq ranks of each one's gradient of those rows (a reduce-scatter, in
+    float32).  A collective: every rank of those groups calls it."""
+    return _SeqGather.apply(x, mesh, tuple(seq_axes), dim)
+
+
+def seq_slice(x: torch.Tensor, mesh, seq_axes: Sequence[str], dim: int = 1) -> torch.Tensor:
+    """``seq_gather``'s inverse for a whole sequence every rank holds: this
+    rank's rows of dim ``dim`` (a view; its gradient is zero on the other
+    rows)."""
+    return _cut(x, dim, axes_size(mesh, seq_axes), axes_index(mesh, seq_axes))
 
 
 def local_cache(cache, mesh, *, seq_axes=("model",), dp_axes=("data",)):

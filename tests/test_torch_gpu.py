@@ -854,7 +854,7 @@ def test_flash_kernel_refuses_a_prefix_with_no_meaning(cuda):
     for causal, window, use_pwl in ((0, 0, 0), (1, 8, 0), (1, 0, 1)):
         assert lib.flash_attention_fwd(
             x.data_ptr(), x.data_ptr(), x.data_ptr(), out.data_ptr(), None, 1, 64, 64, 2, 2, 64, 1,
-            causal, window, 16, use_pwl, ctypes.addressof(PWL_COEFFS),
+            causal, window, 16, 0, use_pwl, ctypes.addressof(PWL_COEFFS),
             torch.cuda.current_stream(cuda).cuda_stream) != 0
 
 
@@ -1073,13 +1073,13 @@ def test_flash_bwd_entry_refuses_what_it_does_not_implement(cuda):
                                                    (D, 1, -1, 0, 0), (D, 1, 0, -1, 0),
                                                    (48, 0, 0, 0, 0)):
                 err = lib.flash_attention_bwd(*ptrs, 1, 64, 64, 4, 2, d, code, causal, window,
-                                              prefix, pwl, stream)
+                                              prefix, 0, pwl, stream)
                 assert err != 0, (d, causal, window, prefix, pwl)
             for causal, window, prefix in ((1, 0, 0), (0, 0, 0), (1, 16, 0), (0, 16, 0),
                                            (1, 1, 0), (1, 0, 8), (1, 0, 100)):
                 assert lib.flash_attention_bwd(*ptrs, 1, 64, 64, 4, 2, D, code, causal, window,
-                                               prefix, 0, stream) == 0, (D, dtype, causal, window,
-                                                                         prefix)
+                                               prefix, 0, 0, stream) == 0, (D, dtype, causal,
+                                                                            window, prefix)
     for dtype in (torch.float32, torch.bfloat16):       # D 256 (paligemma)
         q, k, v, out, lse, g = _bwd_case((1, 64, 4, 256), 2, dtype, 3, cuda)
         dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
@@ -1088,7 +1088,7 @@ def test_flash_bwd_entry_refuses_what_it_does_not_implement(cuda):
         code = 0 if dtype == torch.float32 else 1
         for prefix in (0, 16):
             assert lib.flash_attention_bwd(*ptrs, 1, 64, 64, 4, 2, 256, code, 1, 0, prefix, 0,
-                                           stream) == 0, (dtype, prefix)
+                                           0, stream) == 0, (dtype, prefix)
     torch.cuda.synchronize()
 
 

@@ -8,8 +8,9 @@ Each tree's ``src/repro_torch/csrc/flash_attention_bwd.cu`` is compiled with
 the port's nvcc flags (in parts where the source is written in parts,
 ``_build.PARTS``; both trees at once) into its own library under ``build/``
 and called
-through its C entry ``flash_attention_bwd`` (the same signature in both) on
-the same inputs; the forward (lse, out) comes from this tree's package.
+through its C entry ``flash_attention_bwd`` on the same inputs (a tree
+whose entry takes ``q_offset`` gets 0); the forward (lse, out) comes from
+this tree's package.
 Prints per shape the median ms of each tree over its two turns, CUDA
 events over 20 launches, L2 flushed before each, and whether the two
 trees' gradients are bit-equal.
@@ -52,10 +53,12 @@ def build(trees) -> dict:
         if not ok:
             raise RuntimeError(f"nvcc failed for tree {tag}:\n{log}")
         lib = ctypes.CDLL(str(out))
-        lib.flash_attention_bwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 + \
+        n_int = 12 if "int q_offset" in (trees[tag] / "src" / "repro_torch" / "csrc" /
+                                          "flash_attention_bwd.cu").read_text() else 11
+        lib.flash_attention_bwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * n_int + \
             [ctypes.c_void_p]
         lib.flash_attention_bwd.restype = ctypes.c_int
-        libs[tag] = lib
+        libs[tag] = (lib, n_int == 12)
     return libs
 
 
@@ -86,10 +89,12 @@ def main(argv=None) -> int:
 
         def launch(tag):
             dq, dk, dv = grads[tag]
-            return libs[tag].flash_attention_bwd(
+            lib, takes_offset = libs[tag]
+            return lib.flash_attention_bwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
                 g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-                b, s, s, hq, hkv, d, 1, int(causal), window, prefix, 0, stream)
+                b, s, s, hq, hkv, d, 1, int(causal), window, prefix,
+                *((0,) if takes_offset else ()), 0, stream)
 
         times = {tag: [] for tag in libs}
         takes = {tag: launch(tag) == 0 for tag in libs}        # a tree may refuse the mode
