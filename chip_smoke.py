@@ -201,6 +201,23 @@ Phases, each of which fails the run if it fails:
                 (remat), 3 steps each, against rank 0's single-rank steps
                 on the whole batch, with exact launch counts a rank at its
                 rows' shape and offset.
+  pp_train      pipeline-parallel training (``launch.pipeline``, GPipe):
+                two ranks spawned on the one card (gloo, a (2, 1, 1)
+                ("pod", "data", "model") mesh), llama3.2-1b's layer groups
+                cut over two stages by ``pp_specs`` (embed, final norm
+                replicated), PackedStream(0)'s global B8 x S1024 in 4
+                microbatches of B2 on both ranks, labels by shift;
+                ``make_pp_train_step`` eager against rank 0's single-rank
+                ``make_train_step`` on the same batches: float32 at 2
+                layers (one group a stage), 3 steps: loss and grad_norm
+                within 1e-5 relative, every leaf's update within 1e-3, the
+                replicated leaves and the gathered params bit-equal on both
+                ranks; bf16 at 16 layers (8 a stage, remat), 3 steps: both
+                ranks' losses bit-equal and falling, within the DP_BF16_*
+                bars; exact launches a rank (2 flash forwards and 1
+                backward a group a microbatch, at B2 S1024); peak GiB a
+                rank and the seconds of the hand-offs and of the
+                replicated leaves' all-reduce, correctness-only.
   train_parity  llama3.2-1b widths, 2 layers, float32: 3 AdamW steps on the
                 card (remat on, then off) against the CPU from the same
                 weights and batches: metrics, first gradients, updates;
@@ -217,6 +234,11 @@ Phases, each of which fails the run if it fails:
                 then 40 through the captured step; both ms a step, busy
                 shares, peak memory, 10 flash forwards and backwards a
                 step.
+  examples_torch  ``examples/quickstart_torch.py`` (mixtral smoke: init,
+                forward, 3 train steps, prefill and 8 greedy steps) and
+                ``examples/serve_batched_torch.py`` (smollm-360m smoke, 4
+                requests, 24 new tokens, through the captured serve step)
+                on the card: each ends with ``OK``.
   audio_train   whisper-large-v3 at published widths and full depth (32 +
                 32 layers) in bf16 under remat (each encoder layer and each
                 decoder layer checkpointed): 10 + 2 AdamW steps of B8 x S448
@@ -293,11 +315,11 @@ ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "serve", "ssm_serve", "hybrid_serve", "moe_serve", "audio_serve",
           "vlm_serve", "cim_scu", "parity", "ssm_parity", "moe_parity", "audio_parity",
           "vlm_parity", "server", "picnic_decode", "train", "dp_train", "sp_train",
-          "train_parity",
+          "pp_train", "train_parity",
           "train_driver",
           "audio_train", "audio_train_parity", "ssm_train", "ssm_train_parity", "hybrid_train",
           "hybrid_train_parity", "moe_train", "moe_train_parity", "vlm_train",
-          "vlm_train_parity", "train_100m_torch")
+          "vlm_train_parity", "train_100m_torch", "examples_torch")
 EXTRA_PHASES = ("profile",)          # run only when named in --phases
 SERVE_ARCH = {"serve": "llama3-8b", "ssm_serve": "mamba2-2.7b",
               "hybrid_serve": "zamba2-2.7b"}
@@ -505,6 +527,14 @@ DP_TIMEOUT = 900                    # seconds, each rank
 # layers, remat)
 SP_MESH, SP_B, SP_S = (1, 2), 4, 2048
 SP_OPTIONS = {"sp_attention": True, "seq_axes": ("model",), "dp_axes": ("data",)}
+# pp_train: llama3.2-1b over two GPipe stages on the one card (a (2, 1, 1)
+# ("pod", "data", "model") mesh over gloo), PackedStream(0)'s global B8 x
+# S1024 in PP_MICRO microbatches of B2 (labels by shift, no mask) on both
+# ranks, the train phase's hyper-parameters, AdamW on each stage's leaves;
+# against rank 0's single-rank steps on the same batches: float32 at
+# DP_F32_LAYERS layers (one group a stage), bf16 at 16 (8 a stage, remat),
+# DP_F32_STEPS / DP_BF16_STEPS steps and dp_train's bars
+PP_MESH, PP_AXES, PP_MICRO = (2, 1, 1), ("pod", "data", "model"), 4
 # the train phases whose flash forward the kernels phase times at their shape
 TRAIN_MODEL_OF = {"train": "llama3.2-1b", "audio_train": "whisper", "hybrid_train": "zamba2",
                   "moe_train": "mixtral", "vlm_train": "paligemma"}
@@ -3609,6 +3639,292 @@ def phase_sharded_train(torch, results, kind):
     return {**last["launches"], **{(n_, k_): c for n_, k_, c in last["launches_by_shape"]}}
 
 
+def pp_cfgs():
+    """``pp_train``'s configs: llama3.2-1b float32 at DP_F32_LAYERS layers,
+    and bf16 as published (16 layers, remat)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(TRAIN_ARCH)
+    return {"float32": dataclasses.replace(cfg, n_layers=DP_F32_LAYERS, dtype="float32"),
+            "bfloat16": cfg}
+
+
+def pp_rank(rank: int, out_dir: str) -> int:
+    """One rank of the ``pp_train`` phase (run as ``chip_smoke.py --pp-rank
+    R --pp-dir DIR``): gloo over a file store in DIR, a (2, 1, 1) ("pod",
+    "data", "model") mesh on the card, rank R stage R.  For each of
+    ``pp_cfgs()``: rank 0 first runs the single-rank eager steps on the
+    whole batches (labels by shift, no mask; the other rank waits), then
+    both ranks cut the same seed-0 state by ``pp_specs`` /
+    ``pp_opt_state_specs`` and run ``make_pp_train_step`` on the global
+    batches, the launch counters zeroed just before and read just after;
+    after the bf16 steps the step's two collectives are timed apart: the
+    hand-offs (2 (n_micro + n_stages - 2) ``ppermute`` of a microbatch's
+    activations) and the float32 SUM all-reduce of the replicated leaves'
+    gradients.  Writes DIR/rank{R}.pt."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch import pipeline, steps
+    from repro_torch.tree import tree_paths
+
+    world = PP_MESH[0] * PP_MESH[1] * PP_MESH[2]
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/store", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=120))
+    torch.cuda.set_device(rank % torch.cuda.device_count())     # both on the one card
+    mesh = init_device_mesh("cuda", PP_MESH, mesh_dim_names=PP_AXES)
+    tag = f"[pp_train rank {rank}]"
+    saved = {}
+    hyper = dict(base_lr=3e-4, warmup=10, total_steps=TRAIN_STEPS)
+    host = lambda tree: {path: t.detach().to("cpu", torch.float32, copy=True)
+                         for path, t in tree_paths(tree)}
+    for dt, cfg in pp_cfgs().items():
+        n_steps = DP_F32_STEPS if dt == "float32" else DP_BF16_STEPS
+        tokens = [b["tokens"] for b in train_batches(torch, cfg, TRAIN_B, TRAIN_S, n_steps)]
+        res = {"seconds": {}}
+        t_part = time.time()
+        if rank == 0:                   # the single-rank steps on the whole batches
+            params, state = steps.init_train_state(
+                cfg, torch.Generator(device="cuda").manual_seed(0))
+            p0 = host(params) if dt == "float32" else None
+            single = steps.make_train_step(cfg, **hyper)
+            res["single"] = []
+            for t in tokens:
+                params, state, m = single(params, state,
+                                          {"tokens": t, "labels": torch.roll(t, -1, 1)})
+                res["single"].append({k: float(v) for k, v in m.items()})
+            p_single = host(params) if dt == "float32" else None
+            log(f"{tag} {dt}: single-rank losses {[m['loss'] for m in res['single']]}")
+            del params, state, single
+            torch.cuda.empty_cache()
+        res["seconds"]["single_rank"] = time.time() - t_part
+        dist.barrier()
+        t_part = time.time()
+        torch.cuda.reset_peak_memory_stats()
+        params, state = steps.init_train_state(cfg, torch.Generator(device="cuda").manual_seed(0))
+        pspecs = pipeline.pp_specs(cfg, params, mesh)
+        ospecs = pipeline.pp_opt_state_specs(cfg, state)
+        ps, os_ = steps.shard_train_state(params, state, pspecs, ospecs, mesh)
+        del params, state
+        torch.cuda.empty_cache()
+        step = pipeline.make_pp_train_step(cfg, mesh, n_micro=PP_MICRO, **hyper)
+        res.update(metrics=[], step_ms=[])
+        torch.cuda.synchronize()
+        res["seconds"]["cut"] = time.time() - t_part
+        t_part = time.time()
+        ops.reset_launch_counts()
+        for t in tokens:
+            t0 = time.time()
+            ps, os_, m = step(ps, os_, t)
+            res["metrics"].append({k: float(v) for k, v in m.items()})
+            res["step_ms"].append((time.time() - t0) * 1e3)
+        res["launches"] = {k: v for k, v in ops.LAUNCHES.items() if v}
+        res["launches_by_shape"] = [[n, key, c] for (n, key), c in
+                                    sorted(ops.LAUNCHES_BY_SHAPE.items())]
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        res["seconds"]["pp_steps"] = time.time() - t_part
+        spec_of = dict(tree_paths(pspecs))
+        replicated = {path: t for path, t in tree_paths(ps) if not any(spec_of[path])}
+        res["replicated_bits_equal"] = _params_bits_equal(torch, dist, replicated)
+        if dt == "float32":
+            full, _ = steps.gather_train_state(ps, os_, pspecs, ospecs, mesh)
+            res["gathered_bits_equal"] = _params_bits_equal(torch, dist, full)
+            if rank == 0:
+                mine = host(full)
+                res["update_rel"] = {"/".join(path): (
+                    (mine[path] - p_single[path]).norm()
+                    / (p_single[path] - p0[path]).norm().clamp_min(1e-30)).item()
+                    for path in p0}
+                del p0, p_single, mine
+            del full
+        else:                           # the step's collectives, timed apart
+            bm = TRAIN_B // PP_MICRO
+            x = torch.zeros((bm, TRAIN_S, cfg.d_model), dtype=torch.bfloat16, device="cuda")
+            n_hand = 2 * (PP_MICRO + PP_MESH[0] - 2)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            for i in range(n_hand):
+                sharding.ppermute(x, mesh, "pod", [(0, 1)] if i % 2 == 0 else [(1, 0)])
+            torch.cuda.synchronize()
+            res["seconds"]["hand_offs"] = time.time() - t0
+            res["hand_offs"] = n_hand
+            t0 = time.time()
+            for t in replicated.values():
+                buf = torch.zeros(t.shape, dtype=torch.float32, device="cuda")
+                dist.all_reduce(buf, group=mesh.get_group("pod"))
+                del buf
+            torch.cuda.synchronize()
+            res["seconds"]["allreduce_replicated"] = time.time() - t0
+            res["replicated_elements"] = sum(t.numel() for t in replicated.values())
+        log(f"{tag} {dt}: losses {[m['loss'] for m in res['metrics']]}, "
+            f"{res['step_ms'][-1]:.1f} ms the last step, peak {res['peak_gib']:.2f} GiB, "
+            f"launches {res['launches']}, seconds "
+            + ", ".join(f"{k} {v:.2f}" for k, v in res["seconds"].items()))
+        saved[dt] = res
+        del ps, os_, step, replicated
+        torch.cuda.empty_cache()
+    torch.save(saved, f"{out_dir}/rank{rank}.pt")
+    dist.barrier()                      # no rank tears gloo down while another still talks
+    dist.destroy_process_group()
+    return 0
+
+
+def pp_launch_key(torch, cfg):
+    """The flash forward's and backward's launch key of a ``pp_train``
+    microbatch: B2 x S1024 at llama3.2-1b's heads."""
+    from repro_torch.kernels.flash_attention import launch_key
+    dt = getattr(torch, cfg.dtype)
+    q = torch.empty((TRAIN_B // PP_MICRO, TRAIN_S, cfg.n_heads, cfg.head_dim), dtype=dt,
+                    device="meta")
+    k = torch.empty((TRAIN_B // PP_MICRO, TRAIN_S, cfg.n_kv_heads, cfg.head_dim), dtype=dt,
+                    device="meta")
+    return launch_key(q, k)
+
+
+def phase_pp_train(torch, results):
+    """Pipeline-parallel training on the card: spawns the two ranks
+    (``pp_rank``) and holds what they wrote: float32 loss and grad_norm
+    within TRAIN_METRIC_REL of the single-rank steps, every leaf's update
+    within DP_UPDATE_REL, the replicated leaves and the gathered params
+    bit-equal across ranks; bf16 losses bit-equal across ranks and
+    falling, loss and grad_norm within the DP_BF16_* bars; exact launches a
+    rank: a stage of G groups runs 2 G flash forwards (remat) and G
+    backwards a microbatch, at ``pp_launch_key``.  The ms a step and the
+    collectives' seconds are correctness-only: both ranks share one card
+    and gloo stages every collective through the host.  Returns the last
+    rank's bf16 launches, per kernel and per (kernel, launch_key)."""
+    import tempfile
+    from repro_torch.kernels import _build
+
+    _build.build_all()                  # built once here, loaded by the ranks
+    torch.cuda.empty_cache()
+    world = PP_MESH[0] * PP_MESH[1] * PP_MESH[2]
+    with tempfile.TemporaryDirectory() as d:
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                   "--pp-rank", str(r), "--pp-dir", d],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(world)]
+        texts = []
+        try:
+            for p in procs:
+                texts.append(p.communicate(timeout=DP_TIMEOUT)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, text) in enumerate(zip(procs, texts)):
+            for line in text.splitlines():
+                log(line if line.startswith("[pp_train") else f"[pp_train rank {r}] {line}")
+            if p.returncode != 0:
+                raise AssertionError(f"pp_train: rank {r} exited {p.returncode}")
+        ranks = [torch.load(f"{d}/rank{r}.pt") for r in range(world)]
+    out = {}
+    for dt, cfg in pp_cfgs().items():
+        runs = [rk[dt] for rk in ranks]
+        single = runs[0]["single"]
+        n = len(single)
+        groups = cfg.n_layers // PP_MESH[0]
+        want = {"flash_attention": 2 * groups * PP_MICRO * n,
+                "flash_attention_bwd": groups * PP_MICRO * n}
+        key = pp_launch_key(torch, cfg)
+        for r, run in enumerate(runs):
+            shaped = sorted([n_, k_, c] for n_, k_, c in run["launches_by_shape"])
+            if run["launches"] != want or \
+                    shaped != sorted([[name, key, c] for name, c in want.items()]):
+                raise AssertionError(f"pp_train {dt} rank {r}: launches {run['launches']} "
+                                     f"{shaped}, expected {want} at {key}")
+            if run["metrics"] != runs[0]["metrics"]:
+                raise AssertionError(f"pp_train {dt}: rank {r}'s metrics differ from rank 0's")
+        rel = {k: max(abs(m[k] - s[k]) / abs(s[k]) for m, s in zip(runs[0]["metrics"], single))
+               for k in ("loss", "grad_norm")}
+        losses = [m["loss"] for m in runs[0]["metrics"]]
+        equal = all(run["replicated_bits_equal"] for run in runs)
+        res = {"n_layers": cfg.n_layers, "steps": n, "global_batch": [TRAIN_B, TRAIN_S],
+               "n_micro": PP_MICRO, "mesh": PP_MESH, "losses": losses,
+               "single_losses": [s["loss"] for s in single], "rel_vs_single": rel,
+               "launches_a_rank": runs[0]["launches"], "launch_key": key,
+               "peak_gib": [run["peak_gib"] for run in runs],
+               "step_ms_correctness_only": runs[0]["step_ms"],
+               "replicated_bits_equal": equal, "seconds_rank0": runs[0]["seconds"]}
+        log(f"[pp_train] llama3.2-1b {dt} x {cfg.n_layers} layers ({groups} a stage), global "
+            f"B{TRAIN_B} x S{TRAIN_S} in {PP_MICRO} microbatches over 2 stages: losses "
+            f"{losses} (single-rank {res['single_losses']}); largest relative gap to the "
+            f"single-rank steps: " + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+            + f"; replicated leaves bit-equal across ranks: {equal}; peak "
+            f"{', '.join(f'{g:.2f}' for g in res['peak_gib'])} GiB a rank; "
+            f"{sorted(runs[0]['step_ms'])[n // 2]:.1f} ms a step (median, correctness-only: "
+            f"two ranks share one card, gloo through the host); launches a rank "
+            f"{runs[0]['launches']} at {key}")
+        log(f"[pp_train] {dt} rank 0 seconds: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in runs[0]["seconds"].items()))
+        if dt == "float32":
+            worst = max(runs[0]["update_rel"].items(), key=lambda kv: kv[1])
+            gathered = all(run["gathered_bits_equal"] for run in runs)
+            res.update(update_rel_max=worst, gathered_bits_equal=gathered)
+            log(f"[pp_train] float32: updates after {n} steps within {worst[1]:.3e} of the "
+                f"single-rank run ({worst[0]}; bar {DP_UPDATE_REL}); ranks' gathered params "
+                f"bit-equal: {gathered}")
+            if not (max(rel.values()) <= TRAIN_METRIC_REL and worst[1] <= DP_UPDATE_REL
+                    and equal and gathered):
+                raise AssertionError(f"pp_train float32: {rel}, {worst}, replicated equal "
+                                     f"{equal}, gathered equal {gathered}")
+        else:
+            r0 = runs[0]
+            log(f"[pp_train] bf16 collectives timed apart (correctness-only): "
+                f"{r0['hand_offs']} hand-offs of B{TRAIN_B // PP_MICRO} x S{TRAIN_S} x "
+                f"{cfg.d_model} bf16 {r0['seconds']['hand_offs']:.3f} s; the float32 "
+                f"all-reduce of the replicated leaves' {r0['replicated_elements']} elements "
+                f"{r0['seconds']['allreduce_replicated']:.3f} s; {nvidia_smi_line()}")
+            if not (rel["loss"] <= DP_BF16_LOSS_REL and rel["grad_norm"] <= DP_BF16_GNORM_REL
+                    and equal and all(math.isfinite(x) for x in losses)
+                    and losses[-1] < losses[0]):
+                raise AssertionError(f"pp_train bf16: {rel}, losses {losses}, replicated "
+                                     f"equal {equal}")
+        out[dt] = res
+    results["pp_train"] = out
+    last = ranks[-1]["bfloat16"]
+    return {**last["launches"], **{(n_, k_): c for n_, k_, c in last["launches_by_shape"]}}
+
+
+def phase_examples(torch, results):
+    """``examples/quickstart_torch.py`` and ``examples/serve_batched_torch.py``
+    on the card, in this process: each must end with ``OK``; their output
+    and the kernels' launches (counters zeroed before each) are logged."""
+    import contextlib
+    import importlib.util
+    import io
+    from repro_torch.kernels import ops
+
+    out = {}
+    for name in ("quickstart_torch", "serve_batched_torch"):
+        spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+        example = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(example)
+        buf = io.StringIO()
+        ops.reset_launch_counts()
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf):
+            if name == "quickstart_torch":
+                example.main([])
+            else:
+                example.main(example.ARGS)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        lines = buf.getvalue().strip().splitlines()
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        for line in lines:
+            log(f"[examples_torch] {name}: {line}")
+        log(f"[examples_torch] {name}: {seconds:.2f} s, launches {launches}")
+        if not lines or lines[-1] != "OK" or not launches:
+            raise AssertionError(f"examples_torch: {name} did not end with OK on the card "
+                                 f"(launches {launches})")
+        out[name] = {"seconds": seconds, "launches": launches}
+    results["examples_torch"] = out
+
+
 def train_batches(torch, cfg, batch, seq, n, seed=0, device="cuda"):
     """``n`` batches of the port's PackedStream(seed) on ``device``, token
     ids as int64."""
@@ -4584,6 +4900,8 @@ def main(argv=None) -> int:
     ap.add_argument("--dp-dir", help=argparse.SUPPRESS)
     ap.add_argument("--sp-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--sp-dir", help=argparse.SUPPRESS)
+    ap.add_argument("--pp-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--pp-dir", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     unknown = set(phases) - set(PHASES + EXTRA_PHASES)
@@ -4609,6 +4927,8 @@ def main(argv=None) -> int:
         return sharded_rank("dp_train", args.dp_rank, args.dp_dir)
     if args.sp_rank is not None:        # one rank of the sp_train phase
         return sharded_rank("sp_train", args.sp_rank, args.sp_dir)
+    if args.pp_rank is not None:        # one rank of the pp_train phase
+        return pp_rank(args.pp_rank, args.pp_dir)
     smi = nvidia_smi_line()
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
@@ -4656,12 +4976,16 @@ def main(argv=None) -> int:
             launches_of[phase] = phase_sharded_train(torch, results, phase)
         elif phase == "sp_train":
             launches_of[phase] = phase_sharded_train(torch, results, phase)
+        elif phase == "pp_train":
+            launches_of[phase] = phase_pp_train(torch, results)
         elif phase == "train_parity":
             launches_of[phase] = phase_train_parity(torch, results)
         elif phase == "train_driver":
             phase_train_driver(torch, results)
         elif phase == "train_100m_torch":
             phase_train_100m(torch, results)
+        elif phase == "examples_torch":
+            phase_examples(torch, results)
         elif phase == "audio_train":
             launches_of[phase] = phase_audio_train(torch, results)
         elif phase == "audio_train_parity":

@@ -62,7 +62,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels.paged_attention import (contiguous_block_tokens,
                                                  identity_block_table)
 from repro_torch.sharding import axes_index, axes_size, current, seq_slice, use_sharding
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 from . import attention as A
 from . import mlp as M
 from . import moe as X
@@ -230,6 +230,75 @@ def local_text_rows(n_text: int, prefix_len: int = 0, ctx=None) -> slice:
     return slice(lo, max(lo, base + rows - prefix_len))
 
 
+def run_groups(cfg, params, x, positions, *, enc=None, prefix_len: int = 0,
+               sp: bool = False, cache=None):
+    """The layer groups of ``params["layers"]`` on the embedded ``x`` (B,
+    S, d), in order: a stacked tree of all the model's groups, or of a
+    contiguous range of them (a pipeline stage's), with
+    ``params["shared_attn"]`` where the family has it.  The counterpart of
+    the reference's ``_scan_groups``; ``forward`` runs every group through
+    it.  ``positions`` are x's rows' positions, ``enc`` whisper's encoder
+    output, ``prefix_len`` paligemma's bidirectional prefix, ``sp`` whether
+    x is this rank's rows of the sequence (``forward``'s cut); ``cache``
+    (``init_cache``'s, of the groups run) is filled in place.  Under grad
+    with ``cfg.remat`` and no cache each group keeps only its input and
+    recomputes its activations in the backward (the reference's
+    ``jax.checkpoint(group_body)``), under the sharding context of the
+    call also where autograd runs the recompute on its own thread for CUDA
+    tensors (the thread-local context is not set there).  Returns (x, the
+    float32 sum of the groups' MoE aux losses, 0 without MoE)."""
+    kinds, _ = group_layout(cfg)
+    collect_cache = cache is not None
+    n_groups = next(tree_leaves(params["layers"])).shape[0]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    layers = _groups(params["layers"])
+    ctx = current()
+
+    def group(x, g):
+        with use_sharding(ctx):
+            return group_body(x, g)
+
+    def group_body(x, g):
+        gp = _layer(layers, g)
+        aux = None
+        for i, kind in enumerate(kinds):
+            p = _block_params(params, gp, i, kind)
+            c = cache[_cache_key(i, kind)] if collect_cache else None
+            if kind == "mamba":
+                h = apply_norm(cfg, p.get("ln1"), x)
+                if collect_cache:
+                    y, (conv_s, ssm_s) = S.mamba_sublayer(
+                        cfg, p["mamba"], h, return_state=True, sp=sp)
+                    c["conv"][g], c["ssm"][g] = conv_s, ssm_s
+                else:
+                    y = S.mamba_sublayer(cfg, p["mamba"], h, sp=sp)
+                x = x + y
+                continue
+            x, a, (k, v), cross_kv = _attn_block(cfg, p, kind, x, positions, enc=enc,
+                                                 prefix_len=prefix_len, sp=sp)
+            if a is not None:
+                aux = a if aux is None else aux + a
+            if collect_cache:
+                Sq = k.shape[1]
+                c["k"][g, :, :Sq] = k
+                c["v"][g, :, :Sq] = v
+                if cross_kv is not None:
+                    ek, ev = cross_kv
+                    c["cross_k"][g, :, :ek.shape[1]] = ek
+                    c["cross_v"][g, :, :ev.shape[1]] = ev
+        return x, aux
+
+    remat = cfg.remat and torch.is_grad_enabled() and not collect_cache
+    for g in range(n_groups):
+        if remat:
+            x, a = checkpoint(group, x, g, use_reentrant=False)
+        else:
+            x, a = group(x, g)
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
 def forward(cfg, params, tokens, *, prefix_embeds=None, encoder_embeds=None,
             collect_cache: bool = False, kv_max: int = 0):
     """tokens: (B, S) int -> (logits (B, S, V), aux, cache | None); aux is
@@ -250,7 +319,6 @@ def forward(cfg, params, tokens, *, prefix_embeds=None, encoder_embeds=None,
     Under the sequence cut (see the module's note) the logits are this
     rank's text rows, ``local_text_rows``; the cache, when collected, is
     the whole sequence's on every rank of a seq group."""
-    kinds, n_groups = group_layout(cfg)
     B = tokens.shape[0]
     x = F.embedding(tokens, params["embed"])
     prefix_len = 0
@@ -282,63 +350,10 @@ def forward(cfg, params, tokens, *, prefix_embeds=None, encoder_embeds=None,
         x = seq_slice(x, mesh, seq)
         positions = seq_slice(positions, mesh, seq, dim=0)
         base = axes_index(mesh, seq) * x.shape[1]
-    sp = bool(seq)
     cache = (init_cache(cfg, B, max(kv_max, Sq), device=x.device)
              if collect_cache else None)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    layers = _groups(params["layers"])
-
-    ctx = current()
-
-    def group(x, g):
-        """Layer group ``g`` on x: (x, the group's MoE aux loss or None),
-        under the forward's sharding context also where remat recomputes
-        it in the backward, which autograd runs on its own thread for CUDA
-        tensors, where the (thread-local) context is not set."""
-        with use_sharding(ctx):
-            return group_body(x, g)
-
-    def group_body(x, g):
-        gp = _layer(layers, g)
-        aux = None
-        for i, kind in enumerate(kinds):
-            p = _block_params(params, gp, i, kind)
-            c = cache[_cache_key(i, kind)] if collect_cache else None
-            if kind == "mamba":
-                h = apply_norm(cfg, p.get("ln1"), x)
-                if collect_cache:
-                    y, (conv_s, ssm_s) = S.mamba_sublayer(
-                        cfg, p["mamba"], h, return_state=True, sp=sp)
-                    c["conv"][g], c["ssm"][g] = conv_s, ssm_s
-                else:
-                    y = S.mamba_sublayer(cfg, p["mamba"], h, sp=sp)
-                x = x + y
-                continue
-            x, a, (k, v), cross_kv = _attn_block(cfg, p, kind, x, positions, enc=enc,
-                                                 prefix_len=prefix_len, sp=sp)
-            if a is not None:
-                aux = a if aux is None else aux + a
-            if collect_cache:
-                c["k"][g, :, :Sq] = k
-                c["v"][g, :, :Sq] = v
-                if cross_kv is not None:
-                    ek, ev = cross_kv
-                    c["cross_k"][g, :, :ek.shape[1]] = ek
-                    c["cross_v"][g, :, :ev.shape[1]] = ev
-        return x, aux
-
-    # remat (the reference's jax.checkpoint(group_body)): under grad each
-    # group keeps only its input and recomputes its activations in the
-    # backward; without grad (prefill, serve, the captured step) nothing
-    # changes
-    remat = cfg.remat and torch.is_grad_enabled() and not collect_cache
-    for g in range(n_groups):
-        if remat:
-            x, a = checkpoint(group, x, g, use_reentrant=False)
-        else:
-            x, a = group(x, g)
-        if a is not None:
-            aux = aux + a
+    x, aux = run_groups(cfg, params, x, positions, enc=enc, prefix_len=prefix_len,
+                        sp=bool(seq), cache=cache)
     # the JAX package cuts the logits at prefix_len; the rows of x are cut
     # before the head instead, the same numbers without the prefix's logits
     # (under the sequence cut, the rank's rows at global positions >= P)

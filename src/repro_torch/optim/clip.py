@@ -15,7 +15,11 @@ def global_norm(tree):
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm):
-    gn = global_norm(grads)
+def clip_by_global_norm(grads, max_norm, *, norm=None):
+    """Every leaf scaled by ``min(1, max_norm / global norm)``; returns
+    (the scaled tree, the norm).  ``norm``: the global norm, where the
+    caller has taken it over more than ``grads`` (a pipeline stage's
+    leaves are a slice of the tree)."""
+    gn = global_norm(grads) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     return tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype), grads), gn

@@ -9,10 +9,11 @@ of axes, the rank's index over them (the last axis fastest, as
 "model"))``), their process groups; ``local_shard`` / ``gather_shard``, a
 tensor cut by a ``sharding.specs.Spec`` and put back together; the mean of
 equal batch shards over the ranks (``batch_mean``); ``local_cache``, the
-rank's shard of a global cache for PICNIC decode; and the sequence cut of
+rank's shard of a global cache for PICNIC decode; the sequence cut of
 sequence-parallel attention, ``seq_gather`` (every rank's rows, an
 all-gather whose backward is a reduce-scatter) and ``seq_slice`` (this
-rank's rows).
+rank's rows); and ``ppermute``, the pipeline's hand-off from stage to
+stage.
 
 A mesh here is anything with ``mesh_dim_names``, ``size(dim)`` and
 ``get_local_rank(axis)`` (and ``get_group(axis)`` to gather).
@@ -156,6 +157,54 @@ def seq_slice(x: torch.Tensor, mesh, seq_axes: Sequence[str], dim: int = 1) -> t
     rank's rows of dim ``dim`` (a view; its gradient is zero on the other
     rows)."""
     return _cut(x, dim, axes_size(mesh, seq_axes), axes_index(mesh, seq_axes))
+
+
+def _permute(x: torch.Tensor, mesh, axis: str, perm) -> torch.Tensor:
+    """The ``x`` of this rank's source under ``perm``, zeros where it has
+    none: every rank's ``x`` all-gathered over the axis's group, the
+    source's piece kept."""
+    n = mesh.size(_dim(mesh, axis))
+    sources, dests = [s for s, _ in perm], [d for _, d in perm]
+    if len(set(sources)) < len(perm) or len(set(dests)) < len(perm) \
+            or not all(0 <= i < n for i in sources + dests):
+        raise ValueError(f"ppermute: {perm} is not a partial permutation of the {n} "
+                         f"indices along {axis!r}")
+    me = mesh.get_local_rank(axis)
+    src = [s for s, d in perm if d == me]
+    x = x.detach().contiguous()
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x, group=mesh.get_group(axis))
+    return parts[src[0]] if src else torch.zeros_like(x)
+
+
+class _Permute(torch.autograd.Function):
+    """``ppermute``; the backward hands each gradient back along the
+    reversed pairs, as ``lax.ppermute``'s transpose does."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, perm):
+        ctx.mesh, ctx.axis, ctx.perm = mesh, axis, perm
+        return _permute(x, mesh, axis, perm)
+
+    @staticmethod
+    def backward(ctx, grad):
+        back = tuple((d, s) for s, d in ctx.perm)
+        return _permute(grad, ctx.mesh, ctx.axis, back), None, None, None
+
+
+def ppermute(x: torch.Tensor, mesh, axis: str, perm) -> torch.Tensor:
+    """The counterpart of ``jax.lax.ppermute(x, axis, perm)``: ``perm``
+    holds (source, destination) pairs of indices along ``axis``; each rank
+    returns the ``x`` of the rank whose pair names it as destination, and
+    zeros of ``x``'s shape and dtype where none does.  Written over an
+    all-gather of ``x`` on the axis's group, of which each rank keeps its
+    source's piece: gloo takes ``all_gather`` on CUDA tensors as on CPU
+    ones, so one code path serves both.  Differentiable: the gradient goes
+    back along the reversed pairs.  A ``perm`` that repeats a source or a
+    destination, or names an index off the axis, is refused on every rank
+    before any collective.  A collective: every rank of the axis's groups
+    calls it, with the same ``perm``."""
+    return _Permute.apply(x, mesh, axis, tuple((int(s), int(d)) for s, d in perm))
 
 
 def local_cache(cache, mesh, *, seq_axes=("model",), dp_axes=("data",)):

@@ -29,6 +29,8 @@ from repro_torch.params import from_jax
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCH = "llama3-8b"
+# the port's entry points beside the JAX package's examples
+EXAMPLES = ("train_100m_torch.py", "serve_batched_torch.py", "quickstart_torch.py")
 
 
 @pytest.fixture(scope="module")
@@ -146,7 +148,8 @@ def test_port_imports_with_jax_blocked():
             "repro_torch.runtime.fault_tolerance", "repro_torch.runtime.straggler",
             "repro_torch.launch.train", "repro_torch.launch.mesh",
             "repro_torch.sharding.ctx", "repro_torch.sharding.layout",
-            "repro_torch.sharding.specs", "repro_torch.runtime.compression"} <= set(names)
+            "repro_torch.sharding.specs", "repro_torch.runtime.compression",
+            "repro_torch.launch.pipeline"} <= set(names)
 
 
 def _imports(path: Path):
@@ -160,15 +163,31 @@ def _imports(path: Path):
 def test_no_port_file_imports_jax_or_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     port = len(files)
-    files += [ROOT / "chip_smoke.py", ROOT / "examples" / "train_100m_torch.py"]
+    files += [ROOT / "chip_smoke.py"] + [ROOT / "examples" / f for f in EXAMPLES]
     assert port > 15 and all(f.exists() for f in files)
     rel = {str(f.relative_to(ROOT / "src" / "repro_torch")) for f in files[:port]}
     assert {"optim/adamw.py", "optim/adafactor.py", "optim/clip.py", "optim/schedule.py",
             "checkpoint/ckpt.py", "data/pipeline.py", "runtime/fault_tolerance.py",
             "runtime/straggler.py", "launch/train.py", "launch/mesh.py",
             "sharding/ctx.py", "sharding/layout.py", "sharding/specs.py",
-            "runtime/compression.py"} <= rel
+            "runtime/compression.py", "launch/pipeline.py"} <= rel
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), f"{f} imports {mod}"
+
+
+@pytest.mark.parametrize("example", ["serve_batched_torch.py", "quickstart_torch.py"])
+def test_example_runs_on_the_cpu_with_jax_blocked(example):
+    """The example, with ``--device cpu``, in a process where ``jax`` cannot
+    be imported: exit 0, ``OK`` last."""
+    path = str(ROOT / "examples" / example)
+    code = ("import runpy, sys\n"
+            "sys.modules['jax'] = None\n"
+            f"sys.argv = [{path!r}, '--device', 'cpu']\n"
+            f"runpy.run_path({path!r}, run_name='__main__')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="2")
+    r = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip().splitlines()[-1] == "OK", r.stdout[-2000:]
