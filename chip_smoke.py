@@ -283,6 +283,17 @@ Phases, each of which fails the run if it fails:
   vlm_train_parity  paligemma widths, 2 layers, float32, B2 x (256 prefix
                 rows + 128 text tokens): as ``train_parity`` (the float32
                 SIMT backward with the prefix at D 256).
+  costing       the dry-run costing (``launch.cost``) held against the card,
+                single rank, bf16, full width: llama3.2-1b's train step (B8 x
+                S1024), llama3-8b's prefill (B4 x 512) and one decode step
+                (B4, context 544), each counted on fake tensors of its
+                inputs, then run eager on the card, warm: the counted kernel
+                launches equal the card's per kernel and the measured ms is
+                at least the H100 roofline's largest term; counted FLOPs,
+                bytes, terms, ms and its ratio, temp_bytes beside the card's
+                peak over the step; then ``examples/collective_sweep_torch.
+                py`` and ``examples/multipod_dryrun_torch.py`` on the host,
+                each ending with ``OK``.
   profile       (only when named) device time by kernel under torch.profiler
                 for one full-width prefill and 8 decode steps (eager, and
                 through the graph) of each of the six served models
@@ -319,7 +330,7 @@ PHASES = ("build", "kernels", "serve", "ssm_serve", "hybrid_serve", "moe_serve",
           "train_driver",
           "audio_train", "audio_train_parity", "ssm_train", "ssm_train_parity", "hybrid_train",
           "hybrid_train_parity", "moe_train", "moe_train_parity", "vlm_train",
-          "vlm_train_parity", "train_100m_torch", "examples_torch")
+          "vlm_train_parity", "train_100m_torch", "examples_torch", "costing")
 EXTRA_PHASES = ("profile",)          # run only when named in --phases
 SERVE_ARCH = {"serve": "llama3-8b", "ssm_serve": "mamba2-2.7b",
               "hybrid_serve": "zamba2-2.7b"}
@@ -332,10 +343,20 @@ MAIN_PATH_OF = {"flash_attention": "serve", "paged_attention": "serve",
                 "cim_matmul": "cim_scu", "flash_attention_bwd": "train",
                 "ssd_scan_bwd": "ssm_train"}
 
-# H100 SXM data-sheet peaks (dense): memory, bf16 and int8 tensor cores,
-# float32 SIMT
-PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "int8": 1979e12, "float32": 67e12}
+# the H100's data-sheet peaks, ``bound`` and each kernel's work rule live in
+# the package; without it beside this script main() exits 2, and main()
+# raises any other failure to import them
+sys.path.insert(0, str(ROOT / "src"))
+PACKAGE_IMPORT_ERROR = None
+try:
+    from repro_torch.kernels.cim_matmul import cim_work
+    from repro_torch.kernels.flash_attention import bwd_work, fwd_work
+    from repro_torch.kernels.paged_attention import paged_work
+    from repro_torch.kernels.pwl_softmax import softmax_work
+    from repro_torch.kernels.ssd_scan import ssd_bwd_work, ssd_work
+    from repro_torch.launch.roofline import PEAK_BYTES_S, PEAK_FLOPS, bound
+except ImportError as e:
+    PACKAGE_IMPORT_ERROR = e
 
 # Tolerances of kernel vs plain version, max |difference| on outputs of
 # order 1 (unit-normal q/k/v).  float32: both sum in float32, in another
@@ -577,33 +598,6 @@ class Timer:
         return total / iters
 
 
-def bound(bytes_moved: float, flops: float, dtype: str):
-    t_bytes = bytes_moved / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def softmax_work(x):
-    """Bytes (x read once, the output written once) and float32 operations
-    of the SCU softmax: per element the max, the subtraction, the segment's
-    multiply and add, the sum and the scale (the segment select not
-    counted)."""
-    return 2 * x.numel() * x.element_size(), 6 * x.numel()
-
-
-def cim_work(x, wq, wscale):
-    """Bytes (x, wq and wscale read once, the float32 output written once),
-    the integer dot's 2 M K N int8 operations, and the M N K / 256 float32
-    ADC steps at 9 operations each: abs and max for the calibration; the
-    division, the multiply and the round; three multiplies and the add.
-    The reference's two clamps of the code are not counted: |psum| <= cal,
-    so |rint(psum / cal * adc_max)| <= adc_max and they never bind."""
-    (M, K), N = x.shape, wq.shape[1]
-    nbytes = (x.numel() * x.element_size() + wq.numel() + wscale.numel() * 4
-              + M * N * 4)
-    return nbytes, 2 * M * K * N, 9 * M * N * (K // 256)
-
-
 def cim_bound(x, wq, wscale):
     """The least time of the CIM product: the largest of its bytes at
     3.35 TB/s, its int8 operations at 1,979 TOP/s and its float32 ADC
@@ -614,17 +608,6 @@ def cim_bound(x, wq, wscale):
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = max(int8_ops / PEAK_FLOPS["int8"], f32_ops / (PEAK_FLOPS["float32"] / 2)) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def ssd_work(b, s, h, p, n, esize):
-    """Bytes (x, dt, A, B, C read once; y and state written once) and
-    FLOPs of the recurrent form, the least the function needs whatever its
-    chunking: per row and head the decay of the (P, N) state (P·N), the
-    rank-1 update dt·x ⊗ B (2·P·N) and y = C·stateᵀ (2·P·N)."""
-    flops = 5 * b * s * h * p * n
-    nbytes = ((b * s * h * p + 2 * b * s * n) * esize + (b * s * h + h) * 4
-              + b * s * h * p * 4 + b * h * p * n * 4)
-    return nbytes, flops
 
 
 def phase_build():
@@ -783,10 +766,7 @@ def phase_kernels(torch, timer, results):
     def flash_entry(q, k, v, err, dt):
         b, s, hq, d = q.shape
         hkv = k.shape[2]
-        esize = q.element_size()
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * esize
-        flops = 4 * b * hq * d * s * (s + 1) / 2
-        bms, by = bound(nbytes, flops, dt)
+        bms, by = bound(*fwd_work(b, s, s, hq, hkv, d, q.element_size()), dt)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         return {
             "name": "flash_attention", "route": "cuda",
@@ -871,12 +851,7 @@ def phase_kernels(torch, timer, results):
         b, hq, d = q.shape
         hkv = pk.shape[2]
         n_splits, bps = split_plan(b * hkv, table.shape[1], pk.shape[1], n_sms)
-        esize = q.element_size()
-        ctx_tokens = int(lens.sum())
-        nbytes = (2 * q.numel() * esize + 2 * ctx_tokens * hkv * d * esize
-                  + table.numel() * 4 + lens.numel() * 4)
-        flops = 4 * ctx_tokens * hq * d
-        bms, by = bound(nbytes, flops, dt)
+        bms, by = bound(*paged_work(q, pk, table, int(lens.sum())), dt)
         ql = q[:, :, None]                                   # (B, H, 1, D)
         kl, vl = cache_k.transpose(1, 2), cache_v.transpose(1, 2)
         mask = (torch.arange(MAX_LEN, device="cuda")[None, :]
@@ -1062,32 +1037,6 @@ def phase_kernels(torch, timer, results):
             f"plain {kern['plain_ms']:.4f} ms, library "
             + ("none" if lib is None else f"{lib:.4f} ms")
             + f", bound {kern['bound_ms']:.5f} ms ({kern['bound_by']})")
-
-
-def kept_pairs(sq, skv, causal=True, window=None, prefix_len=0, q_offset=0):
-    """The (query, key) pairs a head keeps: under the causal mask the keys
-    at or before the query and those below ``prefix_len``, under a window
-    (an int or None) those fewer than ``window`` positions before it, of
-    ``skv`` keys; query i at position ``q_offset + i``."""
-    total = 0
-    for i in range(q_offset, q_offset + sq):
-        hi = min(max(i + 1, prefix_len), skv) if causal else skv
-        lo = max(0, i - window + 1) if window else 0
-        total += max(0, hi - lo)
-    return total
-
-
-def bwd_work(b, sq, skv, hq, hkv, d, esize, causal=True, window=None, prefix_len=0,
-             q_offset=0):
-    """Bytes (q, k, v, out, dout and the float32 lse read once; dq, dk,
-    dv written once) and FLOPs of attention's backward: five products of
-    2 * D per (query, key) pair the mask keeps (S, dP, dV, dK, dQ): causal,
-    the pairs with kpos <= qpos or kpos < prefix_len, else sq * skv a head;
-    a window keeps only the pairs with qpos - kpos < window
-    (``kept_pairs``)."""
-    pairs = kept_pairs(sq, skv, causal, window, prefix_len, q_offset)
-    nbytes = (4 * b * sq * hq * d + 4 * b * skv * hkv * d) * esize + b * hq * sq * 4
-    return nbytes, 5 * 2 * b * hq * d * pairs
 
 
 def flash_bwd_cases(torch, timer, randn, extra):
@@ -1299,9 +1248,8 @@ def flash_bwd_cases(torch, timer, randn, extra):
             ferr = _check_flash(torch, out, fa.flash_attention_plain(
                 q, k, v, causal=causal, window=window, prefix_len=prefix), dt,
                 f"{TRAIN_MODEL_OF[path]} train forward {shape}", False)
-            nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-            fbms, fby = bound(nbytes, 4 * b * hq * d * kept_pairs(sq, skv, causal, window, prefix),
-                              dt)
+            fbms, fby = bound(*fwd_work(b, sq, skv, hq, hkv, d, q.element_size(), causal,
+                                        window, prefix), dt)
             extra.append({
                 "name": "flash_attention", "route": "cuda",
                 "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -1421,9 +1369,8 @@ def flash_offset_cases(torch, timer, randn):
 
             key = fa.launch_key(q, k, causal=causal, window=window, prefix_len=prefix,
                                 q_offset=off)
-            pairs = kept_pairs(sq, skv, causal, window, prefix, off)
-            nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-            fbms, fby = bound(nbytes, 4 * b * hq * d * pairs, dt)
+            fbms, fby = bound(*fwd_work(b, sq, skv, hq, hkv, d, q.element_size(), causal,
+                                        window, prefix, off), dt)
             bbytes, bflops = bwd_work(b, sq, skv, hq, hkv, d, q.element_size(), causal, window,
                                       prefix, off)
             bbms, bby = bound(bbytes, bflops, dt)
@@ -1460,19 +1407,6 @@ def flash_offset_cases(torch, timer, randn):
         del q, k, v, out, out0, lse, want, lse_plain
     torch.cuda.synchronize()
     return timed
-
-
-def ssd_bwd_work(b, s, h, p, n, esize, with_dstate):
-    """Bytes (x, dt, A, B, C, y, dy, and the final state and its gradient
-    where one is given, read once; dx, ddt, dA, dB, dC written once) and
-    FLOPs of the SSD backward's recurrent form, the least the function
-    needs whatever its chunking: per row and head the carried gradient g
-    (its decay and the rank-1 dy ⊗ C, 3·P·N), du = g·B (2·P·N), gᵀ·u into
-    dB (2·P·N), the state again (3·P·N) and hᵀ·dy into dC (2·P·N)."""
-    flops = 12 * b * s * h * p * n
-    nbytes = (2 * (b * s * h * p + 2 * b * s * n) * esize + 2 * (b * s * h + h) * 4
-              + 2 * b * s * h * p * 4 + (2 * b * h * p * n * 4 if with_dstate else 0))
-    return nbytes, flops
 
 
 def ssd_bwd_cases(torch, timer, randn, extra):
@@ -1622,8 +1556,7 @@ def flash_window_cases(torch, timer, randn, extra):
         if not timed:
             continue
         # the (query, key) pairs of the window, each 4 d FLOPs a head
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        bms, by = bound(nbytes, 4 * b * hq * d * kept_pairs(s, s, True, window), dt)
+        bms, by = bound(*fwd_work(b, s, s, hq, hkv, d, q.element_size(), True, window), dt)
         mask = window_mask(torch, s, s, window)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         extra.append({
@@ -3925,6 +3858,140 @@ def phase_examples(torch, results):
     results["examples_torch"] = out
 
 
+def _fake_like(tree):
+    """Fake tensors (``launch.input_specs.fake_mode``) of the shapes, dtypes,
+    devices and ``requires_grad`` of the tensors in ``tree`` (nested dicts,
+    tuples and lists)."""
+    from repro_torch.launch.input_specs import fake_mode
+    if isinstance(tree, dict):
+        return {k: _fake_like(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_fake_like(v) for v in tree)
+    fake = fake_mode().from_tensor(tree)
+    return fake.requires_grad_(True) if tree.requires_grad else fake
+
+
+def cost_and_run(torch, name, fn, args, results, cfg, shape):
+    """``fn(*args)`` costed on fake tensors of ``args``' shapes
+    (``launch.cost.analyze``) and then run on the card, warm (one run
+    before); the card's launches must equal the count's per kernel, and the
+    measured ms must be at least the largest term of the counted traffic.
+    Two memory terms are printed and kept: the counted bytes (the eager
+    program's own traffic at op boundaries, an upper bound) and the
+    roofline's, ``roofline.analytic_memory_bytes(cfg, shape)`` on one card,
+    as the dry run's ``memory_s``; the measured ms is given as a ratio to
+    the largest term of each."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import cost, roofline
+
+    t0 = time.time()
+    c = cost.analyze(fn, *_fake_like(tuple(args)))
+    count_s = time.time() - t0
+    counted = roofline.roofline_terms(c.flops, c.bytes, c.wire_bytes, "bfloat16")
+    largest = max(counted.values())
+    analytic = roofline.analytic_memory_bytes(cfg, shape, {"data": 1, "model": 1}, shape.kind)
+    terms = roofline.roofline_terms(c.flops, analytic, c.wire_bytes, "bfloat16")
+    dominant = roofline.dominant_term(terms)
+    fn(*args)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn(*args)
+    b.record()
+    b.synchronize()
+    ms = a.elapsed_time(b)
+    peak = torch.cuda.max_memory_allocated() - before
+    card = {k: v for k, v in ops.LAUNCHES.items() if v}
+    entry = {"flops": c.flops, "bytes": c.bytes, "analytic_bytes": analytic,
+             "wire_bytes": c.wire_bytes, "counted_s": counted, "largest_counted_s": largest,
+             "roofline_s": terms, "dominant": dominant, "ms": ms,
+             "ratio_counted": ms / (largest * 1e3),
+             "ratio_roofline": ms / (terms[dominant] * 1e3), "temp_bytes": c.peak_bytes,
+             "card_peak_bytes": peak, "launches": c.launches, "card_launches": card,
+             "count_s": count_s}
+    log(f"[costing] {name}: counted {c.flops:.4e} FLOPs, {c.bytes:.4e} bytes (eager "
+        f"traffic), analytic {analytic:.4e} bytes (roofline); roofline terms "
+        + ", ".join(f"{k} {v * 1e3:.4f} ms" for k, v in terms.items())
+        + f", eager traffic's memory term {counted['memory_s'] * 1e3:.4f} ms; measured "
+        f"{ms:.3f} ms = {entry['ratio_roofline']:.3f} x the roofline ({dominant}), "
+        f"{entry['ratio_counted']:.3f} x the largest counted term; temp_bytes "
+        f"{c.peak_bytes / 2**30:.3f} GiB vs the card's peak over the step {peak / 2**30:.3f} "
+        f"GiB; launches counted {c.launches}, on the card {card}; counted in {count_s:.1f}s; "
+        f"{nvidia_smi_line()}")
+    if c.launches != card:
+        raise AssertionError(f"costing {name}: counted launches {c.launches} != the card's "
+                             f"{card}")
+    if ms < largest * 1e3:
+        raise AssertionError(f"costing {name}: {ms:.3f} ms measured is below the counted "
+                             f"largest term {largest * 1e3:.3f} ms (a wrong count or peak)")
+    results.setdefault("costing", {})[name] = entry
+
+
+def phase_costing(torch, results):
+    """The dry-run costing (``launch.cost``) held against the card, single
+    rank, bf16, full width: llama3.2-1b's train step at the train phase's
+    B8 x S1024 (remat, AdamW), llama3-8b's prefill at B4 x 512 and one of
+    its decode steps at B4 and context 544, each costed on fake tensors,
+    then run eager on the card, warm.  Then ``examples/collective_sweep_
+    torch.py`` (smoke size) and ``examples/multipod_dryrun_torch.py`` (yi-34b
+    decode_32k on 512 fake ranks, baseline and picnic) on the host, each of
+    which must end with ``OK``."""
+    from repro_torch import models
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch.steps import (init_train_state, make_prefill_step,
+                                          make_serve_step, make_train_step)
+
+    cfg = get_config(TRAIN_ARCH)
+    params, state = init_train_state(cfg, torch.Generator(device="cuda").manual_seed(0))
+    batch = train_batches(torch, cfg, TRAIN_B, TRAIN_S, 1)[0]
+    step = make_train_step(cfg)
+    cost_and_run(torch, f"{cfg.name} train B{TRAIN_B} S{TRAIN_S}",
+                 lambda p, o, b: step(p, o, b), (params, state, batch), results,
+                 cfg, ShapeSpec("train", TRAIN_S, TRAIN_B, "train"))
+    del params, state, batch, step
+    torch.cuda.empty_cache()
+
+    cfg = get_config("llama3-8b")
+    params = init_logged(torch, cfg, "[costing]")
+    prompt = random_prompt(torch, cfg, B_MAIN, PROMPT)
+    prefill = make_prefill_step(cfg, kv_max=MAX_LEN)
+    cost_and_run(torch, f"{cfg.name} prefill B{B_MAIN} S{PROMPT}",
+                 lambda p, b: prefill(p, b), (params, {"tokens": prompt}), results,
+                 cfg, ShapeSpec("prefill", PROMPT, B_MAIN, "prefill"))
+    cache = models.init_cache(cfg, B_MAIN, MAX_LEN, device="cuda")
+    tok = prompt[:, -1:].contiguous()
+    serve = make_serve_step(cfg)
+    cost_and_run(torch, f"{cfg.name} decode B{B_MAIN} ctx{PROMPT + NEW}",
+                 lambda p, c, t: serve(p, c, t, PROMPT + NEW), (params, cache, tok), results,
+                 cfg, ShapeSpec("decode", PROMPT + NEW, B_MAIN, "decode"))
+    del params, cache
+    torch.cuda.empty_cache()
+
+    # the two examples at once, after the card's timings (each holds a fake
+    # world of its own, so each its own process)
+    t0 = time.time()
+    procs = {name: subprocess.Popen([sys.executable, str(ROOT / "examples" / f"{name}.py")],
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for name in ("collective_sweep_torch", "multipod_dryrun_torch")}
+    try:
+        done = {name: proc.communicate(timeout=600) for name, proc in procs.items()}
+    finally:
+        for proc in procs.values():
+            proc.kill()
+    for name, proc in procs.items():
+        out, err = done[name]
+        lines = out.strip().splitlines()
+        for line in lines:
+            log(f"[costing] {name}: {line}")
+        log(f"[costing] {name}: exit {proc.returncode}")
+        if proc.returncode != 0 or not lines or lines[-1] != "OK":
+            raise AssertionError(f"costing: {name} did not end with OK:\n{err[-3000:]}")
+    log(f"[costing] both examples in {time.time() - t0:.1f}s")
+
+
 def train_batches(torch, cfg, batch, seq, n, seed=0, device="cuda"):
     """``n`` batches of the port's PackedStream(seed) on ``device``, token
     ids as int64."""
@@ -4912,13 +4979,14 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
     try:
         import repro_torch  # noqa: F401
     except ImportError as e:
         print(f"chip_smoke: the repro_torch package is not beside this script ({e})",
               file=sys.stderr)
         return 2
+    if PACKAGE_IMPORT_ERROR is not None:
+        raise PACKAGE_IMPORT_ERROR
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.picnic_rank is not None:    # one rank of the picnic_decode phase
@@ -4986,6 +5054,8 @@ def main(argv=None) -> int:
             phase_train_100m(torch, results)
         elif phase == "examples_torch":
             phase_examples(torch, results)
+        elif phase == "costing":
+            phase_costing(torch, results)
         elif phase == "audio_train":
             launches_of[phase] = phase_audio_train(torch, results)
         elif phase == "audio_train_parity":

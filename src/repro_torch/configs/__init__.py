@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import importlib
 
-from .base import ModelConfig, MoEConfig, SSMConfig, reduced  # noqa: F401
+from .base import ModelConfig, MoEConfig, SSMConfig, ShapeSpec, SHAPES, reduced  # noqa: F401
 
 # arch-id -> module name
 _REGISTRY = {
@@ -30,6 +30,13 @@ _REGISTRY = {
     "llama3-8b": "llama3_8b",
     "llama2-13b": "llama2_13b",
 }
+
+# the reference's ten assigned architectures and the paper's three Table II
+# models, in the reference's order
+ASSIGNED_ARCHS = ["mistral-nemo-12b", "olmo-1b", "smollm-360m", "yi-34b", "paligemma-3b",
+                  "zamba2-2.7b", "llama4-maverick-400b-a17b", "mixtral-8x7b",
+                  "whisper-large-v3", "mamba2-2.7b"]
+PAPER_ARCHS = ["llama3.2-1b", "llama3-8b", "llama2-13b"]
 
 
 def list_archs():

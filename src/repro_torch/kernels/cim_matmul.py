@@ -148,6 +148,19 @@ def check_layout(wqt, wq) -> None:
                          f"got {wqt.dtype} {tuple(wqt.shape)} on {wqt.device}")
 
 
+def cim_work(x, wq, wscale):
+    """Bytes (x, wq and wscale read once, the float32 output written once),
+    the integer dot's 2 M K N int8 operations, and the M N K / 256 float32
+    ADC steps at 9 operations each: abs and max for the calibration; the
+    division, the multiply and the round; three multiplies and the add.
+    The reference's two clamps of the code are not counted: |psum| <= cal,
+    so |rint(psum / cal * adc_max)| <= adc_max and they never bind."""
+    (M, K), N = x.shape, wq.shape[1]
+    nbytes = (x.numel() * x.element_size() + wq.numel() + wscale.numel() * 4
+              + M * N * 4)
+    return nbytes, 2 * M * K * N, 9 * M * N * (K // 256)
+
+
 def cim_matmul_plain(x, wq, wscale, *, block_m: int = 128, block_n: int = 256,
                      adc_bits: int = 12, act_bits: int = 8) -> torch.Tensor:
     """x: (M, K) float; wq: (K, N) int8; wscale: (K // 256, N) float32.

@@ -68,6 +68,7 @@ window's first step.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -187,6 +188,45 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
         return out
     lse = torch.where(l == 0, torch.full_like(l, float("inf")), m + torch.log(l))
     return out, lse.reshape(B, Hq, Sq)
+
+
+@functools.lru_cache(maxsize=256)
+def kept_pairs(sq, skv, causal=True, window=None, prefix_len=0, q_offset=0):
+    """The (query, key) pairs a head keeps: under the causal mask the keys
+    at or before the query and those below ``prefix_len``, under a window
+    (an int or None) those fewer than ``window`` positions before it, of
+    ``skv`` keys; query i at position ``q_offset + i``."""
+    total = 0
+    for i in range(q_offset, q_offset + sq):
+        hi = min(max(i + 1, prefix_len), skv) if causal else skv
+        lo = max(0, i - window + 1) if window else 0
+        total += max(0, hi - lo)
+    return total
+
+
+def fwd_work(b, sq, skv, hq, hkv, d, esize, causal=True, window=None, prefix_len=0,
+             q_offset=0, lse=False):
+    """Bytes (q, k, v read once, the output written once, and with ``lse``
+    the float32 lse) and FLOPs of attention's forward: two products of 2 *
+    D per (query, key) pair the mask keeps (``kept_pairs``), a head."""
+    pairs = kept_pairs(sq, skv, causal, window, prefix_len, q_offset)
+    nbytes = (2 * b * sq * hq * d + 2 * b * skv * hkv * d) * esize
+    if lse:
+        nbytes += b * hq * sq * 4
+    return nbytes, 4 * b * hq * d * pairs
+
+
+def bwd_work(b, sq, skv, hq, hkv, d, esize, causal=True, window=None, prefix_len=0,
+             q_offset=0):
+    """Bytes (q, k, v, out, dout and the float32 lse read once; dq, dk,
+    dv written once) and FLOPs of attention's backward: five products of
+    2 * D per (query, key) pair the mask keeps (S, dP, dV, dK, dQ): causal,
+    the pairs with kpos <= qpos or kpos < prefix_len, else sq * skv a head;
+    a window keeps only the pairs with qpos - kpos < window
+    (``kept_pairs``)."""
+    pairs = kept_pairs(sq, skv, causal, window, prefix_len, q_offset)
+    nbytes = (4 * b * sq * hq * d + 4 * b * skv * hkv * d) * esize + b * hq * sq * 4
+    return nbytes, 5 * 2 * b * hq * d * pairs
 
 
 def agreement(got: torch.Tensor, want: torch.Tensor, *, pwl: bool = False):

@@ -7,9 +7,12 @@ of each wrapper, so a run can show that its path went through the
 kernels; each kernel module adds one where it launches, and the plain
 versions are not counted.  ``LAUNCHES_BY_SHAPE`` counts the attention
 kernels' and the SSD scan's and its backward's launches apart by (kernel,
-``launch_key``).
+``launch_key``).  While ``launch.cost.count`` counts, each wrapper called
+in the counting thread hands its call to the counter instead.
 """
 from __future__ import annotations
+
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 from . import cim_matmul as _cim
 from . import flash_attention as _fa
@@ -17,6 +20,18 @@ from . import paged_attention as _pa
 from . import pwl_softmax as _ps
 from . import ssd_scan as _ssd
 from ._build import LAUNCHES, LAUNCHES_BY_SHAPE
+
+COUNTER = None      # ``launch.cost.count``'s counter while it counts
+
+
+def _counting():
+    """``COUNTER`` where it counts in this thread (its dispatch mode is
+    active here, as it is in autograd's threads under a counted backward),
+    else None: a call in another thread takes its own route."""
+    counter = COUNTER
+    if counter is None or counter not in _get_current_dispatch_mode_stack():
+        return None
+    return counter
 
 
 def reset_launch_counts() -> None:
@@ -41,6 +56,8 @@ def flash_attention(q, k, v, *, causal: bool = True, use_pwl: bool = False,
     1; every mask reads the global position."""
     kw = dict(causal=causal, use_pwl=use_pwl, window=window, prefix_len=prefix_len,
               q_offset=q_offset)
+    if (counter := _counting()) is not None:
+        return counter.kernel("flash_attention", q, k, v, **kw)
     if _route(q) == "cpu":
         return _fa.flash_attention_plain(q, k, v, **kw)
     return _fa.flash_attention_cuda(q, k, v, **kw)
@@ -51,6 +68,9 @@ def paged_attention(q, k_cache, v_cache, block_tables, context_lens, *,
     """q: (B, H, D); k/v_cache: (N, block_tokens, H_kv, D).  Returns (B, H, D).
     ``window``: mask the keys below ``context_lens - window``."""
     kw = dict(use_pwl=use_pwl, window=window)
+    if (counter := _counting()) is not None:
+        return counter.kernel("paged_attention", q, k_cache, v_cache, block_tables,
+                              context_lens, **kw)
     if _route(q) == "cpu":
         return _pa.paged_attention_plain(q, k_cache, v_cache, block_tables,
                                          context_lens, **kw)
@@ -69,6 +89,9 @@ def paged_attention_partial(q, k_cache, v_cache, block_tables, context_lens, *,
     ``window``: mask the keys below ``context_lens - window``.  Exact exp
     only."""
     kw = dict(key_offset=key_offset, window=window)
+    if (counter := _counting()) is not None:
+        return counter.kernel("paged_attention_partial", q, k_cache, v_cache, block_tables,
+                              context_lens, **kw)
     if _route(q) == "cpu":
         return _pa.paged_attention_plain(q, k_cache, v_cache, block_tables,
                                          context_lens, partial=True, **kw)
@@ -81,6 +104,8 @@ def ssd_scan(x, dt, a_neg, B, C, *, chunk: int):
     Returns y (b, S, H, P) and the final state (b, H, P, N), float32.
     ``chunk`` is the plain version's step; the kernel takes its own.  Under
     grad on the card the call goes through ``ssd_scan.SSDScanFn``."""
+    if (counter := _counting()) is not None:
+        return counter.kernel("ssd_scan", x, dt, a_neg, B, C, chunk=chunk)
     if _route(x) == "cpu":
         return _ssd.ssd_scan_plain(x, dt, a_neg, B, C, chunk)
     return _ssd.ssd_scan_cuda(x, dt, a_neg, B, C)
@@ -89,6 +114,8 @@ def ssd_scan(x, dt, a_neg, B, C, *, chunk: int):
 def pwl_softmax(x):
     """SCU row softmax over the last dim of ``x (..., n)``, output in x's
     dtype."""
+    if (counter := _counting()) is not None:
+        return counter.kernel("pwl_softmax", x)
     if _route(x) == "cpu":
         return _ps.pwl_softmax_plain(x)
     return _ps.pwl_softmax_cuda(x)
@@ -105,6 +132,8 @@ def cim_matmul_quantized(x, wq, wscale, *, wqt=None, block_m: int = 128,
     checks wqt's shape and ignores it."""
     kw = dict(block_m=block_m, block_n=block_n, adc_bits=adc_bits,
               act_bits=act_bits)
+    if (counter := _counting()) is not None:
+        return counter.kernel("cim_matmul_quantized", x, wq, wscale, wqt=wqt, **kw)
     if _route(x) == "cpu":
         _cim.check_layout(wqt, wq)
         return _cim.cim_matmul_plain(x, wq, wscale, **kw)

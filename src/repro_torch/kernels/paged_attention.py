@@ -155,6 +155,20 @@ def paged_attention_plain(q, k_cache, v_cache, block_tables, context_lens, *,
     return out.reshape(B, H, D).to(q.dtype)
 
 
+def paged_work(q, k_cache, block_tables, ctx_tokens: int, *, partial: bool = False):
+    """Bytes (q, the kept keys' K and V, the table and the lengths read
+    once; the output, or with ``partial`` the float32 (o, m, l), written
+    once) and FLOPs (two products of 2 * D a kept key and head) of one
+    call that keeps ``ctx_tokens`` keys over the batch."""
+    B, H, D = q.shape
+    hkv = k_cache.shape[2]
+    esize = q.element_size()
+    out = B * H * (D + 2) * 4 if partial else q.numel() * esize
+    nbytes = (q.numel() * esize + out + 2 * ctx_tokens * hkv * D * esize
+              + block_tables.numel() * 4 + B * 4)
+    return nbytes, 4 * ctx_tokens * H * D
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count

@@ -118,6 +118,14 @@ def route(rows: int, n: int, dtype):
     return ("cluster", cs) if takes("cluster", cs, rows, n, dtype) else ("three_pass", 1)
 
 
+def softmax_work(x):
+    """Bytes (x read once, the output written once) and float32 operations
+    of the SCU softmax: per element the max, the subtraction, the segment's
+    multiply and add, the sum and the scale (the segment select not
+    counted)."""
+    return 2 * x.numel() * x.element_size(), 6 * x.numel()
+
+
 def pwl_softmax_plain(x: torch.Tensor) -> torch.Tensor:
     """Row softmax of ``x (..., n)`` with the PWL exp, step by step as
     ``_softmax_kernel``."""

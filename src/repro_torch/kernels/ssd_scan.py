@@ -50,6 +50,30 @@ STATE_DIMS = (16, 32, 64, 128)       # N
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def ssd_work(b, s, h, p, n, esize):
+    """Bytes (x, dt, A, B, C read once; y and state written once) and
+    FLOPs of the recurrent form, the least the function needs whatever its
+    chunking: per row and head the decay of the (P, N) state (P·N), the
+    rank-1 update dt·x ⊗ B (2·P·N) and y = C·stateᵀ (2·P·N)."""
+    flops = 5 * b * s * h * p * n
+    nbytes = ((b * s * h * p + 2 * b * s * n) * esize + (b * s * h + h) * 4
+              + b * s * h * p * 4 + b * h * p * n * 4)
+    return nbytes, flops
+
+
+def ssd_bwd_work(b, s, h, p, n, esize, with_dstate):
+    """Bytes (x, dt, A, B, C, y, dy, and the final state and its gradient
+    where one is given, read once; dx, ddt, dA, dB, dC written once) and
+    FLOPs of the SSD backward's recurrent form, the least the function
+    needs whatever its chunking: per row and head the carried gradient g
+    (its decay and the rank-1 dy ⊗ C, 3·P·N), du = g·B (2·P·N), gᵀ·u into
+    dB (2·P·N), the state again (3·P·N) and hᵀ·dy into dC (2·P·N)."""
+    flops = 12 * b * s * h * p * n
+    nbytes = (2 * (b * s * h * p + 2 * b * s * n) * esize + 2 * (b * s * h + h) * 4
+              + 2 * b * s * h * p * 4 + (2 * b * h * p * n * 4 if with_dstate else 0))
+    return nbytes, flops
+
+
 def _lower_exp(seg, tri):
     """exp(seg) on the lower triangle (m <= l, where seg <= 0), 0 above;
     exp is taken of 0 above, so neither the value nor its gradient sees

@@ -14,10 +14,11 @@ from torch.distributed.device_mesh import init_device_mesh
 POD_SHAPE = (16, 16)
 
 
-def make_production_mesh(*, multi_pod: bool = False):
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
     """16 x 16 ranks a pod ``("data", "model")``; 2 pods when multi_pod
-    (512 ranks, ``("pod", "data", "model")``).  Raises ``ValueError`` when
-    the world holds another number of ranks."""
+    (512 ranks, ``("pod", "data", "model")``), of ``device_type`` (the
+    dry run's is ``"cpu"``, over a fake process group).  Raises
+    ``ValueError`` when the world holds another number of ranks."""
     shape = (2, *POD_SHAPE) if multi_pod else POD_SHAPE
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     world = dist.get_world_size() if dist.is_initialized() else 1
@@ -27,7 +28,7 @@ def make_production_mesh(*, multi_pod: bool = False):
     if world != need:
         raise ValueError(f"the production mesh {shape} {axes} needs {need} ranks, "
                          f"the world has {world}")
-    return init_device_mesh("cuda", shape, mesh_dim_names=axes)
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 
 def make_host_mesh(device_type: str = "cuda"):

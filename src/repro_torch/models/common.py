@@ -40,12 +40,15 @@ _KEPT: Dict[Tuple, torch.Tensor] = {}
 def kept(key: Tuple, device, make) -> torch.Tensor:
     """``make()``, made once per key and device and kept, so every step
     reads the same tensor.  One made while a CUDA graph is being captured
-    lives in that graph's memory pool and is not kept."""
+    lives in that graph's memory pool and is not kept, nor is a fake tensor
+    (made while a step is costed, ``launch.cost``)."""
+    from torch._subclasses.fake_tensor import is_fake
     device = torch.device(device)
     t = _KEPT.get(key + (device,))
     if t is None:
         t = make()
-        if not (device.type == "cuda" and torch.cuda.is_current_stream_capturing()):
+        if not (device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+                or is_fake(t)):
             _KEPT[key + (device,)] = t
     return t
 

@@ -30,7 +30,13 @@ from repro_torch.params import from_jax
 ROOT = Path(__file__).resolve().parents[1]
 ARCH = "llama3-8b"
 # the port's entry points beside the JAX package's examples
-EXAMPLES = ("train_100m_torch.py", "serve_batched_torch.py", "quickstart_torch.py")
+EXAMPLES = ("train_100m_torch.py", "serve_batched_torch.py", "quickstart_torch.py",
+            "collective_sweep_torch.py", "multipod_dryrun_torch.py")
+# each example's arguments on the CPU: the costing examples allocate nothing
+# on any device and take no --device
+EXAMPLE_ARGV = {"serve_batched_torch.py": ["--device", "cpu"],
+                "quickstart_torch.py": ["--device", "cpu"],
+                "collective_sweep_torch.py": [], "multipod_dryrun_torch.py": []}
 
 
 @pytest.fixture(scope="module")
@@ -149,7 +155,13 @@ def test_port_imports_with_jax_blocked():
             "repro_torch.launch.train", "repro_torch.launch.mesh",
             "repro_torch.sharding.ctx", "repro_torch.sharding.layout",
             "repro_torch.sharding.specs", "repro_torch.runtime.compression",
-            "repro_torch.launch.pipeline"} <= set(names)
+            "repro_torch.launch.pipeline", "repro_torch.launch.cost",
+            "repro_torch.launch.dryrun", "repro_torch.launch.collective_capture",
+            "repro_torch.launch.roofline", "repro_torch.launch.input_specs",
+            "repro_torch.core", "repro_torch.core.energy", "repro_torch.core.interconnect",
+            "repro_torch.core.partition", "repro_torch.core.noc", "repro_torch.core.mapping",
+            "repro_torch.core.scheduling", "repro_torch.core.ccpg",
+            "repro_torch.core.timeline", "repro_torch.core.simulator"} <= set(names)
 
 
 def _imports(path: Path):
@@ -170,21 +182,24 @@ def test_no_port_file_imports_jax_or_repro():
             "checkpoint/ckpt.py", "data/pipeline.py", "runtime/fault_tolerance.py",
             "runtime/straggler.py", "launch/train.py", "launch/mesh.py",
             "sharding/ctx.py", "sharding/layout.py", "sharding/specs.py",
-            "runtime/compression.py", "launch/pipeline.py"} <= rel
+            "runtime/compression.py", "launch/pipeline.py", "launch/cost.py",
+            "launch/dryrun.py", "launch/collective_capture.py", "launch/roofline.py",
+            "launch/input_specs.py", "core/simulator.py", "core/timeline.py"} <= rel
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), f"{f} imports {mod}"
 
 
-@pytest.mark.parametrize("example", ["serve_batched_torch.py", "quickstart_torch.py"])
+@pytest.mark.parametrize("example", ["serve_batched_torch.py", "quickstart_torch.py",
+                                     "collective_sweep_torch.py", "multipod_dryrun_torch.py"])
 def test_example_runs_on_the_cpu_with_jax_blocked(example):
-    """The example, with ``--device cpu``, in a process where ``jax`` cannot
-    be imported: exit 0, ``OK`` last."""
+    """The example, with ``--device cpu`` where it takes one, in a process
+    where ``jax`` cannot be imported: exit 0, ``OK`` last."""
     path = str(ROOT / "examples" / example)
     code = ("import runpy, sys\n"
             "sys.modules['jax'] = None\n"
-            f"sys.argv = [{path!r}, '--device', 'cpu']\n"
+            f"sys.argv = {[path] + EXAMPLE_ARGV[example]!r}\n"
             f"runpy.run_path({path!r}, run_name='__main__')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="2")
     r = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
